@@ -1,0 +1,141 @@
+"""Order-preserving packing of byte-string keys into fixed-width int32 tensors.
+
+The device-side conflict kernel (models/conflict_set.py) works on dense
+integer tensors; variable-length byte keys are packed host-side into
+``[n_words + 1]`` int32 vectors whose column-lexicographic order equals the
+byte-string order the reference resolver uses (fdbserver/SkipList.cpp compares
+raw StringRefs):
+
+- bytes are packed big-endian, 4 per word, zero-padded;
+- each word is XORed with 0x80000000 so *signed* int32 comparison matches
+  *unsigned* byte order (TPU-native int32 compare, no uint32 needed);
+- the final column is the key length, breaking ties between a key and its
+  zero-padded extensions (``b"a" < b"a\\x00"`` is preserved).
+
+Keys longer than ``max_key_bytes`` are widened conservatively (range begins
+truncate down, range ends round up to the prefix-successor), which can only
+produce false conflicts — never missed ones. The packing loop is the host hot
+path; a C++ packer (native/keypack.cpp) accelerates it with a pure-numpy
+fallback here.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+INT32_MAX = np.int32(2**31 - 1)
+_BIAS = np.uint32(0x80000000)
+
+
+def row_sort_keys(a: np.ndarray) -> np.ndarray:
+    """Host-side lexicographic sort keys for packed int32 key rows.
+
+    Byte order equals signed-int32 numeric order (the packing bias), so
+    re-bias to uint32 and big-endian the words — memcmp order on the void
+    view then matches key order. Shared by the sharded resolver's history
+    redistribution and the packed-batch dictionary builder."""
+    u = (a.astype(np.int64) + (1 << 31)).astype(np.uint64).astype(">u4")
+    u = np.ascontiguousarray(u)
+    return u.view([("k", f"V{4 * a.shape[-1]}")]).ravel()
+
+
+class KeyCodec:
+    """Packs byte keys to biased int32 word vectors of static width."""
+
+    def __init__(self, max_key_bytes: int = 32):
+        if max_key_bytes % 4 != 0:
+            raise ValueError("max_key_bytes must be a multiple of 4")
+        self.max_key_bytes = max_key_bytes
+        self.n_words = max_key_bytes // 4
+        # +1 column for the length tiebreaker.
+        self.width = self.n_words + 1
+
+    # -- scalar sentinels ---------------------------------------------------
+
+    @property
+    def min_key(self) -> np.ndarray:
+        """Packed b"" — the minimum of the keyspace."""
+        return self.pack([b""], "begin")[0]
+
+    @property
+    def inf_key(self) -> np.ndarray:
+        """A sentinel strictly greater than every real key (end-of-keyspace)."""
+        return np.full(self.width, INT32_MAX, dtype=np.int32)
+
+    # -- batch packing ------------------------------------------------------
+
+    def pack(self, keys: list[bytes], mode: str = "begin") -> np.ndarray:
+        """Pack keys → int32 [len(keys), width].
+
+        mode="begin": overlong keys truncate down (safe for range begins /
+        point keys used as begins). mode="end": overlong keys round up to the
+        truncated prefix's successor (safe for range ends).
+        """
+        n = len(keys)
+        out = np.zeros((n, self.width), dtype=np.int32)
+        if n == 0:
+            return out
+        lengths = np.fromiter((len(k) for k in keys), np.int32, count=n)
+        inf_rows: list[int] = []
+        if lengths.max(initial=0) > self.max_key_bytes:
+            # Rare slow path: shorten overlong keys in place first.
+            keys = list(keys)
+            for i in np.flatnonzero(lengths > self.max_key_bytes):
+                k = self._shorten(keys[i], mode)
+                if k is None:  # end-mode prefix was all 0xff → +inf
+                    inf_rows.append(int(i))
+                    keys[i] = b""
+                    lengths[i] = 0
+                else:
+                    keys[i] = k
+                    lengths[i] = len(k)
+        # Vectorized gather-pad: one C-speed join, then a masked gather into
+        # the padded [n, max_bytes] matrix (this loop was the host hot path).
+        joined = np.frombuffer(b"".join(keys), dtype=np.uint8)
+        offs = np.zeros(n, np.int64)
+        np.cumsum(lengths[:-1], out=offs[1:])
+        col = np.arange(self.max_key_bytes, dtype=np.int64)
+        mask = col[None, :] < lengths[:, None]
+        src = np.minimum(offs[:, None] + col[None, :], max(joined.size - 1, 0))
+        padded = np.where(mask, joined[src] if joined.size else 0, 0).astype(np.uint8)
+        w = padded.reshape(n, self.n_words, 4).astype(np.uint32)
+        words = (w[..., 0] << 24) | (w[..., 1] << 16) | (w[..., 2] << 8) | w[..., 3]
+        out[:, : self.n_words] = (words ^ _BIAS).view(np.int32)
+        out[:, self.n_words] = lengths
+        if inf_rows:
+            out[inf_rows] = self.inf_key
+        return out
+
+    def _shorten(self, key: bytes, mode: str) -> bytes | None:
+        prefix = key[: self.max_key_bytes]
+        if mode == "begin":
+            return prefix
+        # end: smallest packable key ≥ key is the prefix's successor.
+        from foundationdb_tpu_torch.core.types import strinc
+
+        try:
+            return strinc(prefix)
+        except ValueError:  # all-0xff prefix has no successor → +inf
+            return None
+
+    def pack_ranges(
+        self, ranges: list[tuple[bytes, bytes]]
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Pack [begin, end) pairs → (begins [N,width], ends [N,width])."""
+        begins = self.pack([r[0] for r in ranges], "begin")
+        ends = self.pack([r[1] for r in ranges], "end")
+        return begins, ends
+
+    # -- debugging ----------------------------------------------------------
+
+    def unpack(self, packed: np.ndarray) -> bytes:
+        """Inverse of pack for exact (non-truncated, non-sentinel) keys."""
+        packed = np.asarray(packed)
+        length = int(packed[self.n_words])
+        if length == int(INT32_MAX):
+            raise ValueError("cannot unpack +inf sentinel")
+        words = (packed[: self.n_words].view(np.uint32) ^ _BIAS).astype(np.uint32)
+        raw = bytearray()
+        for w in words:
+            raw += int(w).to_bytes(4, "big")
+        return bytes(raw[:length])
