@@ -14,10 +14,21 @@ Phases, each fatal on failure:
    Zipf-0.99 over 2^20 keys) through TorchConflictSet on cuda, with the
    Resolver's headroom fail-safe before each batch; every kernel's launch
    count must rise and the history must not overflow.
+3b. Window path: the same stream in the resolver wire format through the
+   bench's runner (``foundationdb_tpu_torch.bench``: window 8, 4 windows
+   in flight, packing on a worker thread); per window K3 must launch k
+   times and K1's insert at most once, and every kernel and the window
+   program must launch. Then, each fatal: per-batch ``resolve_wire`` on
+   cuda gives the same verdict hash; the first window on the CPU equals
+   the card's; the mako and tpcc shapes, 16 batches at window 4, give
+   equal verdicts on cuda and the CPU; one captured window program
+   (A14, ``resolve_many_res``) equals its plain version in every verdict
+   and state leaf.
 4. Cross-check: the first 16 batches again on the CPU (plain versions),
    and 16 batches each of the mako and tpcc shapes on cuda against the
    CPU: the verdicts must be equal.
-5. A ``kernels`` JSON line, then the card line, then the result line.
+5. A ``kernels`` JSON line (K1-K4 and the window program), then the card
+   line, then the result line.
 
 Exits non-zero, printing no result, when no CUDA card is available or when
 run without the rest of the repository.
@@ -29,7 +40,6 @@ import argparse
 import hashlib
 import json
 import math
-import subprocess
 import sys
 import time
 
@@ -43,21 +53,13 @@ REPLACES = {
     "history_probe": "foundationdb_tpu/models/conflict_kernel.py:2161",
     "accept": "foundationdb_tpu/models/conflict_kernel.py:472",
     "step_compact": "foundationdb_tpu/models/conflict_kernel.py:2196",
+    "resolve_many": "foundationdb_tpu/models/conflict_kernel.py:2291",
 }
+WINDOW_K, WINDOW_DEPTH = 8, 4  # window phase: batches per window, in flight
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60)
-    if out.returncode != 0:
-        fail(f"nvidia-smi: {out.stderr.strip()}")
-    return out.stdout.strip().splitlines()[0]
 
 
 def clone(tree):
@@ -112,6 +114,14 @@ def assert_equal(name: str, got, want) -> None:
                  f"index {i}: {a.reshape(-1)[i].item()} vs "
                  f"{b.reshape(-1)[i].item()} ({int((diff != 0).sum())} "
                  f"differ)")
+
+
+def bound(nbytes: float, ops: float = 0.0) -> tuple[float, str]:
+    """(least ms, what bounds it): the larger of bytes over the memory
+    rate and operations over the scalar rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def time_ms(fn, setup=None, reps: int = 10) -> float:
@@ -300,16 +310,30 @@ def kernel_phase(stream, mode) -> dict:
     bytes_k4 = cd * 8 * 2 + b * q * 9 + b + 2 * b * q * 4
     torch.cuda.synchronize()
 
+    # Bounds of the other launches. Forced fold (advance_hist): base and
+    # delta read, base written, the base table's L levels written, the
+    # delta reset. Table rebuild: values read, L levels written. Loser
+    # mask: its inputs read, one int32 per txn written; operations are
+    # the two compares of each CONFLICT txn's live read slot against each
+    # accepted live write.
+    levels = K.table_levels(c)
+    fold_bound = bound(8 * c + 8 * cd + 8 * c + 4 * levels * c + 8 * cd)
+    table_bound = bound(4 * c + 4 * levels * c)
+    conf = verdicts == ck.V_CONFLICT
+    loser_ops = 2.0 * float((ranks[2] & conf[:, None]).sum()) * float(
+        (ranks[5] & accepted[:, None]).sum())
+    loser_bound = bound(b * r * 10 + 2 * b + b * q * 9 + 4 * b, loser_ops)
+
     bounds = {"dict_insert": (bytes_k1, 0.0), "history_probe": (bytes_k2, 0.0),
               "accept": (bytes_k3, ops_k3), "step_compact": (bytes_k4, 0.0)}
     for name, (ms, plain) in timings.items():
         print(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f} ms)")
-    print(f"kernel step_compact fold (forced, C={c}): {fold_ms[0]:.4f} ms "
-          f"(plain {fold_ms[1]:.4f} ms)")
-    print(f"kernel history_probe base table (C={c}): {table_ms[0]:.4f} ms "
-          f"(plain {table_ms[1]:.4f} ms)")
-    print(f"kernel accept losers (report chunk): {loser_ms[0]:.4f} ms "
-          f"(plain {loser_ms[1]:.4f} ms)")
+    for label, (ms, plain), (lo, by) in (
+            (f"step_compact fold (forced, C={c})", fold_ms, fold_bound),
+            (f"history_probe base table (C={c})", table_ms, table_bound),
+            ("accept losers (report chunk)", loser_ms, loser_bound)):
+        print(f"kernel {label}: {ms:.4f} ms (plain {plain:.4f} ms, "
+              f"bound {lo:.6f} ms by {by})")
     return {"timings": timings, "bounds": bounds}
 
 
@@ -342,6 +366,158 @@ def run_stream(stream, mode, n_batches: int, device, label: str):
     return np.concatenate(out), lat, cs
 
 
+def window_phase(stream, mode, n_batches: int, seed: int, card: str,
+                 object_sha: str) -> dict:
+    """Phase 3b: the window path through the bench's runner, counted, then
+    its cross-checks and the window program held against its plain
+    version. Returns the resolve_many row's measurements."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.loadgen.ycsb import (
+        MODES,
+        build_wire_stream,
+        gen_workload,
+    )
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+    from foundationdb_tpu_torch.models.conflict_set import (
+        TorchConflictSet,
+        _RepackPlan,
+        upload,
+    )
+
+    cap = 1 << 20
+    b = mode.batch
+    n_windows = n_batches // WINDOW_K
+    n_batches = n_windows * WINDOW_K
+    blob, ends = build_wire_stream(*(a[: n_batches * b] for a in stream),
+                                   n_batches, mode)
+    # Warm-up outside the counted run: the packer's build, first launches.
+    bench.make_engine(mode, cap, "cuda").resolve_wire_window(
+        *bench.window_wire(blob, ends, mode, WINDOW_K, 0), b)
+
+    per_window: list[dict] = []
+    dispatch = TorchConflictSet.dispatch_window
+
+    def counted(self, prepared):
+        before = dict(K.ENTRY_LAUNCHES)
+        out = dispatch(self, prepared)
+        per_window.append({k: n - before.get(k, 0)
+                           for k, n in K.ENTRY_LAUNCHES.items()})
+        return out
+
+    TorchConflictSet.dispatch_window = counted
+    try:
+        K.reset_launches()
+        ck.reset_launches()
+        rec, verdicts, cs = bench.run_wire(
+            blob, ends, mode, n_batches, cap, "cuda", window=WINDOW_K,
+            pipeline_depth=WINDOW_DEPTH, repeats=1, threaded=True,
+            warmup=False)
+        launches = dict(K.LAUNCHES)
+        windows = ck.LAUNCHES["resolve_many"]
+    finally:
+        TorchConflictSet.dispatch_window = dispatch
+    if rec["overflowed"]:
+        fail("history overflowed on the window path")
+    for k, n in {**launches, "resolve_many": windows}.items():
+        if n <= 0:
+            fail(f"kernel {k} was not launched on the window path")
+    if len(per_window) != n_windows or windows != n_windows:
+        fail(f"{len(per_window)} dispatches, {windows} window programs for "
+             f"{n_windows} windows")
+    for i, pw in enumerate(per_window):
+        if pw.get("ac_accept", 0) != WINDOW_K or pw.get("di_insert", 0) > 1:
+            fail(f"window {i}: K3 launched {pw.get('ac_accept', 0)} times "
+                 f"(want {WINDOW_K}), K1 insert {pw.get('di_insert', 0)} "
+                 "(want <= 1)")
+
+    # (a) Per-batch resolve_wire on cuda at the same commit versions.
+    one = bench.make_engine(mode, cap, "cuda")
+    rows = []
+    t0 = time.perf_counter()
+    for i in range(n_batches):
+        lo, hi = int(ends[i * b]), int(ends[(i + 1) * b])
+        rows.append(one.resolve_wire_async(blob[lo:hi], i + 1, count=b,
+                                           as_array=True)())
+    per_batch_s = time.perf_counter() - t0
+    per_batch_sha = hashlib.sha256(np.concatenate(rows).tobytes()).hexdigest()
+    if per_batch_sha != rec["verdicts_sha256"]:
+        fail("window path and per-batch resolve_wire verdicts differ")
+    print(json.dumps({
+        "phase": "window", "stream": "ycsb-a", **rec,
+        "launches_per_window": {k: n / n_windows
+                                for k, n in launches.items()},
+        "window_programs": windows,
+        "per_batch_wire_txns_per_s": n_batches * b / per_batch_s,
+        "per_batch_wire_verdicts_sha256": per_batch_sha,
+        "object_path_sha_equal": per_batch_sha == object_sha,
+        "card": card}))
+
+    # (b) The first window on the CPU plain path.
+    cpu0 = bench.make_engine(mode, cap, "cpu").resolve_wire_window(
+        *bench.window_wire(blob, ends, mode, WINDOW_K, 0), b)
+    if not np.array_equal(cpu0, verdicts[0]):
+        fail("window 0: cuda and cpu verdicts differ")
+    print(f"cross-check window 0: {cpu0.size} txns equal on cuda and cpu")
+
+    # (c) mako and tpcc through the window path on cuda and the CPU.
+    for mname in ("mako", "tpcc"):
+        m = MODES[mname]
+        n_cross = 16
+        mb, me = build_wire_stream(
+            *gen_workload(n_cross * m.batch, N_KEYS, seed, m), n_cross, m)
+        got = {dev: bench.run_wire(mb, me, m, n_cross, cap, dev, window=4,
+                                   pipeline_depth=WINDOW_DEPTH, repeats=1,
+                                   warmup=False)
+               for dev in ("cuda", "cpu")}
+        if (not np.array_equal(got["cuda"][1], got["cpu"][1])
+                or got["cuda"][0]["overflowed"]):
+            fail(f"{mname} window path: cuda and cpu verdicts differ")
+        r = got["cuda"][0]
+        print(f"cross-check {mname} window path: {r['txns']} txns equal on "
+              f"cuda and cpu (committed {r['committed']}, conflict "
+              f"{r['conflict']}, too_old {r['too_old']})")
+
+    # The window program (A14) held against its plain version on a
+    # captured warm window at the stream's full shapes: the first after
+    # window 0 that brings a dictionary delta (no deferred repack), so K1
+    # inserts inside it.
+    cs = bench.make_engine(mode, cap, "cuda")
+    cs.resolve_wire_window(*bench.window_wire(blob, ends, mode, WINDOW_K, 0),
+                           b)
+    for wi in range(1, n_windows):
+        prepared = cs.pack_wire_window(
+            *bench.window_wire(blob, ends, mode, WINDOW_K, wi), b)
+        hb = prepared.batch
+        if not isinstance(hb, _RepackPlan) and hb.n_new:
+            break
+        cs.dispatch_window(prepared)()
+    else:
+        fail("no window of the stream brings a dictionary delta")
+    if prepared.rebase_delta:
+        fail("unexpected rebase in the captured window")
+    rb = upload(hb, cs.device)
+    cvs, olds = prepared.cvs_rel, prepared.olds_rel
+    state = cs.state
+
+    def many(res):
+        return ck.resolve_many_res(res, rb, cvs, olds, hb.n_new, hb.demand)
+
+    def many_plain(res):
+        return ck.resolve_many_res_plain(res, rb, cvs, olds)
+
+    assert_equal("resolve_many", many(clone(state)), many_plain(clone(state)))
+    torch.cuda.synchronize()
+    ms = time_ms(many, lambda: (clone(state),), reps=5)
+    plain = time_ms(many_plain, lambda: (clone(state),), reps=2)
+    print(f"kernel resolve_many (window of {WINDOW_K}, n_new {hb.n_new}): "
+          f"{ms:.4f} ms (plain {plain:.4f} ms)")
+    return {"launches": windows, "ms": ms, "plain_ms": plain,
+            "k": WINDOW_K}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -355,6 +531,7 @@ def main() -> int:
         return 2
     try:
         from foundationdb_tpu_torch import kernels as K
+        from foundationdb_tpu_torch.bench import card_line
         from foundationdb_tpu_torch.loadgen.ycsb import MODES, gen_workload
     except ImportError as e:
         print(f"chip_smoke: the repository is missing ({e})", file=sys.stderr)
@@ -388,6 +565,7 @@ def main() -> int:
             fail(f"kernel {k} was not launched on the main path")
     counts = np.bincount(verdicts, minlength=3)
     n_txns = len(verdicts)
+    object_sha = hashlib.sha256(verdicts.tobytes()).hexdigest()
     print(json.dumps({
         "stream": "ycsb-a", "txns": n_txns, "batches": args.batches,
         "txns_per_s": n_txns / wall,
@@ -395,11 +573,15 @@ def main() -> int:
         "batch_ms_p99": float(np.percentile(lat, 99)),
         "committed": int(counts[0]), "conflict": int(counts[1]),
         "too_old": int(counts[2]),
-        "verdicts_sha256": hashlib.sha256(verdicts.tobytes()).hexdigest(),
+        "verdicts_sha256": object_sha,
         "host_syncs_per_batch": cs.host_syncs / args.batches,
         "launches_per_batch": {k: n / args.batches
                                for k, n in launches.items()},
         "dict_stats": cs.dict_stats, "card": card}))
+
+    # 3b. The window path, counted on its own, and its cross-checks.
+    wp = window_phase(stream, ycsb, args.batches, args.seed, card,
+                      object_sha)
 
     # 4. Cross-checks against the plain versions on the CPU.
     n_cross = min(16, args.batches)
@@ -422,17 +604,28 @@ def main() -> int:
     rows = []
     for k in K.LAUNCHES:
         ms, plain = kp["timings"][k]
-        nbytes, ops = kp["bounds"][k]
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / SCALAR_OPS_PER_S * 1e3
+        lo, by = bound(*kp["bounds"][k])
         rows.append({
             "name": k, "route": "cuda",
             "source": f"foundationdb_tpu_torch/kernels/csrc/{k}.cu",
             "replaces": REPLACES[k], "launches": launches[k],
             "max_abs_err": MAX_ABS_ERR[k], "ms": ms, "plain_ms": plain,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": lo, "bound_by": by,
             "library_ms": None})
+    # The window program's bound: K1 once plus k steps of K2, K3 and K4,
+    # each at the per-batch bound above; bound by what most of it is.
+    share = {"bytes": 0.0, "operations": 0.0}
+    for r in rows:
+        share[r["bound_by"]] += r["bound_ms"] * (
+            1 if r["name"] == "dict_insert" else wp["k"])
+    rows.append({
+        "name": "resolve_many", "route": "cuda",
+        "source": "foundationdb_tpu_torch/models/conflict_kernel.py",
+        "replaces": REPLACES["resolve_many"], "launches": wp["launches"],
+        "max_abs_err": MAX_ABS_ERR["resolve_many"], "ms": wp["ms"],
+        "plain_ms": wp["plain_ms"],
+        "bound_ms": sum(share.values()),
+        "bound_by": max(share, key=share.get), "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

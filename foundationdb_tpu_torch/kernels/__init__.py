@@ -3,9 +3,10 @@
 Each wrapper checks device, dtype, shape and contiguity, allocates outputs
 and scratch with ``torch.empty``, launches on the current CUDA stream, and
 raises if the C entry returns a CUDA error. ``LAUNCHES`` holds one integer
-per kernel source; a wrapper adds one where it calls into its library and
-nowhere else. The libraries are built (build.py) the first time any
-wrapper runs, never at import.
+per kernel source, ``ENTRY_LAUNCHES`` one per C entry point; a wrapper
+adds one to both where it calls into its library and nowhere else. The
+libraries are built (build.py) the first time any wrapper runs, never at
+import.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from foundationdb_tpu_torch.kernels import build
 
 LAUNCHES = {name: 0 for name in build.SOURCES}
+ENTRY_LAUNCHES: dict[str, int] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -50,6 +52,7 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    ENTRY_LAUNCHES.clear()
 
 
 def ensure_built() -> None:
@@ -73,6 +76,7 @@ def _call(source: str, fn: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"{source}.cu {fn}: CUDA error {rc}")
     LAUNCHES[source] += 1
+    ENTRY_LAUNCHES[fn] = ENTRY_LAUNCHES.get(fn, 0) + 1
 
 
 def _ptr(t: torch.Tensor | None):
@@ -204,8 +208,10 @@ def _check_ranks(rb, re_, read_live, wb, we, write_live):
     return b, r, q
 
 
-def accept(cand, too_old, txn_mask, rb, re_, read_live, wb, we, write_live):
-    """(accepted bool [B], verdicts int8 [B])."""
+def accept(cand, too_old, txn_mask, rb, re_, read_live, wb, we, write_live,
+           verdicts=None):
+    """(accepted bool [B], verdicts int8 [B]); the verdicts are written
+    into ``verdicts`` when it is given."""
     b, r, q = _check_ranks(rb, re_, read_live, wb, we, write_live)
     for name, t in (("cand", cand), ("too_old", too_old),
                     ("txn_mask", txn_mask)):
@@ -213,7 +219,9 @@ def accept(cand, too_old, txn_mask, rb, re_, read_live, wb, we, write_live):
     dev = cand.device
     rows = torch.empty(b * ((b + 31) // 32), dtype=_i32, device=dev)
     accepted = torch.empty(b, dtype=_bool, device=dev)
-    verdicts = torch.empty(b, dtype=_i8, device=dev)
+    if verdicts is None:
+        verdicts = torch.empty(b, dtype=_i8, device=dev)
+    _check(verdicts, _i8, "verdicts", (b,))
     _call("accept", "ac_accept", dev, _ptr(cand), _ptr(too_old),
           _ptr(txn_mask), _ptr(rb), _ptr(re_), _ptr(read_live), _ptr(wb),
           _ptr(we), _ptr(write_live), b, r, q, _ptr(rows), _ptr(accepted),

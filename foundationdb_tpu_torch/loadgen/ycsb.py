@@ -4,7 +4,8 @@ A copy of the workload part of the repository's ``bench.py``: the run
 configurations, the scrambled bounded Zipf sampler, the stream generator
 and its version bookkeeping (one commit version per batch, MVCC window
 WINDOW versions, read versions lagging by at most MAX_LAG), plus a
-builder of per-batch ``TxnConflictInfo`` lists. Keys are 8-byte
+builder of per-batch ``TxnConflictInfo`` lists and the wire-blob
+assembler of the resolve stream (``build_wire_stream``). Keys are 8-byte
 big-endian ids; a point range is [key, key + b"\\x00").
 """
 
@@ -96,3 +97,54 @@ def build_txns(read_ids, write_ids, write_mask, lag, batch_index: int,
             int(v), [pt(k) for k in r_ids],
             [pt(k) for k in w_ids] if wm else []))
     return out
+
+
+# Wire-blob assembly (vectorized; not resolver work: a proxy emits these
+# bytes as its RPC payload). The with-writes record layout is fixed
+# (little-endian); a record without writes is a strict prefix of it, so a
+# masked ragged flatten assembles the stream in numpy.
+_REC_RANGE = 8 + 17  # (bl, el) + 8B begin + 9B end
+_REC_HDR = 16
+
+
+def build_wire_stream(read_ids, write_ids, write_mask, lag, n_batches,
+                      mode: ModeConfig = MODES["ycsb"]):
+    """The stream in the resolver wire format, one commit version per
+    batch (read version max(cv - 1 - lag, 0)). Returns (blob uint8 [...],
+    txn_ends int64 [n_txns + 1]): txn i is blob[txn_ends[i]:txn_ends[i+1]]."""
+    n, n_reads = read_ids.shape
+    n_writes = write_ids.shape[1]
+    rec_full = _REC_HDR + (n_reads + n_writes) * _REC_RANGE
+    rec_nowrite = _REC_HDR + n_reads * _REC_RANGE
+    be = read_ids.astype(">u8").view(np.uint8).reshape(n, n_reads, 8)
+    wbe = write_ids.astype(">u8").view(np.uint8).reshape(n, n_writes, 8)
+    cvs = np.repeat(np.arange(1, n_batches + 1, dtype=np.int64), mode.batch)
+    rv = np.maximum(cvs - 1 - lag, 0)
+
+    rec = np.zeros((n, rec_full), np.uint8)
+    rec[:, 0:8] = rv.astype("<i8").view(np.uint8).reshape(n, 8)
+    rec[:, 8:12] = np.frombuffer(
+        np.int32(n_reads).astype("<i4").tobytes(), np.uint8)
+    rec[:, 12:16] = (write_mask * n_writes).astype("<i4").view(
+        np.uint8).reshape(n, 4)
+    lens = np.frombuffer(np.array([8, 9], "<i4").tobytes(), np.uint8)
+
+    def put_range(slot: int, keys_be: np.ndarray) -> None:
+        off = _REC_HDR + slot * _REC_RANGE
+        rec[:, off : off + 8] = lens
+        rec[:, off + 8 : off + 16] = keys_be
+        rec[:, off + 16 : off + 24] = keys_be
+        rec[:, off + 24] = 0  # end = key + b"\x00"
+
+    for r in range(n_reads):
+        put_range(r, be[:, r])
+    for q in range(n_writes):
+        put_range(n_reads + q, wbe[:, q])
+
+    rec_len = np.where(write_mask, rec_full, rec_nowrite)
+    col = np.arange(rec_full)
+    blob = rec[col[None, :] < rec_len[:, None]]  # ragged flatten
+
+    ends = np.zeros(n + 1, np.int64)
+    np.cumsum(rec_len, out=ends[1:])
+    return blob, ends

@@ -16,6 +16,11 @@ launches the hand-written kernel (kernels/csrc/*.cu) and never falls back:
 - K3 ``accept.cu``: overlap rows, sequential acceptance, verdicts, losers;
 - K4 ``step_compact.cu``: paint, base+delta fold, dedup and compaction.
 
+The window program ``resolve_many_res`` (the JAX ``lax.scan`` of
+``resolve_many_res``) has no kernel source of its own: on the card it is
+the launch sequence of K1 once for the window's delta, then K2, K3 and K4
+for each of the k batches, with no host sync inside the window.
+
 JAX donates the state argument of every entry point. Here each function
 that takes a state CONSUMES it: on the card the history arrays are updated
 in place, on the CPU a new state is built; either way callers rebind to
@@ -42,6 +47,15 @@ V_CONFLICT = 1
 V_TOO_OLD = 2
 
 _ACCEPT_BLOCK = 512
+
+# Window launch sequences issued on the card (resolve_many_res), counted
+# like the kernel launches in kernels.LAUNCHES.
+LAUNCHES = {"resolve_many": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 class ConflictState(NamedTuple):
@@ -307,11 +321,12 @@ def accept_plain(cand, too_old, txn_mask, ranks):
     return accepted, assemble_verdicts(too_old, txn_mask, accepted)
 
 
-def accept(cand, too_old, txn_mask, ranks):
+def accept(cand, too_old, txn_mask, ranks, out=None):
     """K3: (accepted bool [B], verdicts int8 [B]) — overlap rows, the
-    in-order block scan and the verdict epilogue."""
+    in-order block scan and the verdict epilogue. On the card the
+    verdicts go into ``out`` (a contiguous int8 [B]) when it is given."""
     if _on_card(cand):
-        return K.accept(cand, too_old, txn_mask, *ranks)
+        return K.accept(cand, too_old, txn_mask, *ranks, verdicts=out)
     return accept_plain(cand, too_old, txn_mask, ranks)
 
 
@@ -698,7 +713,7 @@ def write_demand(rbk: RankBatch) -> int:
 
 def _resolve_core_res(hist: HistState, rbk: RankBatch, commit_version: int,
                       new_oldest, report: bool = False,
-                      demand: int | None = None):
+                      demand: int | None = None, verdicts_out=None):
     """Returns (verdicts[, losers], new_hist)."""
     floor, _ = too_old_mask_packed(hist.delta, rbk, new_oldest)
     if demand is None:
@@ -706,7 +721,8 @@ def _resolve_core_res(hist: HistState, rbk: RankBatch, commit_version: int,
     hist = _maybe_merge(hist, demand, floor)
     too_old, hist_mask, cand = history_probe(hist, rbk, floor)
     ranks = endpoint_ranks_live_packed(rbk)
-    accepted, verdicts = accept(cand, too_old, rbk.txn_mask, ranks)
+    accepted, verdicts = accept(cand, too_old, rbk.txn_mask, ranks,
+                                out=verdicts_out)
     delta = _paint_and_compact_res(hist.delta, rbk, accepted, commit_version,
                                    floor)
     new_hist = HistState(hist.base, hist.base_st, delta)
@@ -726,3 +742,85 @@ def resolve_batch_res(res: ResState, rb: ResidentBatch, commit_version: int,
     out = _resolve_core_res(res.hist, rb.ranks, commit_version, new_oldest,
                             report=report, demand=demand)
     return (*out[:-1], res._replace(hist=out[-1]))
+
+
+# ---------------------------------------------------------------------------
+# A14: the window program (one delta merge, then k resolve steps)
+# ---------------------------------------------------------------------------
+
+
+def _step(ranks: RankBatch, i: int) -> RankBatch:
+    """Step ``i`` of a [k]-leading RankBatch (views, contiguous)."""
+    return RankBatch(*(x[i] for x in ranks))
+
+
+def _resolve_core_res_plain(hist: HistState, rbk: RankBatch,
+                            commit_version: int, new_oldest):
+    """``_resolve_core_res`` through the plain versions only, wherever the
+    tensors live: the window program's yardstick on the card."""
+    floor, _ = too_old_mask_packed(hist.delta, rbk, new_oldest)
+    hist = _maybe_merge_plain(hist, write_demand(rbk), floor)
+    too_old, _, cand = history_probe_plain(hist, rbk, floor)
+    accepted, verdicts = accept_plain(cand, too_old, rbk.txn_mask,
+                                      endpoint_ranks_live_packed(rbk))
+    delta = _paint_and_compact_res_plain(hist.delta, rbk, accepted,
+                                         commit_version, floor)
+    return verdicts, HistState(hist.base, hist.base_st, delta)
+
+
+def resolve_many_res_plain(res: ResState, rb: ResidentBatch,
+                           commit_versions, new_oldests):
+    """Plain version of the window program: one ``apply_delta`` for the
+    window's delta, then k resolve steps in order. Returns (stacked
+    verdicts int8 [k, B], new ResState)."""
+    if bool((~(rb.delta_keys == INT32_MAX).all(-1)).any()):
+        nd, nn, shift = _dict_insert_plain(res.dict_keys, res.n_keys,
+                                           rb.delta_keys)
+        h = res.hist
+        bk, dk, lo, hi = _rewrite_ranks_plain(
+            [h.base.keys, h.delta.keys, res.shard_lo, res.shard_hi], shift,
+            False)
+        res = ResState(nd, nn, HistState(h.base._replace(keys=bk), h.base_st,
+                                         h.delta._replace(keys=dk)), lo, hi)
+    hist = res.hist
+    rows = []
+    for i in range(rb.ranks.read_begin.shape[0]):
+        v, hist = _resolve_core_res_plain(hist, _step(rb.ranks, i),
+                                          int(commit_versions[i]),
+                                          int(new_oldests[i]))
+        rows.append(v)
+    return torch.stack(rows), res._replace(hist=hist)
+
+
+def resolve_many_res(res: ResState, rb: ResidentBatch, commit_versions,
+                     new_oldests, n_new: int | None = None,
+                     demands=None):
+    """Window path: ONE delta merge and rank rebase for the whole window
+    (the delta has no window axis; every step's endpoints were ranked
+    against the post-merge dictionary), then k rank-space resolve steps.
+    Returns (verdicts int8 [k, B], new ResState).
+
+    On the card: K1 once, then per step K2 probe, K3 accept (into row i
+    of one [k, B] verdict buffer) and K4 paint, with the device-gated
+    fold and base table of K4 and K2. ``n_new`` and ``demands`` (one
+    2·live-write-ranges count per step) are the host's counts; the card
+    path requires ``demands``, since counting them there would sync. No
+    host sync happens inside the window."""
+    if not _on_card(res.dict_keys):
+        return resolve_many_res_plain(res, rb, commit_versions, new_oldests)
+    k, b = rb.ranks.txn_mask.shape
+    if demands is None or len(demands) != k:
+        raise ValueError("the card's window program needs one host-known "
+                         "write demand per step")
+    LAUNCHES["resolve_many"] += 1
+    res = apply_delta(res, rb.delta_keys, n_new)
+    verdicts = torch.empty((k, b), dtype=torch.int8,
+                           device=res.dict_keys.device)
+    hist = res.hist
+    for i in range(k):
+        _, hist = _resolve_core_res(hist, _step(rb.ranks, i),
+                                    int(commit_versions[i]),
+                                    int(new_oldests[i]),
+                                    demand=int(demands[i]),
+                                    verdicts_out=verdicts[i])
+    return verdicts, res._replace(hist=hist)

@@ -5,27 +5,41 @@ at its default design point (resident dictionary, window history,
 sequential-order acceptance). It answers the calls the Resolver role makes
 (``resolve``, ``resolve_async``, ``advance``, ``headroom``,
 ``worst_case_growth``, ``overflowed``, ``clear_overflow``, ``dict_stats``)
-with the same verdicts and the same ``last_conflicting``.
+with the same verdicts and the same ``last_conflicting``, and the wire
+path the bench drives: ``resolve_wire``/``resolve_wire_async`` (one batch
+of serialized transactions, packed by one C pass) and the window path
+``resolve_wire_window``/``pack_wire_window``/``dispatch_window`` (k
+batches at k commit versions in one device launch sequence,
+``conflict_kernel.resolve_many_res``).
 
 The host packs byte ranges into rank space against a mirror of the device
 dictionary, ships only never-seen keys, chunks oversized batches (chunks
 at one commit version are equivalent to one ordered batch) and keeps the
 absolute/relative version mapping. Device reads are explicit
 ``.cpu()`` calls, each counted in ``host_syncs``: one per chunk at
-collect (two for a report chunk), one per ``headroom()`` or
-``overflowed`` call, one per full repack. Dispatch itself never waits on
-the device: the fold decision stays on the device and the insert decision
-comes from the mirror.
+collect (two for a report chunk), one per window at collect, one per
+``headroom()`` or ``overflowed`` call, one per full repack. Dispatch
+itself never waits on the device: the fold decision stays on the device
+and the insert decision comes from the mirror.
+
+The window path splits into a host half (``pack_wire_window``: numpy and
+ctypes only, safe on a packing thread) and a device half
+(``dispatch_window``: uploads and launches, on the dispatching thread, in
+pack order). A rebase or a full dictionary repack that falls due while
+packing is deferred into the prepared window and run by its dispatch;
+the mirror's gate holds the next pack until that repack has run.
 """
 
 from __future__ import annotations
 
+import struct
 import threading
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from foundationdb_tpu_torch import native
 from foundationdb_tpu_torch.core.keypack import INT32_MAX, KeyCodec, row_sort_keys
 from foundationdb_tpu_torch.core.types import KeyRange, TxnConflictInfo, Verdict
 from foundationdb_tpu_torch.models import conflict_kernel as ck
@@ -133,8 +147,9 @@ def pack_rank_dictionary(flat: np.ndarray, pad_rows: int | None = None):
 
 
 class _RepackPlan(NamedTuple):
-    """A pack that overflowed the resident dictionary: executed inline by
-    :meth:`TorchConflictSet._repack_and_rank`."""
+    """A pack that overflowed the resident dictionary: executed by
+    :meth:`TorchConflictSet._repack_and_rank`, inline on the object and
+    wire paths, in ``dispatch_window`` on the window path."""
 
     bt: object  # the raw HostBatch (key space)
     qu: np.ndarray  # [n, U] endpoint u64 keys, flat pack order
@@ -179,6 +194,11 @@ class _ResidentMirror:
         self.reset(u64, rows, np.zeros(len(rows), np.int64),
                    np.ones(len(rows), bool))
         self.lock = threading.RLock()
+        # Deferred-repack handshake: cleared when a pack emits a
+        # _RepackPlan, set again once the dispatch thread has run it, so
+        # the next pack (blocked at entry) ranks against the new mirror.
+        self.gate = threading.Event()
+        self.gate.set()
         self.stats = {
             "dispatches": 0,
             "endpoints": 0,
@@ -187,6 +207,7 @@ class _ResidentMirror:
             "delta_new_keys": 0,
             "evictions": 0,
             "full_repacks": 0,
+            "repack_stalls": 0,  # window packs that deferred a repack
         }
 
     @property
@@ -307,7 +328,8 @@ class _ResidentMirror:
 
 
 class HostBatch(NamedTuple):
-    """One padded batch in key space (numpy; the JAX BatchTensors)."""
+    """One padded batch in key space (numpy; the JAX BatchTensors). A
+    window's batch has a leading [k] axis on every array."""
 
     read_begin: np.ndarray  # int32 [B, R, W]
     read_end: np.ndarray
@@ -321,18 +343,30 @@ class HostBatch(NamedTuple):
 
 class HostRankBatch(NamedTuple):
     """A packed dispatch before upload: numpy ResidentBatch leaves plus
-    the two host-known counts the device path uses instead of reads."""
+    the two host-known counts the device path uses instead of reads. A
+    window's rank leaves have a leading [k] axis; its delta has none."""
 
     delta_keys: np.ndarray  # int32 [M, W]
     ranks: tuple  # numpy RankBatch fields, in RankBatch order
     n_new: int  # real rows in delta_keys
-    demand: int  # 2 * live write ranges
+    demand: int | tuple  # 2 * live write ranges (a window: one per step)
+
+
+class PreparedWindow(NamedTuple):
+    """A host-packed window awaiting ``dispatch_window``: pure host data,
+    made by ``pack_wire_window`` (possibly on a packing thread)."""
+
+    batch: object  # HostRankBatch, k-leading; or a deferred _RepackPlan
+    cvs_rel: np.ndarray  # int32 [k] relative commit versions
+    olds_rel: np.ndarray  # int32 [k] relative oldest versions
+    count: int  # real txns per batch
+    rebase_delta: int  # deferred device rebase; applied before dispatch
 
 
 def upload(hb: HostRankBatch, device: torch.device) -> ck.ResidentBatch:
-    """Copy a packed batch to ``device``: every int32 leaf in one buffer and
-    every bool leaf in another, so a dispatch is two host-to-device copies
-    that do not wait for the device."""
+    """Copy a packed batch or window to ``device``: every int32 leaf in one
+    buffer and every bool leaf in another, so a dispatch is two
+    host-to-device copies that do not wait for the device."""
     leaves = [hb.delta_keys, *hb.ranks]
     ints = [a for a in leaves if a.dtype == np.int32]
     bools = [a for a in leaves if a.dtype == np.bool_]
@@ -477,7 +511,8 @@ class TorchConflictSet:
         )
         paint_src = np.argsort(paint, axis=-1).astype(np.int32)
         wm = np.asarray(bt.write_mask)
-        demand = 2 * int((wm & (wb < we)).sum())
+        live = 2 * (wm & (wb < we)).reshape(nl, b * q).sum(-1)
+        demand = tuple(int(x) for x in live) if lead else int(live[0])
         return HostRankBatch(
             delta_keys=delta,
             ranks=(
@@ -495,12 +530,19 @@ class TorchConflictSet:
             demand=demand,
         )
 
-    def _pack_resident(self, bt: HostBatch) -> HostRankBatch:
+    def _pack_resident(self, bt: HostBatch, defer_repack: bool = False):
         """Rank-space pack against the mirror: classify every endpoint as
         hit or miss, emit the sorted-unique misses as the dictionary delta
-        and rewrite endpoints as ranks into the post-insert dictionary.
-        Overflow or fragmentation forces a full repack."""
+        and rewrite endpoints as ranks into the post-insert dictionary. A
+        window ([k]-leading batch) is ranked as a whole against the
+        dictionary after its whole delta.
+
+        Overflow or fragmentation forces a full repack, which reads the
+        device: inline, or with ``defer_repack`` (the window path's
+        packing thread) returned as a _RepackPlan for ``dispatch_window``
+        to run, with the mirror's gate cleared so the next pack waits."""
         mir = self._mirror
+        mir.gate.wait()
         flat, dims = self._flat_endpoints(bt)
         qu = _rows_to_u64(flat)
         pad = _rows_to_u64(np.full((1, dims[-1]), INT32_MAX, np.int32))[0]
@@ -520,8 +562,12 @@ class TorchConflictSet:
         cv = self._last_commit
         if (m > self.dict_delta_slots or mir.n + m > mir.capacity
                 or mir.frag_due(self.oldest_version)):
-            return self._repack_and_rank(
-                _RepackPlan(bt, qu, is_pad, new_u64, new_rows, dims, cv))
+            plan = _RepackPlan(bt, qu, is_pad, new_u64, new_rows, dims, cv)
+            if defer_repack:
+                mir.gate.clear()
+                mir.stats["repack_stalls"] += 1
+                return plan
+            return self._repack_and_rank(plan)
         with mir.lock:
             mir.touch(ids[found], cv)
             if m:
@@ -559,74 +605,77 @@ class TorchConflictSet:
         device-held rank."""
         mir = self._mirror
         with mir.lock:
-            live = self._device_live_ranks()
-            keep = np.zeros(mir.n, bool)
-            keep[live] = True
-            keep |= mir.pinned
-            pos = _u64_searchsorted(mir.u64, plan.qu, "left")
-            cand = np.minimum(pos, max(mir.n - 1, 0))
-            found = (
-                (pos < mir.n)
-                & (mir.u64[cand] == plan.qu).all(axis=1)
-                & ~plan.is_pad
-            )
-            keep[pos[found]] = True  # this dispatch's keys stay
-            mir.touch(mir.id_at[pos[found]], plan.cv)
-            m = len(plan.new_u64)
-            must = int(keep.sum())
-            if must + m + 1 > mir.capacity + 1:
-                raise ValueError(
-                    f"resident dictionary cannot fit {must} live/pinned"
-                    f" + {m} new keys in capacity {mir.capacity};"
-                    " raise dict_capacity"
+            try:
+                live = self._device_live_ranks()
+                keep = np.zeros(mir.n, bool)
+                keep[live] = True
+                keep |= mir.pinned
+                pos = _u64_searchsorted(mir.u64, plan.qu, "left")
+                cand = np.minimum(pos, max(mir.n - 1, 0))
+                found = (
+                    (pos < mir.n)
+                    & (mir.u64[cand] == plan.qu).all(axis=1)
+                    & ~plan.is_pad
                 )
-            used_sorted = mir.used_sorted()
-            target = max(mir.capacity - self.dict_delta_slots - m, must)
-            room = target - must
-            cand_idx = np.flatnonzero(~keep)
-            if room > 0 and cand_idx.size:
-                by_age = cand_idx[
-                    np.argsort(used_sorted[cand_idx], kind="stable")
-                ]
-                keep[by_age[max(0, by_age.size - room):]] = True
-            evicted = mir.n - int(keep.sum())
+                keep[pos[found]] = True  # this dispatch's keys stay
+                mir.touch(mir.id_at[pos[found]], plan.cv)
+                m = len(plan.new_u64)
+                must = int(keep.sum())
+                if must + m + 1 > mir.capacity + 1:
+                    raise ValueError(
+                        f"resident dictionary cannot fit {must} live/pinned"
+                        f" + {m} new keys in capacity {mir.capacity};"
+                        " raise dict_capacity"
+                    )
+                used_sorted = mir.used_sorted()
+                target = max(mir.capacity - self.dict_delta_slots - m, must)
+                room = target - must
+                cand_idx = np.flatnonzero(~keep)
+                if room > 0 and cand_idx.size:
+                    by_age = cand_idx[
+                        np.argsort(used_sorted[cand_idx], kind="stable")
+                    ]
+                    keep[by_age[max(0, by_age.size - room):]] = True
+                evicted = mir.n - int(keep.sum())
 
-            kept_u64 = mir.u64[keep]
-            kept_rows = mir.rows[keep]
-            kept_used = used_sorted[keep]
-            kept_pin = mir.pinned[keep]
-            ins = _u64_searchsorted(kept_u64, plan.new_u64, "left")
-            fin_u64 = np.insert(kept_u64, ins, plan.new_u64, axis=0)
-            fin_rows = np.insert(kept_rows, ins, plan.new_rows, axis=0)
-            fin_used = np.insert(kept_used, ins, plan.cv)
-            fin_pin = np.insert(kept_pin, ins, False)
-            n_new = len(fin_u64)
+                kept_u64 = mir.u64[keep]
+                kept_rows = mir.rows[keep]
+                kept_used = used_sorted[keep]
+                kept_pin = mir.pinned[keep]
+                ins = _u64_searchsorted(kept_u64, plan.new_u64, "left")
+                fin_u64 = np.insert(kept_u64, ins, plan.new_u64, axis=0)
+                fin_rows = np.insert(kept_rows, ins, plan.new_rows, axis=0)
+                fin_used = np.insert(kept_used, ins, plan.cv)
+                fin_pin = np.insert(kept_pin, ins, False)
+                n_new = len(fin_u64)
 
-            # remap: exact new rank for every kept old rank; dropped ranks
-            # get their insertion point (never gathered by the device).
-            remap = np.zeros(mir.capacity + 1, np.int32)
-            remap[: mir.n] = _u64_searchsorted(
-                fin_u64, mir.u64, "left"
-            ).astype(np.int32)
-            dict_dev = np.full(
-                (mir.capacity + 1, fin_rows.shape[1]), INT32_MAX, np.int32
-            )
-            dict_dev[:n_new] = fin_rows
-            self.state = ck.apply_dict_remap(self.state, dict_dev, n_new,
-                                             remap)
-            mir.reset(fin_u64, fin_rows, fin_used, fin_pin)
-            st = mir.stats
-            st["full_repacks"] += 1
-            st["evictions"] += evicted
-            st["dispatches"] += 1
-            st["endpoints"] += int((~plan.is_pad).sum())
-            st["endpoint_hits"] += int(found.sum())
-            st["unique_keys"] += m + int(np.unique(pos[found]).size)
-            st["delta_new_keys"] += m
-            ranks = _u64_searchsorted(fin_u64, plan.qu, "left").astype(
-                np.int32
-            )
-            ranks[plan.is_pad] = INT32_MAX
+                # remap: exact new rank for every kept old rank; dropped ranks
+                # get their insertion point (never gathered by the device).
+                remap = np.zeros(mir.capacity + 1, np.int32)
+                remap[: mir.n] = _u64_searchsorted(
+                    fin_u64, mir.u64, "left"
+                ).astype(np.int32)
+                dict_dev = np.full(
+                    (mir.capacity + 1, fin_rows.shape[1]), INT32_MAX, np.int32
+                )
+                dict_dev[:n_new] = fin_rows
+                self.state = ck.apply_dict_remap(self.state, dict_dev, n_new,
+                                                 remap)
+                mir.reset(fin_u64, fin_rows, fin_used, fin_pin)
+                st = mir.stats
+                st["full_repacks"] += 1
+                st["evictions"] += evicted
+                st["dispatches"] += 1
+                st["endpoints"] += int((~plan.is_pad).sum())
+                st["endpoint_hits"] += int(found.sum())
+                st["unique_keys"] += m + int(np.unique(pos[found]).size)
+                st["delta_new_keys"] += m
+                ranks = _u64_searchsorted(fin_u64, plan.qu, "left").astype(
+                    np.int32
+                )
+                ranks[plan.is_pad] = INT32_MAX
+            finally:
+                mir.gate.set()
         return self._ranks_to_batch(
             plan.bt, ranks, plan.dims,
             np.zeros((0, plan.dims[-1]), np.int32),
@@ -688,6 +737,147 @@ class TorchConflictSet:
             pending.append((out[0], len(chunk), losers, reads, flags))
         return lambda: self._collect(pending)
 
+    def resolve_wire(
+        self,
+        wire,
+        commit_version: int,
+        oldest_version: int | None = None,
+        count: int | None = None,
+    ) -> list[Verdict]:
+        return self.resolve_wire_async(wire, commit_version, oldest_version,
+                                       count)()
+
+    def resolve_wire_async(
+        self,
+        wire,
+        commit_version: int,
+        oldest_version: int | None = None,
+        count: int | None = None,
+        as_array: bool = False,
+    ) -> Callable:
+        """One batch of serialized transactions (the wire format of
+        ``native/keypack.cpp``, made by :func:`encode_resolve_batch`),
+        packed by one C pass and dispatched chunk by chunk. The collector
+        returns verdicts, or an int8 array with ``as_array``.
+
+        The whole buffer is validated before anything is dispatched: a
+        chunk failing mid-stream would leave earlier chunks' writes in the
+        device history with no verdicts delivered."""
+        buf = native.as_wire(wire)
+        counted = native.count_txns(buf)
+        if counted < 0 or (count is not None and count > counted):
+            raise ValueError("malformed resolver wire batch")
+        if count is None:
+            count = counted
+        self._begin_resolve(commit_version, oldest_version)
+        cv = self._rel(commit_version)
+        oldest = self._rel(self.oldest_version)
+        pending: list[tuple] = []
+        offset, remaining = 0, count
+        while remaining > 0:
+            n = min(remaining, self.batch_size)
+            batch, offset = self._pack_wire(buf, offset, n)
+            hb = self._pack_resident(batch)  # may repack: before self.state
+            out = ck.resolve_batch_res(
+                self.state, upload(hb, self.device), cv, oldest,
+                n_new=hb.n_new, demand=hb.demand)
+            self.state = out[-1]
+            pending.append((out[0], n, None, None, None))
+            remaining -= n
+        if as_array:
+            def collect_array() -> np.ndarray:
+                self.host_syncs += len(pending)
+                return np.concatenate(
+                    [v.cpu().numpy()[:n] for v, n, *_ in pending]
+                    or [np.zeros(0, np.int8)])
+
+            return collect_array
+        return lambda: self._collect(pending)
+
+    def resolve_wire_window(self, wire, commit_versions,
+                            count: int) -> np.ndarray:
+        return self.resolve_wire_window_async(wire, commit_versions, count)()
+
+    def resolve_wire_window_async(self, wire, commit_versions,
+                                  count: int) -> Callable[[], np.ndarray]:
+        """Resolve a window of k consecutive batches in one dispatch:
+        ``wire`` holds k·count txns; txns [i·count, (i+1)·count) resolve
+        at ``commit_versions[i]`` (strictly increasing). The collector
+        returns int8 verdicts [k, count]."""
+        return self.dispatch_window(
+            self.pack_wire_window(wire, commit_versions, count))
+
+    def pack_wire_window(self, wire, commit_versions,
+                         count: int) -> PreparedWindow:
+        """Host half of the window path: validate, advance the version
+        bookkeeping, C-pack the k batches and rank them against the
+        mirror. Host work only (numpy and ctypes), so it may run on a
+        packing thread while ``dispatch_window`` of the previous window
+        runs; never beside another pack (packs go in commit-version
+        order). A rebase or a full repack that falls due is deferred into
+        the PreparedWindow. On any raise the bookkeeping is restored."""
+        buf = native.as_wire(wire)
+        k = len(commit_versions)
+        if count > self.batch_size:
+            raise ValueError("the window path resolves one batch of at most "
+                             "batch_size txns per commit version")
+        if native.count_txns(buf) < k * count:
+            raise ValueError("malformed resolver wire batch")
+        snap = (self.base_version, self.oldest_version, self._last_commit)
+        try:
+            rebase_delta = 0
+            oldest_abs = np.empty(k, np.int64)
+            for i, cv in enumerate(commit_versions):
+                rebase_delta += self._begin_resolve(int(cv), None,
+                                                    defer_rebase=True)
+                oldest_abs[i] = self.oldest_version
+            # base_version is final now. A rebase inside the window can
+            # lift it above floors taken earlier: those clamp to 0, which
+            # is exact (everything below base has expired on the device,
+            # and the kernel's floor never regresses).
+            cvs_rel = np.asarray(
+                [self._rel(int(cv)) for cv in commit_versions], np.int32)
+            olds_rel = np.asarray(
+                [max(0, int(v) - self.base_version) for v in oldest_abs],
+                np.int32)
+            batches = self._empty_batch(k)
+            offset = 0
+            for i in range(k):
+                offset = native.pack_batch(
+                    buf, offset, count, self.codec.n_words, self.base_version,
+                    HostBatch(*(a[i] for a in batches)))
+                if offset < 0:
+                    raise ValueError("malformed resolver wire batch")
+            batch = self._pack_resident(batches, defer_repack=True)
+        except BaseException:
+            self.base_version, self.oldest_version, self._last_commit = snap
+            raise
+        return PreparedWindow(batch=batch, cvs_rel=cvs_rel, olds_rel=olds_rel,
+                              count=count, rebase_delta=rebase_delta)
+
+    def dispatch_window(self, prepared: PreparedWindow
+                        ) -> Callable[[], np.ndarray]:
+        """Device half of the window path, on the dispatching thread in
+        pack order: the deferred rebase, then the deferred repack (exact
+        here, since every earlier window has dispatched), then one upload
+        and the window's launch sequence. The collector makes the
+        window's one device-to-host read: int8 verdicts [k, count]."""
+        if prepared.rebase_delta:
+            self.state = ck.rebase_res(
+                self.state, min(prepared.rebase_delta, 2**31 - 1))
+        hb = prepared.batch
+        if isinstance(hb, _RepackPlan):
+            hb = self._repack_and_rank(hb)
+        verdicts, self.state = ck.resolve_many_res(
+            self.state, upload(hb, self.device), prepared.cvs_rel,
+            prepared.olds_rel, n_new=hb.n_new, demands=hb.demand)
+
+        def collect() -> np.ndarray:
+            self.host_syncs += 1
+            return verdicts.cpu().numpy()[:, : prepared.count]
+
+        return collect
+
     def _collect(self, pending: list[tuple]) -> list[Verdict]:
         out: list[Verdict] = []
         self.last_conflicting = {}
@@ -716,8 +906,13 @@ class TorchConflictSet:
         return out
 
     def _begin_resolve(self, commit_version: int,
-                       oldest_version: int | None) -> None:
-        """Advance host-side version bookkeeping for one dispatch."""
+                       oldest_version: int | None,
+                       defer_rebase: bool = False) -> int:
+        """Advance host-side version bookkeeping for one dispatch. Returns
+        the delta of a rebase that fell due (0 when none): applied to the
+        device state here, unless ``defer_rebase`` (the packing thread may
+        not touch device state), when the caller applies it before the
+        next device launch."""
         if commit_version <= self._last_commit:
             raise ValueError(
                 f"commit versions must advance: {commit_version} <= "
@@ -730,8 +925,9 @@ class TorchConflictSet:
         self.oldest_version = max(
             self.oldest_version, commit_version - self.window_versions
         )
-        self._maybe_rebase(commit_version)
+        delta = self._maybe_rebase(commit_version, defer=defer_rebase)
         self._last_commit = commit_version
+        return delta
 
     @property
     def overflowed(self) -> bool:
@@ -781,29 +977,44 @@ class TorchConflictSet:
         every window floor (TOO_OLD for readers)."""
         return max(-1, v - self.base_version)
 
-    def _maybe_rebase(self, commit_version: int) -> None:
+    def _maybe_rebase(self, commit_version: int, defer: bool = False) -> int:
         if commit_version - self.base_version < _REBASE_THRESHOLD:
-            return
+            return 0
         delta = self.oldest_version - self.base_version
         if delta <= 0:
-            return
-        self.state = ck.rebase_res(self.state, min(delta, 2**31 - 1))
+            return 0
+        if not defer:
+            self.state = ck.rebase_res(self.state, min(delta, 2**31 - 1))
         self.base_version += delta
+        return delta
 
-    def _empty_batch(self) -> HostBatch:
+    def _empty_batch(self, k: int | None = None) -> HostBatch:
+        """An all-masked padded batch (shared by the object and wire
+        packers); ``k`` adds a leading window axis."""
+        lead = () if k is None else (k,)
         b = self.batch_size
         r, q = self.max_read_ranges, self.max_write_ranges
         w = self.codec.width
         return HostBatch(
-            read_begin=np.full((b, r, w), INT32_MAX, np.int32),
-            read_end=np.full((b, r, w), INT32_MAX, np.int32),
-            read_mask=np.zeros((b, r), bool),
-            write_begin=np.full((b, q, w), INT32_MAX, np.int32),
-            write_end=np.full((b, q, w), INT32_MAX, np.int32),
-            write_mask=np.zeros((b, q), bool),
-            read_version=np.zeros(b, np.int32),
-            txn_mask=np.zeros(b, bool),
+            read_begin=np.full((*lead, b, r, w), INT32_MAX, np.int32),
+            read_end=np.full((*lead, b, r, w), INT32_MAX, np.int32),
+            read_mask=np.zeros((*lead, b, r), bool),
+            write_begin=np.full((*lead, b, q, w), INT32_MAX, np.int32),
+            write_end=np.full((*lead, b, q, w), INT32_MAX, np.int32),
+            write_mask=np.zeros((*lead, b, q), bool),
+            read_version=np.zeros((*lead, b), np.int32),
+            txn_mask=np.zeros((*lead, b), bool),
         )
+
+    def _pack_wire(self, buf: np.ndarray, offset: int,
+                   count: int) -> tuple[HostBatch, int]:
+        """One C pass: wire bytes from ``offset`` -> a padded batch."""
+        bt = self._empty_batch()
+        new_off = native.pack_batch(buf, offset, count, self.codec.n_words,
+                                    self.base_version, bt)
+        if new_off < 0:
+            raise ValueError("malformed resolver wire batch")
+        return bt, new_off
 
     def _pack(self, txns: list[TxnConflictInfo]):
         """(HostBatch, coalesced read ranges per txn)."""
@@ -836,3 +1047,19 @@ class TorchConflictSet:
             bt.write_end[w_rows, w_cols] = we
             bt.write_mask[w_rows, w_cols] = True
         return bt, reads_per_txn
+
+
+def encode_resolve_batch(txns: list[TxnConflictInfo]) -> bytes:
+    """Serialize transactions to the resolver wire format
+    (``native/keypack.cpp``): per txn ``<qii`` (read version, reads,
+    writes), then per range ``<ii`` (begin and end lengths) and the bytes."""
+    out = bytearray()
+    for t in txns:
+        reads = list(t.read_ranges)
+        writes = list(t.write_ranges)
+        out += struct.pack("<qii", t.read_version, len(reads), len(writes))
+        for rng in reads + writes:
+            out += struct.pack("<ii", len(rng.begin), len(rng.end))
+            out += rng.begin
+            out += rng.end
+    return bytes(out)

@@ -115,3 +115,48 @@ def test_engine_cuda_equals_cpu_with_repacks_and_rebase(card):
         assert gpu.overflowed == cpu.overflowed
     assert gpu.dict_stats["full_repacks"] > 0
     assert gpu.base_version > 1 << 29  # the rebase ran
+
+
+@pytest.mark.parametrize("b,k", [(33, 1), (33, 3), (1000, 1), (1000, 3)])
+def test_window_path_cuda_equals_cpu_with_deferred_repack(card, b, k):
+    """The wire window path (threaded runner, one launch sequence per
+    window) on the card against its CPU plain run: verdicts and every
+    state leaf after every window, through deferred repacks."""
+    from foundationdb_tpu_torch.models.conflict_set import encode_resolve_batch
+    from foundationdb_tpu_torch.sched.packing import PipelinedWindowRunner
+
+    kw = dict(capacity=max(64, 8 * b), batch_size=b, max_read_ranges=2,
+              max_write_ranges=2, max_key_bytes=8, dict_delta_slots=8,
+              window_versions=300)
+    engines = {dev: TorchConflictSet(device=dev, **kw)
+               for dev in (card, "cpu")}
+    rng = np.random.default_rng(b * 10 + k)
+    windows, cv = [], 1000
+    for _ in range(5):
+        count = b if rng.random() < 0.7 else int(rng.integers(1, b))
+        txns = [rand_txn(rng, int(rng.integers(cv - 250, cv)))
+                for _ in range(k * count)]
+        windows.append((encode_resolve_batch(txns),
+                        list(range(cv, cv + 10 * k, 10)), count))
+        cv += 10 * k
+    got = {}
+    for dev, cs in engines.items():
+        runner = PipelinedWindowRunner(cs, threaded=dev == card)
+        try:
+            out = []
+            for w in windows:
+                runner.submit(*w)
+                out.append(runner.collect_next())
+                out.append(convert.snapshot(cs)["state"])
+        finally:
+            runner.close()
+        got[dev] = out
+    for i, (a, c) in enumerate(zip(got[card], got["cpu"])):
+        if isinstance(a, dict):
+            for name, v in c.items():
+                assert a[name].tobytes() == v.tobytes(), (i, name)
+        else:
+            assert np.array_equal(a, c), i
+    stats = engines[card].dict_stats
+    assert stats["repack_stalls"] > 0 and stats["full_repacks"] > 0, stats
+    assert stats == engines["cpu"].dict_stats

@@ -34,6 +34,14 @@ cs.resolve([TxnConflictInfo(5, [], [pt(b"a")])], 10)
 got = cs.resolve([TxnConflictInfo(5, [pt(b"a")], []),
                   TxnConflictInfo(15, [pt(b"a")], [])], 20)
 assert [int(v) for v in got] == [1, 0], got
+import foundationdb_tpu_torch.bench, foundationdb_tpu_torch.sched.packing
+from foundationdb_tpu_torch import native
+from foundationdb_tpu_torch.models.conflict_set import encode_resolve_batch
+wire = encode_resolve_batch([TxnConflictInfo(5, [pt(b"a")], [pt(b"b")])])
+got = cs.resolve_wire_async(wire, 30, as_array=True)()
+assert got.tolist() == [1], got
+assert native.keypack()._name == str(native.library_path("keypack"))
+assert "foundationdb_tpu_torch" in native.keypack()._name
 print("ok")
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
