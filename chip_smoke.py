@@ -40,11 +40,28 @@ Phases, each fatal on failure:
    ``wavemesh.clip_txns`` halves of 16 batches through ``resolve_edges``
    / ``combine_edges`` / ``resolve_apply``, give the single wave
    engine's verdicts and ``last_wave``.
+3d. Tiered phase: the YCSB-A shape over 2^23 keys (the touched set
+   outgrows the hot tier; ``loadgen/ycsb.dictionary_counts`` checks the
+   sizing first) through the same runner on an engine with a tiered
+   dictionary (hot tier 1,310,720 keys, 262,144 delta slots) and
+   speculative resolve (depth 2, every window confirmed). (a) Its verdict
+   hash equals an untiered engine's with the same delta slots; it
+   demotes (>= 3 events), never full-repacks, repairs nothing; K7 launches
+   and K3 launches k times per window. (b) Every K7 launch of (a) equals
+   the plain version in the dictionary, n_keys and every rank leaf. (c)
+   With a hook that revokes the first accepted txn of every window, 16
+   batches at window 4 and depth 3 on cuda equal depth 1 on cuda and
+   depth 3 on the CPU (worker processes beside phase 4, checked after
+   it) in verdicts, spec_metrics (depth 1 has no younger window to flip)
+   and every state leaf, sequentially and on wave engines (levels too).
+   (d) One captured paint-only window (``paint_many_res``, forced mask)
+   equals its plain version in every state leaf.
 4. Cross-check: the first 16 batches again on the CPU (plain versions),
    and 16 batches each of the mako and tpcc shapes on cuda against the
    CPU: the verdicts must be equal.
 5. The seconds of each phase, a ``kernels`` JSON line (K1-K4, the
-   window program, K5 and K6), then the card line, then the result line.
+   window program, K5, K6, K7 and the paint-only window), then the card
+   line, then the result line.
 
 Exits non-zero, printing no result, when no CUDA card is available or when
 run without the rest of the repository.
@@ -73,6 +90,8 @@ REPLACES = {
     "resolve_many": "foundationdb_tpu/models/conflict_kernel.py:2291",
     "wave_pred": "foundationdb_tpu/models/conflict_kernel.py:739",
     "wave_level": "foundationdb_tpu/models/conflict_kernel.py:776",
+    "dict_evict": "foundationdb_tpu/models/conflict_kernel.py:2026",
+    "paint_many": "foundationdb_tpu/models/conflict_kernel.py:2788",
 }
 # The kernel sources each path launches: the sequential-order paths run
 # K1-K4, the wave paths K1, K2, K4 and K5/K6 (wave.cu), never K3.
@@ -80,6 +99,13 @@ SEQ_SOURCES = ("dict_insert", "history_probe", "accept", "step_compact")
 WAVE_SOURCES = ("dict_insert", "history_probe", "step_compact", "wave")
 WINDOW_K, WINDOW_DEPTH = 8, 4  # window phase: batches per window, in flight
 CAP = 1 << 20
+# Tiered phase: a keyspace whose touched set outgrows the hot tier H while
+# the MVCC window's set plus one delta M fits in it, and every window's
+# delta fits in M (dictionary_counts checks the three before the run).
+TIER_KEYS = 1 << 23
+TIER_HOT, TIER_DELTA = 1_310_720, 262_144
+TIER = {"dict_hot_capacity": TIER_HOT, "dict_delta_slots": TIER_DELTA}
+SPEC_K, SPEC_BATCHES = 4, 16  # check (c): window, batches
 
 
 def fail(msg: str) -> None:
@@ -212,6 +238,14 @@ def capture_batch(stream, mode, wave: bool, report: bool = False):
         cand=cand, ranks=ck.endpoint_ranks_live_packed(rb.ranks))
 
 
+def k1_bytes(n_keys: int, n_new: int, d1: int, w: int, c: int,
+             cd: int) -> int:
+    """K1's least bytes for one insert: the live dictionary rows and the
+    real delta rows read once, the [D+1, W] output written once, and the
+    base and delta rank rows read and rewritten."""
+    return 4 * ((n_keys + n_new) * w + d1 * w + 2 * (c + cd))
+
+
 def kernel_phase(stream, mode) -> dict:
     """Capture one mid-stream batch and hold every kernel launch against
     its plain version; returns per-kernel timings and bounds."""
@@ -230,7 +264,6 @@ def kernel_phase(stream, mode) -> dict:
     c = res.hist.base.keys.shape[0]
     cd = res.hist.delta.keys.shape[0]
     d1, w = res.dict_keys.shape
-    m = rb.delta_keys.shape[0]
     timings = {}
 
     # K1: insert + rank shift, remap rewrite, version rebase.
@@ -268,7 +301,7 @@ def kernel_phase(stream, mode) -> dict:
     timings["dict_insert"] = (
         time_ms(k1, lambda: (clone(res),)),
         time_ms(k1_plain, lambda: (clone(res),), reps=3))
-    bytes_k1 = 4 * (2 * d1 * w + m * w + 2 * (c + cd))
+    bytes_k1 = k1_bytes(int(res.n_keys), hb.n_new, d1, w, c, cd)
 
     res1, floor = cap.res1, cap.floor
 
@@ -419,18 +452,22 @@ def wire_stream(stream, mode, n_batches: int):
     return blob, ends, n_batches
 
 
-def counted_run(blob, ends, mode, n_batches: int, wave: bool):
+def counted_run(blob, ends, mode, n_batches: int, wave: bool,
+                engine: dict | None = None, label: str | None = None):
     """The stream through the bench's runner on cuda (window WINDOW_K,
-    WINDOW_DEPTH in flight, threaded), after a warm-up outside the count.
-    Returns (record, verdicts, levels, engine, launches per source, entry
-    launches per window)."""
+    WINDOW_DEPTH in flight, threaded), after a warm-up outside the count;
+    ``engine`` holds further constructor arguments. Returns (record,
+    verdicts, levels, engine, launches per source, entry launches per
+    window)."""
     from foundationdb_tpu_torch import bench
     from foundationdb_tpu_torch import kernels as K
     from foundationdb_tpu_torch.models import conflict_kernel as ck
     from foundationdb_tpu_torch.models.conflict_set import TorchConflictSet
 
+    engine = engine or {}
+    label = label or ("wave" if wave else "window")
     # Warm-up outside the counted run: the packer's build, first launches.
-    bench.make_engine(mode, CAP, "cuda", wave).resolve_wire_window(
+    bench.make_engine(mode, CAP, "cuda", wave, **engine).resolve_wire_window(
         *bench.window_wire(blob, ends, mode, WINDOW_K, 0), mode.batch)
     per_window: list[dict] = []
     dispatch = TorchConflictSet.dispatch_window
@@ -449,18 +486,16 @@ def counted_run(blob, ends, mode, n_batches: int, wave: bool):
         rec, verdicts, levels, cs = bench.run_wire(
             blob, ends, mode, n_batches, CAP, "cuda", window=WINDOW_K,
             pipeline_depth=WINDOW_DEPTH, repeats=1, threaded=True,
-            warmup=False, wave=wave)
+            warmup=False, wave=wave, engine=engine)
         launches = {**K.LAUNCHES, **ck.LAUNCHES}
     finally:
         TorchConflictSet.dispatch_window = dispatch
     n_windows = n_batches // WINDOW_K
     if rec["overflowed"]:
-        fail(f"history overflowed on the {'wave' if wave else 'window'} "
-             "path")
+        fail(f"history overflowed on the {label} path")
     for k in (*(WAVE_SOURCES if wave else SEQ_SOURCES), "resolve_many"):
         if launches[k] <= 0:
-            fail(f"kernel {k} was not launched on the "
-                 f"{'wave' if wave else 'window'} path")
+            fail(f"kernel {k} was not launched on the {label} path")
     if len(per_window) != n_windows or launches["resolve_many"] != n_windows:
         fail(f"{len(per_window)} dispatches, {launches['resolve_many']} "
              f"window programs for {n_windows} windows")
@@ -808,6 +843,304 @@ def wave_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
     return {"launches": entries}
 
 
+def revoke_first(seq, verdicts):
+    """Check (c)'s confirmation hook: the upper layer revokes the first
+    accepted txn of every window."""
+    conf = np.ones_like(verdicts, dtype=bool)
+    acc = np.argwhere(verdicts == 0)
+    if len(acc):
+        conf[tuple(acc[0])] = False
+    return conf
+
+
+def spec_run(seed: int, device: str, depth: int, wave: bool):
+    """Check (c): SPEC_BATCHES batches of a YCSB-A stream over TIER_KEYS
+    keys, windows of SPEC_K, through an unthreaded runner (every window
+    submitted, then collected: one dispatch and reconcile order on every
+    device) on a tiered speculative engine under ``revoke_first``.
+    Returns (verdicts, levels or None, spec_metrics, state leaves as
+    numpy, paint-only windows launched, seconds); also run in a worker
+    process for the CPU."""
+    import torch
+
+    from foundationdb_tpu_torch import bench, convert
+    from foundationdb_tpu_torch.loadgen.ycsb import (
+        MODES,
+        build_wire_stream,
+        gen_workload,
+    )
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+    from foundationdb_tpu_torch.sched.packing import PipelinedWindowRunner
+
+    if device == "cpu":
+        torch.set_num_threads(2)  # beside the cross-checks of phase 4
+    t0 = time.perf_counter()
+    mode = MODES["ycsb"]
+    blob, ends = build_wire_stream(
+        *gen_workload(SPEC_BATCHES * mode.batch, TIER_KEYS, seed, mode),
+        SPEC_BATCHES, mode)
+    cs = bench.make_engine(mode, CAP, device, wave, spec_resolve=True,
+                           spec_depth=depth, **TIER)
+    cs.spec_confirm_hook = revoke_first
+    ck.reset_launches()
+    runner = PipelinedWindowRunner(cs, threaded=False)
+    out, levels = [], []
+    try:
+        for wi in range(SPEC_BATCHES // SPEC_K):
+            runner.submit(*bench.window_wire(blob, ends, mode, SPEC_K, wi),
+                          mode.batch)
+        for _ in range(SPEC_BATCHES // SPEC_K):
+            out.append(runner.collect_next())
+            levels.append(cs.last_wave_window)
+    finally:
+        runner.close()
+    state = convert.snapshot(cs)["state"]  # reconciles the ring first
+    return (np.stack(out), np.stack(levels) if wave else None,
+            cs.spec_metrics(), state, ck.LAUNCHES["paint_many"],
+            time.perf_counter() - t0)
+
+
+def same_spec(got, other, wave: bool, name: str, metrics: bool) -> None:
+    """Check (c): two spec_run results agree in verdicts, levels, every
+    state leaf and (with ``metrics``) spec_metrics; without, all but
+    spec_flipped (depth 1 has no younger window to flip)."""
+    label = "wave" if wave else "sequential"
+    if not np.array_equal(got[0], other[0]) or (
+            wave and not np.array_equal(got[1], other[1])):
+        fail(f"adversarial {label}: verdicts or levels differ from {name}")
+    keys = got[2].keys() - (set() if metrics else {"spec_flipped"})
+    if any(got[2][k] != other[2][k] for k in keys):
+        fail(f"adversarial {label}: spec_metrics {got[2]} vs {name} "
+             f"{other[2]}")
+    for k, v in other[3].items():
+        if got[3][k].tobytes() != v.tobytes():
+            fail(f"adversarial {label}: state leaf {k} differs from {name}")
+
+
+def check_spec_cpu(td: dict, cpu_spec: dict) -> None:
+    """Check (c)'s CPU half: depth 3 on the CPU (worker processes, beside
+    phase 4) equals depth 3 on cuda."""
+    for wave, job in cpu_spec.items():
+        cpu = job.get()
+        same_spec(td["spec_cuda"][wave], cpu, wave, "depth 3 on the cpu",
+                  metrics=True)
+        print(f"cross-check adversarial {'wave' if wave else 'sequential'}: "
+              f"depth 3 on cuda equals depth 3 on the cpu ({cpu[5]:.1f} s "
+              "in a worker process)")
+
+
+def tiered_phase(args, card: str) -> dict:
+    """Phase 3d: the tiered speculative engine on the window path, and its
+    checks (a), (b), (d) and the card's half of (c). Returns the K7 and
+    paint-only rows' measurements and check (c)'s cuda runs, which
+    ``check_spec_cpu`` holds against the CPU after phase 4."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.loadgen.ycsb import (
+        MODES,
+        build_wire_stream,
+        dictionary_counts,
+        gen_workload,
+    )
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+    from foundationdb_tpu_torch.models.conflict_set import upload
+
+    mode = MODES["ycsb"]
+    b = mode.batch
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(label: str) -> None:
+        nonlocal t0
+        now = time.perf_counter()
+        seconds[label] = now - t0
+        t0 = now
+
+    stream = gen_workload(args.batches * b, TIER_KEYS, args.seed, mode)
+    counts = dictionary_counts(*stream[:3], b, WINDOW_K)
+    in_window, touched = max(counts["in_window"]), counts["touched"][-1]
+    largest = max(counts["new"])
+    print(json.dumps({"phase": "tiered dictionary counts (host)",
+                      "keys": TIER_KEYS, **counts}))
+    if not (in_window + TIER_DELTA < TIER_HOT < touched + TIER_DELTA
+            and TIER_DELTA > largest):
+        fail(f"tiered stream does not exercise the tier: in-window "
+             f"{in_window} + M {TIER_DELTA} < H {TIER_HOT} < touched "
+             f"{touched} + M, and M > largest delta {largest}, must hold")
+    blob, ends, n_batches = wire_stream(stream, mode, args.batches)
+    lap("stream")
+
+    # (a) + (b): every K7 launch of the run is captured (state before and
+    # after) and checked against the plain version once the run is over.
+    captures = []
+    apply_evict = ck.apply_evict
+
+    def capturing(res, ev, n_ev=None):
+        before = clone(res)
+        out = apply_evict(res, ev, n_ev)
+        captures.append((before, ev.clone(), n_ev, clone(out)))
+        return out
+
+    ck.apply_evict = capturing
+    try:
+        rec, _, _, cs, launches, per_window = counted_run(
+            blob, ends, mode, n_batches, wave=False, label="tiered",
+            engine={**TIER, "spec_resolve": True, "spec_depth": 2})
+    finally:
+        ck.apply_evict = apply_evict
+    st, sm = rec["dict_stats"], rec["spec_metrics"]
+    for i, pw in enumerate(per_window):
+        if pw.get("ac_accept", 0) != WINDOW_K:
+            fail(f"tiered window {i}: K3 launched {pw.get('ac_accept', 0)} "
+                 f"times (want {WINDOW_K})")
+    if (st["demotions"] <= 0 or st["demotion_events"] < 3
+            or st["full_repacks"] or sm["spec_repaired"]
+            or launches["dict_evict"] <= 0):
+        fail(f"tiered run: demotions {st['demotions']}, events "
+             f"{st['demotion_events']} (want >= 3), full repacks "
+             f"{st['full_repacks']} (want 0), spec_repaired "
+             f"{sm['spec_repaired']} (want 0), K7 launches "
+             f"{launches['dict_evict']}")
+    plain = bench.run_wire(blob, ends, mode, n_batches, CAP, "cuda",
+                           window=WINDOW_K, pipeline_depth=WINDOW_DEPTH,
+                           repeats=1, warmup=False,
+                           engine={"dict_delta_slots": TIER_DELTA})[0]
+    if plain["verdicts_sha256"] != rec["verdicts_sha256"]:
+        fail("tiered speculative engine and untiered engine verdicts differ")
+    lap("a")
+    print(json.dumps({
+        "phase": "tiered", "stream": "ycsb-a", "keys": TIER_KEYS,
+        "dict_hot_capacity": TIER_HOT, "dict_delta_slots": TIER_DELTA,
+        "spec_depth": 2, "txns": rec["txns"], "batches": rec["batches"],
+        "window": rec["window"], "pipeline_depth": rec["pipeline_depth"],
+        "txns_per_s": rec["txns_per_s"],
+        "window_ms_p50": rec["window_ms_p50"],
+        "window_ms_p99": rec["window_ms_p99"],
+        "committed": rec["committed"], "conflict": rec["conflict"],
+        "too_old": rec["too_old"],
+        **{k: st[k] for k in ("demotions", "promotions", "demotion_events",
+                              "demotion_stalls", "demotion_bytes",
+                              "cold_tier_keys", "resident_keys",
+                              "full_repacks", "repack_stalls")},
+        "k7_launches": launches["dict_evict"],
+        "pack_gate_wait_s": rec["pack_gate_wait_s"],
+        "host_syncs_per_window": rec["host_syncs_per_window"],
+        "host_pack_ms_per_window": rec["host_pack_ms_per_window"],
+        "spec_metrics": sm, "verdicts_sha256": rec["verdicts_sha256"],
+        "untiered_txns_per_s": plain["txns_per_s"],
+        "untiered_window_ms_p99": plain["window_ms_p99"],
+        "untiered_full_repacks": plain["dict_stats"]["full_repacks"],
+        "card": card}))
+
+    # (b) Every K7 launch of (a) against the plain version: the
+    # dictionary, n_keys and every rank leaf after the rewrite.
+    for before, ev, n_ev, after in captures:
+        nd, nn, shift = ck._dict_evict_plain(before.dict_keys, before.n_keys,
+                                             ev)
+        h = before.hist
+        bk, dk, lo, hi = ck._rewrite_ranks_plain(
+            [h.base.keys, h.delta.keys, before.shard_lo, before.shard_hi],
+            shift, False)
+        assert_equal("dict_evict", after, ck.ResState(
+            nd, nn, ck.HistState(h.base._replace(keys=bk), h.base_st,
+                                 h.delta._replace(keys=dk)), lo, hi))
+    before, ev, n_ev, _ = captures[0]
+    d1, w = before.dict_keys.shape
+    e = ev.shape[0]
+    k7 = (time_ms(lambda: K.dict_evict(before.dict_keys, before.n_keys, ev,
+                                       n_ev)),
+          time_ms(lambda: ck._dict_evict_plain(before.dict_keys,
+                                               before.n_keys, ev), reps=3))
+    keep = torch.ones(d1, dtype=torch.bool, device="cuda")
+    keep[ev[:n_ev].long()] = False
+    keep[int(before.n_keys):] = False
+    library = time_ms(lambda: before.dict_keys[keep])
+    whole = time_ms(lambda r: ck.apply_evict(r, ev, n_ev),
+                    lambda: (clone(before),), reps=5)
+    print(f"kernel dict_evict ({len(captures)} launches checked, D+1 {d1}, "
+          f"E {e}, {n_ev} evicted): {k7[0]:.4f} ms (plain {k7[1]:.4f} ms; "
+          f"dict_keys[keep_mask], the compaction only, {library:.4f} ms; "
+          f"with K1's rank rewrite {whole:.4f} ms)")
+    lap("b")
+
+    # (d) One captured paint-only window (forced mask) against its plain
+    # version: the second window of check (c)'s stream, K1 inserting.
+    mb, me = build_wire_stream(
+        *gen_workload(SPEC_BATCHES * b, TIER_KEYS, args.seed, mode),
+        SPEC_BATCHES, mode)
+    cs = bench.make_engine(mode, CAP, "cuda", **TIER)
+    cs.resolve_wire_window(*bench.window_wire(mb, me, mode, SPEC_K, 0), b)
+    prepared = cs.pack_wire_window(*bench.window_wire(mb, me, mode, SPEC_K, 1),
+                                   b)
+    hb = prepared.batch
+    if not hb.n_new:
+        fail("the paint-only capture has no dictionary delta")
+    state = clone(cs.state)
+    verdicts = cs.dispatch_window(prepared)()
+    acc = np.zeros((SPEC_K, b), bool)
+    acc[:, : prepared.count] = (verdicts == 0) & hb.ranks[7][:, : prepared.count]
+    acc[np.arange(SPEC_K), acc.argmax(1)] = False  # revoke one per batch
+    rb = upload(hb, cs.device)
+    acc_t = torch.from_numpy(acc).cuda()
+    cvs, olds = prepared.cvs_rel, prepared.olds_rel
+
+    def paint(res):
+        return ck.paint_many_res(res, rb, acc_t, cvs, olds, hb.n_new,
+                                 hb.demand)
+
+    def paint_plain(res):
+        return ck.paint_many_res_plain(res, rb, acc_t, cvs, olds)
+
+    assert_equal("paint_many", paint(clone(state)), paint_plain(clone(state)))
+    pm = (time_ms(paint, lambda: (clone(state),), reps=5),
+          time_ms(paint_plain, lambda: (clone(state),), reps=2))
+    print(f"kernel paint_many (window of {SPEC_K}, n_new {hb.n_new}): "
+          f"{pm[0]:.4f} ms (plain {pm[1]:.4f} ms)")
+    torch.cuda.synchronize()
+    lap("d")
+
+    # (c) The adversarial hook at depth 3 on cuda against depth 1 on cuda
+    # (here) and depth 3 on the CPU (check_spec_cpu), sequential and wave.
+    spec_cuda = {}
+    for wave in (False, True):
+        got = spec_cuda[wave] = spec_run(args.seed, "cuda", 3, wave)
+        same_spec(got, spec_run(args.seed, "cuda", 1, wave), wave,
+                  "depth 1 on cuda", metrics=False)
+        if got[2]["spec_repaired"] <= 0:
+            fail(f"adversarial {'wave' if wave else 'sequential'}: no "
+                 "window was repaired")
+        print(f"cross-check adversarial {'wave' if wave else 'sequential'}: "
+              f"{got[0].size} txns, depth 3 equals depth 1 on cuda "
+              f"(spec_metrics {got[2]})")
+    paint_launches = spec_cuda[False][4]
+    if paint_launches <= 0:
+        fail("the paint-only window was not launched under the adversary")
+    lap("c")
+    print(json.dumps({"phase 3d seconds": seconds}))
+
+    # Bounds of the timed captures. K7: the kept source rows
+    # (n_keys - n_ev) and the evict vector read, the [D+1, W] output and
+    # the shift table written, n_keys read and written. The paint-only
+    # window: K1's insert and rewrite once (as the K1 row's basis) plus k
+    # paints (the K4 row's basis) at this window's shapes.
+    kept = int(before.n_keys) - n_ev
+    c = state.hist.base.keys.shape[0]
+    cd = state.hist.delta.keys.shape[0]
+    q = rb.ranks.write_begin.shape[-1]
+    bytes_k4 = cd * 8 * 2 + b * q * 9 + b + 2 * b * q * 4
+    paint_bytes = SPEC_K * bytes_k4 + k1_bytes(
+        int(state.n_keys), hb.n_new, *state.dict_keys.shape, c, cd)
+    return {"spec_cuda": spec_cuda,
+            "dict_evict": {"launches": launches["dict_evict"], "ms": k7[0],
+                           "plain_ms": k7[1], "partial_library_ms": library,
+                           "bound": bound(4 * (kept * w + d1 * w + d1 + e)
+                                          + 8)},
+            "paint_many": {"launches": paint_launches, "ms": pm[0],
+                           "plain_ms": pm[1], "bound": bound(paint_bytes)}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -825,9 +1158,10 @@ def main() -> int:
         print(f"chip_smoke: the repository is missing ({e})", file=sys.stderr)
         return 2
 
-    # The host replay of check (c) runs in a worker process beside the
-    # card's phases; the worker is stopped however the run ends.
-    pool = multiprocessing.get_context("spawn").Pool(1)
+    # The host replay of check (c) of phase 3c (beside phases 3-4) and the
+    # CPU runs of check (c) of phase 3d (beside phase 4) run in two worker
+    # processes; the workers are stopped however the run ends.
+    pool = multiprocessing.get_context("spawn").Pool(2)
     try:
         return smoke(args, pool)
     finally:
@@ -912,6 +1246,15 @@ def smoke(args, pool) -> int:
                     wp["record"])
     lap("3c wave path")
 
+    # 3d. The tiered speculative engine on the window path, and its checks.
+    td = tiered_phase(args, card)
+    lap("3d tiered path")
+
+    # Check (c) of phase 3d on the CPU, in the workers beside phase 4 (the
+    # measured phases run without them).
+    cpu_spec = {wave: pool.apply_async(spec_run, (args.seed, "cpu", 3, wave))
+                for wave in (False, True)}
+
     # 4. Cross-checks against the plain versions on the CPU.
     n_cross = min(16, args.batches)
     cpu_v, _, _ = run_stream(stream, ycsb, n_cross, "cpu", "ycsb cpu")
@@ -930,6 +1273,7 @@ def smoke(args, pool) -> int:
               f"(committed {c[0]}, conflict {c[1]}, too_old {c[2]})")
 
     check_replay(wk)
+    check_spec_cpu(td, cpu_spec)
     lap("4 cross-checks")
     print(json.dumps({"phase_seconds": phase_s}))
 
@@ -968,6 +1312,22 @@ def smoke(args, pool) -> int:
             "replaces": REPLACES[k], "launches": wv["launches"][entry],
             "max_abs_err": MAX_ABS_ERR[k], "ms": ms, "plain_ms": plain,
             "bound_ms": lo, "bound_by": by, "library_ms": None})
+    for k, source in (
+            ("dict_evict", "foundationdb_tpu_torch/kernels/csrc/dict_evict.cu"),
+            ("paint_many", "foundationdb_tpu_torch/models/conflict_kernel.py")):
+        r = td[k]
+        lo, by = r["bound"]
+        rows.append({
+            "name": k, "route": "cuda", "source": source,
+            "replaces": REPLACES[k], "launches": r["launches"],
+            "max_abs_err": MAX_ABS_ERR[k], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": lo, "bound_by": by,
+            "library_ms": None})
+    # No one PyTorch call computes K7 (compaction, +inf padding and the
+    # shift table); boolean-mask indexing is the compaction alone.
+    rows[-2].update(partial_library_ms=td["dict_evict"]["partial_library_ms"],
+                    partial_library_call="dict_keys[keep_mask]: the "
+                                         "compaction only")
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

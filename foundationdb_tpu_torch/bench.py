@@ -3,7 +3,9 @@
     python -m foundationdb_tpu_torch.bench [--mode ycsb|mako|tpcc]
         [--txns N] [--keys N] [--capacity N] [--seed N] [--window 32]
         [--pipeline-depth 4] [--repeats 3] [--device cuda|cpu] [--inline]
-        [--wave-commit 0|1] [--profile]
+        [--wave-commit 0|1] [--dict-hot-capacity N] [--dict-delta-slots N]
+        [--spec-resolve 0|1] [--spec-depth N] [--shifting-hotspot]
+        [--profile]
 
 A YCSB-A, mako or TPC-C shaped stream (``loadgen/ycsb.py``) is encoded in
 the resolver wire format and resolved through
@@ -18,8 +20,15 @@ of its verdict stream in window order. ``--profile`` adds the CUDA-event
 time of each kernel launch of one warm window, with the host pack and the
 two copies. ``--wave-commit 1`` resolves with a wave-commit engine
 (reorder, don't abort) and adds the reordered and cycle-aborted counts
-and K6's rounds and victims per batch to the record. Prints one JSON
-line.
+and K6's rounds and victims per batch to the record.
+``--dict-hot-capacity N`` makes the engine's device dictionary a hot tier
+of N keys over a host cold store (demotions by K7 instead of full
+repacks; ``--dict-delta-slots`` sets the delta slots, 0 the default);
+``--spec-resolve 1`` dispatches windows speculatively, at most
+``--spec-depth`` unconfirmed (every window confirms). The record carries
+``dict_stats`` (the tier counters among them) and ``spec_metrics``.
+``--shifting-hotspot`` replaces the Zipf draw by a walking hotspot, the
+tiered dictionary's regime. Prints one JSON line.
 
 The run is on the card (``--device cuda``, the default, raises without
 one); ``--device cpu`` runs the plain torch versions.
@@ -69,18 +78,22 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def make_engine(mode: ModeConfig, capacity: int, device,
-                wave: bool = False) -> TorchConflictSet:
+def make_engine(mode: ModeConfig, capacity: int, device, wave: bool = False,
+                **engine) -> TorchConflictSet:
+    """The mode's engine; ``engine`` holds further constructor arguments
+    (dict_hot_capacity, dict_delta_slots, spec_resolve, spec_depth)."""
     return TorchConflictSet(
         capacity=capacity, batch_size=mode.batch,
         max_read_ranges=mode.n_reads, max_write_ranges=mode.n_writes,
         max_key_bytes=KEY_BYTES, window_versions=WINDOW, device=device,
-        wave_commit=wave)
+        wave_commit=wave, **engine)
 
 
-def make_stream(mode: ModeConfig, n_batches: int, n_keys: int, seed: int):
+def make_stream(mode: ModeConfig, n_batches: int, n_keys: int, seed: int,
+                shifting_hotspot: bool = False):
     """(blob, txn_ends) of ``n_batches`` batches of the mode's stream."""
-    stream = gen_workload(n_batches * mode.batch, n_keys, seed, mode)
+    stream = gen_workload(n_batches * mode.batch, n_keys, seed, mode,
+                          shifting_hotspot)
     return build_wire_stream(*stream, n_batches, mode)
 
 
@@ -134,24 +147,26 @@ def drive(cs: TorchConflictSet, blob, txn_ends, mode: ModeConfig,
 def run_wire(blob, txn_ends, mode: ModeConfig, n_batches: int,
              capacity: int, device, window: int = 32, pipeline_depth: int = 4,
              repeats: int = 3, threaded: bool = True, warmup: bool = True,
-             wave: bool = False):
+             wave: bool = False, engine: dict | None = None):
     """The resolve stream through the window path. Returns (record,
     verdicts of the best repeat [n_windows, window, B], its levels of the
-    same shape on a wave engine or None, its engine).
+    same shape on a wave engine or None, its engine). ``engine`` holds
+    further constructor arguments of ``make_engine``.
 
     ``warmup`` first resolves window 0 on a throwaway engine (builds the
     kernels and the packer). The record's ``launches_per_window`` is the
     best repeat's kernel launches (on the card) per window."""
+    engine = engine or {}
     window = max(1, min(window, n_batches))
     n_windows = n_batches // window
     depth = max(1, min(pipeline_depth, n_windows))
     if warmup:
         wire, cvs = window_wire(blob, txn_ends, mode, window, 0)
-        make_engine(mode, capacity, device, wave).resolve_wire_window(
-            wire, cvs, mode.batch)
+        make_engine(mode, capacity, device, wave, **engine
+                    ).resolve_wire_window(wire, cvs, mode.batch)
     best = None
     for _ in range(repeats):
-        cs = make_engine(mode, capacity, device, wave)
+        cs = make_engine(mode, capacity, device, wave, **engine)
         before = dict(K.LAUNCHES)
         verdicts, levels, lat, pack, sec, wait = drive(
             cs, blob, txn_ends, mode, n_windows, window, depth, threaded)
@@ -182,6 +197,7 @@ def run_wire(blob, txn_ends, mode: ModeConfig, n_batches: int,
                                 for k, n in launches.items()},
         "overflowed": cs.overflowed,
         "dict_stats": cs.dict_stats,
+        "spec_metrics": cs.spec_metrics(),
     }
     if wave:
         st = cs.wave_stats
@@ -315,6 +331,16 @@ def main(argv=None) -> int:
                     help="pack on the dispatching thread")
     ap.add_argument("--wave-commit", choices=("0", "1"), default="0",
                     help="1: wave-commit engine (reorder, don't abort)")
+    ap.add_argument("--dict-hot-capacity", type=int, default=0,
+                    help="N > 0: a tiered dictionary, N hot keys on the card")
+    ap.add_argument("--dict-delta-slots", type=int, default=0,
+                    help="dictionary delta slots per dispatch (0: default)")
+    ap.add_argument("--spec-resolve", choices=("0", "1"), default="0",
+                    help="1: speculative window resolve")
+    ap.add_argument("--spec-depth", type=int, default=2,
+                    help="unconfirmed windows a speculative engine keeps")
+    ap.add_argument("--shifting-hotspot", action="store_true",
+                    help="a walking hotspot in place of the Zipf draw")
     ap.add_argument("--profile", action="store_true",
                     help="also time each kernel launch of one warm window "
                          "(needs the card)")
@@ -327,13 +353,20 @@ def main(argv=None) -> int:
     mode = MODES[args.mode]
     window = max(1, min(args.window, max(1, args.txns // mode.batch)))
     n_batches = max(1, args.txns // mode.batch) // window * window
-    blob, ends = make_stream(mode, n_batches, args.keys, args.seed)
+    blob, ends = make_stream(mode, n_batches, args.keys, args.seed,
+                             args.shifting_hotspot)
+    engine = {"dict_hot_capacity": args.dict_hot_capacity,
+              "dict_delta_slots": args.dict_delta_slots,
+              "spec_resolve": args.spec_resolve == "1",
+              "spec_depth": args.spec_depth}
     record, *_ = run_wire(
         blob, ends, mode, n_batches, args.capacity, dev, window=window,
         pipeline_depth=args.pipeline_depth, repeats=args.repeats,
-        threaded=not args.inline, wave=args.wave_commit == "1")
+        threaded=not args.inline, wave=args.wave_commit == "1",
+        engine=engine)
     out = {"bench": "resolve_stream", "mode": args.mode, "device": str(dev),
-           **record}
+           "workload": "shifting_hotspot" if args.shifting_hotspot
+           else "zipf", **record}
     if dev.type == "cuda":
         out["card"] = card_line()
         out["kind"] = torch.cuda.get_device_name(0)

@@ -5,7 +5,9 @@ either package can be captured mid-stream and continued by the port:
 
 - ``config``: the constructor arguments (capacity, batch_size,
   max_read_ranges, max_write_ranges, max_key_bytes, window_versions,
-  delta_capacity, dict_capacity, dict_delta_slots, wave_commit);
+  delta_capacity, dict_capacity, dict_delta_slots, wave_commit,
+  dict_hot_capacity and dict_demote_batch (0 when untiered),
+  spec_resolve, spec_depth);
 - ``state``: every ResState leaf under its dotted path (``dict_keys``,
   ``n_keys``, ``hist.base.keys``, ..., ``hist.base_st``, ...,
   ``shard_hi``);
@@ -13,8 +15,10 @@ either package can be captured mid-stream and continued by the port:
   and its ``stats`` dict;
 - ``base_version``, ``oldest_version``, ``last_commit``.
 
-The port reads no object of the JAX package: whoever captures a JAX
-engine builds this dict from it (the tests do).
+A speculative engine is reconciled before it is captured (its in-flight
+windows and their snapshots cannot be carried). The port reads no object
+of the JAX package: whoever captures a JAX engine builds this dict from
+it (the tests do).
 """
 
 from __future__ import annotations
@@ -27,10 +31,13 @@ from foundationdb_tpu_torch.models.conflict_set import TorchConflictSet
 
 CONFIG_FIELDS = ("capacity", "batch_size", "max_read_ranges",
                  "max_write_ranges", "window_versions", "delta_capacity",
-                 "dict_capacity", "dict_delta_slots", "wave_commit")
+                 "dict_capacity", "dict_delta_slots", "wave_commit",
+                 "dict_hot_capacity", "dict_demote_batch", "spec_resolve",
+                 "spec_depth")
 STATE_FIELDS = ("keys", "versions", "n_used", "oldest", "overflow")
 MIRROR_FIELDS = ("u64", "rows", "pinned", "_n_ids", "u64_by_id",
-                 "rank_of_id", "last_used_by_id", "id_at", "tab", "_mask")
+                 "rank_of_id", "last_used_by_id", "hot_by_id", "id_at", "tab",
+                 "_mask")
 
 
 def state_leaves(res) -> dict[str, object]:
@@ -47,7 +54,9 @@ def state_leaves(res) -> dict[str, object]:
 
 
 def snapshot(cs: TorchConflictSet) -> dict:
-    """Snapshot of a port engine (device state copied to the host)."""
+    """Snapshot of a port engine (device state copied to the host), after
+    reconciling its in-flight speculative windows."""
+    cs.reconcile_all()
     mir = cs._mirror
     return {
         "config": {f: getattr(cs, f) for f in CONFIG_FIELDS}

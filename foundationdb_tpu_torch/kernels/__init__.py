@@ -29,6 +29,9 @@ _SIGNATURES = {
         "di_rewrite": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P],
         "di_rebase": [_P, _I, _P, _I, _I, _P],
     },
+    "dict_evict": {
+        "de_evict": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P],
+    },
     "history_probe": {
         "hp_table": [_P, _I, _I, _P, _P, _P],
         "hp_probe": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -147,6 +150,31 @@ def rebase_versions(arrays: list, delta: int) -> None:
         args += [_ptr(a), a.numel()]
     args += [None, 0] * (2 - len(arrays))
     _call("dict_insert", "di_rebase", arrays[0].device, *args, int(delta))
+
+
+# ----------------------------------------------------------------- K7
+
+
+def dict_evict(dict_keys: torch.Tensor, n_keys: torch.Tensor,
+               evict_ranks: torch.Tensor, n_ev: int):
+    """(compacted dictionary [D+1, W], new n_keys 0-dim, shift int32 [D+1]
+    with shift[r] = -(evicted ranks <= r)); ``evict_ranks`` [E] holds
+    strictly increasing ranks, INT32_MAX padded, ``n_ev`` of them real."""
+    d1, w = dict_keys.shape
+    e = evict_ranks.shape[0]
+    _check(dict_keys, _i32, "dict_keys")
+    _check(n_keys, _i32, "n_keys", ())
+    _check(evict_ranks, _i32, "evict_ranks", (e,))
+    if not 0 <= n_ev <= e:
+        raise ValueError(f"n_ev {n_ev} outside [0, {e}]")
+    dev = dict_keys.device
+    out = torch.empty_like(dict_keys)
+    new_n = torch.empty((), dtype=_i32, device=dev)
+    shift = torch.empty(d1, dtype=_i32, device=dev)
+    _call("dict_evict", "de_evict", dev, _ptr(dict_keys), d1, w,
+          _ptr(evict_ranks), int(n_ev), _ptr(n_keys), _ptr(out), _ptr(new_n),
+          _ptr(shift))
+    return out, new_n, shift
 
 
 # ----------------------------------------------------------------- K2

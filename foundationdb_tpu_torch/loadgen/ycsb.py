@@ -1,12 +1,14 @@
 """YCSB-A / mako / TPC-C shaped resolver streams (numpy only).
 
 A copy of the workload part of the repository's ``bench.py``: the run
-configurations, the scrambled bounded Zipf sampler, the stream generator
-and its version bookkeeping (one commit version per batch, MVCC window
-WINDOW versions, read versions lagging by at most MAX_LAG), plus a
-builder of per-batch ``TxnConflictInfo`` lists and the wire-blob
-assembler of the resolve stream (``build_wire_stream``). Keys are 8-byte
-big-endian ids; a point range is [key, key + b"\\x00").
+configurations, the scrambled bounded Zipf sampler and the shifting
+hotspot, the stream generator and its version bookkeeping (one commit
+version per batch, MVCC window WINDOW versions, read versions lagging by
+at most MAX_LAG), plus the per-batch ``TxnConflictInfo`` lists
+(``build_txns``), the wire-blob assembler of the resolve stream
+(``build_wire_stream``) and the dictionary counts a tiered engine is
+sized by (``dictionary_counts``).
+Keys are 8-byte big-endian ids; a point range is [key, key + b"\\x00").
 """
 
 from __future__ import annotations
@@ -59,12 +61,32 @@ def zipf_sampler(rng: np.random.Generator, n_keys: int, theta: float = 0.99):
 
 
 def gen_workload(n_txns: int, n_keys: int, seed: int,
-                 mode: ModeConfig = MODES["ycsb"]):
-    """Returns (read_ids [N, R], write_ids [N, Q], write_mask [N], lag [N])."""
+                 mode: ModeConfig = MODES["ycsb"],
+                 shifting_hotspot: bool = False):
+    """Returns (read_ids [N, R], write_ids [N, Q], write_mask [N], lag [N]).
+
+    ``shifting_hotspot`` replaces the Zipf draw by a walking hotspot: every
+    ``period`` txns the center of a window of ``span`` keys advances half
+    a span, so hot keys cool off and leave the MVCC window while the set
+    of keys ever touched grows with the stream (a tiered dictionary's
+    regime). With keys = 100x a hot capacity H the span is H/16 and the
+    walk takes 1/32 of the stream per step."""
     rng = np.random.default_rng(seed)
-    sample = zipf_sampler(rng, n_keys, mode.theta)
-    read_ids = sample((n_txns, mode.n_reads))
-    write_ids = sample((n_txns, mode.n_writes))
+    if shifting_hotspot:
+        span = max(64, n_keys // 1600)
+        period = max(mode.batch, n_txns // 32)
+        center = (np.arange(n_txns, dtype=np.int64) // period) \
+            * (span // 2) % n_keys
+
+        def draw(k):
+            off = rng.integers(0, span, (n_txns, k), dtype=np.int64)
+            return (center[:, None] + off) % n_keys
+
+        read_ids, write_ids = draw(mode.n_reads), draw(mode.n_writes)
+    else:
+        sample = zipf_sampler(rng, n_keys, mode.theta)
+        read_ids = sample((n_txns, mode.n_reads))
+        write_ids = sample((n_txns, mode.n_writes))
     write_mask = rng.random(n_txns) < mode.write_frac
     lag = np.minimum(rng.geometric(0.6, n_txns) - 1, MAX_LAG).astype(np.int64)
     return read_ids, write_ids, write_mask, lag
@@ -148,3 +170,28 @@ def build_wire_stream(read_ids, write_ids, write_mask, lag, n_batches,
     ends = np.zeros(n + 1, np.int64)
     np.cumsum(rec_len, out=ends[1:])
     return blob, ends
+
+
+def dictionary_counts(read_ids, write_ids, write_mask, batch: int,
+                      window: int) -> dict:
+    """Dictionary keys of the stream, per window of ``window`` batches (a
+    point key brings two: the key and key + b"\\x00"): ``new`` (keys
+    never seen before: an untiered engine's delta), ``in_window`` (keys
+    used by this window or the WINDOW // window before it: the set a
+    tiered engine may not demote at this window's pack) and ``touched``
+    (every key seen so far). Host counts only, no engine."""
+    per = batch * window
+    n_windows = read_ids.shape[0] // per
+    last = np.full(int(max(read_ids.max(), write_ids.max())) + 1, -1,
+                   np.int64)
+    out = {"new": [], "in_window": [], "touched": []}
+    for w in range(n_windows):
+        s = slice(w * per, (w + 1) * per)
+        ids = np.unique(np.concatenate([read_ids[s].ravel(),
+                                        write_ids[s][write_mask[s]].ravel()]))
+        out["new"].append(2 * int((last[ids] < 0).sum()))
+        last[ids] = w
+        floor = max(0, w - WINDOW // window)
+        out["in_window"].append(2 * int((last >= floor).sum()))
+        out["touched"].append(2 * int((last >= 0).sum()))
+    return out

@@ -13,6 +13,7 @@ tests hold against the JAX package byte for byte. On a CUDA tensor it
 launches the hand-written kernel (kernels/csrc/*.cu) and never falls back:
 
 - K1 ``dict_insert.cu``: dictionary insert, rank-row rewrites, version rebase;
+- K7 ``dict_evict.cu``: the tiered dictionary's demotion (evict, shift table);
 - K2 ``history_probe.cu``: sparse-table build, history probe, too-old mask;
 - K3 ``accept.cu``: overlap rows, sequential acceptance, verdicts, losers;
 - K4 ``step_compact.cu``: paint, base+delta fold, dedup and compaction;
@@ -23,7 +24,10 @@ The window program ``resolve_many_res`` (the JAX ``lax.scan`` of
 the launch sequence of K1 once for the window's delta, then K2, K3 (or
 K5 and K6) and K4 for each of the k batches, with no host sync inside the
 window. The two-phase wave protocol (``wave_edges_res`` /
-``wave_apply_res``) is a launch sequence over K1, K2, K5 and K6, K4.
+``wave_apply_res``) is a launch sequence over K1, K2, K5 and K6, K4. The
+speculative engine's paint-only re-advance ``paint_many_res`` is K1 once,
+then per step the gated K4 fold and a K4 paint with a host-forced accept
+mask; its rollback target is ``snapshot_res``, a deep copy of the state.
 
 JAX donates the state argument of every entry point. Here each function
 that takes a state CONSUMES it: on the card the history arrays are updated
@@ -56,7 +60,7 @@ _ACCEPT_BLOCK = 512
 
 # Window launch sequences issued on the card (resolve_many_res), counted
 # like the kernel launches in kernels.LAUNCHES.
-LAUNCHES = {"resolve_many": 0}
+LAUNCHES = {"resolve_many": 0, "paint_many": 0}
 
 
 def reset_launches() -> None:
@@ -838,6 +842,49 @@ def apply_delta(res: ResState, delta_keys, n_new: int | None = None):
     return _rewrite_res_ranks(res, shift, False, nd, nn)
 
 
+def _dict_evict_plain(dict_keys, n_keys, evict_ranks):
+    d1 = dict_keys.shape[0]
+    dev = dict_keys.device
+    real = evict_ranks != INT32_MAX
+    i = torch.arange(evict_ranks.shape[0], dtype=torch.int32, device=dev)
+    adj = torch.where(real, evict_ranks - i, INT32_MAX).contiguous()
+    j = torch.arange(d1, dtype=torch.int32, device=dev)
+    t = torch.searchsorted(adj, j, right=True).to(torch.int32)
+    out = dict_keys[(j + t).clamp(0, d1 - 1).long()]
+    new_n = n_keys - real.sum().to(torch.int32)
+    out = torch.where((j < new_n)[:, None], out, INT32_MAX)
+    shift = -torch.searchsorted(evict_ranks.contiguous(), j,
+                                right=True).to(torch.int32)
+    return out, new_n, shift
+
+
+def _dict_evict(dict_keys, n_keys, evict_ranks, n_ev: int):
+    """Remove the ``n_ev`` strictly increasing ranks at the head of
+    ``evict_ranks`` (INT32_MAX padded) from the dictionary, the inverse of
+    ``_dict_insert``. Returns (new dict, new n_keys, shift) with
+    shift[r] = -(evicted ranks <= r): a surviving rank r becomes
+    r + shift[r]. On the card, K7."""
+    if _on_card(dict_keys):
+        return K.dict_evict(dict_keys, n_keys, evict_ranks, n_ev)
+    return _dict_evict_plain(dict_keys, n_keys, evict_ranks)
+
+
+def apply_evict(res: ResState, evict_ranks, n_ev: int | None = None):
+    """Fold a demotion delta into the resident state: evict the ranks from
+    the dictionary (K7) and shift every history rank and shard bound down
+    past them (K1's rewrite), the mirror image of ``apply_delta``. The
+    host guarantees that no evicted rank is still referenced. The JAX
+    ``lax.cond`` on an empty delta is decided on the host from ``n_ev``
+    (the chunk's real count); without it, the count is read from the
+    device."""
+    if n_ev is None:
+        n_ev = int((evict_ranks != INT32_MAX).sum())
+    if n_ev == 0:
+        return res
+    nd, nn, shift = _dict_evict(res.dict_keys, res.n_keys, evict_ranks, n_ev)
+    return _rewrite_res_ranks(res, shift, False, nd, nn)
+
+
 def apply_dict_remap(res: ResState, new_dict, new_n, remap) -> ResState:
     """Full-repack tail: swap in the host-rebuilt dictionary and remap
     every device-held rank through ``remap`` (in place on the card)."""
@@ -1008,21 +1055,25 @@ def _resolve_core_res_plain(hist: HistState, rbk: RankBatch,
     return (verdicts, levels, new_hist) if wave else (verdicts, new_hist)
 
 
+def _apply_delta_plain(res: ResState, delta_keys) -> ResState:
+    """``apply_delta`` through the plain versions only."""
+    if not bool((~(delta_keys == INT32_MAX).all(-1)).any()):
+        return res
+    nd, nn, shift = _dict_insert_plain(res.dict_keys, res.n_keys, delta_keys)
+    h = res.hist
+    bk, dk, lo, hi = _rewrite_ranks_plain(
+        [h.base.keys, h.delta.keys, res.shard_lo, res.shard_hi], shift, False)
+    return ResState(nd, nn, HistState(h.base._replace(keys=bk), h.base_st,
+                                      h.delta._replace(keys=dk)), lo, hi)
+
+
 def resolve_many_res_plain(res: ResState, rb: ResidentBatch,
                            commit_versions, new_oldests, wave: bool = False,
                            stats=None):
     """Plain version of the window program: one ``apply_delta`` for the
     window's delta, then k resolve steps in order. Returns (stacked
     verdicts int8 [k, B][, levels int32 [k, B]], new ResState)."""
-    if bool((~(rb.delta_keys == INT32_MAX).all(-1)).any()):
-        nd, nn, shift = _dict_insert_plain(res.dict_keys, res.n_keys,
-                                           rb.delta_keys)
-        h = res.hist
-        bk, dk, lo, hi = _rewrite_ranks_plain(
-            [h.base.keys, h.delta.keys, res.shard_lo, res.shard_hi], shift,
-            False)
-        res = ResState(nd, nn, HistState(h.base._replace(keys=bk), h.base_st,
-                                         h.delta._replace(keys=dk)), lo, hi)
+    res = _apply_delta_plain(res, rb.delta_keys)
     hist = res.hist
     rows = []
     for i in range(rb.ranks.read_begin.shape[0]):
@@ -1074,6 +1125,80 @@ def resolve_many_res(res: ResState, rb: ResidentBatch, commit_versions,
             levels_out=out.levels[i] if wave else None)
     got = (out.verdicts, out.levels) if wave else (out.verdicts,)
     return (*got, res._replace(hist=hist))
+
+
+# ---------------------------------------------------------------------------
+# B2 (resident): the speculation ring's snapshot and paint-only re-advance
+# ---------------------------------------------------------------------------
+#
+# A speculative engine dispatches window N+1 against the state window N
+# advanced before N is confirmed. Rolling N back swaps in a snapshot taken
+# before N's dispatch and re-paints N with only the confirmed accepts: the
+# same delta merge, fold and paint as the resolve, minus the decision.
+
+
+def snapshot_res(res):
+    """A deep copy of every leaf of a state tree. The card path updates
+    the state in place (K1 rewrite, K4 fold and paint, rebase), so a
+    rollback target that shared storage with the live state would be
+    overwritten by the very windows it is meant to undo."""
+    if isinstance(res, torch.Tensor):
+        return res.clone()
+    return type(res)(*(snapshot_res(x) for x in res))
+
+
+def _paint_core_res_plain(hist: HistState, rbk: RankBatch, accepted,
+                          commit_version: int, new_oldest) -> HistState:
+    floor, _ = too_old_mask_packed(hist.delta, rbk, new_oldest)
+    hist = _maybe_merge_plain(hist, write_demand(rbk), floor)
+    delta = _paint_and_compact_res_plain(hist.delta, rbk, accepted,
+                                         commit_version, floor)
+    return HistState(hist.base, hist.base_st, delta)
+
+
+def paint_many_res_plain(res: ResState, rb: ResidentBatch, accepted,
+                         commit_versions, new_oldests) -> ResState:
+    """Plain version of the paint-only window: ``_apply_delta_plain`` once,
+    then per step the too-old floor, the demand-driven fold and a paint of
+    the forced ``accepted`` [k, B] mask."""
+    res = _apply_delta_plain(res, rb.delta_keys)
+    hist = res.hist
+    for i in range(rb.ranks.read_begin.shape[0]):
+        hist = _paint_core_res_plain(hist, _step(rb.ranks, i), accepted[i],
+                                     int(commit_versions[i]),
+                                     int(new_oldests[i]))
+    return res._replace(hist=hist)
+
+
+def paint_many_res(res: ResState, rb: ResidentBatch, accepted,
+                   commit_versions, new_oldests, n_new: int | None = None,
+                   demands=None) -> ResState:
+    """Paint-only re-advance of a rolled-back window (the JAX
+    ``paint_many_res``): the window's delta re-applies exactly as its
+    resolve applied it (a snapshot predates the insert), then each step
+    paints the host-forced accept mask ``accepted`` bool [k, B] after the
+    same demand-driven fold. On the card: K1 once, then per step the
+    gated K4 fold (and K2 table) and a K4 paint; ``n_new`` and
+    ``demands`` are the host counts the window's resolve used, so the
+    replay inserts and folds exactly as it did. No host sync."""
+    if not _on_card(res.dict_keys):
+        return paint_many_res_plain(res, rb, accepted, commit_versions,
+                                    new_oldests)
+    k = rb.ranks.txn_mask.shape[0]
+    if demands is None or len(demands) != k:
+        raise ValueError("the card's paint-only window needs one host-known "
+                         "write demand per step")
+    LAUNCHES["paint_many"] += 1
+    res = apply_delta(res, rb.delta_keys, n_new)
+    hist = res.hist
+    for i in range(k):
+        rbk = _step(rb.ranks, i)
+        floor, _ = too_old_mask_packed(hist.delta, rbk, int(new_oldests[i]))
+        hist = _maybe_merge(hist, int(demands[i]), floor)
+        delta = _paint_and_compact_res(hist.delta, rbk, accepted[i],
+                                       int(commit_versions[i]), floor)
+        hist = HistState(hist.base, hist.base_st, delta)
+    return res._replace(hist=hist)
 
 
 # ---------------------------------------------------------------------------

@@ -13,9 +13,13 @@ path the bench drives: ``resolve_wire``/``resolve_wire_async`` (one batch
 of serialized transactions, packed by one C pass) and the window path
 ``resolve_wire_window``/``pack_wire_window``/``dispatch_window`` (k
 batches at k commit versions in one device launch sequence,
-``conflict_kernel.resolve_many_res``); and, for a wave engine, the
-two-phase global wave protocol of sharded resolvers (``resolve_edges`` /
-``resolve_apply``, payloads in ``core/wavemesh.py``).
+``conflict_kernel.resolve_many_res``); for a wave engine, the two-phase
+global wave protocol of sharded resolvers (``resolve_edges`` /
+``resolve_apply``, payloads in ``core/wavemesh.py``); the tiered HBM/host
+dictionary (``dict_hot_capacity``: demotion by K7 at the hot watermark,
+promotion through the ordinary delta); and speculative window and object
+resolve (``spec_resolve``: ``spec_dispatch_window``, ``reconcile_window``,
+``spec_resolve_async``).
 
 The host packs byte ranges into rank space against a mirror of the device
 dictionary, ships only never-seen keys, chunks oversized batches (chunks
@@ -24,23 +28,28 @@ absolute/relative version mapping. Device reads are explicit
 ``.cpu()`` calls, each counted in ``host_syncs``: one per chunk at
 collect (two for a report chunk), one per window at collect, one per
 ``headroom()``, ``overflowed`` or ``wave_stats`` call, one per full
-repack, two per ``resolve_edges`` and one per ``resolve_apply``. A wave
-engine's levels share their chunk's or window's one read with the
-verdicts. Dispatch itself never waits on the device: the fold decision
+repack or demotion event (the device liveness), two per
+``resolve_edges`` and one per ``resolve_apply``. A wave engine's levels
+share their chunk's or window's one read with the verdicts; a
+speculative window's one read is shared by its reconcile and its
+collector, and a repair adds one read per re-resolved younger window. Dispatch itself never waits on the device: the fold decision
 stays on the device and the insert decision comes from the mirror.
 
 The window path splits into a host half (``pack_wire_window``: numpy and
 ctypes only, safe on a packing thread) and a device half
 (``dispatch_window``: uploads and launches, on the dispatching thread, in
-pack order). A rebase or a full dictionary repack that falls due while
-packing is deferred into the prepared window and run by its dispatch;
-the mirror's gate holds the next pack until that repack has run.
+pack order). A rebase, a full dictionary repack or a tiered demotion
+that falls due while packing is deferred into the prepared window and
+run by its dispatch; the mirror's gate holds the next pack until it has
+run (for a demotion, until the stalled window is re-packed too).
 """
 
 from __future__ import annotations
 
 import struct
 import threading
+from collections import deque
+from dataclasses import dataclass
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -169,25 +178,50 @@ class _RepackPlan(NamedTuple):
     cv: int
 
 
+class _DemotePlan(NamedTuple):
+    """A pack whose merged key count crossed a tiered engine's hot-tier
+    watermark, deferred to the dispatch thread like a _RepackPlan: victim
+    selection reads the exact device liveness, which only the dispatch
+    thread may do. Executed by :meth:`TorchConflictSet._demote_and_rank`;
+    the device traffic is a small evict rank vector per chunk (K7), not
+    a dictionary."""
+
+    bt: object  # the raw HostBatch (key space)
+    qu: np.ndarray  # [n, U] endpoint u64 keys, flat pack order
+    is_pad: np.ndarray  # [n] all-inf rows (masked slots / +inf ends)
+    new_u64: np.ndarray  # sorted-unique delta keys (misses + promotions)
+    new_rows: np.ndarray  # their int32 rows
+    dims: tuple  # (lead, b, r, q, w)
+    cv: int
+
+
 _HASH_C1 = np.uint64(0x9E3779B97F4A7C15)
 _HASH_C2 = np.uint64(0xFF51AFD7ED558CCD)
 
 
 class _ResidentMirror:
-    """Host mirror of the device-resident dictionary (untiered).
+    """Host mirror of the device-resident dictionary.
 
     A sorted view (u64/rows/pinned: the rank space the device shares) and
     a stable ID space probed through a vectorized open-addressing hash
     table (slot -> id, linear probing, load factor <= 1/4). Ids are
     append-only between resets; ``rank_of_id`` is rewritten on every
     insert so id -> current rank stays exact as inserts shift the rank
-    space. Field names match the JAX mirror so a snapshot maps 1:1."""
+    space. Field names match the JAX mirror so a snapshot maps 1:1.
+
+    Tiered (``tiered=True``): the ID space is the authoritative host COLD
+    store. Demoted keys keep their id, hash entry, u64 row and last-used
+    version; only the sorted (hot, rank-space) view shrinks, and
+    ``hot_by_id`` says which ids are in it. A probe still finds a cold
+    key, and the pack re-enters it through the ordinary delta with the
+    same id (a promotion)."""
 
     def __init__(self, rows: np.ndarray, capacity: int, delta_slots: int,
-                 frag_threshold: float):
+                 frag_threshold: float, tiered: bool = False):
         self.capacity = int(capacity)
         self.delta_slots = int(delta_slots)
         self.frag_threshold = float(frag_threshold)
+        self.tiered = bool(tiered)
         self._n_ids = 0
         rows = np.asarray(rows, np.int32).copy()
         u64 = _rows_to_u64(rows)
@@ -200,6 +234,7 @@ class _ResidentMirror:
                                   np.uint64)
         self.rank_of_id = np.zeros(self.capacity + 1, np.int64)
         self.last_used_by_id = np.zeros(self.capacity + 1, np.int64)
+        self.hot_by_id = np.zeros(self.capacity + 1, bool)
         self.reset(u64, rows, np.zeros(len(rows), np.int64),
                    np.ones(len(rows), bool))
         self.lock = threading.RLock()
@@ -217,11 +252,22 @@ class _ResidentMirror:
             "evictions": 0,
             "full_repacks": 0,
             "repack_stalls": 0,  # window packs that deferred a repack
+            # Tiered-dictionary economics (zero when untiered):
+            "demotions": 0,  # keys moved hot -> cold by K7
+            "promotions": 0,  # cold keys that re-entered through a delta
+            "demotion_stalls": 0,  # window packs that deferred a demotion
+            "demotion_bytes": 0,  # evict-vector bytes shipped to the card
+            "demotion_events": 0,  # _demote_now calls that evicted > 0
         }
 
     @property
     def n(self) -> int:
         return len(self.u64)
+
+    @property
+    def cold_n(self) -> int:
+        """Keys held only in the host cold tier (0 when untiered)."""
+        return self._n_ids - self.n
 
     def _hash(self, u64: np.ndarray) -> np.ndarray:
         h = u64[:, 0] * _HASH_C1
@@ -232,8 +278,29 @@ class _ResidentMirror:
         )
 
     def reset(self, u64, rows, last_used, pinned) -> None:
-        """Rebuild every view from a fresh sorted key set (repack path)."""
+        """Rebuild the sorted view from a fresh sorted key set (repack
+        path). Untiered, the ID space rebuilds too (ids == sorted
+        positions). Tiered, it survives: existing keys keep their ids,
+        keys that leave the hot view demote instead of vanishing, and new
+        keys allocate fresh ids, so a repack never forgets the cold tier."""
         n = len(u64)
+        if self.tiered and self._n_ids:
+            ids = self.probe(u64)
+            alloc = np.flatnonzero(ids < 0)
+            self._ensure_ids(self._n_ids + len(alloc))
+            fresh = self._n_ids + np.arange(len(alloc), dtype=np.int64)
+            ids[alloc] = fresh
+            self.u64_by_id[fresh] = u64[alloc]
+            self._n_ids += len(alloc)
+            self.u64, self.rows = u64, rows
+            self.pinned = pinned
+            self.hot_by_id[: self._n_ids] = False
+            self.hot_by_id[ids] = True
+            self.last_used_by_id[ids] = last_used
+            self.id_at = ids
+            self.rank_of_id[ids] = np.arange(n)
+            self._tab_insert(fresh)
+            return
         self.u64, self.rows = u64, rows
         self.pinned = pinned
         self._n_ids = n
@@ -241,8 +308,52 @@ class _ResidentMirror:
         self.last_used_by_id[:n] = last_used  # ids == sorted pos at reset
         self.id_at = np.arange(n, dtype=np.int64)  # sorted pos -> id
         self.rank_of_id[:n] = np.arange(n)
+        self.hot_by_id[:] = False
+        self.hot_by_id[:n] = True
         self.tab[:] = -1
         self._tab_insert(np.arange(n, dtype=np.int64))
+
+    def _ensure_ids(self, need: int) -> None:
+        """Grow the ID-space arrays (and rehash the probe table when its
+        1/4 load bound would break), so that the cold tier scales with the
+        keys ever touched while the hot view stays at its capacity."""
+        cur = len(self.u64_by_id)
+        if need > cur:
+            new = cur
+            while new < need:
+                new <<= 1
+            grow = new - cur
+            self.u64_by_id = np.concatenate(
+                [self.u64_by_id,
+                 np.zeros((grow, self.u64_by_id.shape[1]), np.uint64)])
+            self.rank_of_id = np.concatenate(
+                [self.rank_of_id, np.zeros(grow, np.int64)])
+            self.last_used_by_id = np.concatenate(
+                [self.last_used_by_id, np.zeros(grow, np.int64)])
+            self.hot_by_id = np.concatenate(
+                [self.hot_by_id, np.zeros(grow, bool)])
+        if need * 4 > self._mask + 1:
+            t = int(self._mask + 1)
+            while need * 4 > t:
+                t <<= 1
+            self._mask = np.int64(t - 1)
+            self.tab = np.full(t, -1, np.int64)
+            self._tab_insert(np.arange(self._n_ids, dtype=np.int64))
+
+    def demote(self, ranks: np.ndarray) -> np.ndarray:
+        """Drop the sorted-view rows at ``ranks`` (the host half of a K7
+        evict delta). Their ids stay in the cold store, so a later probe
+        finds them and a promotion re-enters them with the same id.
+        Returns the demoted ids."""
+        ids = self.id_at[ranks]
+        self.u64 = np.delete(self.u64, ranks, axis=0)
+        self.rows = np.delete(self.rows, ranks, axis=0)
+        self.pinned = np.delete(self.pinned, ranks)
+        self.id_at = np.delete(self.id_at, ranks)
+        self.rank_of_id[self.id_at] = np.arange(len(self.id_at))
+        self.hot_by_id[ids] = False
+        self.stats["demotions"] += len(ids)
+        return ids
 
     def probe(self, qu: np.ndarray, active: "np.ndarray | None" = None):
         """ids int64 [n] (-1 = absent) for each query key row."""
@@ -284,20 +395,33 @@ class _ResidentMirror:
         """Rank-space view of the last-used versions (repack path)."""
         return self.last_used_by_id[self.id_at]
 
-    def insert_new(self, new_u64, new_rows, cv: int) -> np.ndarray:
-        """Incremental sorted insert of delta keys; returns their ids."""
+    def insert_new(self, new_u64, new_rows, cv: int,
+                   ids: np.ndarray | None = None) -> np.ndarray:
+        """Incremental sorted insert of delta keys; returns their ids.
+
+        ``ids`` (the tiered promotion path): per row its existing cold id,
+        or -1 for a key never seen. Cold keys re-enter the sorted view
+        with their id; only the -1 rows allocate (untiered: all of them,
+        within the ID space a reset sized)."""
         m = len(new_u64)
         ins = _u64_searchsorted(self.u64, new_u64, "left")
         self.u64 = np.insert(self.u64, ins, new_u64, axis=0)
         self.rows = np.insert(self.rows, ins, new_rows, axis=0)
         self.pinned = np.insert(self.pinned, ins, False)
-        new_ids = self._n_ids + np.arange(m, dtype=np.int64)
-        self.u64_by_id[new_ids] = new_u64
+        new_ids = (np.full(m, -1, np.int64) if ids is None
+                   else np.asarray(ids, np.int64).copy())
+        alloc = np.flatnonzero(new_ids < 0)
+        self._ensure_ids(self._n_ids + len(alloc))
+        fresh = self._n_ids + np.arange(len(alloc), dtype=np.int64)
+        new_ids[alloc] = fresh
+        self.u64_by_id[fresh] = new_u64[alloc]
         self.last_used_by_id[new_ids] = cv
-        self._n_ids += m
+        self._n_ids += len(alloc)
         self.id_at = np.insert(self.id_at, ins, new_ids)
         self.rank_of_id[self.id_at] = np.arange(len(self.id_at))
-        self._tab_insert(new_ids)
+        self.hot_by_id[new_ids] = True
+        self.stats["promotions"] += m - len(alloc)
+        self._tab_insert(fresh)
         return new_ids
 
     def _tab_insert(self, ids: np.ndarray) -> None:
@@ -322,8 +446,10 @@ class _ResidentMirror:
                 raise RuntimeError("resident hash table full")
 
     def frag_due(self, floor_version: int) -> bool:
-        """Opportunistic-repack trigger: mostly full AND mostly stale."""
-        if self.n <= self.capacity // 2:
+        """Opportunistic-repack trigger: mostly full AND mostly stale. Off
+        when tiered: stale keys leave through demotion there, and a stale
+        but device-live key cannot be reclaimed by a repack either."""
+        if self.tiered or self.n <= self.capacity // 2:
             return False
         stale = int(
             (self.last_used_by_id[: self._n_ids] < floor_version).sum()
@@ -365,11 +491,26 @@ class PreparedWindow(NamedTuple):
     """A host-packed window awaiting ``dispatch_window``: pure host data,
     made by ``pack_wire_window`` (possibly on a packing thread)."""
 
-    batch: object  # HostRankBatch, k-leading; or a deferred _RepackPlan
+    batch: object  # HostRankBatch, k-leading; or a _RepackPlan/_DemotePlan
     cvs_rel: np.ndarray  # int32 [k] relative commit versions
     olds_rel: np.ndarray  # int32 [k] relative oldest versions
     count: int  # real txns per batch
     rebase_delta: int  # deferred device rebase; applied before dispatch
+
+
+@dataclass
+class _SpecPending:
+    """One speculatively dispatched window awaiting reconcile."""
+
+    seq: int
+    snapshot: ck.ResState  # deep copy of the state BEFORE the dispatch
+    hb: HostRankBatch  # host leaves: n_new, demands, txn_mask [k, B]
+    rb: ck.ResidentBatch  # the uploaded batch, replayed by a repair
+    cvs_rel: np.ndarray
+    olds_rel: np.ndarray
+    count: int
+    out: ck.WindowOut  # verdicts (and levels) on the card until read
+    read: tuple | None = None  # (verdicts, levels) [k, B] once read
 
 
 def upload(hb: HostRankBatch, device: torch.device) -> ck.ResidentBatch:
@@ -430,10 +571,29 @@ class TorchConflictSet:
     """Drop-in conflict engine: resolve(txns, commit_version) -> verdicts.
 
     ``device=None`` runs on ``cuda`` (and raises without a card);
-    ``device="cpu"`` runs the plain torch versions. The default design
-    point and its wave-commit arm (``wave_commit=True``: reorder, don't
-    abort) are ported; the arguments that select another design raise
-    ``NotImplementedError`` naming the ROADMAP item that ports it."""
+    ``device="cpu"`` runs the plain torch versions. Ported: the default
+    design point (the resident rank-space engine), its wave-commit arm
+    (``wave_commit=True``: reorder, don't abort), the tiered HBM/host
+    dictionary (``dict_hot_capacity > 0``) and speculative window resolve
+    (``spec_resolve=True``), in any combination. ``resident=False`` (the
+    non-resident design matrix) raises ``NotImplementedError`` naming the
+    ROADMAP item that ports it.
+
+    Tiered: the device dictionary is the HOT tier of ``dict_hot_capacity``
+    keys (``dict_capacity`` becomes that, the delta slots are capped at
+    half of it) and the mirror's ID space the host COLD store. When a
+    pack would leave less than one delta of headroom (the watermark,
+    capacity minus delta slots), unused keys are demoted in rank chunks
+    of ``dict_demote_batch`` (default: the delta slots) by K7 instead of
+    a full repack.
+
+    Speculative: windows dispatch against the state the unconfirmed
+    earlier windows advanced, at most ``spec_depth`` in flight, each with
+    a snapshot of the state before it. ``reconcile_window`` confirms the
+    oldest or, when ``spec_confirm_hook`` (or the caller) revokes some of
+    its accepted txns, rolls back to its snapshot, re-paints it with the
+    confirmed accepts only (``paint_many_res``) and re-resolves every
+    younger window."""
 
     def __init__(
         self,
@@ -449,21 +609,15 @@ class TorchConflictSet:
         dict_capacity: int | None = None,
         dict_delta_slots: int | None = None,
         dict_hot_capacity: int | None = None,
+        dict_demote_batch: int | None = None,
         spec_resolve: bool | None = None,
+        spec_depth: int = 2,
         device=None,
     ):
-        for flag, value, item in (
-            ("resident=False", resident is False,
-             "Queue 1 item 10 (design-matrix alternates)"),
-            ("dict_hot_capacity>0", bool(dict_hot_capacity),
-             "Queue 1 item 8 (tiered dictionary)"),
-            ("spec_resolve=True", spec_resolve,
-             "Queue 1 item 7 (speculative resolve)"),
-        ):
-            if value:
-                raise NotImplementedError(
-                    f"TorchConflictSet({flag}) is not ported yet: see "
-                    f"ROADMAP.md {item}")
+        if resident is False:
+            raise NotImplementedError(
+                "TorchConflictSet(resident=False) is not ported yet: see "
+                "ROADMAP.md Queue 1 item 10 (design-matrix alternates)")
         if (wave_commit and batch_size > K.WAVE_MAX_TXNS
                 and torch.device("cuda" if device is None else device).type
                 == "cuda"):
@@ -486,6 +640,37 @@ class TorchConflictSet:
                    max(1024, 2 * batch_size * (max_read_ranges
                                                + max_write_ranges)))
         )
+        # Tiered: the device dictionary becomes the hot tier.
+        self.dict_hot_capacity = int(dict_hot_capacity or 0)
+        self.tiered = self.dict_hot_capacity > 0
+        if self.tiered:
+            self.dict_capacity = self.dict_hot_capacity
+            self.dict_delta_slots = min(self.dict_delta_slots,
+                                        max(1, self.dict_hot_capacity // 2))
+        # The static evict-vector width (K7 runs once per chunk of it) and
+        # the key count past which a pack demotes first.
+        self.dict_demote_batch = (int(dict_demote_batch
+                                      or self.dict_delta_slots)
+                                  if self.tiered else 0)
+        self._demote_watermark = (
+            max(1, self.dict_capacity - self.dict_delta_slots)
+            if self.tiered else 0)
+        self.spec_resolve = bool(spec_resolve)
+        self.spec_depth = max(1, int(spec_depth))
+        self._spec_ring: deque[_SpecPending] = deque()
+        self._spec_seq = 0
+        self._spec_done: dict[int, tuple] = {}
+        self._spec_stats = {
+            "spec_dispatched": 0,  # windows dispatched speculatively
+            "spec_confirmed": 0,  # reconciled with no rollback
+            "spec_repaired": 0,  # reconciled through rollback + repair
+            "spec_flipped": 0,  # younger-window accepts changed by repair
+            "chain_rolls": 0,  # state rolled back to a snapshot
+        }
+        # Upper-layer confirmation: hook(seq, verdicts int8 [k, count]) ->
+        # bool [k, count] (False revokes that txn's speculative outcome)
+        # or None to confirm the whole window. None confirms every window.
+        self.spec_confirm_hook: Callable | None = None
         self.wave_commit = bool(wave_commit)
         self.capacity = capacity
         self.batch_size = batch_size
@@ -523,7 +708,7 @@ class TorchConflictSet:
         self.host_syncs = 0  # device -> host reads, see the module docstring
         self._mirror = _ResidentMirror(
             self.codec.min_key[None, :], self.dict_capacity,
-            self.dict_delta_slots, _DICT_FRAG,
+            self.dict_delta_slots, _DICT_FRAG, tiered=self.tiered,
         )
         self.state = ck.init_res(
             self._mirror.rows, self.dict_capacity, self.capacity,
@@ -595,9 +780,16 @@ class TorchConflictSet:
         Overflow or fragmentation forces a full repack, which reads the
         device: inline, or with ``defer_repack`` (the window path's
         packing thread) returned as a _RepackPlan for ``dispatch_window``
-        to run, with the mirror's gate cleared so the next pack waits."""
+        to run, with the mirror's gate cleared so the next pack waits. A
+        tiered engine's crossing of the hot watermark demotes first, in
+        the same two ways (a _DemotePlan when deferred)."""
+        self._mirror.gate.wait()
+        return self._pack_ranked(bt, defer_repack)
+
+    def _pack_ranked(self, bt: HostBatch, defer_repack: bool = False):
+        """``_pack_resident`` past the gate (a deferred demotion re-packs
+        its window here with the gate still closed)."""
         mir = self._mirror
-        mir.gate.wait()
         flat, dims = self._flat_endpoints(bt)
         qu = _rows_to_u64(flat)
         pad = _rows_to_u64(np.full((1, dims[-1]), INT32_MAX, np.int32))[0]
@@ -606,7 +798,15 @@ class TorchConflictSet:
             is_pad &= qu[:, j] == pad[j]
         ids = mir.probe(qu, ~is_pad)
         found = ids >= 0
-        miss = ~found & ~is_pad
+        if self.tiered:
+            # A cold-tier hit re-enters through the same delta as a key
+            # never seen (a promotion): only hot hits skip the delta.
+            hot_hit = np.zeros(len(ids), bool)
+            f = np.flatnonzero(found)
+            hot_hit[f] = mir.hot_by_id[ids[f]]
+        else:
+            hot_hit = found
+        miss = ~hot_hit & ~is_pad
         mi = np.flatnonzero(miss)
         if mi.size:
             new_u64, new_rows = _u64_unique_sorted(qu[mi], flat[mi])
@@ -615,27 +815,46 @@ class TorchConflictSet:
             new_rows = np.zeros((0, dims[-1]), np.int32)
         m = len(new_u64)
         cv = self._last_commit
-        if (m > self.dict_delta_slots or mir.n + m > mir.capacity
+        plan = (bt, qu, is_pad, new_u64, new_rows, dims, cv)
+        if (m > self.dict_delta_slots
+                or (not self.tiered and mir.n + m > mir.capacity)
                 or mir.frag_due(self.oldest_version)):
-            plan = _RepackPlan(bt, qu, is_pad, new_u64, new_rows, dims, cv)
             if defer_repack:
                 mir.gate.clear()
                 mir.stats["repack_stalls"] += 1
-                return plan
-            return self._repack_and_rank(plan)
+                return _RepackPlan(*plan)
+            return self._repack_and_rank(_RepackPlan(*plan))
+        if self.tiered and mir.n + m > self._demote_watermark:
+            if defer_repack:
+                mir.gate.clear()
+                mir.stats["demotion_stalls"] += 1
+                return _DemotePlan(*plan)
+            self._demote_now(m, protect=(qu, is_pad))
+            if mir.n + m > mir.capacity:
+                # Demotion could not free enough room (every candidate
+                # pinned, device-live or recent): the full repack.
+                return self._repack_and_rank(_RepackPlan(*plan))
         with mir.lock:
-            mir.touch(ids[found], cv)
+            mir.touch(ids[hot_hit], cv)
             if m:
+                # Every miss is in the new set; its index there maps it to
+                # its id (a tiered engine: its cold id, or -1 when new).
                 pos = _u64_searchsorted(new_u64, qu[mi], "left")
-                new_ids = mir.insert_new(new_u64, new_rows, cv)
+                if self.tiered:
+                    row_ids = np.full(m, -1, np.int64)
+                    row_ids[pos] = ids[mi]
+                    new_ids = mir.insert_new(new_u64, new_rows, cv,
+                                             ids=row_ids)
+                else:
+                    new_ids = mir.insert_new(new_u64, new_rows, cv)
                 ids[mi] = new_ids[pos]
             ranks = mir.rank_of_id[np.maximum(ids, 0)].astype(np.int32)
             ranks[is_pad | (ids < 0)] = INT32_MAX
             st = mir.stats
             st["dispatches"] += 1
             st["endpoints"] += int((~is_pad).sum())
-            st["endpoint_hits"] += int(found.sum())
-            fid = ids[found]
+            st["endpoint_hits"] += int(hot_hit.sum())
+            fid = ids[hot_hit]
             uniq_found = (
                 int(np.bincount(fid, minlength=1).astype(bool).sum())
                 if fid.size else 0
@@ -736,19 +955,101 @@ class TorchConflictSet:
             np.zeros((0, plan.dims[-1]), np.int32),
         )
 
+    def _demote_now(self, incoming: int, protect=None) -> int:
+        """Demote unused hot-tier keys to the host cold store (dispatch
+        thread only: the victim selection reads the device liveness).
+
+        Victims, in exclusion order: pinned keys never move; ranks the
+        device history still references stay (evicting one would skew
+        every younger rank through the shift table); keys used inside the
+        MVCC window (last used >= oldest_version) stay; the current
+        dispatch's keys (``protect``: its probed u64 rows) stay. The JAX
+        engine also keeps keys that an attached admission filter reports
+        written since the floor; the port has no admission filter yet
+        (ROADMAP Queue 1 item 12), so that exclusion waits for it. The
+        survivors demote oldest-last-used first, enough to get past the
+        watermark plus half an evict chunk, as K7 launches on ascending
+        chunks of ``dict_demote_batch`` ranks, each rebased by the count
+        already gone. Returns the count demoted (0: nothing evictable)."""
+        mir = self._mirror
+        with mir.lock:
+            used = mir.used_sorted()
+            cand = ~mir.pinned & (used < self.oldest_version)
+            cand[self._device_live_ranks()] = False
+            if protect is not None:
+                qu, is_pad = protect
+                pids = mir.probe(qu, ~is_pad)
+                pf = pids[pids >= 0]
+                cand[mir.rank_of_id[pf[mir.hot_by_id[pf]]]] = False
+            idx = np.flatnonzero(cand)
+            if not idx.size:
+                return 0
+            # Free past the watermark plus half a chunk of hysteresis, so
+            # that the next windows' deltas fit without demoting again.
+            over = mir.n + incoming - self._demote_watermark
+            want = min(idx.size, max(over, 0)
+                       + max(1, self.dict_demote_batch // 2))
+            order = np.sort(idx[np.argsort(used[idx], kind="stable")[:want]])
+            e = self.dict_demote_batch
+            for done in range(0, len(order), e):
+                # Chunks ascend, so every rank evicted before lies below
+                # this chunk: its device ranks are off by exactly `done`.
+                chunk = order[done:done + e] - done
+                ev = np.full(e, INT32_MAX, np.int32)
+                ev[:len(chunk)] = chunk
+                self.state = ck.apply_evict(
+                    self.state, torch.from_numpy(ev).to(self.device),
+                    len(chunk))
+                mir.stats["demotion_bytes"] += 4 * e
+            mir.demote(order)
+            mir.stats["demotion_events"] += 1
+            return len(order)
+
+    def _demote_and_rank(self, plan: _DemotePlan) -> HostRankBatch:
+        """Run a deferred demotion on the dispatch thread (every earlier
+        window has dispatched, so the liveness is exact), then re-pack the
+        stalled window against the demoted mirror; that re-pack escalates
+        to a full repack itself if demotion could not free enough room.
+        The gate opens only after the re-pack, so that the next window's
+        pack (on the packing thread) ranks against a mirror that already
+        holds this window's keys."""
+        try:
+            self._demote_now(len(plan.new_u64),
+                             protect=(plan.qu, plan.is_pad))
+            return self._pack_ranked(plan.bt)
+        finally:
+            self._mirror.gate.set()
+
+    def _run_plan(self, plan) -> HostRankBatch:
+        """A deferred _RepackPlan or _DemotePlan, run on the dispatch
+        thread."""
+        if isinstance(plan, _RepackPlan):
+            return self._repack_and_rank(plan)
+        return self._demote_and_rank(plan)
+
     @property
     def dict_stats(self) -> dict:
         """Dictionary-economics counters: unique keys/dispatch, delta hit
-        rate, evictions, forced full repacks."""
-        s = dict(self._mirror.stats)
+        rate, evictions, forced full repacks, and the tier economics
+        (zeros when untiered): demotions, promotions, demotion stalls,
+        events and bytes, hot occupancy, cold-tier keys, and the bytes one
+        full repack would ship."""
+        mir = self._mirror
+        s = dict(mir.stats)
         d = max(1, s["dispatches"])
         e = max(1, s["endpoints"])
         s.update(
-            resident_keys=self._mirror.n,
-            dict_capacity=self._mirror.capacity,
+            resident_keys=mir.n,
+            dict_capacity=mir.capacity,
             delta_slots=self.dict_delta_slots,
             unique_keys_per_dispatch=round(s["unique_keys"] / d, 1),
             delta_hit_rate=round(s["endpoint_hits"] / e, 4),
+            tiered=self.tiered,
+            dict_hot_occupancy=round(mir.n / max(1, mir.capacity), 4),
+            cold_tier_keys=mir.cold_n,
+            demotion_bytes_per_dispatch=round(s["demotion_bytes"] / d, 1),
+            full_repack_ship_bytes=(mir.capacity + 1) * 4
+            * (mir.rows.shape[1] + 1),
         )
         return s
 
@@ -772,6 +1073,7 @@ class TorchConflictSet:
         device->host copy of the verdicts waits for the collector. A chunk
         holding a txn that set report_conflicting_keys also returns its
         loser mask, which fills ``last_conflicting``."""
+        self._spec_drain_serial()
         self._begin_resolve(commit_version, oldest_version)
         cv = self._rel(commit_version)
         oldest = self._rel(self.oldest_version)
@@ -834,6 +1136,7 @@ class TorchConflictSet:
             raise ValueError("malformed resolver wire batch")
         if count is None:
             count = counted
+        self._spec_drain_serial()
         self._begin_resolve(commit_version, oldest_version)
         cv = self._rel(commit_version)
         oldest = self._rel(self.oldest_version)
@@ -919,22 +1222,33 @@ class TorchConflictSet:
     def dispatch_window(self, prepared: PreparedWindow
                         ) -> Callable[[], np.ndarray]:
         """Device half of the window path, on the dispatching thread in
-        pack order: the deferred rebase, then the deferred repack (exact
-        here, since every earlier window has dispatched), then one upload
-        and the window's launch sequence. The collector makes the
-        window's one device-to-host read: int8 verdicts [k, count]."""
+        pack order: the deferred rebase, then the deferred repack or
+        demotion (exact here, since every earlier window has dispatched),
+        then one upload and the window's launch sequence. The collector
+        makes the window's one device-to-host read: int8 verdicts
+        [k, count]. A speculative engine routes the window through its
+        reconcile ring (``spec_dispatch_window``); its collector
+        reconciles in dispatch order before it returns the verdicts."""
+        if self.spec_resolve:
+            seq = self.spec_dispatch_window(prepared)
+
+            def collect_spec() -> np.ndarray:
+                while seq not in self._spec_done:
+                    self.reconcile_window()
+                verdicts, levels = self._spec_done.pop(seq)
+                if self.wave_commit:
+                    self.last_wave_window = levels
+                return verdicts
+
+            return collect_spec
         if prepared.rebase_delta:
             self.state = ck.rebase_res(
                 self.state, min(prepared.rebase_delta, 2**31 - 1))
         hb = prepared.batch
-        if isinstance(hb, _RepackPlan):
-            hb = self._repack_and_rank(hb)
-        out = ck.window_out(len(prepared.cvs_rel), self.batch_size,
-                            self.device, self.wave_commit)
-        self.state = ck.resolve_many_res(
-            self.state, upload(hb, self.device), prepared.cvs_rel,
-            prepared.olds_rel, n_new=hb.n_new, demands=hb.demand,
-            wave=self.wave_commit, stats=self._wave_stats, out=out)[-1]
+        if isinstance(hb, (_RepackPlan, _DemotePlan)):
+            hb = self._run_plan(hb)
+        out = self._resolve_window(upload(hb, self.device), hb,
+                                   prepared.cvs_rel, prepared.olds_rel)
 
         def collect() -> np.ndarray:
             self.host_syncs += 1
@@ -943,6 +1257,190 @@ class TorchConflictSet:
                 # One schedule per batch: batches serialize by version.
                 self.last_wave_window = levels[:, : prepared.count]
             return verdicts[:, : prepared.count]
+
+        return collect
+
+    def _resolve_window(self, rb: ck.ResidentBatch, hb: HostRankBatch,
+                        cvs_rel, olds_rel) -> ck.WindowOut:
+        """Launch the window program on ``rb`` (uploaded ``hb``) into a
+        fresh WindowOut, advancing ``self.state``."""
+        out = ck.window_out(len(cvs_rel), self.batch_size, self.device,
+                            self.wave_commit)
+        self.state = ck.resolve_many_res(
+            self.state, rb, cvs_rel, olds_rel, n_new=hb.n_new,
+            demands=hb.demand, wave=self.wave_commit, stats=self._wave_stats,
+            out=out)[-1]
+        return out
+
+    # -- speculative window resolve (spec_resolve=True) ---------------------
+    #
+    # The window program paints the writes it accepts, so the state is
+    # advanced optimistically before the upper layer has confirmed the
+    # verdicts (a log push, a ratekeeper revoke). A speculative engine
+    # dispatches the next window at once and keeps a ring of at most
+    # spec_depth unconfirmed windows, each with a snapshot of the state
+    # before it. Reconcile confirms the oldest (drop the snapshot) or
+    # rolls back to it, re-paints it with the confirmed accepts only and
+    # re-resolves every younger window against the corrected history.
+    # The JAX engine's dependency probe, which lets a younger window that
+    # read no revoked write keep its verdicts, runs over the packed
+    # non-resident batch; for a resident engine the JAX engine repairs
+    # every younger window (its _spec_dep_windows), and so does the port.
+    # The probe comes with the non-resident design (ROADMAP item 10).
+
+    def spec_dispatch_window(self, prepared: PreparedWindow) -> int:
+        """Dispatch a packed window speculatively; returns its reconcile
+        sequence number. Dispatching thread, pack order. A rebase, a full
+        repack or a demotion drains the ring first: snapshots hold the
+        pre-rebase versions and pre-evict ranks, and the liveness read
+        must not see unconfirmed paints."""
+        if not self.spec_resolve:
+            raise ValueError("speculative resolve is off for this engine "
+                             "(spec_resolve=True)")
+        while len(self._spec_ring) >= self.spec_depth:
+            self.reconcile_window()
+        if prepared.rebase_delta:
+            self.reconcile_all()
+            self.state = ck.rebase_res(
+                self.state, min(prepared.rebase_delta, 2**31 - 1))
+        hb = prepared.batch
+        if isinstance(hb, (_RepackPlan, _DemotePlan)):
+            self.reconcile_all()
+            hb = self._run_plan(hb)
+        return self._spec_launch(hb, prepared.cvs_rel, prepared.olds_rel,
+                                 prepared.count)
+
+    def _spec_launch(self, hb: HostRankBatch, cvs_rel, olds_rel,
+                     count: int) -> int:
+        snapshot = ck.snapshot_res(self.state)
+        rb = upload(hb, self.device)
+        out = self._resolve_window(rb, hb, cvs_rel, olds_rel)
+        seq = self._spec_seq
+        self._spec_seq += 1
+        self._spec_ring.append(_SpecPending(seq, snapshot, hb, rb, cvs_rel,
+                                            olds_rel, count, out))
+        self._spec_stats["spec_dispatched"] += 1
+        return seq
+
+    def _spec_read(self, p: _SpecPending) -> tuple:
+        """(verdicts int8 [k, B], levels int32 [k, B] or None) of a ring
+        entry: its one device-to-host read, shared by reconcile and the
+        collector."""
+        if p.read is None:
+            p.read = ck.read_out(p.out)
+            self.host_syncs += 1
+        return p.read
+
+    def _spec_accept_mask(self, p: _SpecPending) -> np.ndarray:
+        """bool [k, B]: the txns the entry's dispatch accepted (painted).
+        Wave engines: committed at some wave (padding never is). Others:
+        COMMITTED and a real txn (padding gets verdict 0)."""
+        verdicts, levels = self._spec_read(p)
+        if levels is not None:
+            return levels >= 0
+        return (verdicts == ck.V_COMMITTED) & p.hb.ranks[7]
+
+    def reconcile_window(self, confirmed: np.ndarray | None = None
+                         ) -> np.ndarray:
+        """Reconcile the OLDEST in-flight window; returns its verdicts int8
+        [k, count] (also kept for its collector).
+
+        ``confirmed`` is a bool [k, count] mask (False: the upper layer
+        revoked that txn's outcome); None asks ``spec_confirm_hook``, and
+        no hook confirms all. The window's own verdicts are returned
+        unchanged (a revocation is an upper-layer abort, not a resolver
+        verdict); what reconcile repairs is the history and every younger
+        window that speculated on it. A repair re-resolves the younger
+        windows, so ``wave_stats`` then counts their batches again."""
+        p = self._spec_ring.popleft()
+        verdicts, levels = self._spec_read(p)
+        spec_acc = self._spec_accept_mask(p)
+        k, b = spec_acc.shape
+        verdicts_np = verdicts[:, : p.count]
+        levels_np = None if levels is None else levels[:, : p.count]
+        if confirmed is None and self.spec_confirm_hook is not None:
+            confirmed = self.spec_confirm_hook(p.seq, verdicts_np)
+        rejected = np.zeros((k, b), bool)
+        if confirmed is not None:
+            conf = np.zeros((k, b), bool)
+            conf[:, : p.count] = np.asarray(confirmed, bool)[:, : p.count]
+            rejected = spec_acc & ~conf
+        self._spec_done[p.seq] = (verdicts_np, levels_np)
+        if not rejected.any():
+            self._spec_stats["spec_confirmed"] += 1
+            return verdicts_np
+        self._spec_stats["spec_repaired"] += 1
+        self._spec_stats["chain_rolls"] += 1
+        # Roll back to the snapshot and re-advance with the confirmed
+        # accepts only: the same delta, folds and paints, no decision.
+        self.state = ck.paint_many_res(
+            p.snapshot, p.rb,
+            torch.from_numpy(spec_acc & ~rejected).to(self.device),
+            p.cvs_rel, p.olds_rel, n_new=p.hb.n_new, demands=p.hb.demand)
+        # Re-resolve every younger window against the corrected history,
+        # in dispatch order, each under a fresh snapshot.
+        for y in self._spec_ring:
+            old_acc = self._spec_accept_mask(y)
+            y.snapshot = ck.snapshot_res(self.state)
+            y.out = self._resolve_window(y.rb, y.hb, y.cvs_rel, y.olds_rel)
+            y.read = None
+            self._spec_stats["spec_flipped"] += int(
+                (old_acc != self._spec_accept_mask(y))[:, : y.count].sum())
+        return verdicts_np
+
+    def reconcile_all(self) -> None:
+        """Drain the in-flight ring (confirmations via spec_confirm_hook)."""
+        while self._spec_ring:
+            self.reconcile_window()
+
+    def _spec_drain_serial(self) -> None:
+        """Serial entry points reconcile every in-flight window before
+        they read or advance the state outside the ring."""
+        if self._spec_ring:
+            self.reconcile_all()
+
+    def spec_metrics(self) -> dict:
+        """The speculation counters, and the ring's current depth."""
+        return {**self._spec_stats, "spec_depth": len(self._spec_ring)}
+
+    def spec_resolve_async(self, txns: list[TxnConflictInfo],
+                           commit_version: int,
+                           oldest_version: int | None = None):
+        """Object-path speculative dispatch: one chunk lifted to a window
+        of 1 through the same ring. Returns a collector of list[Verdict],
+        or None when the batch cannot speculate (more than one chunk, or a
+        txn asking for its conflicting keys, which needs the report
+        launch); the caller then resolves serially, which drains the ring
+        first."""
+        if (not self.spec_resolve or len(txns) > self.batch_size
+                or any(t.report_conflicting_keys for t in txns)):
+            return None
+        while len(self._spec_ring) >= self.spec_depth:
+            self.reconcile_window()
+        delta = self._begin_resolve(commit_version, oldest_version,
+                                    defer_rebase=True)
+        if delta:
+            self.reconcile_all()
+            self.state = ck.rebase_res(self.state, min(delta, 2**31 - 1))
+        cv_rel = np.asarray([self._rel(commit_version)], np.int32)
+        old_rel = np.asarray([self._rel(self.oldest_version)], np.int32)
+        batch, _ = self._pack(txns)
+        hb = self._pack_resident(batch, defer_repack=True)
+        if isinstance(hb, (_RepackPlan, _DemotePlan)):
+            self.reconcile_all()
+            hb = self._run_plan(hb)
+        hb = hb._replace(ranks=tuple(a[None] for a in hb.ranks),
+                         demand=(hb.demand,))
+        seq = self._spec_launch(hb, cv_rel, old_rel, len(txns))
+
+        def collect() -> list[Verdict]:
+            while seq not in self._spec_done:
+                self.reconcile_window()
+            verdicts, levels = self._spec_done.pop(seq)
+            if self.wave_commit:
+                self.last_wave = [int(x) for x in levels[0]]
+                self.last_reordered = int((levels[0] > 0).sum())
+            return [Verdict(int(x)) for x in verdicts[0]]
 
         return collect
 
@@ -979,6 +1477,7 @@ class TorchConflictSet:
                 f"global wave window of {len(txns)} txns exceeds the "
                 f"engine chunk ({self.batch_size}): one exchange carries "
                 "one schedule domain")
+        self._spec_drain_serial()
         self._begin_resolve(commit_version, oldest_version)
         cv = self._rel(commit_version)
         oldest = self._rel(self.oldest_version)
@@ -1154,6 +1653,7 @@ class TorchConflictSet:
                 oldest_version: int | None = None) -> None:
         """GC-only dispatch: move the version chain and floor forward
         without painting writes, forcing a fold so headroom recovers."""
+        self._spec_drain_serial()
         self._begin_resolve(commit_version, oldest_version)
         oldest = self._rel(self.oldest_version)
         self.state = self.state._replace(hist=ck.advance_hist(

@@ -14,6 +14,11 @@ dictionary repack into the PreparedWindow, which dispatch applies; a
 deferred repack parks the worker on the mirror's gate until the window
 that carries it has dispatched.
 
+A speculative engine needs nothing of the runner: its ``dispatch_window``
+routes through the engine's reconcile ring and the collector reconciles
+in order, so pack N+2, speculative resolve N+1 and reconcile N overlap.
+A deferred demotion parks the worker on the gate like a deferred repack.
+
 ``threaded=False`` packs inline on the submitting thread with identical
 results: the mode deterministic tests use, and the parity the threaded
 mode is tested against.
@@ -138,6 +143,10 @@ class PipelinedWindowRunner:
     def in_flight(self) -> int:
         """Windows dispatched to the card but not yet collected."""
         return len(self._pending)
+
+    def spec_metrics(self) -> dict:
+        """The engine's speculation counters (``spec_metrics``)."""
+        return self._cs.spec_metrics()
 
     def collect_next(self):
         """The oldest outstanding window's verdicts (one device read).

@@ -182,11 +182,18 @@ def test_gc_and_headroom_recover():
     trio.check("after clear_overflow")
 
 
+# The config fields that the JAX engine keeps under other names.
+JAX_CONFIG = {"dict_hot_capacity": lambda cs: cs.dict_capacity * cs.tiered,
+              "dict_demote_batch": lambda cs: cs._demote_slots,
+              "spec_resolve": lambda cs: cs.spec}
+
+
 def jax_snapshot(cs: TPUConflictSet) -> dict:
     """The convert.py snapshot dict, built from a JAX engine."""
     mir = cs._mirror
     return {
-        "config": {f: getattr(cs, f) for f in convert.CONFIG_FIELDS}
+        "config": {f: JAX_CONFIG[f](cs) if f in JAX_CONFIG else getattr(cs, f)
+                   for f in convert.CONFIG_FIELDS}
         | {"max_key_bytes": cs.codec.max_key_bytes},
         "state": {k: np.array(v) for k, v in
                   convert.state_leaves(cs.state).items()},

@@ -162,6 +162,49 @@ def test_window_path_cuda_equals_cpu_with_deferred_repack(card, b, k):
     assert stats == engines["cpu"].dict_stats
 
 
+# ------------------------------------------------------------ K7 (evict)
+
+
+@pytest.mark.parametrize("d,w,e,n_ev", [(97, 1, 7, 5), (97, 3, 7, 7),
+                                         (1000, 4, 33, 0), (1000, 5, 33, 33),
+                                         (4099, 2, 513, 300), (50, 4, 1, 1)])
+def test_dict_evict_and_rank_rewrite(card, d, w, e, n_ev):
+    """K7 (and K1's rewrite by its shift table) against the plain version:
+    the dictionary, n_keys, the shift and every rank leaf, with evictions
+    at rank 0 and at rank n-1 among them."""
+    rng = np.random.default_rng(d + w + e + n_ev)
+    n = d - 3
+    rows = np.sort(rng.integers(-1000, 1000, (d + 1, w)).astype(np.int32),
+                   axis=0)
+    rows[n:] = ck.INT32_MAX
+    ev = np.full(e, ck.INT32_MAX, np.int32)
+    pick = rng.choice(np.arange(1, n - 1), max(n_ev - 2, 0), replace=False)
+    ev[:n_ev] = np.sort(np.concatenate([[0, n - 1], pick])[:n_ev])
+    n_keys = torch.tensor(n, dtype=torch.int32, device=card)
+    got = ck._dict_evict(on(rows, card), n_keys, on(ev, card), n_ev)
+    want = ck._dict_evict_plain(on(rows, card), n_keys, on(ev, card))
+    for g, x in zip(got, want):
+        assert g.dtype == x.dtype and torch.equal(g, x)
+    live = np.setdiff1d(np.arange(n), ev[:n_ev]).astype(np.int32)
+    hist_keys = np.full((64, 1), ck.INT32_MAX, np.int32)
+    hist_keys[:40, 0] = np.sort(rng.choice(live, min(40, live.size)))
+    res = ck.init_res(rows[:n], d, 64, 16, card)
+    res = res._replace(n_keys=n_keys, dict_keys=on(rows, card),
+                       hist=res.hist._replace(base=res.hist.base._replace(
+                           keys=on(hist_keys, card))))
+    a = ck.apply_evict(ck.snapshot_res(res), on(ev, card), n_ev)
+    nd, nn, shift = ck._dict_evict_plain(res.dict_keys, res.n_keys,
+                                         on(ev, card))
+    h = res.hist
+    bk, dk, lo, hi = ck._rewrite_ranks_plain(
+        [h.base.keys, h.delta.keys, res.shard_lo, res.shard_hi], shift, False)
+    b = ck.ResState(nd, nn, ck.HistState(h.base._replace(keys=bk), h.base_st,
+                                         h.delta._replace(keys=dk)), lo, hi)
+    for (name, x), y in zip(convert.state_leaves(a).items(),
+                            convert.state_leaves(b).values()):
+        assert torch.equal(x, y), name
+
+
 # ------------------------------------------------------------ K5, K6 (wave)
 
 

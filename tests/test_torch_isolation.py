@@ -91,14 +91,14 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         TorchConflictSet(capacity=64, batch_size=8, max_key_bytes=8)
 
 
-@pytest.mark.parametrize("kw", [dict(wave_commit=True, spec_resolve=True),
+@pytest.mark.parametrize("kw", [dict(resident=False, wave_commit=True),
                                 dict(resident=False),
-                                dict(dict_hot_capacity=32),
-                                dict(spec_resolve=True)],
-                         ids=lambda kw: next(iter(kw)))
+                                dict(resident=False, dict_hot_capacity=32),
+                                dict(resident=False, spec_resolve=True)],
+                         ids=lambda kw: "+".join(kw))
 def test_other_designs_name_their_roadmap_item(kw):
-    """Wave commit is ported; combined with a design that is not, it
-    still raises (the wave_commit case)."""
+    """Wave commit, tiering and speculation are ported; combined with the
+    non-resident design, which is not, each still raises."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         TorchConflictSet(device="cpu", **kw)
 

@@ -487,9 +487,9 @@ def test_two_phase_errors_and_guards():
 
 
 @pytest.mark.parametrize("kw", [dict(resident=False),
-                                dict(dict_hot_capacity=32),
-                                dict(spec_resolve=True)],
-                         ids=lambda kw: next(iter(kw)))
+                                dict(resident=False, dict_hot_capacity=32),
+                                dict(resident=False, spec_resolve=True)],
+                         ids=lambda kw: "+".join(kw))
 def test_wave_with_unported_design_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         TorchConflictSet(device="cpu", wave_commit=True, **kw)
