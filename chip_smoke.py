@@ -56,12 +56,28 @@ Phases, each fatal on failure:
    and every state leaf, sequentially and on wave engines (levels too).
    (d) One captured paint-only window (``paint_many_res``, forced mask)
    equals its plain version in every state leaf.
+3e. Sharded phase: the stream of 3b through the same runner on a
+   ``ShardedConflictSet`` of 4 keyspace shards on the card (capacity 2^20
+   per shard, split at the density quantiles of a stream sample, as the
+   bench's ``--resolvers 4``). (a) Its verdict hash equals 3b's single
+   engine's; per window K8 and K3 launch k times, K9 k times, K4's paint
+   4k times, K1's insert at most once; no shard overflows and
+   ``shard_occupancy`` is printed. (b) The same stream starting on
+   uniform splits, resharded to the density splits at its middle: the
+   same hash, shards moved. (c) A 4-shard wave engine over the first 16
+   batches equals 3c's single wave engine in verdicts and levels; K10
+   launches once per batch and 0 < occupied tiles <= total tiles. (d) One
+   captured step launch by launch (K9 with and without the reads, K8 with
+   its K2 table, K5 per shard, K10) and one captured sharded window
+   program equal their plain versions bit for bit, every state leaf
+   included. (e) Window 0 on the CPU (a worker process beside phase 4,
+   checked after it) equals the card's in verdicts and every state leaf.
 4. Cross-check: the first 16 batches again on the CPU (plain versions),
    and 16 batches each of the mako and tpcc shapes on cuda against the
    CPU: the verdicts must be equal.
 5. The seconds of each phase, a ``kernels`` JSON line (K1-K4, the
-   window program, K5, K6, K7 and the paint-only window), then the card
-   line, then the result line.
+   window program, K5, K6, K7, the paint-only window, K8, K9, K10 and the
+   sharded window program), then the card line, then the result line.
 
 Exits non-zero, printing no result, when no CUDA card is available or when
 run without the rest of the repository.
@@ -92,6 +108,10 @@ REPLACES = {
     "wave_level": "foundationdb_tpu/models/conflict_kernel.py:776",
     "dict_evict": "foundationdb_tpu/models/conflict_kernel.py:2026",
     "paint_many": "foundationdb_tpu/models/conflict_kernel.py:2788",
+    "shard_probe": "foundationdb_tpu/parallel/sharded_resolver.py:188",
+    "shard_clip": "foundationdb_tpu/models/conflict_kernel.py:2109",
+    "wave_exchange": "foundationdb_tpu/parallel/sharded_resolver.py:169",
+    "sharded_many": "foundationdb_tpu/parallel/sharded_resolver.py:249",
 }
 # The kernel sources each path launches: the sequential-order paths run
 # K1-K4, the wave paths K1, K2, K4 and K5/K6 (wave.cu), never K3.
@@ -106,6 +126,7 @@ TIER_KEYS = 1 << 23
 TIER_HOT, TIER_DELTA = 1_310_720, 262_144
 TIER = {"dict_hot_capacity": TIER_HOT, "dict_delta_slots": TIER_DELTA}
 SPEC_K, SPEC_BATCHES = 4, 16  # check (c): window, batches
+SHARDS = 4  # phase 3e: keyspace shards on the card (a 4-resolver config)
 
 
 def fail(msg: str) -> None:
@@ -453,12 +474,14 @@ def wire_stream(stream, mode, n_batches: int):
 
 
 def counted_run(blob, ends, mode, n_batches: int, wave: bool,
-                engine: dict | None = None, label: str | None = None):
+                engine: dict | None = None, label: str | None = None,
+                program: str = "resolve_many"):
     """The stream through the bench's runner on cuda (window WINDOW_K,
     WINDOW_DEPTH in flight, threaded), after a warm-up outside the count;
-    ``engine`` holds further constructor arguments. Returns (record,
-    verdicts, levels, engine, launches per source, entry launches per
-    window)."""
+    ``engine`` holds further constructor arguments, ``program`` names the
+    engine's window program (``sharded_many`` for a sharded engine).
+    Returns (record, verdicts, levels, engine, launches per source, entry
+    launches per window)."""
     from foundationdb_tpu_torch import bench
     from foundationdb_tpu_torch import kernels as K
     from foundationdb_tpu_torch.models import conflict_kernel as ck
@@ -493,11 +516,14 @@ def counted_run(blob, ends, mode, n_batches: int, wave: bool,
     n_windows = n_batches // WINDOW_K
     if rec["overflowed"]:
         fail(f"history overflowed on the {label} path")
-    for k in (*(WAVE_SOURCES if wave else SEQ_SOURCES), "resolve_many"):
+    sources = WAVE_SOURCES if wave else SEQ_SOURCES
+    if program == "sharded_many":
+        sources = (*sources, "shard")
+    for k in (*sources, program):
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the {label} path")
-    if len(per_window) != n_windows or launches["resolve_many"] != n_windows:
-        fail(f"{len(per_window)} dispatches, {launches['resolve_many']} "
+    if len(per_window) != n_windows or launches[program] != n_windows:
+        fail(f"{len(per_window)} dispatches, {launches[program]} "
              f"window programs for {n_windows} windows")
     return rec, verdicts, levels, cs, launches, per_window
 
@@ -840,7 +866,7 @@ def wave_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
     torch.cuda.synchronize()
     print(f"cross-check two-phase: {n_two} batches through 2 shards equal "
           "the single wave engine (verdicts and last_wave)")
-    return {"launches": entries}
+    return {"launches": entries, "verdicts": verdicts, "levels": levels}
 
 
 def revoke_first(seq, verdicts):
@@ -1141,6 +1167,291 @@ def tiered_phase(args, card: str) -> dict:
                            "plain_ms": pm[1], "bound": bound(paint_bytes)}}
 
 
+def sharded_engine(stream, mode, uniform: bool = False) -> dict:
+    """Constructor arguments of phase 3e's engine: SHARDS shards split at
+    the density quantiles of the stream's sample (``uniform``: first-byte
+    prefixes), auto-reshard off, as the bench makes it."""
+    from foundationdb_tpu_torch import bench
+
+    return bench.sharded_engine(
+        SHARDS, None if uniform else bench.density_sample(stream[1], mode))
+
+
+def sharded_window0(seed: int, n_batches: int, device: str):
+    """Check (e) of phase 3e: window 0 of the YCSB-A stream through a
+    sharded engine on ``device``. Returns (verdicts [k, B], state leaves
+    as numpy, seconds); run in a worker process for the CPU."""
+    import torch
+
+    from foundationdb_tpu_torch import bench, convert
+    from foundationdb_tpu_torch.loadgen.ycsb import MODES, gen_workload
+
+    if device == "cpu":
+        torch.set_num_threads(2)  # beside the cross-checks of phase 4
+    t0 = time.perf_counter()
+    mode = MODES["ycsb"]
+    stream = gen_workload(n_batches * mode.batch, N_KEYS, seed, mode)
+    blob, ends, _ = wire_stream(stream, mode, WINDOW_K)
+    cs = bench.make_engine(mode, CAP, device, **sharded_engine(stream, mode))
+    v = cs.resolve_wire_window(
+        *bench.window_wire(blob, ends, mode, WINDOW_K, 0), mode.batch)
+    return v, convert.snapshot(cs)["state"], time.perf_counter() - t0
+
+
+def check_sharded_cpu(sh: dict, job) -> None:
+    """Check (e)'s CPU half: window 0 on the CPU (a worker process, beside
+    phase 4) equals the card's in verdicts and every state leaf."""
+    v, state, seconds = job.get()
+    cv, cstate, _ = sh["window0_cuda"]
+    if not np.array_equal(v, cv):
+        fail("sharded window 0: cuda and cpu verdicts differ")
+    for k, a in state.items():
+        if cstate[k].tobytes() != a.tobytes():
+            fail(f"sharded window 0: state leaf {k} differs on cuda and cpu")
+    print(f"cross-check sharded window 0: {v.size} txns and every state "
+          f"leaf equal on cuda and cpu ({seconds:.1f} s in a worker process)")
+
+
+def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
+                  card: str, seq_rec: dict, wave_out: dict) -> dict:
+    """Phase 3e: the sharded engine (SHARDS shards on the card) on the
+    window path, counted, and checks (a)-(d) and the card's half of (e).
+    Returns the K8, K9, K10 and sharded window program rows'
+    measurements."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+    from foundationdb_tpu_torch.models.conflict_set import _RepackPlan, upload
+
+    b = mode.batch
+    n_windows = n_batches // WINDOW_K
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(label: str) -> None:
+        nonlocal t0
+        now = time.perf_counter()
+        seconds[label] = now - t0
+        t0 = now
+
+    engine = sharded_engine(stream, mode)
+    # (a) The window path, counted: per window K8 and K3 k times, K4's
+    # paint S·k times, K1's insert at most once.
+    rec, _, _, cs, launches, per_window = counted_run(
+        blob, ends, mode, n_batches, wave=False, engine=engine,
+        label="sharded", program="sharded_many")
+    for i, pw in enumerate(per_window):
+        want = {"sh_probe": WINDOW_K, "sh_clip": WINDOW_K,
+                "ac_accept": WINDOW_K, "sc_paint": SHARDS * WINDOW_K}
+        if (any(pw.get(e, 0) != n for e, n in want.items())
+                or pw.get("di_insert", 0) > 1):
+            fail(f"sharded window {i}: launches {pw} (want {want}, K1 "
+                 "insert <= 1)")
+    if rec["verdicts_sha256"] != seq_rec["verdicts_sha256"]:
+        fail("sharded window path and the single engine's (phase 3b) "
+             "verdicts differ")
+    entries = {e: sum(pw.get(e, 0) for pw in per_window)
+               for e in ("sh_probe", "sh_clip")}
+    print(json.dumps({
+        "phase": "sharded", "stream": "ycsb-a", "shards": SHARDS,
+        "splits": [x.hex() for x in engine["splits"]],
+        **{k: rec[k] for k in (
+            "txns", "batches", "window", "pipeline_depth", "threaded",
+            "txns_per_s", "window_ms_p50", "window_ms_p99", "committed",
+            "conflict", "too_old", "verdicts_sha256", "shard_occupancy",
+            "host_syncs_per_window", "host_pack_ms_per_window",
+            "pack_gate_wait_s", "dict_stats")},
+        "launches_per_window": {**{k: launches[k] / n_windows
+                                   for k in (*SEQ_SOURCES, "shard")},
+                                **{e: n / n_windows
+                                   for e, n in entries.items()}},
+        "single_engine_sha_equal": True, "card": card}))
+    lap("a")
+
+    # (b) Uniform splits (every key below 2^20 lies in shard 0), then a
+    # reshard to the density splits at the middle of the stream.
+    mid = n_windows // 2
+    rb_rec = bench.run_wire(
+        blob, ends, mode, n_batches, CAP, "cuda", window=WINDOW_K,
+        pipeline_depth=WINDOW_DEPTH, repeats=1, warmup=False,
+        engine=sharded_engine(stream, mode, uniform=True),
+        reshard=(mid, engine["splits"]))[0]
+    if rb_rec["verdicts_sha256"] != seq_rec["verdicts_sha256"]:
+        fail("resharded sharded run and the single engine's verdicts differ")
+    if rb_rec["reshard"]["moved_shards"] <= 0 or rb_rec["overflowed"]:
+        fail(f"reshard: {rb_rec['reshard']} (want moved shards > 0), "
+             f"overflowed {rb_rec['overflowed']}")
+    print(json.dumps({
+        "phase": "sharded reshard", "reshard": rb_rec["reshard"],
+        "shard_occupancy": rb_rec["shard_occupancy"],
+        "txns_per_s": rb_rec["txns_per_s"],
+        "verdicts_sha256": rb_rec["verdicts_sha256"], "card": card}))
+    lap("b")
+
+    # (c) A wave engine of SHARDS shards on the first two windows against
+    # phase 3c's single wave engine: verdicts and levels; K10 once a batch.
+    n_wave = 2 * WINDOW_K
+    wb, we = blob[: int(ends[n_wave * b])], ends[: n_wave * b + 1]
+    wrec, wv, wl, _, _, wpw = counted_run(
+        wb, we, mode, n_wave, wave=True, engine=engine, label="sharded wave",
+        program="sharded_many")
+    if not (np.array_equal(wv, wave_out["verdicts"][:2])
+            and np.array_equal(wl, wave_out["levels"][:2])):
+        fail("sharded wave engine: verdicts or levels differ from the "
+             "single wave engine's (phase 3c)")
+    for i, pw in enumerate(wpw):
+        if (pw.get("sh_exchange", 0) != WINDOW_K
+                or pw.get("wv_pred", 0) != SHARDS * WINDOW_K
+                or pw.get("wv_level", 0) != WINDOW_K or pw.get("ac_accept")):
+            fail(f"sharded wave window {i}: launches {pw}")
+    xs = wrec["exchange_stats"]
+    if not 0 < xs["tiles_occupied"] <= xs["tiles_total"]:
+        fail(f"exchange_stats {xs}")
+    k10_launches = sum(pw.get("sh_exchange", 0) for pw in wpw)
+    print(json.dumps({"phase": "sharded wave", "txns": wrec["txns"],
+                      "committed": wrec["committed"],
+                      "reordered": wrec["reordered"],
+                      "cycle_aborted": wrec["cycle_aborted"],
+                      "exchange_stats": xs, "k10_launches": k10_launches,
+                      "levels_equal_phase_3c": True, "card": card}))
+    lap("c")
+
+    # (d) One captured step launch by launch, and one captured window
+    # program, against the plain versions: the first window after window
+    # 0 that brings a dictionary delta.
+    cs = bench.make_engine(mode, CAP, "cuda", **engine)
+    cs.resolve_wire_window(*bench.window_wire(blob, ends, mode, WINDOW_K, 0),
+                           b)
+    for wi in range(1, n_windows):
+        prepared = cs.pack_wire_window(
+            *bench.window_wire(blob, ends, mode, WINDOW_K, wi), b)
+        hb = prepared.batch
+        if not isinstance(hb, _RepackPlan) and hb.n_new:
+            break
+        cs.dispatch_window(prepared)()
+    else:
+        fail("no window of the stream brings a dictionary delta")
+    rb = upload(hb, cs.device)
+    cvs, olds = prepared.cvs_rel, prepared.olds_rel
+    state = cs.state
+    res1 = ck.apply_delta(clone(state), rb.delta_keys, hb.n_new)
+    rbk = ck._step(rb.ranks, 0)
+    h, lo, hi = res1.hist, res1.shard_lo, res1.shard_hi
+    floor = torch.maximum(h.oldest, torch.full(
+        (), int(olds[0]), dtype=torch.int32, device="cuda"))
+    for reads in (False, True):
+        assert_equal("shard_clip",
+                     [x for x in ck.shard_clip(rbk, lo, hi, reads)
+                      if x is not None],
+                     [x for x in ck.shard_clip_plain(rbk, lo, hi, reads)
+                      if x is not None])
+    assert_equal("shard_probe", ck.shard_probe(h, rbk, lo, hi, floor[0]),
+                 ck.shard_probe_plain(h, rbk, lo, hi, floor[0]))
+    too_old, _, cand = ck.shard_probe(h, rbk, lo, hi, floor[0])
+    clip_w = ck.shard_clip(rbk, lo, hi, True)
+    ps = ck.shard_pred_matrices(cand, clip_w)
+    assert_equal("wave_pred.sharded", ps, torch.stack(
+        [ck.wave_pred_matrix_plain(cand, ck._clip_live(clip_w, s))
+         for s in range(SHARDS)]))
+    assert_equal("wave_exchange", ck.wave_exchange(ps),
+                 ck.wave_exchange_plain(ps))
+
+    def many(res):
+        v, _, _, r = ck.sharded_resolve_res_many(res, rb, cvs, olds, hb.n_new)
+        return v, r
+
+    def many_plain(res):
+        v, _, _, r = ck.sharded_resolve_res_many_plain(res, rb, cvs, olds)
+        return v, r
+
+    assert_equal("sharded_many", many(clone(state)), many_plain(clone(state)))
+    torch.cuda.synchronize()
+
+    table = K.build_table(h.versions.reshape(-1))
+    pairs = torch.stack([rbk.write_begin, rbk.write_end])
+    lo4, hi4 = lo[:, None, None, None], hi[:, None, None, None]
+    t = {
+        "shard_clip": (time_ms(lambda: ck.shard_clip(rbk, lo, hi, False)),
+                       time_ms(lambda: ck.shard_clip_plain(rbk, lo, hi,
+                                                           False))),
+        "shard_probe": (
+            time_ms(lambda: ck.shard_probe(h, rbk, lo, hi, floor[0])),
+            time_ms(lambda: ck.shard_probe_plain(h, rbk, lo, hi, floor[0]),
+                    reps=3)),
+        "wave_exchange": (time_ms(lambda: ck.wave_exchange(ps)),
+                          time_ms(lambda: ck.wave_exchange_plain(ps))),
+        "sharded_many": (time_ms(many, lambda: (clone(state),), reps=5),
+                         time_ms(many_plain, lambda: (clone(state),), reps=2)),
+    }
+    clamp_ms = time_ms(lambda: torch.clamp(pairs[None], lo4, hi4))
+    probe_only_ms = time_ms(lambda: K.shard_probe(
+        h.keys, table, rbk.read_begin, rbk.read_end, rbk.read_mask,
+        rbk.read_version, rbk.txn_mask, lo, hi, floor[0]))
+    table_ms = time_ms(lambda: K.build_table(h.versions.reshape(-1)))
+    for name, (ms, plain) in t.items():
+        print(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f} ms)")
+    print(f"kernel shard_probe: K8 alone {probe_only_ms:.4f} ms, K2's table "
+          f"over S x C {table_ms:.4f} ms; shard_clip: torch.clamp over the "
+          f"stacked write ranks {clamp_ms:.4f} ms")
+
+    # Bounds at the capture's shapes. K9 (writes only, the main path): the
+    # write ranks and masks read once, S clipped copies written. K8: the
+    # shards' live keys and versions, the read slots, read versions and
+    # txn mask read once, three [B] outputs written. K10: the S matrices
+    # read, the OR and the stats written. The window program: K1 once,
+    # then per step K9, K8, K3 and S flat paints (each shard's live rows
+    # read, its [C] arrays written, the clipped writes read).
+    r = rbk.read_begin.shape[1]
+    q = rbk.write_begin.shape[1]
+    n_used = [int(x) for x in h.n_used.cpu()]
+    c = h.keys.shape[1]
+    d1, w = state.dict_keys.shape
+    bp, nw = ps.shape[1], ps.shape[2]
+    bytes_k9 = b * q * 9 + SHARDS * b * q * 9 + 8 * SHARDS
+    bytes_k8 = 8 * sum(n_used) + b * r * 9 + 5 * b + 8 * SHARDS + 4 + 3 * b
+    bytes_k10 = SHARDS * bp * nw * 4 + bp * nw * 4 + 8
+    idx = torch.nonzero(cand).flatten().double()
+    ops_k3 = float(3 * r * q * idx.sum())
+    bytes_k3 = 3 * b + b * r * 9 + b * q * 9 + 2 * b
+    bytes_k4 = sum(8 * n + 8 * c + b * q * 9 + b + 2 * b * q * 4
+                   for n in n_used)
+    bytes_k1 = 4 * ((int(state.n_keys) + hb.n_new) * w + d1 * w
+                    + 2 * SHARDS * c)
+    step = {"bytes": 0.0, "operations": 0.0}
+    for nbytes, ops, times in ((bytes_k1, 0.0, 1),
+                               (bytes_k9 + bytes_k8 + bytes_k4, 0.0,
+                                WINDOW_K),
+                               (bytes_k3, ops_k3, WINDOW_K)):
+        lo_ms, by = bound(nbytes, ops)
+        step[by] += lo_ms * times
+    lap("d")
+    # (e) The card's half: window 0 on cuda (the CPU half runs in a worker
+    # beside phase 4, checked by check_sharded_cpu).
+    window0 = sharded_window0(seed, len(stream[0]) // b, "cuda")
+    lap("e")
+    print(json.dumps({"phase 3e seconds": seconds}))
+    return {
+        "window0_cuda": window0,
+        "shard_probe": {"launches": entries["sh_probe"],
+                        "timing": t["shard_probe"],
+                        "bound": bound(bytes_k8),
+                        "probe_only_ms": probe_only_ms,
+                        "table_ms": table_ms},
+        "shard_clip": {"launches": entries["sh_clip"],
+                       "timing": t["shard_clip"], "bound": bound(bytes_k9),
+                       "library_ms": clamp_ms},
+        "wave_exchange": {"launches": k10_launches,
+                          "timing": t["wave_exchange"],
+                          "bound": bound(bytes_k10)},
+        "sharded_many": {"launches": launches["sharded_many"],
+                         "timing": t["sharded_many"],
+                         "bound": (sum(step.values()),
+                                   max(step, key=step.get))},
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1158,10 +1469,11 @@ def main() -> int:
         print(f"chip_smoke: the repository is missing ({e})", file=sys.stderr)
         return 2
 
-    # The host replay of check (c) of phase 3c (beside phases 3-4) and the
-    # CPU runs of check (c) of phase 3d (beside phase 4) run in two worker
-    # processes; the workers are stopped however the run ends.
-    pool = multiprocessing.get_context("spawn").Pool(2)
+    # The host replay of check (c) of phase 3c (beside phases 3-4), the CPU
+    # runs of check (c) of phase 3d and the CPU half of check (e) of phase
+    # 3e (beside phase 4) run in three worker processes; the workers are
+    # stopped however the run ends.
+    pool = multiprocessing.get_context("spawn").Pool(3)
     try:
         return smoke(args, pool)
     finally:
@@ -1250,10 +1562,17 @@ def smoke(args, pool) -> int:
     td = tiered_phase(args, card)
     lap("3d tiered path")
 
-    # Check (c) of phase 3d on the CPU, in the workers beside phase 4 (the
-    # measured phases run without them).
+    # 3e. The sharded engine on the window path, and its checks.
+    sh = sharded_phase(blob, ends, ycsb, n_wire, stream, args.seed, card,
+                       wp["record"], wv)
+    lap("3e sharded path")
+
+    # Check (c) of phase 3d and check (e) of phase 3e on the CPU, in the
+    # workers beside phase 4 (the measured phases run without them).
     cpu_spec = {wave: pool.apply_async(spec_run, (args.seed, "cpu", 3, wave))
                 for wave in (False, True)}
+    cpu_sharded = pool.apply_async(sharded_window0,
+                                   (args.seed, args.batches, "cpu"))
 
     # 4. Cross-checks against the plain versions on the CPU.
     n_cross = min(16, args.batches)
@@ -1274,6 +1593,7 @@ def smoke(args, pool) -> int:
 
     check_replay(wk)
     check_spec_cpu(td, cpu_spec)
+    check_sharded_cpu(sh, cpu_sharded)
     lap("4 cross-checks")
     print(json.dumps({"phase_seconds": phase_s}))
 
@@ -1328,6 +1648,25 @@ def smoke(args, pool) -> int:
     rows[-2].update(partial_library_ms=td["dict_evict"]["partial_library_ms"],
                     partial_library_call="dict_keys[keep_mask]: the "
                                          "compaction only")
+    # K8 is timed with the K2 table build it needs (the shard_probe call);
+    # K9's yardstick is one torch.clamp over the stacked write ranks with
+    # per-shard bound tensors (no masks).
+    for k, source in (
+            ("shard_probe", "foundationdb_tpu_torch/kernels/csrc/shard.cu"),
+            ("shard_clip", "foundationdb_tpu_torch/kernels/csrc/shard.cu"),
+            ("wave_exchange", "foundationdb_tpu_torch/kernels/csrc/shard.cu"),
+            ("sharded_many",
+             "foundationdb_tpu_torch/models/conflict_kernel.py")):
+        r = sh[k]
+        lo, by = r["bound"]
+        rows.append({
+            "name": k, "route": "cuda", "source": source,
+            "replaces": REPLACES[k], "launches": r["launches"],
+            "max_abs_err": MAX_ABS_ERR[k], "ms": r["timing"][0],
+            "plain_ms": r["timing"][1], "bound_ms": lo, "bound_by": by,
+            "library_ms": r.get("library_ms")})
+    rows[-4].update(probe_only_ms=sh["shard_probe"]["probe_only_ms"],
+                    table_ms=sh["shard_probe"]["table_ms"])
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

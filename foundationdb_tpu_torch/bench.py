@@ -5,7 +5,7 @@
         [--pipeline-depth 4] [--repeats 3] [--device cuda|cpu] [--inline]
         [--wave-commit 0|1] [--dict-hot-capacity N] [--dict-delta-slots N]
         [--spec-resolve 0|1] [--spec-depth N] [--shifting-hotspot]
-        [--profile]
+        [--resolvers N] [--profile]
 
 A YCSB-A, mako or TPC-C shaped stream (``loadgen/ycsb.py``) is encoded in
 the resolver wire format and resolved through
@@ -28,7 +28,12 @@ repacks; ``--dict-delta-slots`` sets the delta slots, 0 the default);
 ``--spec-depth`` unconfirmed (every window confirms). The record carries
 ``dict_stats`` (the tier counters among them) and ``spec_metrics``.
 ``--shifting-hotspot`` replaces the Zipf draw by a walking hotspot, the
-tiered dictionary's regime. Prints one JSON line.
+tiered dictionary's regime. ``--resolvers N`` (N > 1) resolves with a
+``ShardedConflictSet`` of N keyspace shards on the card, split at the
+quantiles of a key sample drawn from the stream (the first eight
+batches' write keys, as the repository's ``bench.py`` draws it), with
+auto-reshard off; the record adds ``shard_occupancy`` and, on a wave
+engine, ``exchange_stats``. Prints one JSON line.
 
 The run is on the card (``--device cuda``, the default, raises without
 one); ``--device cpu`` runs the plain torch versions.
@@ -62,6 +67,10 @@ from foundationdb_tpu_torch.models.conflict_set import (
     resolve_device,
     upload,
 )
+from foundationdb_tpu_torch.parallel.sharded_resolver import (
+    ShardedConflictSet,
+    density_splits,
+)
 from foundationdb_tpu_torch.sched.packing import PipelinedWindowRunner
 
 
@@ -81,12 +90,32 @@ def card_line() -> str:
 def make_engine(mode: ModeConfig, capacity: int, device, wave: bool = False,
                 **engine) -> TorchConflictSet:
     """The mode's engine; ``engine`` holds further constructor arguments
-    (dict_hot_capacity, dict_delta_slots, spec_resolve, spec_depth)."""
-    return TorchConflictSet(
+    (dict_hot_capacity, dict_delta_slots, spec_resolve, spec_depth; with
+    ``n_shards`` a ShardedConflictSet, and its splits and auto_reshard)."""
+    cls = ShardedConflictSet if "n_shards" in engine else TorchConflictSet
+    return cls(
         capacity=capacity, batch_size=mode.batch,
         max_read_ranges=mode.n_reads, max_write_ranges=mode.n_writes,
         max_key_bytes=KEY_BYTES, window_versions=WINDOW, device=device,
         wave_commit=wave, **engine)
+
+
+def density_sample(write_ids: np.ndarray, mode: ModeConfig) -> list[bytes]:
+    """The split sample of a sharded run: the first 16,384 write keys of
+    the stream's first eight batches (what a proxy observed before it
+    split), as the repository's ``bench.py`` draws it."""
+    n = min(len(write_ids), 8 * mode.batch)
+    return [int(k).to_bytes(8, "big")
+            for k in write_ids[:n].reshape(-1)[:16384]]
+
+
+def sharded_engine(n_shards: int, sample: list[bytes] | None) -> dict:
+    """Constructor arguments of an n-shard engine split at the density
+    quantiles of ``sample`` (None: uniform), with auto-reshard off: the
+    bench compares split policies itself."""
+    return {"n_shards": n_shards, "auto_reshard": False,
+            "splits": None if sample is None
+            else density_splits(n_shards, sample)}
 
 
 def make_stream(mode: ModeConfig, n_batches: int, n_keys: int, seed: int,
@@ -107,21 +136,35 @@ def window_wire(blob, txn_ends, mode: ModeConfig, window: int, wi: int):
 
 
 def drive(cs: TorchConflictSet, blob, txn_ends, mode: ModeConfig,
-          n_windows: int, window: int, depth: int, threaded: bool = True):
+          n_windows: int, window: int, depth: int, threaded: bool = True,
+          reshard: tuple | None = None):
     """Resolve ``n_windows`` windows as a bounded pipeline: window i+depth
     is submitted, then window i is collected. Returns (verdicts int8
     [n_windows, window, B], levels int32 [n_windows, window, B] of a wave
     engine or None, window latency ms, host pack ms per window, seconds,
-    seconds packs waited behind deferred repacks)."""
+    seconds packs waited behind deferred repacks, the shard occupancy
+    just before the reshard or None). ``reshard`` = (window index, split
+    keys) re-splits a sharded engine before that window is submitted,
+    once every earlier window is collected (nothing packed ahead)."""
     runner = PipelinedWindowRunner(cs, threaded=threaded)
     verdicts = [None] * n_windows
     levels = [None] * n_windows
     submit_t = [0.0] * n_windows
     lat_ms = [0.0] * n_windows
     done = 0
+    occ_before = None
     try:
         t0 = time.perf_counter()
         for wi in range(n_windows):
+            if reshard is not None and wi == reshard[0]:
+                while done < wi:
+                    verdicts[done] = runner.collect_next()
+                    levels[done] = cs.last_wave_window
+                    lat_ms[done] = (time.perf_counter()
+                                    - submit_t[done]) * 1e3
+                    done += 1
+                occ_before = cs.shard_occupancy()
+                cs.reshard(reshard[1])
             submit_t[wi] = time.perf_counter()
             runner.submit(*window_wire(blob, txn_ends, mode, window, wi),
                           mode.batch)
@@ -141,17 +184,19 @@ def drive(cs: TorchConflictSet, blob, txn_ends, mode: ModeConfig,
         runner.close()
     return (np.stack(verdicts), np.stack(levels) if cs.wave_commit else None,
             lat_ms, [s * 1e3 for s in runner.pack_s], seconds,
-            runner.gate_wait_s)
+            runner.gate_wait_s, occ_before)
 
 
 def run_wire(blob, txn_ends, mode: ModeConfig, n_batches: int,
              capacity: int, device, window: int = 32, pipeline_depth: int = 4,
              repeats: int = 3, threaded: bool = True, warmup: bool = True,
-             wave: bool = False, engine: dict | None = None):
+             wave: bool = False, engine: dict | None = None,
+             reshard: tuple | None = None):
     """The resolve stream through the window path. Returns (record,
     verdicts of the best repeat [n_windows, window, B], its levels of the
     same shape on a wave engine or None, its engine). ``engine`` holds
-    further constructor arguments of ``make_engine``.
+    further constructor arguments of ``make_engine``; ``reshard`` is
+    ``drive``'s (window index, split keys) for a sharded engine.
 
     ``warmup`` first resolves window 0 on a throwaway engine (builds the
     kernels and the packer). The record's ``launches_per_window`` is the
@@ -168,12 +213,13 @@ def run_wire(blob, txn_ends, mode: ModeConfig, n_batches: int,
     for _ in range(repeats):
         cs = make_engine(mode, capacity, device, wave, **engine)
         before = dict(K.LAUNCHES)
-        verdicts, levels, lat, pack, sec, wait = drive(
-            cs, blob, txn_ends, mode, n_windows, window, depth, threaded)
+        verdicts, levels, lat, pack, sec, wait, occ = drive(
+            cs, blob, txn_ends, mode, n_windows, window, depth, threaded,
+            reshard)
         launches = {k: K.LAUNCHES[k] - before[k] for k in K.LAUNCHES}
         if best is None or sec < best[3]:
-            best = (verdicts, lat, pack, sec, cs, launches, wait, levels)
-    verdicts, lat, pack, sec, cs, launches, wait, levels = best
+            best = (verdicts, lat, pack, sec, cs, launches, wait, levels, occ)
+    verdicts, lat, pack, sec, cs, launches, wait, levels, occ = best
     counts = np.bincount(verdicts.reshape(-1), minlength=3)
     n_txns = verdicts.size
     record = {
@@ -199,6 +245,14 @@ def run_wire(blob, txn_ends, mode: ModeConfig, n_batches: int,
         "dict_stats": cs.dict_stats,
         "spec_metrics": cs.spec_metrics(),
     }
+    if isinstance(cs, ShardedConflictSet):
+        record["shard_occupancy"] = cs.shard_occupancy()
+        if reshard is not None:
+            record["reshard"] = {"at_window": reshard[0],
+                                 "occupancy_before": occ,
+                                 "moved_shards": cs.reshard_moved_shards}
+        if wave:
+            record["exchange_stats"] = cs.exchange_stats()
     if wave:
         st = cs.wave_stats
         record.update({
@@ -224,19 +278,22 @@ def _clone(tree):
 
 def profile_window(blob, txn_ends, mode: ModeConfig, capacity: int,
                    window: int, warm_windows: int = 2,
-                   wave: bool = False) -> dict:
+                   wave: bool = False, engine: dict | None = None) -> dict:
     """CUDA-event times (ms) of each kernel launch of one warm window,
     summed over its k steps, with the host pack (host clock), the
     host-to-device and the device-to-host copy, and the whole window
     program timed alone on a copy of the same state. The replayed
     phases must give the window program's verdicts (and levels). A wave
-    engine's acceptance is K5 and K6 in place of K3."""
+    engine's acceptance is K5 and K6 in place of K3; a sharded engine's
+    step is K9, K2's table, K8, then K3 (or K5 per shard, K10 and K6) and
+    K4 per shard. ``engine`` holds further constructor arguments."""
     dev = torch.device("cuda")
     n_windows = (len(txn_ends) - 1) // mode.batch // window
     if n_windows <= warm_windows:
         raise ValueError(f"--profile needs more than {warm_windows} "
                          "windows of batches")
-    cs = make_engine(mode, capacity, dev, wave)
+    cs = make_engine(mode, capacity, dev, wave, **(engine or {}))
+    sharded = isinstance(cs, ShardedConflictSet)
     for wi in range(warm_windows):
         cs.resolve_wire_window(*window_wire(blob, txn_ends, mode, window, wi),
                                mode.batch)
@@ -270,8 +327,12 @@ def profile_window(blob, txn_ends, mode: ModeConfig, capacity: int,
     rb = timed("h2d", upload, hb, dev)
     cvs, olds = prepared.cvs_rel, prepared.olds_rel
     res0 = _clone(cs.state)
-    want = timed("window_program", ck.resolve_many_res, res0, rb, cvs, olds,
-                 hb.n_new, hb.demand, wave=wave)[:-1]
+    if sharded:
+        want = timed("window_program", ck.sharded_resolve_res_many, res0, rb,
+                     cvs, olds, hb.n_new, wave=wave)[:2 if wave else 1]
+    else:
+        want = timed("window_program", ck.resolve_many_res, res0, rb, cvs,
+                     olds, hb.n_new, hb.demand, wave=wave)[:-1]
 
     res = cs.state
     if hb.n_new:
@@ -284,6 +345,10 @@ def profile_window(blob, txn_ends, mode: ModeConfig, capacity: int,
     got = ck.window_out(k, b, dev, wave)
     for i in range(k):
         rbk = ck._step(rb.ranks, i)
+        if sharded:
+            hist = _replay_sharded_step(timed, hist, res, rbk, int(cvs[i]),
+                                        int(olds[i]), wave, got, i)
+            continue
         floor, _ = ck.too_old_mask_packed(hist.delta, rbk, int(olds[i]))
         hist = timed("k4_fold", ck._maybe_merge, hist, int(hb.demand[i]),
                      floor)
@@ -310,10 +375,38 @@ def profile_window(blob, txn_ends, mode: ModeConfig, capacity: int,
         out[f"{label}_ms"] = sum(s.elapsed_time(e) for s, e in ev)
     out["phase_sum_ms"] = sum(
         out[f"{p}_ms"] for p in ("k1_insert", "k1_rewrite", "k4_fold",
-                                 "k2_probe", "k3_accept", "k5_pred",
-                                 "k6_level", "k4_paint")
+                                 "k2_probe", "k9_clip", "k2_table",
+                                 "k8_probe", "k3_accept", "k5_pred",
+                                 "k10_exchange", "k6_level", "k4_paint")
         if f"{p}_ms" in out)
     return out
+
+
+def _replay_sharded_step(timed, hist, res, rbk, cv: int, old: int,
+                         wave: bool, got, i: int):
+    """One sharded step launch by launch under ``timed`` (the profile's
+    CUDA-event spans), its verdicts (and levels) into row i of ``got``."""
+    floor = torch.maximum(hist.oldest, torch.full(
+        (), old, dtype=torch.int32, device=hist.oldest.device))
+    clip = timed("k9_clip", ck.shard_clip, rbk, res.shard_lo, res.shard_hi,
+                 wave)
+    table = timed("k2_table", K.build_table, hist.versions.reshape(-1))
+    too_old, _, cand = timed(
+        "k8_probe", K.shard_probe, hist.keys, table, rbk.read_begin,
+        rbk.read_end, rbk.read_mask, rbk.read_version, rbk.txn_mask,
+        res.shard_lo, res.shard_hi, floor[0])
+    if wave:
+        ps = timed("k5_pred", ck.shard_pred_matrices, cand, clip)
+        p, _ = timed("k10_exchange", ck.wave_exchange, ps)
+        accepted, _, _ = timed("k6_level", ck.wave_level, cand, p, too_old,
+                               rbk.txn_mask, level_out=got.levels[i],
+                               verdicts_out=got.verdicts[i])
+    else:
+        accepted, _ = timed("k3_accept", ck.accept, cand, too_old,
+                            rbk.txn_mask, ck.endpoint_ranks_live_packed(rbk),
+                            got.verdicts[i])
+    return timed("k4_paint", ck._paint_shards, hist, rbk, clip, accepted, cv,
+                 floor)
 
 
 def main(argv=None) -> int:
@@ -341,6 +434,9 @@ def main(argv=None) -> int:
                     help="unconfirmed windows a speculative engine keeps")
     ap.add_argument("--shifting-hotspot", action="store_true",
                     help="a walking hotspot in place of the Zipf draw")
+    ap.add_argument("--resolvers", type=int, default=1,
+                    help="N > 1: N keyspace shards on the card, split at "
+                         "the stream sample's density quantiles")
     ap.add_argument("--profile", action="store_true",
                     help="also time each kernel launch of one warm window "
                          "(needs the card)")
@@ -353,12 +449,16 @@ def main(argv=None) -> int:
     mode = MODES[args.mode]
     window = max(1, min(args.window, max(1, args.txns // mode.batch)))
     n_batches = max(1, args.txns // mode.batch) // window * window
-    blob, ends = make_stream(mode, n_batches, args.keys, args.seed,
-                             args.shifting_hotspot)
+    stream = gen_workload(n_batches * mode.batch, args.keys, args.seed, mode,
+                          args.shifting_hotspot)
+    blob, ends = build_wire_stream(*stream, n_batches, mode)
     engine = {"dict_hot_capacity": args.dict_hot_capacity,
               "dict_delta_slots": args.dict_delta_slots,
               "spec_resolve": args.spec_resolve == "1",
               "spec_depth": args.spec_depth}
+    if args.resolvers > 1:
+        engine.update(sharded_engine(args.resolvers,
+                                     density_sample(stream[1], mode)))
     record, *_ = run_wire(
         blob, ends, mode, n_batches, args.capacity, dev, window=window,
         pipeline_depth=args.pipeline_depth, repeats=args.repeats,
@@ -366,13 +466,14 @@ def main(argv=None) -> int:
         engine=engine)
     out = {"bench": "resolve_stream", "mode": args.mode, "device": str(dev),
            "workload": "shifting_hotspot" if args.shifting_hotspot
-           else "zipf", **record}
+           else "zipf", "resolvers": args.resolvers, **record}
     if dev.type == "cuda":
         out["card"] = card_line()
         out["kind"] = torch.cuda.get_device_name(0)
     if args.profile:
         out["profile"] = profile_window(blob, ends, mode, args.capacity,
-                                        window, wave=args.wave_commit == "1")
+                                        window, wave=args.wave_commit == "1",
+                                        engine=engine)
     print(json.dumps(out))
     return 0
 

@@ -10,7 +10,15 @@ either package can be captured mid-stream and continued by the port:
   spec_resolve, spec_depth);
 - ``state``: every ResState leaf under its dotted path (``dict_keys``,
   ``n_keys``, ``hist.base.keys``, ..., ``hist.base_st``, ...,
-  ``shard_hi``);
+  ``shard_hi``; a sharded engine's flat history as ``hist.keys`` [S, C, 1],
+  ``hist.versions`` [S, C], ``hist.n_used``, ``hist.oldest`` and
+  ``hist.overflow`` [S]);
+- ``sharded`` (a ``ShardedConflictSet`` only): ``n_shards``, ``splits``
+  (the interior split keys, None for uniform), ``auto_reshard``,
+  ``reshard_interval``, ``reshard_skew`` and the counters
+  ``reshard_moved_shards``, ``auto_reshards``, ``dispatches`` and
+  ``exchange`` (occupied tiles, dense tiles, wave batches; the pending
+  stats folded first);
 - ``mirror``: every field of the host dictionary mirror (MIRROR_FIELDS)
   and its ``stats`` dict;
 - ``base_version``, ``oldest_version``, ``last_commit``.
@@ -28,6 +36,7 @@ import torch
 
 from foundationdb_tpu_torch.models import conflict_kernel as ck
 from foundationdb_tpu_torch.models.conflict_set import TorchConflictSet
+from foundationdb_tpu_torch.parallel.sharded_resolver import ShardedConflictSet
 
 CONFIG_FIELDS = ("capacity", "batch_size", "max_read_ranges",
                  "max_write_ranges", "window_versions", "delta_capacity",
@@ -42,10 +51,13 @@ MIRROR_FIELDS = ("u64", "rows", "pinned", "_n_ids", "u64_by_id",
 
 def state_leaves(res) -> dict[str, object]:
     """Dotted-path leaves of a ResState (either package's: only field
-    names are read)."""
-    out = {"dict_keys": res.dict_keys, "n_keys": res.n_keys,
-           "hist.base_st": res.hist.base_st,
-           "shard_lo": res.shard_lo, "shard_hi": res.shard_hi}
+    names are read), its history two-level or flat (sharded)."""
+    out = {"dict_keys": res.dict_keys, "n_keys": res.n_keys}
+    if not hasattr(res.hist, "base"):
+        out.update({f"hist.{f}": getattr(res.hist, f) for f in STATE_FIELDS})
+        return out | {"shard_lo": res.shard_lo, "shard_hi": res.shard_hi}
+    out.update({"hist.base_st": res.hist.base_st,
+                "shard_lo": res.shard_lo, "shard_hi": res.shard_hi})
     for level in ("base", "delta"):
         st = getattr(res.hist, level)
         for f in STATE_FIELDS:
@@ -58,7 +70,7 @@ def snapshot(cs: TorchConflictSet) -> dict:
     reconciling its in-flight speculative windows."""
     cs.reconcile_all()
     mir = cs._mirror
-    return {
+    snap = {
         "config": {f: getattr(cs, f) for f in CONFIG_FIELDS}
         | {"max_key_bytes": cs.codec.max_key_bytes},
         "state": {k: v.cpu().numpy()
@@ -69,12 +81,36 @@ def snapshot(cs: TorchConflictSet) -> dict:
         "oldest_version": cs.oldest_version,
         "last_commit": cs._last_commit,
     }
+    if isinstance(cs, ShardedConflictSet):
+        cs._fold_exchange()
+        snap["sharded"] = {
+            "n_shards": cs.n_shards, "splits": cs._interior_splits,
+            "auto_reshard": cs.auto_reshard,
+            "reshard_interval": cs.reshard_interval,
+            "reshard_skew": cs.reshard_skew,
+            "reshard_moved_shards": cs.reshard_moved_shards,
+            "auto_reshards": cs.auto_reshards, "dispatches": cs._dispatches,
+            "exchange": list(cs._exchange_acc)}
+    return snap
 
 
 def engine_from_snapshot(snap: dict, device=None) -> TorchConflictSet:
-    """A TorchConflictSet whose device ResState and host mirror equal the
+    """A TorchConflictSet (a ShardedConflictSet for a snapshot with a
+    ``sharded`` entry) whose device ResState and host mirror equal the
     snapshot's, ready to resolve the next batch."""
-    cs = TorchConflictSet(**snap["config"], device=device)
+    sh = snap.get("sharded")
+    if sh is None:
+        cs = TorchConflictSet(**snap["config"], device=device)
+    else:
+        cs = ShardedConflictSet(
+            n_shards=sh["n_shards"], splits=sh["splits"],
+            auto_reshard=sh["auto_reshard"],
+            reshard_interval=sh["reshard_interval"],
+            reshard_skew=sh["reshard_skew"], **snap["config"], device=device)
+        cs.reshard_moved_shards = int(sh["reshard_moved_shards"])
+        cs.auto_reshards = int(sh["auto_reshards"])
+        cs._dispatches = int(sh["dispatches"])
+        cs._exchange_acc = [int(x) for x in sh["exchange"]]
     st = snap["state"]
 
     def t(name):
@@ -84,9 +120,12 @@ def engine_from_snapshot(snap: dict, device=None) -> TorchConflictSet:
         return ck.ConflictState(*(t(f"hist.{name}.{f}")
                                   for f in STATE_FIELDS))
 
+    if sh is None:
+        hist = ck.HistState(level("base"), t("hist.base_st"), level("delta"))
+    else:
+        hist = ck.ConflictState(*(t(f"hist.{f}") for f in STATE_FIELDS))
     cs.state = ck.ResState(
-        dict_keys=t("dict_keys"), n_keys=t("n_keys"),
-        hist=ck.HistState(level("base"), t("hist.base_st"), level("delta")),
+        dict_keys=t("dict_keys"), n_keys=t("n_keys"), hist=hist,
         shard_lo=t("shard_lo"), shard_hi=t("shard_hi"))
     mir = cs._mirror
     for f in MIRROR_FIELDS:

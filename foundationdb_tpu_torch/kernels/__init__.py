@@ -52,6 +52,11 @@ _SIGNATURES = {
         "wv_pred": [_P] * 7 + [_I] * 4 + [_P] * 2,
         "wv_level": [_P] * 4 + [_I] * 2 + [_P] * 5,
     },
+    "shard": {
+        "sh_clip": [_P] * 6 + [_I] * 3 + [_P] * 2 + [_I] * 2 + [_P] * 7,
+        "sh_probe": [_P, _I, _P, _I] + [_P] * 8 + [_I] * 2 + [_P] * 5,
+        "sh_exchange": [_P, _I, _I, _I, _P, _P, _P],
+    },
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -371,14 +376,17 @@ def _wave_smem(bp: int) -> int:
     return 8 * (bp + bp // 32)
 
 
-def wave_pred(cand, rb, re_, read_live, wb, we, write_live):
+def wave_pred(cand, rb, re_, read_live, wb, we, write_live, out=None):
     """Packed predecessor rows int32 [BP, BP/32], BP = B rounded up to 32
     (bit i of row j: a read of txn i overlaps a write of txn j; candidate
-    columns only, diagonal clear)."""
+    columns only, diagonal clear); written into ``out`` when given."""
     b, r, q = _check_ranks(rb, re_, read_live, wb, we, write_live)
     _check(cand, _bool, "cand", (b,))
     bp = (b + 31) // 32 * 32
-    rows = torch.empty((bp, bp // 32), dtype=_i32, device=cand.device)
+    rows = out
+    if rows is None:
+        rows = torch.empty((bp, bp // 32), dtype=_i32, device=cand.device)
+    _check(rows, _i32, "rows", (bp, bp // 32))
     _call("wave", "wv_pred", cand.device, _ptr(cand), _ptr(rb), _ptr(re_),
           _ptr(read_live), _ptr(wb), _ptr(we), _ptr(write_live), b, r, q, bp,
           _ptr(rows))
@@ -422,3 +430,81 @@ def wave_level(cand, p, too_old=None, txn_mask=None, stats=None, level=None,
           _ptr(txn_mask), b, bp, _ptr(level), _ptr(accepted), _ptr(verdicts),
           _ptr(stats))
     return accepted, level, verdicts
+
+
+# ----------------------------------------------------------------- K8-K10
+
+
+def shard_clip(rb, re_, read_mask, wb, we, write_mask, lo, hi, reads: bool):
+    """K9: the batch clipped to each shard's rank interval [lo[s], hi[s]):
+    (write_begin, write_end int32 [S, B, Q], write_mask bool [S, B, Q],
+    read_begin, read_end int32 [S, B, R], read_mask bool [S, B, R]); the
+    read three are None unless ``reads``. A clipped mask is the mask and
+    begin < end after the clamp."""
+    b, r, q = _check_ranks(rb, re_, read_mask, wb, we, write_mask)
+    s = lo.shape[0]
+    _check(lo, _i32, "shard_lo", (s,))
+    _check(hi, _i32, "shard_hi", (s,))
+    dev = lo.device
+    owb, owe = (torch.empty((s, b, q), dtype=_i32, device=dev)
+                for _ in range(2))
+    owm = torch.empty((s, b, q), dtype=_bool, device=dev)
+    orb = ore = orm = None
+    if reads:
+        orb, ore = (torch.empty((s, b, r), dtype=_i32, device=dev)
+                    for _ in range(2))
+        orm = torch.empty((s, b, r), dtype=_bool, device=dev)
+    _call("shard", "sh_clip", dev, _ptr(rb), _ptr(re_), _ptr(read_mask),
+          _ptr(wb), _ptr(we), _ptr(write_mask), b, r, q, _ptr(lo), _ptr(hi),
+          s, int(reads), _ptr(owb), _ptr(owe), _ptr(owm), _ptr(orb),
+          _ptr(ore), _ptr(orm))
+    return owb, owe, owm, orb, ore, orm
+
+
+def shard_probe(keys, table, read_begin, read_end, read_mask, read_version,
+                txn_mask, lo, hi, floor):
+    """K8: (too_old bool [B], hist_conflict bool [B], cand bool [B]) over
+    the S flat shard histories ``keys`` [S, C, 1] with ``table`` the
+    sparse table [L, S*C] of their versions; ``floor`` (0-dim) is the
+    too-old floor."""
+    s, c = keys.shape[0], keys.shape[1]
+    b, r = read_begin.shape
+    _check(keys, _i32, "keys", (s, c, 1))
+    _check(table, _i32, "table", (table_levels(s * c), s * c))
+    _check(read_begin, _i32, "read_begin")
+    _check(read_end, _i32, "read_end", (b, r))
+    _check(read_mask, _bool, "read_mask", (b, r))
+    _check(read_version, _i32, "read_version", (b,))
+    _check(txn_mask, _bool, "txn_mask", (b,))
+    _check(lo, _i32, "shard_lo", (s,))
+    _check(hi, _i32, "shard_hi", (s,))
+    _check(floor, _i32, "floor", ())
+    dev = keys.device
+    words = torch.empty((b + 31) // 32, dtype=_i32, device=dev)
+    too_old, hist, cand = (torch.empty(b, dtype=_bool, device=dev)
+                           for _ in range(3))
+    _call("shard", "sh_probe", dev, _ptr(keys), c, _ptr(table), s,
+          _ptr(read_begin), _ptr(read_end), _ptr(read_mask),
+          _ptr(read_version), _ptr(txn_mask), _ptr(lo), _ptr(hi),
+          _ptr(floor), b, r, _ptr(words), _ptr(too_old), _ptr(hist),
+          _ptr(cand))
+    return too_old, hist, cand
+
+
+def wave_exchange(ps, stats=None):
+    """K10: (the OR of the S packed predecessor matrices ``ps`` [S, BP,
+    BP/32] as int32 [BP, BP/32], int32 [2] stats: the occupied 32x32-bit
+    tiles summed over the shards, and S·(BP/32)·(BP/32)); the stats go
+    into ``stats`` when given."""
+    s, bp, nw = ps.shape
+    _check(ps, _i32, "ps", (s, bp, bp // 32))
+    if bp % 32 or bp == 0:
+        raise ValueError(f"ps: {bp} rows (want a positive multiple of 32)")
+    dev = ps.device
+    if stats is None:
+        stats = torch.empty(2, dtype=_i32, device=dev)
+    _check(stats, _i32, "stats", (2,))
+    p = torch.empty((bp, nw), dtype=_i32, device=dev)
+    _call("shard", "sh_exchange", dev, _ptr(ps), s, bp, nw, _ptr(p),
+          _ptr(stats))
+    return p, stats

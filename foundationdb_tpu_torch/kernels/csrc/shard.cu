@@ -1,0 +1,243 @@
+// K8, K9, K10: the sharded engine's probe, clip and wave exchange (S
+// keyspace shards of one card, the shard axis leading every array).
+//
+// Replaces (foundationdb_tpu/):
+//   K8: parallel/sharded_resolver.py _res_shard_step (:188), its probe half
+//       with models/conflict_kernel.py too_old_mask_packed (:1425) and
+//       _history_conflict_ranges_res (:2136), and the cross-shard OR of the
+//       conflict bits (the all_gather of pack_bits_u32 or the psum, :199-205);
+//   K9: models/conflict_kernel.py clip_ranks (:2109), every shard at once;
+//   K10: parallel/sharded_resolver.py _wave_exchange_and_level (:169), its
+//       all_gather + OR of the shards' predecessor matrices, and
+//       models/conflict_kernel.py wave_occupied_tiles (:764).
+//
+// K9 is elementwise and bound by bytes: per shard it reads the batch's
+// endpoint ranks and masks and writes their clamped copies (S x B x Q
+// writes, and S x B x R reads on a wave engine). One thread per output
+// element of the [S, ...] arrays; the clamp is the same two-sided
+// min(max(v, lo), hi) on both endpoints, a monotone map, so the host's
+// paint order of the unclipped endpoints stays sorted for every shard.
+//
+// K8 is one launch over every (read slot, shard) pair (grid.y = S): the
+// slot's range clamped to the shard, two binary searches in the shard's
+// flat history keys [C], a range max from the sparse table that K2 builds
+// over the S histories' versions as one [S x C] array (a query never
+// leaves its shard's segment, so one table serves every shard), and an
+// atomicOr of the conflict bit into one packed word per 32 transactions:
+// the mesh's all_gather / psum becomes an OR in device memory. A second
+// launch, one thread per transaction, folds the too-old test and writes
+// too_old, the OR-ed conflict bit and the acceptance candidates, so K3
+// and K6 take them as they take K2's. Bound: dependent loads of the
+// searches (about 2 log2 C steps per live slot and shard) over a few MB.
+//
+// K10 ORs the S packed predecessor matrices [S, BP, BP/32] into one and
+// counts each shard's occupied 32x32-bit tiles (32 rows x 1 word). A block
+// of 32 x 8 threads owns one tile row (32 rows) of a strip of 32 words:
+// the 32 threads of a warp read 32 consecutive words (coalesced), each
+// thread ORs 4 rows, and the block ORs its 8 row groups in shared memory
+// per shard to decide each tile's occupancy. Bytes bound: the S matrices
+// read once, the OR written once. The stats pair (occupied summed over
+// shards, S x (BP/32) x (BP/32)) stays on the device for the host to fold
+// lazily.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define NEG_VERSION (-2147483647)
+#define FULL 0xffffffffu
+
+__device__ __forceinline__ int lower_bound(const int* a, int n, int q) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (a[mid] < q) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ int upper_bound(const int* a, int n, int q) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    int mid = (lo + hi) >> 1;
+    if (a[mid] <= q) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+__device__ __forceinline__ int clamp(int v, int lo, int hi) {
+  v = v > lo ? v : lo;
+  return v < hi ? v : hi;
+}
+
+// max(values[lo:hi]) from the sparse table st [L, n]; empty -> NEG_VERSION.
+__device__ __forceinline__ int range_max(const int* st, int64_t n, int64_t lo,
+                                         int64_t hi) {
+  int64_t len = hi - lo;
+  if (len <= 0) return NEG_VERSION;
+  int lvl = 63 - __clzll(len);
+  int64_t b = hi - ((int64_t)1 << lvl);
+  int x = st[lvl * n + lo];
+  int y = st[lvl * n + b];
+  return x > y ? x : y;
+}
+
+static inline int blocks(int64_t n, int t) { return (int)((n + t - 1) / t); }
+
+// ------------------------------------------------------------------ K9
+
+// Thread t < S*nq clips write element t; past it (reads on), read element
+// t - S*nq.
+__global__ void k_clip(const int* rb, const int* re, const bool* rm,
+                       const int* wb, const int* we, const bool* wm,
+                       int64_t nr, int64_t nq, const int* lo, const int* hi,
+                       int S, bool reads, int* owb, int* owe, bool* owm,
+                       int* orb, int* ore, bool* orm) {
+  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  int64_t nw_all = (int64_t)S * nq;
+  const int *a, *z;
+  const bool* m;
+  int *oa, *oz;
+  bool* om;
+  int64_t n;
+  if (t < nw_all) {
+    a = wb; z = we; m = wm; oa = owb; oz = owe; om = owm; n = nq;
+  } else {
+    t -= nw_all;
+    if (!reads || t >= (int64_t)S * nr) return;
+    a = rb; z = re; m = rm; oa = orb; oz = ore; om = orm; n = nr;
+  }
+  int s = (int)(t / n);
+  int64_t i = t % n;
+  int l = lo[s], h = hi[s];
+  int x = clamp(a[i], l, h), y = clamp(z[i], l, h);
+  oa[t] = x;
+  oz[t] = y;
+  om[t] = m[i] && x < y;
+}
+
+extern "C" int sh_clip(const int* rb, const int* re, const bool* rm,
+                       const int* wb, const int* we, const bool* wm, int B,
+                       int R, int Q, const int* lo, const int* hi, int S,
+                       int reads, int* owb, int* owe, bool* owm, int* orb,
+                       int* ore, bool* orm, cudaStream_t s) {
+  const int T = 256;
+  int64_t nr = (int64_t)B * R, nq = (int64_t)B * Q;
+  int64_t n = (int64_t)S * (nq + (reads ? nr : 0));
+  if (n > 0)
+    k_clip<<<blocks(n, T), T, 0, s>>>(rb, re, rm, wb, we, wm, nr, nq, lo, hi,
+                                      S, reads != 0, owb, owe, owm, orb, ore,
+                                      orm);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------------ K8
+
+__global__ void k_probe_shards(const int* keys, int C, const int* st,
+                               int64_t N, const int* rb, const int* re,
+                               const bool* rm, const int* rv, const int* lo,
+                               const int* hi, int B, int R, unsigned* words) {
+  int64_t slot = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (slot >= (int64_t)B * R || !rm[slot]) return;
+  int s = blockIdx.y;
+  int l = lo[s], h = hi[s];
+  int qb = clamp(rb[slot], l, h), qe = clamp(re[slot], l, h);
+  if (qb >= qe) return;  // outside the shard: the clipped mask is false
+  const int* k = keys + (int64_t)s * C;
+  int a = upper_bound(k, C, qb) - 1;
+  if (a < 0) a = 0;
+  int z = lower_bound(k, C, qe);
+  int64_t base = (int64_t)s * C;
+  int b = (int)(slot / R);
+  if (range_max(st, N, base + a, base + z) > rv[b])
+    atomicOr(&words[b >> 5], 1u << (b & 31));
+}
+
+__global__ void k_probe_finish(const unsigned* words, const int* rb,
+                               const int* re, const bool* rm, const int* rv,
+                               const bool* tm, const int* floor_p, int B,
+                               int R, bool* too_old, bool* hist, bool* cand) {
+  int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  bool has_reads = false;
+  for (int r = 0; r < R; ++r) {
+    int64_t i = (int64_t)b * R + r;
+    has_reads |= rm[i] && rb[i] < re[i];
+  }
+  bool t = tm[b];
+  bool to = t && has_reads && rv[b] < *floor_p;
+  bool h = (words[b >> 5] >> (b & 31)) & 1u;
+  too_old[b] = to;
+  hist[b] = h;
+  cand[b] = t && !to && !h;
+}
+
+// keys [S, C], st [L, S*C]; words [ceil(B/32)] scratch.
+extern "C" int sh_probe(const int* keys, int C, const int* st, int S,
+                        const int* rb, const int* re, const bool* rm,
+                        const int* rv, const bool* tm, const int* lo,
+                        const int* hi, const int* floor_p, int B, int R,
+                        unsigned* words, bool* too_old, bool* hist,
+                        bool* cand, cudaStream_t s) {
+  const int T = 128;
+  if (B <= 0) return (int)cudaGetLastError();
+  cudaError_t e = cudaMemsetAsync(words, 0, sizeof(unsigned) * ((B + 31) / 32),
+                                  s);
+  if (e != cudaSuccess) return (int)e;
+  if (R > 0 && S > 0)
+    k_probe_shards<<<dim3(blocks((int64_t)B * R, T), S), T, 0, s>>>(
+        keys, C, st, (int64_t)S * C, rb, re, rm, rv, lo, hi, B, R, words);
+  k_probe_finish<<<blocks(B, T), T, 0, s>>>(words, rb, re, rm, rv, tm,
+                                            floor_p, B, R, too_old, hist,
+                                            cand);
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------------------- K10
+
+__global__ void k_exchange(const unsigned* P, int S, int BP, int NW,
+                           unsigned* out, int* stats) {
+  __shared__ unsigned any_s[8][32];
+  int tx = threadIdx.x, ty = threadIdx.y;
+  int w = blockIdx.x * 32 + tx;
+  int g = blockIdx.y;
+  bool ok = w < NW;
+  unsigned acc[4] = {0u, 0u, 0u, 0u};
+  int count = 0;
+  for (int s = 0; s < S; ++s) {
+    unsigned any = 0u;
+    for (int k = 0; k < 4; ++k) {
+      int row = g * 32 + ty + 8 * k;
+      unsigned v = ok ? P[((int64_t)s * BP + row) * NW + w] : 0u;
+      acc[k] |= v;
+      any |= v;
+    }
+    any_s[ty][tx] = any;
+    __syncthreads();
+    if (ty == 0) {
+      unsigned o = 0u;
+      for (int y = 0; y < 8; ++y) o |= any_s[y][tx];
+      count += (ok && o != 0u) ? 1 : 0;
+    }
+    __syncthreads();
+  }
+  if (ok)
+    for (int k = 0; k < 4; ++k)
+      out[(int64_t)(g * 32 + ty + 8 * k) * NW + w] = acc[k];
+  if (ty == 0) {
+    for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(FULL, count, o);
+    if (tx == 0 && count) atomicAdd(&stats[0], count);
+  }
+  if (blockIdx.x == 0 && blockIdx.y == 0 && tx == 0 && ty == 0)
+    stats[1] = S * (BP / 32) * NW;
+}
+
+// P [S, BP, NW] -> out [BP, NW]; stats int32 [2].
+extern "C" int sh_exchange(const unsigned* P, int S, int BP, int NW,
+                           unsigned* out, int* stats, cudaStream_t s) {
+  cudaError_t e = cudaMemsetAsync(stats, 0, 2 * sizeof(int), s);
+  if (e != cudaSuccess) return (int)e;
+  if (BP > 0 && NW > 0)
+    k_exchange<<<dim3((NW + 31) / 32, BP / 32), dim3(32, 8), 0, s>>>(
+        P, S, BP, NW, out, stats);
+  return (int)cudaGetLastError();
+}

@@ -17,7 +17,10 @@ launches the hand-written kernel (kernels/csrc/*.cu) and never falls back:
 - K2 ``history_probe.cu``: sparse-table build, history probe, too-old mask;
 - K3 ``accept.cu``: overlap rows, sequential acceptance, verdicts, losers;
 - K4 ``step_compact.cu``: paint, base+delta fold, dedup and compaction;
-- K5, K6 ``wave.cu``: the wave predecessor matrix and the wave leveling.
+- K5, K6 ``wave.cu``: the wave predecessor matrix and the wave leveling;
+- K8, K9, K10 ``shard.cu``: the sharded engine's probe with the
+  cross-shard OR, its per-shard clip, and its wave exchange (the OR of
+  the shards' predecessor matrices and their occupied tiles).
 
 The window program ``resolve_many_res`` (the JAX ``lax.scan`` of
 ``resolve_many_res``) has no kernel source of its own: on the card it is
@@ -28,6 +31,9 @@ window. The two-phase wave protocol (``wave_edges_res`` /
 speculative engine's paint-only re-advance ``paint_many_res`` is K1 once,
 then per step the gated K4 fold and a K4 paint with a host-forced accept
 mask; its rollback target is ``snapshot_res``, a deep copy of the state.
+The sharded engine (section B3: S keyspace shards on one card, each with
+a flat history) runs ``sharded_resolve_res_many``: K1 once, then per step
+K9, K2's table and K8, K3 (or K5 per shard, K10 and K6) and K4 per shard.
 
 JAX donates the state argument of every entry point. Here each function
 that takes a state CONSUMES it: on the card the history arrays are updated
@@ -45,7 +51,11 @@ from foundationdb_tpu_torch import kernels as K
 from foundationdb_tpu_torch.core.keypack import INT32_MAX as _I32MAX
 from foundationdb_tpu_torch.core.types import WAVE_LEVEL_CYCLE as LEVEL_CYCLE
 from foundationdb_tpu_torch.core.types import WAVE_LEVEL_NONE as LEVEL_NONE
-from foundationdb_tpu_torch.ops.bitset import pack_bits_u32, to_int32_bits
+from foundationdb_tpu_torch.ops.bitset import (
+    pack_bits_u32,
+    to_int32_bits,
+    unpack_bits_u32,
+)
 from foundationdb_tpu_torch.ops.lex import searchsorted_words, searchsorted_words_fp
 from foundationdb_tpu_torch.ops.rmq import range_max, sparse_table
 
@@ -58,9 +68,10 @@ V_TOO_OLD = 2
 
 _ACCEPT_BLOCK = 512
 
-# Window launch sequences issued on the card (resolve_many_res), counted
-# like the kernel launches in kernels.LAUNCHES.
-LAUNCHES = {"resolve_many": 0, "paint_many": 0}
+# Window launch sequences issued on the card (resolve_many_res,
+# paint_many_res, sharded_resolve_res_many), counted like the kernel
+# launches in kernels.LAUNCHES.
+LAUNCHES = {"resolve_many": 0, "paint_many": 0, "sharded_many": 0}
 
 
 def reset_launches() -> None:
@@ -818,15 +829,30 @@ def _rewrite_ranks(arrays, table, remap: bool):
     return _rewrite_ranks_plain(arrays, table, remap)
 
 
+def hist_rank_arrays(hist) -> list:
+    """The rank arrays of a history: the base and delta keys of a two-level
+    HistState, or the keys of a flat (sharded: [S, C, 1]) ConflictState."""
+    if isinstance(hist, HistState):
+        return [hist.base.keys, hist.delta.keys]
+    return [hist.keys]
+
+
+def _hist_with_ranks(hist, arrays):
+    if isinstance(hist, HistState):
+        return HistState(hist.base._replace(keys=arrays[0]), hist.base_st,
+                         hist.delta._replace(keys=arrays[1]))
+    return hist._replace(keys=arrays[0])
+
+
 def _rewrite_res_ranks(res: ResState, table, remap: bool, dict_keys, n_keys):
-    h = res.hist
-    bk, dk, lo, hi = _rewrite_ranks(
-        [h.base.keys, h.delta.keys, res.shard_lo, res.shard_hi], table, remap)
-    return ResState(
-        dict_keys=dict_keys, n_keys=n_keys,
-        hist=HistState(h.base._replace(keys=bk), h.base_st,
-                       h.delta._replace(keys=dk)),
-        shard_lo=lo, shard_hi=hi)
+    """Every rank the state holds (history keys, shard bounds) rewritten by
+    ``table``: one K1 rewrite launch on the card (at most four arrays)."""
+    *hk, lo, hi = _rewrite_ranks(
+        [*hist_rank_arrays(res.hist), res.shard_lo, res.shard_hi], table,
+        remap)
+    return ResState(dict_keys=dict_keys, n_keys=n_keys,
+                    hist=_hist_with_ranks(res.hist, hk), shard_lo=lo,
+                    shard_hi=hi)
 
 
 def apply_delta(res: ResState, delta_keys, n_new: int | None = None):
@@ -912,8 +938,11 @@ def rebase(state: ConflictState, delta: int) -> ConflictState:
 
 
 def rebase_res(res: ResState, delta: int) -> ResState:
-    """Version rebase of both history levels plus the base table rebuild."""
+    """Version rebase of both history levels plus the base table rebuild;
+    a flat (sharded) history has no table."""
     h = res.hist
+    if not isinstance(h, HistState):
+        return res._replace(hist=rebase(h, delta))
     base = rebase(h.base, delta)
     if _on_card(base.versions):
         K.build_table(base.versions, out=h.base_st)
@@ -1060,11 +1089,10 @@ def _apply_delta_plain(res: ResState, delta_keys) -> ResState:
     if not bool((~(delta_keys == INT32_MAX).all(-1)).any()):
         return res
     nd, nn, shift = _dict_insert_plain(res.dict_keys, res.n_keys, delta_keys)
-    h = res.hist
-    bk, dk, lo, hi = _rewrite_ranks_plain(
-        [h.base.keys, h.delta.keys, res.shard_lo, res.shard_hi], shift, False)
-    return ResState(nd, nn, HistState(h.base._replace(keys=bk), h.base_st,
-                                      h.delta._replace(keys=dk)), lo, hi)
+    *hk, lo, hi = _rewrite_ranks_plain(
+        [*hist_rank_arrays(res.hist), res.shard_lo, res.shard_hi], shift,
+        False)
+    return ResState(nd, nn, _hist_with_ranks(res.hist, hk), lo, hi)
 
 
 def resolve_many_res_plain(res: ResState, rb: ResidentBatch,
@@ -1161,6 +1189,9 @@ def paint_many_res_plain(res: ResState, rb: ResidentBatch, accepted,
     """Plain version of the paint-only window: ``_apply_delta_plain`` once,
     then per step the too-old floor, the demand-driven fold and a paint of
     the forced ``accepted`` [k, B] mask."""
+    if not isinstance(res.hist, HistState):
+        return _paint_many_sharded(res, rb, accepted, commit_versions,
+                                   new_oldests, plain=True)
     res = _apply_delta_plain(res, rb.delta_keys)
     hist = res.hist
     for i in range(rb.ranks.read_begin.shape[0]):
@@ -1180,7 +1211,12 @@ def paint_many_res(res: ResState, rb: ResidentBatch, accepted,
     same demand-driven fold. On the card: K1 once, then per step the
     gated K4 fold (and K2 table) and a K4 paint; ``n_new`` and
     ``demands`` are the host counts the window's resolve used, so the
-    replay inserts and folds exactly as it did. No host sync."""
+    replay inserts and folds exactly as it did. No host sync. A flat
+    (sharded) history takes the JAX flat branch over its shards: the
+    too-old floor, K9's write clip and a K4 paint per shard, no fold."""
+    if not isinstance(res.hist, HistState):
+        return _paint_many_sharded(res, rb, accepted, commit_versions,
+                                   new_oldests, n_new)
     if not _on_card(res.dict_keys):
         return paint_many_res_plain(res, rb, accepted, commit_versions,
                                     new_oldests)
@@ -1242,3 +1278,393 @@ def wave_apply_res(res: ResState, rbk: RankBatch, cand, p, commit_version,
                                    floor)
     return levels, res._replace(hist=HistState(hist.base, hist.base_st,
                                                delta))
+
+
+# ---------------------------------------------------------------------------
+# B3: the sharded engine (S keyspace shards on one card)
+# ---------------------------------------------------------------------------
+#
+# The JAX ShardedConflictSet runs one SPMD program over a mesh of S devices
+# (parallel/sharded_resolver.py). Here the S shards are a leading axis of
+# one state on one card. The dictionary is shared (JAX replicates it, and
+# every device merges the same delta); shard s keeps a FLAT rank-space
+# history (a ConflictState whose leaves are [S, C, 1], [S, C] and [S]) of
+# its keyspace slice [shard_lo[s], shard_hi[s]) of ranks. A step clips the
+# batch to every shard (K9), probes every shard's history and ORs the
+# shards' conflict bits (K2's table over the S histories, then K8: the JAX
+# all_gather or psum across the mesh becomes an OR on the card), accepts
+# on the UNCLIPPED batch (K3) or, on a wave engine, builds each shard's
+# predecessor rows from its clipped ranges (K5), ORs them and counts their
+# occupied tiles (K10) and levels the global graph (K6), then paints each
+# shard's clipped accepted writes (K4). The shards share the verdicts:
+# JAX's replicated outputs are device 0's, so the too-old floor is shard
+# 0's (every shard's floor equals it).
+
+
+class ShardClip(NamedTuple):
+    """A batch clipped to each of S shards (the JAX ``clip_ranks`` of every
+    shard, stacked): the writes always, the reads for a wave engine."""
+
+    write_begin: torch.Tensor  # int32 [S, B, Q]
+    write_end: torch.Tensor
+    write_mask: torch.Tensor  # bool [S, B, Q]: mask & (begin < end)
+    read_begin: torch.Tensor | None  # int32 [S, B, R]
+    read_end: torch.Tensor | None
+    read_mask: torch.Tensor | None
+
+
+def init_sharded_res(dict_rows, dict_capacity: int, capacity: int,
+                     device) -> ResState:
+    """The sharded engine's first state (the JAX
+    ``ShardedConflictSet._init_engine_resident``): ``dict_rows`` [S, W] are
+    the shards' lower bounds (row 0 the packed b""), so shard s starts with
+    one boundary at rank s; the last shard's upper bound is INT32_MAX."""
+    dict_rows = torch.as_tensor(dict_rows, dtype=torch.int32)
+    s, w = dict_rows.shape
+    dict_keys = torch.full((dict_capacity + 1, w), INT32_MAX,
+                           dtype=torch.int32, device=device)
+    dict_keys[:s] = dict_rows
+    lo = torch.arange(s, dtype=torch.int32, device=device)
+    keys = torch.full((s, capacity, 1), INT32_MAX, dtype=torch.int32,
+                      device=device)
+    keys[:, 0, 0] = lo
+    hist = ConflictState(
+        keys=keys,
+        versions=torch.full((s, capacity), NEG_VERSION, dtype=torch.int32,
+                            device=device),
+        n_used=torch.ones(s, dtype=torch.int32, device=device),
+        oldest=torch.zeros(s, dtype=torch.int32, device=device),
+        overflow=torch.zeros(s, dtype=torch.bool, device=device))
+    hi = torch.cat([lo[1:], torch.full((1,), INT32_MAX, dtype=torch.int32,
+                                       device=device)])
+    return ResState(dict_keys=dict_keys, n_keys=_i32(s, device), hist=hist,
+                    shard_lo=lo, shard_hi=hi)
+
+
+def _shard_hist(hist: ConflictState, s: int) -> ConflictState:
+    """Shard s of a flat sharded history (views: the card paints in place)."""
+    return ConflictState(*(x[s] for x in hist))
+
+
+def clip_ranks(rbk: RankBatch, lo, hi) -> RankBatch:
+    """The batch restricted to one shard's rank interval [lo, hi) (the JAX
+    ``clip_ranks``): the same two-sided clamp on both endpoints, one
+    monotone map, so the host's paint order of the UNCLIPPED endpoints
+    stays sorted; a range outside the shard drops out of its mask."""
+    def clamp(v):
+        return torch.minimum(torch.maximum(v, lo), hi)
+
+    rb, re_, wb, we = (clamp(x) for x in (rbk.read_begin, rbk.read_end,
+                                          rbk.write_begin, rbk.write_end))
+    return rbk._replace(
+        read_begin=rb, read_end=re_, read_mask=rbk.read_mask & (rb < re_),
+        write_begin=wb, write_end=we, write_mask=rbk.write_mask & (wb < we))
+
+
+def shard_clip_plain(rbk: RankBatch, lo, hi, reads: bool) -> ShardClip:
+    """Plain twin of K9: ``clip_ranks`` of every shard, stacked."""
+    lo3, hi3 = lo[:, None, None], hi[:, None, None]
+
+    def clamp(v):
+        return torch.minimum(torch.maximum(v[None], lo3), hi3)
+
+    wb, we = clamp(rbk.write_begin), clamp(rbk.write_end)
+    wm = rbk.write_mask[None] & (wb < we)
+    if not reads:
+        return ShardClip(wb, we, wm, None, None, None)
+    rb, re_ = clamp(rbk.read_begin), clamp(rbk.read_end)
+    return ShardClip(wb, we, wm, rb, re_, rbk.read_mask[None] & (rb < re_))
+
+
+def shard_clip(rbk: RankBatch, lo, hi, reads: bool) -> ShardClip:
+    """K9: the batch clipped to every shard's [lo[s], hi[s]), one
+    elementwise launch; the reads too when ``reads`` (a wave engine's
+    predecessor rows are built from clipped reads and writes)."""
+    if _on_card(lo):
+        return ShardClip(*K.shard_clip(
+            rbk.read_begin, rbk.read_end, rbk.read_mask, rbk.write_begin,
+            rbk.write_end, rbk.write_mask, lo, hi, reads))
+    return shard_clip_plain(rbk, lo, hi, reads)
+
+
+def shard_ranks(rbk: RankBatch, clip: ShardClip, s: int) -> RankBatch:
+    """Shard s's view of the batch: its clipped writes, and its clipped
+    reads where the clip has them."""
+    out = rbk._replace(write_begin=clip.write_begin[s],
+                       write_end=clip.write_end[s],
+                       write_mask=clip.write_mask[s])
+    if clip.read_begin is None:
+        return out
+    return out._replace(read_begin=clip.read_begin[s],
+                        read_end=clip.read_end[s],
+                        read_mask=clip.read_mask[s])
+
+
+def _history_conflict_ranges_res(state: ConflictState, rbk: RankBatch):
+    """bool [B, R]: read slot overlaps a write of the flat history newer
+    than its read version (the JAX ``_history_conflict_ranges_res``; its
+    sparse table is rebuilt here, as JAX rebuilds it every batch)."""
+    b, r = rbk.read_begin.shape
+    lo = _rank_probe(state.keys, rbk.read_begin.reshape(-1), "right") - 1
+    hi = _rank_probe(state.keys, rbk.read_end.reshape(-1), "left")
+    newest = range_max(sparse_table(state.versions), lo.clamp(min=0), hi,
+                       NEG_VERSION).reshape(b, r)
+    live = rbk.read_mask & (rbk.read_begin < rbk.read_end)
+    return live & (newest > rbk.read_version[:, None])
+
+
+def shard_probe_plain(hist: ConflictState, rbk: RankBatch, lo, hi, floor):
+    """Plain twin of K8: (too_old [B], hist_conflict [B], cand [B]), the
+    probe half of the JAX ``_res_shard_step`` on every shard with the OR of
+    the shards' conflict bits taken as the mesh takes it: the all_gather of
+    the packed bits when B % 32 == 0, the psum otherwise. ``floor`` is
+    shard 0's too-old floor (0-dim)."""
+    b = rbk.txn_mask.shape[0]
+    has_reads = (rbk.read_mask & (rbk.read_begin < rbk.read_end)).any(1)
+    too_old = rbk.txn_mask & has_reads & (rbk.read_version < floor)
+    hit = torch.stack([
+        _history_conflict_ranges_res(_shard_hist(hist, s),
+                                     clip_ranks(rbk, lo[s], hi[s])).any(1)
+        for s in range(lo.shape[0])])
+    if b % 32 == 0:
+        hist_conflict = unpack_bits_u32(pack_bits_u32(hit), b).any(0)
+    else:
+        hist_conflict = hit.to(torch.int32).sum(0) > 0
+    cand = rbk.txn_mask & ~too_old & ~hist_conflict
+    return too_old, hist_conflict, cand
+
+
+def shard_probe(hist: ConflictState, rbk: RankBatch, lo, hi, floor):
+    """(too_old, hist_conflict, cand) over every shard. On the card: K2's
+    sparse table over the S histories' versions as one [S·C] array (a
+    query never leaves its shard's segment, so one table answers them
+    all), then K8, one launch over every (shard, read slot) that ORs the
+    shards' conflict bits and writes too_old and the candidates."""
+    if _on_card(hist.keys):
+        table = K.build_table(hist.versions.reshape(-1))
+        return K.shard_probe(hist.keys, table, rbk.read_begin, rbk.read_end,
+                             rbk.read_mask, rbk.read_version, rbk.txn_mask,
+                             lo, hi, floor)
+    return shard_probe_plain(hist, rbk, lo, hi, floor)
+
+
+def _clip_live(clip: ShardClip, s: int) -> tuple:
+    """Shard s's clipped endpoint ranks and live masks, in the order of
+    ``endpoint_ranks_live_packed``."""
+    return (clip.read_begin[s], clip.read_end[s], clip.read_mask[s],
+            clip.write_begin[s], clip.write_end[s], clip.write_mask[s])
+
+
+def shard_pred_matrices(cand, clip: ShardClip) -> torch.Tensor:
+    """int32 [S, BP, BP/32]: each shard's predecessor rows from its clipped
+    ranges (K5 once per shard, into one buffer)."""
+    n_shards = clip.write_begin.shape[0]
+    if not _on_card(cand):
+        return torch.stack([wave_pred_matrix_plain(cand, _clip_live(clip, s))
+                            for s in range(n_shards)])
+    bp = (cand.shape[0] + 31) // 32 * 32
+    ps = torch.empty((n_shards, bp, bp // 32), dtype=torch.int32,
+                     device=cand.device)
+    for s in range(n_shards):
+        K.wave_pred(cand, *_clip_live(clip, s), out=ps[s])
+    return ps
+
+
+def wave_occupied_tiles(p: torch.Tensor) -> torch.Tensor:
+    """int32 0-dim: the non-zero 32x32-bit tiles (32 rows x 1 word) of a
+    packed predecessor matrix (the JAX ``wave_occupied_tiles``)."""
+    bp, w = p.shape
+    return (p.reshape(bp // 32, 32, w) != 0).any(1).sum().to(torch.int32)
+
+
+def wave_exchange_plain(ps: torch.Tensor):
+    """Plain twin of K10: (the OR of the S matrices [BP, BP/32], int32 [2]
+    stats: occupied tiles summed over the shards, and the dense exchange's
+    tile count S·(BP/32)·(BP/32)), the JAX ``_wave_exchange_and_level``
+    before its leveling."""
+    s, bp, w = ps.shape
+    p = ps[0].clone()
+    for i in range(1, s):
+        p |= ps[i]
+    occ = torch.stack([wave_occupied_tiles(ps[i]) for i in range(s)]).sum()
+    total = torch.full((), s * (bp // 32) * w, dtype=torch.int32,
+                       device=ps.device)
+    return p, torch.stack([occ.to(torch.int32), total])
+
+
+def wave_exchange(ps: torch.Tensor, stats_out=None):
+    """K10: the OR of the shards' predecessor matrices and the exchange
+    stats pair (into ``stats_out``, an int32 [2], when given)."""
+    if _on_card(ps):
+        return K.wave_exchange(ps, stats=stats_out)
+    p, stats = wave_exchange_plain(ps)
+    return p, _written(stats_out, stats)
+
+
+def _paint_shards(hist: ConflictState, rbk: RankBatch, clip: ShardClip,
+                  accepted, commit_version: int, floor,
+                  plain: bool = False) -> ConflictState:
+    """Each shard's clipped accepted writes painted into its history (K4
+    once per shard, in place on the card; ``plain`` forces the plain
+    version). ``floor`` [S] holds each shard's too-old floor."""
+    n_shards = hist.keys.shape[0]
+    if not plain and _on_card(hist.keys):
+        for s in range(n_shards):
+            K.paint(_shard_hist(hist, s), clip.write_begin[s],
+                    clip.write_end[s], clip.write_mask[s], accepted,
+                    rbk.paint_src, int(commit_version), floor[s])
+        return hist
+    outs = [_paint_and_compact_res_plain(_shard_hist(hist, s),
+                                         shard_ranks(rbk, clip, s), accepted,
+                                         commit_version, floor[s])
+            for s in range(n_shards)]
+    return ConflictState(*(torch.stack(x) for x in zip(*outs)))
+
+
+def _sharded_step_plain(hist: ConflictState, lo, hi, rbk: RankBatch,
+                        commit_version: int, new_oldest, wave: bool = False,
+                        stats=None):
+    """One step on every shard through the plain versions only, wherever
+    the tensors live (the yardstick on the card). Returns (verdicts, levels
+    or None, exchange stats or None, new hist)."""
+    floor = torch.maximum(hist.oldest, _i32(new_oldest, hist.oldest.device))
+    clip = shard_clip_plain(rbk, lo, hi, wave)
+    too_old, _, cand = shard_probe_plain(hist, rbk, lo, hi, floor[0])
+    levels = xstats = None
+    if wave:
+        ps = torch.stack([wave_pred_matrix_plain(cand, _clip_live(clip, s))
+                          for s in range(lo.shape[0])])
+        p, xstats = wave_exchange_plain(ps)
+        accepted, levels, verdicts = wave_level_plain(cand, p, too_old,
+                                                      rbk.txn_mask, stats)
+    else:
+        accepted, verdicts = accept_plain(cand, too_old, rbk.txn_mask,
+                                          endpoint_ranks_live_packed(rbk))
+    return verdicts, levels, xstats, _paint_shards(
+        hist, rbk, clip, accepted, commit_version, floor, plain=True)
+
+
+def _sharded_step(hist: ConflictState, lo, hi, rbk: RankBatch,
+                  commit_version: int, new_oldest, wave: bool = False,
+                  stats=None, verdicts_out=None, levels_out=None,
+                  xstats_out=None):
+    """One step of the JAX ``_res_shard_step`` on every shard. On the card:
+    K9, K2's table and K8, then K3 once on the unclipped batch, or K5 per
+    shard, K10 and K6 on the clipped ranges, then K4 once per shard. The
+    verdicts, levels and exchange stats go into the given buffers.
+    Returns (verdicts, levels or None, exchange stats or None, new hist)."""
+    if not _on_card(hist.keys):
+        v, lv, x, hist = _sharded_step_plain(hist, lo, hi, rbk,
+                                             commit_version, new_oldest,
+                                             wave, stats)
+        return (_written(verdicts_out, v),
+                None if lv is None else _written(levels_out, lv),
+                None if x is None else _written(xstats_out, x), hist)
+    floor = torch.maximum(hist.oldest, _i32(new_oldest, hist.oldest.device))
+    clip = shard_clip(rbk, lo, hi, wave)
+    too_old, _, cand = shard_probe(hist, rbk, lo, hi, floor[0])
+    levels = xstats = None
+    if wave:
+        p, xstats = wave_exchange(shard_pred_matrices(cand, clip), xstats_out)
+        accepted, levels, verdicts = wave_level(
+            cand, p, too_old, rbk.txn_mask, stats=stats,
+            level_out=levels_out, verdicts_out=verdicts_out)
+    else:
+        accepted, verdicts = accept(cand, too_old, rbk.txn_mask,
+                                    endpoint_ranks_live_packed(rbk),
+                                    out=verdicts_out)
+    return verdicts, levels, xstats, _paint_shards(
+        hist, rbk, clip, accepted, commit_version, floor)
+
+
+def sharded_resolve_res(res: ResState, rb: ResidentBatch,
+                        commit_version: int, new_oldest,
+                        n_new: int | None = None, wave: bool = False,
+                        stats=None, out: WindowOut | None = None,
+                        xstats_out=None):
+    """The JAX ``_sharded_resolve_res``: one delta insert and rank rebase of
+    every shard's history and bounds (K1, once for all shards), then one
+    step on every shard. Returns (verdicts int8 [B], levels int32 [B] or
+    None, exchange stats int32 [2] or None, new ResState); the verdicts
+    and levels go into row 0 of ``out`` when it is given."""
+    res = apply_delta(res, rb.delta_keys, n_new)
+    v, lv, x, hist = _sharded_step(
+        res.hist, res.shard_lo, res.shard_hi, rb.ranks, commit_version,
+        new_oldest, wave, stats,
+        None if out is None else out.verdicts[0],
+        None if out is None or not wave else out.levels[0], xstats_out)
+    return v, lv, x, res._replace(hist=hist)
+
+
+def sharded_resolve_res_many(res: ResState, rb: ResidentBatch,
+                             commit_versions, new_oldests,
+                             n_new: int | None = None, wave: bool = False,
+                             stats=None, out: WindowOut | None = None,
+                             xstats=None):
+    """The sharded window program (the JAX ``_sharded_resolve_res_many``):
+    ONE delta insert and rank rebase for the window, then k steps on every
+    shard. Returns (verdicts int8 [k, B], levels int32 [k, B] or None,
+    exchange stats int32 [k, 2] or None, new ResState); the verdicts and
+    levels are written into ``out``, the stats into ``xstats``, when given.
+    On the card: K1 once, then per step K9, K2's table, K8, K3 (or K5 per
+    shard, K10, K6) and K4 per shard. No host sync inside the window."""
+    k, b = rb.ranks.txn_mask.shape
+    dev = res.dict_keys.device
+    if _on_card(res.dict_keys):
+        LAUNCHES["sharded_many"] += 1
+    res = apply_delta(res, rb.delta_keys, n_new)
+    if out is None:
+        out = window_out(k, b, dev, wave)
+    if wave and xstats is None:
+        xstats = torch.empty((k, 2), dtype=torch.int32, device=dev)
+    hist = res.hist
+    for i in range(k):
+        *_, hist = _sharded_step(
+            hist, res.shard_lo, res.shard_hi, _step(rb.ranks, i),
+            int(commit_versions[i]), int(new_oldests[i]), wave, stats,
+            out.verdicts[i], out.levels[i] if wave else None,
+            xstats[i] if wave else None)
+    return out.verdicts, out.levels, xstats if wave else None, \
+        res._replace(hist=hist)
+
+
+def sharded_resolve_res_many_plain(res: ResState, rb: ResidentBatch,
+                                   commit_versions, new_oldests,
+                                   wave: bool = False, stats=None):
+    """Plain version of the sharded window program (same returns)."""
+    res = _apply_delta_plain(res, rb.delta_keys)
+    hist = res.hist
+    rows = []
+    for i in range(rb.ranks.txn_mask.shape[0]):
+        *row, hist = _sharded_step_plain(
+            hist, res.shard_lo, res.shard_hi, _step(rb.ranks, i),
+            int(commit_versions[i]), int(new_oldests[i]), wave, stats)
+        rows.append(row)
+    v, lv, x = zip(*rows)
+    return (torch.stack(v), torch.stack(lv) if wave else None,
+            torch.stack(x) if wave else None, res._replace(hist=hist))
+
+
+def _paint_many_sharded(res: ResState, rb: ResidentBatch, accepted,
+                        commit_versions, new_oldests,
+                        n_new: int | None = None,
+                        plain: bool = False) -> ResState:
+    """The paint-only window over a flat sharded history: the JAX flat
+    ``_paint_core_res`` (the floor, then the paint; no fold) on every
+    shard's clipped writes. ``plain`` runs the plain versions only."""
+    if plain:
+        res = _apply_delta_plain(res, rb.delta_keys)
+    else:
+        if _on_card(res.dict_keys):
+            LAUNCHES["paint_many"] += 1
+        res = apply_delta(res, rb.delta_keys, n_new)
+    hist = res.hist
+    clip_fn = shard_clip_plain if plain else shard_clip
+    for i in range(rb.ranks.txn_mask.shape[0]):
+        rbk = _step(rb.ranks, i)
+        floor = torch.maximum(hist.oldest,
+                              _i32(int(new_oldests[i]), hist.oldest.device))
+        clip = clip_fn(rbk, res.shard_lo, res.shard_hi, False)
+        hist = _paint_shards(hist, rbk, clip, accepted[i],
+                             int(commit_versions[i]), floor, plain)
+    return res._replace(hist=hist)

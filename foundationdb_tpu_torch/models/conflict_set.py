@@ -19,7 +19,10 @@ global wave protocol of sharded resolvers (``resolve_edges`` /
 dictionary (``dict_hot_capacity``: demotion by K7 at the hot watermark,
 promotion through the ordinary delta); and speculative window and object
 resolve (``spec_resolve``: ``spec_dispatch_window``, ``reconcile_window``,
-``spec_resolve_async``).
+``spec_resolve_async``). The device programs sit behind ``_init_engine``,
+``_batch_program`` and ``_window_program``, which the sharded engine
+(``parallel/sharded_resolver.py``) overrides; every host behaviour is
+shared.
 
 The host packs byte ranges into rank space against a mirror of the device
 dictionary, ships only never-seen keys, chunks oversized batches (chunks
@@ -706,6 +709,16 @@ class TorchConflictSet:
                                         device=self.device)
                             if self.wave_commit else None)
         self.host_syncs = 0  # device -> host reads, see the module docstring
+        self._init_engine()
+
+    # -- device programs (the seam a sharded engine overrides) ---------------
+
+    #: True when the engine has a report launch: a chunk holding a txn that
+    #: asks for its conflicting keys then fills ``last_conflicting``.
+    can_report = True
+
+    def _init_engine(self) -> None:
+        """The host mirror and the device state."""
         self._mirror = _ResidentMirror(
             self.codec.min_key[None, :], self.dict_capacity,
             self.dict_delta_slots, _DICT_FRAG, tiered=self.tiered,
@@ -714,6 +727,26 @@ class TorchConflictSet:
             self._mirror.rows, self.dict_capacity, self.capacity,
             self.delta_capacity, self.device,
         )
+
+    def _batch_program(self, rb: ck.ResidentBatch, hb: HostRankBatch,
+                       cv: int, oldest: int, report: bool,
+                       out: ck.WindowOut) -> tuple:
+        """One chunk's device program on ``self.state``: (verdicts[,
+        levels][, losers], new state), the verdicts (and levels) in row 0
+        of ``out``."""
+        return ck.resolve_batch_res(
+            self.state, rb, cv, oldest, report=report, n_new=hb.n_new,
+            demand=hb.demand, wave=self.wave_commit, stats=self._wave_stats,
+            out=out)
+
+    def _window_program(self, rb: ck.ResidentBatch, hb: HostRankBatch,
+                        cvs_rel, olds_rel, out: ck.WindowOut) -> ck.ResState:
+        """One window's device program on ``self.state``; returns the new
+        state, the verdicts (and levels) in ``out``."""
+        return ck.resolve_many_res(
+            self.state, rb, cvs_rel, olds_rel, n_new=hb.n_new,
+            demands=hb.demand, wave=self.wave_commit, stats=self._wave_stats,
+            out=out)[-1]
 
     # -- resident-dictionary packing ----------------------------------------
 
@@ -865,9 +898,8 @@ class TorchConflictSet:
 
     def _device_live_ranks(self) -> np.ndarray:
         """Every rank the device history still references (one sync)."""
-        hist = self.state.hist
-        ranks = torch.cat([hist.base.keys.reshape(-1),
-                           hist.delta.keys.reshape(-1)]).cpu().numpy()
+        ranks = torch.cat([a.reshape(-1) for a in ck.hist_rank_arrays(
+            self.state.hist)]).cpu().numpy()
         self.host_syncs += 1
         live = np.unique(ranks[ranks != INT32_MAX])
         return live[(live >= 0) & (live < self._mirror.n)]
@@ -1080,7 +1112,8 @@ class TorchConflictSet:
         pending: list[tuple] = []
         for i in range(0, len(txns), self.batch_size):
             chunk = txns[i : i + self.batch_size]
-            report = any(t.report_conflicting_keys for t in chunk)
+            report = self.can_report and any(t.report_conflicting_keys
+                                             for t in chunk)
             batch, reads = self._pack(chunk)
             # Pack BEFORE reading self.state: a repack inside the packer
             # replaces it.
@@ -1097,10 +1130,8 @@ class TorchConflictSet:
         outputs). The verdicts (and levels) land in the WindowOut, which
         the collector reads with one device-to-host copy."""
         out = ck.window_out(1, self.batch_size, self.device, self.wave_commit)
-        got = ck.resolve_batch_res(
-            self.state, upload(hb, self.device), cv, oldest, report=report,
-            n_new=hb.n_new, demand=hb.demand, wave=self.wave_commit,
-            stats=self._wave_stats, out=out)
+        got = self._batch_program(upload(hb, self.device), hb, cv, oldest,
+                                  report, out)
         self.state = got[-1]
         return out, got
 
@@ -1266,10 +1297,7 @@ class TorchConflictSet:
         fresh WindowOut, advancing ``self.state``."""
         out = ck.window_out(len(cvs_rel), self.batch_size, self.device,
                             self.wave_commit)
-        self.state = ck.resolve_many_res(
-            self.state, rb, cvs_rel, olds_rel, n_new=hb.n_new,
-            demands=hb.demand, wave=self.wave_commit, stats=self._wave_stats,
-            out=out)[-1]
+        self.state = self._window_program(rb, hb, cvs_rel, olds_rel, out)
         return out
 
     # -- speculative window resolve (spec_resolve=True) ---------------------

@@ -358,3 +358,162 @@ def test_wave_engine_cuda_equals_cpu(card):
                 assert sa["state"][k].tobytes() == v.tobytes(), (i, k)
     assert eng[card].wave_stats == eng["cpu"].wave_stats
     assert eng[card].dict_stats["full_repacks"] > 0
+
+
+# ------------------------------------------------- K8, K9, K10 (sharded)
+
+
+def shard_bounds(s, space, empty=False):
+    """[S] int32 rank bounds tiling [0, INT32_MAX); ``empty`` makes shard
+    1 empty (lo == hi)."""
+    cuts = sorted(np.random.default_rng(s).choice(np.arange(1, space), s - 1,
+                                                  replace=False).tolist())
+    if empty and s > 2:
+        cuts[1] = cuts[0]
+    lo = np.array([0] + cuts, np.int32)
+    hi = np.array(cuts + [ck.INT32_MAX], np.int32)
+    return lo, hi
+
+
+def rank_batch(rng, b, r, q, space, dev):
+    """A RankBatch on ``dev``: live ranges in [0, space), masked slots at
+    +inf, some reads running to the +inf end."""
+    def ranks(n):
+        lo = rng.integers(0, space, (b, n)).astype(np.int32)
+        hi = lo + rng.integers(0, 8, (b, n)).astype(np.int32)
+        hi[rng.random((b, n)) < 0.05] = ck.INT32_MAX
+        m = rng.random((b, n)) < 0.8
+        return (np.where(m, lo, ck.INT32_MAX).astype(np.int32),
+                np.where(m, hi, ck.INT32_MAX).astype(np.int32), m)
+
+    rb, re_, rm = ranks(r)
+    wb, we, wm = ranks(q)
+    paint = np.argsort(np.concatenate([wb.reshape(-1), we.reshape(-1)]),
+                       kind="stable").astype(np.int32)
+    return ck.RankBatch(
+        on(rb, dev), on(re_, dev), on(rm, dev), on(wb, dev), on(we, dev),
+        on(wm, dev), on(rng.integers(0, 30, b).astype(np.int32), dev),
+        on(rng.random(b) < 0.9, dev), on(paint, dev))
+
+
+@pytest.mark.parametrize("b,r,q,s,empty", [(30, 2, 1, 1, False),
+                                           (33, 3, 2, 4, True),
+                                           (1000, 2, 1, 4, False),
+                                           (8192, 2, 1, 4, False)])
+def test_shard_clip(card, b, r, q, s, empty):
+    rng = np.random.default_rng(b + s)
+    rbk = rank_batch(rng, b, r, q, 200, card)
+    lo, hi = (on(x, card) for x in shard_bounds(s, 200, empty))
+    for reads in (False, True):
+        got = ck.shard_clip(rbk, lo, hi, reads)
+        want = ck.shard_clip_plain(rbk, lo, hi, reads)
+        for g, w in zip(got, want):
+            assert (g is None and w is None) or torch.equal(g, w)
+
+
+def sharded_history(s, capacity, dev, seed=0):
+    """A sharded engine's state after a seeded stream, copied to ``dev``
+    (every shard with history, n_used up to ``capacity``)."""
+    from foundationdb_tpu_torch.parallel.sharded_resolver import (
+        ShardedConflictSet,
+    )
+
+    cs = ShardedConflictSet(n_shards=s, device="cpu", capacity=capacity,
+                            batch_size=8 * s, max_read_ranges=2,
+                            max_write_ranges=2, max_key_bytes=8,
+                            auto_reshard=False, splits=[
+                                bytes([97 + 4 * i]) for i in range(1, s)])
+    rng = np.random.default_rng(seed)
+    for i in range(6):
+        cv = 100 + 10 * i
+        cs.resolve([rand_txn(rng, cv - 5) for _ in range(8 * s)], cv, cv - 40)
+    return type(cs.state)(*(x.to(dev) if isinstance(x, torch.Tensor)
+                            else type(x)(*(y.to(dev) for y in x))
+                            for x in cs.state))
+
+
+@pytest.mark.parametrize("b,s,empty", [(30, 1, False), (33, 4, False),
+                                       (64, 4, True), (1000, 3, True)])
+def test_shard_probe(card, b, s, empty):
+    """K8 (with K2's table over the S histories) against its plain
+    version: odd B (the psum branch), S = 1, an empty shard (lo == hi:
+    every clipped read is empty), and reads ending at the last shard's
+    INT32_MAX bound."""
+    res = sharded_history(s, 64, card, seed=b)
+    rng = np.random.default_rng(b)
+    n_keys = int(res.n_keys)
+    rbk = rank_batch(rng, b, 2, 1, n_keys, card)
+    lo, hi = res.shard_lo.clone(), res.shard_hi.clone()
+    if empty:
+        hi[1] = lo[1]
+    floor = torch.tensor(3, dtype=torch.int32, device=card)
+    got = ck.shard_probe(res.hist, rbk, lo, hi, floor)
+    want = ck.shard_probe_plain(res.hist, rbk, lo, hi, floor)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(want[1].any())
+
+
+@pytest.mark.parametrize("s,bp,empty", [(1, 32, False), (3, 64, True),
+                                        (4, 1024, True)])
+def test_wave_exchange(card, s, bp, empty):
+    """K10 against its plain version: S = 1, odd shard counts, and a shard
+    whose matrix is all zero (no occupied tile)."""
+    rng = np.random.default_rng(s * bp)
+    ps = rng.integers(0, 2**32, (s, bp, bp // 32), dtype=np.uint64).astype(
+        np.uint32)
+    ps[:, rng.random(bp) < 0.5] = 0  # whole rows empty: empty tiles too
+    ps[:, :32] = 0
+    if empty:
+        ps[1] = 0
+    t = on(ps.view(np.int32), card)
+    got = ck.wave_exchange(t)
+    want = ck.wave_exchange_plain(t)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("wave", [False, True])
+def test_sharded_engine_cuda_equals_cpu(card, wave):
+    """Object, wire and window paths of a 3-shard engine on the card
+    against the CPU plain run (odd batch size: K8's psum branch), through
+    a reshard that inserts bound keys: verdicts, levels and every leaf."""
+    from foundationdb_tpu_torch.models.conflict_set import encode_resolve_batch
+    from foundationdb_tpu_torch.parallel.sharded_resolver import (
+        ShardedConflictSet,
+    )
+
+    kw = dict(n_shards=3, capacity=256, batch_size=21, max_read_ranges=2,
+              max_write_ranges=2, max_key_bytes=8, window_versions=300,
+              wave_commit=wave, auto_reshard=False)
+    eng = {dev: ShardedConflictSet(device=dev, **kw) for dev in (card, "cpu")}
+    rng = np.random.default_rng(12)
+    cv = 1000
+    for i in range(9):
+        cv += int(rng.integers(1, 40))
+        txns = [rand_txn(rng, int(rng.integers(cv - 250, cv)))
+                for _ in range(int(rng.integers(2, 42)))]
+        out = {}
+        for dev, cs in eng.items():
+            if i == 4:
+                cs.reshard([b"b", b"c\x00"])
+            if i % 3 == 0:
+                v = [int(x) for x in cs.resolve(txns, cv, cv - 200)]
+            elif i % 3 == 1:
+                v = cs.resolve_wire_async(encode_resolve_batch(txns), cv,
+                                          cv - 200, as_array=True)().tolist()
+            else:
+                count = min(len(txns) // 2, 21)
+                v = cs.resolve_wire_window(
+                    encode_resolve_batch(txns[:2 * count]), [cv, cv + 1],
+                    count).tolist()
+            out[dev] = (v, cs.last_wave, None if cs.last_wave_window is None
+                        else cs.last_wave_window.tolist(),
+                        cs.shard_occupancy())
+        cv += 1
+        assert out[card] == out["cpu"], i
+        sa, sb = (convert.snapshot(e) for e in (eng[card], eng["cpu"]))
+        for k, v in sb["state"].items():
+            assert sa["state"][k].tobytes() == v.tobytes(), (i, k)
+        assert sa["sharded"] == sb["sharded"], i
+    assert eng[card].reshard_moved_shards > 0

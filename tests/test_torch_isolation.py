@@ -59,6 +59,15 @@ assert [[int(v) for v in s.resolve_apply(graph)] for s in shards] == \
 ring = [TxnConflictInfo(15, t.read_ranges, t.write_ranges) for t in ring]
 got = wv.resolve_wire_window(encode_resolve_batch(ring), [20], 2)
 assert got.tolist() == [[1, 0]] and wv.last_wave_window.tolist() == [[-2, 0]]
+from foundationdb_tpu_torch.parallel.sharded_resolver import ShardedConflictSet
+sh = ShardedConflictSet(n_shards=2, device="cpu", capacity=64, batch_size=8,
+                        max_read_ranges=2, max_write_ranges=2, max_key_bytes=8,
+                        splits=[b"b"], wave_commit=True)
+sh.resolve([TxnConflictInfo(5, [], [pt(b"a"), pt(b"c")])], 10)
+got = sh.resolve([TxnConflictInfo(5, [KeyRange(b"", b"z")], []),
+                  TxnConflictInfo(15, [pt(b"c")], [])], 20)
+assert [int(v) for v in got] == [1, 0] and sh.last_wave == [-1, 0], got
+assert sh.exchange_stats()["wave_batches"] == 2
 print("ok")
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -89,6 +98,19 @@ def test_default_device_is_cuda_and_raises_without_a_card():
         return
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchConflictSet(capacity=64, batch_size=8, max_key_bytes=8)
+
+
+def test_sharded_default_device_is_cuda_and_raises_without_a_card():
+    from foundationdb_tpu_torch.parallel.sharded_resolver import (
+        ShardedConflictSet,
+    )
+
+    kw = dict(n_shards=2, capacity=64, batch_size=8, max_key_bytes=8)
+    if torch.cuda.is_available():
+        assert ShardedConflictSet(**kw).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedConflictSet(**kw)
 
 
 @pytest.mark.parametrize("kw", [dict(resident=False, wave_commit=True),
