@@ -5,7 +5,7 @@
         [--pipeline-depth 4] [--repeats 3] [--device cuda|cpu] [--inline]
         [--wave-commit 0|1] [--dict-hot-capacity N] [--dict-delta-slots N]
         [--spec-resolve 0|1] [--spec-depth N] [--shifting-hotspot]
-        [--resolvers N] [--profile]
+        [--resolvers N] [--resident 0|1] [--profile]
 
 A YCSB-A, mako or TPC-C shaped stream (``loadgen/ycsb.py``) is encoded in
 the resolver wire format and resolved through
@@ -33,7 +33,10 @@ tiered dictionary's regime. ``--resolvers N`` (N > 1) resolves with a
 quantiles of a key sample drawn from the stream (the first eight
 batches' write keys, as the repository's ``bench.py`` draws it), with
 auto-reshard off; the record adds ``shard_occupancy`` and, on a wave
-engine, ``exchange_stats``. Prints one JSON line.
+engine, ``exchange_stats``. ``--resident 0`` resolves with the packed
+non-resident engine (a [C, W] word-key history and a dictionary per
+batch: K12 and K13 in place of K1, K2's probe and K4); its record has no
+``dict_stats`` (null). Prints one JSON line.
 
 The run is on the card (``--device cuda``, the default, raises without
 one); ``--device cpu`` runs the plain torch versions.
@@ -90,7 +93,8 @@ def card_line() -> str:
 def make_engine(mode: ModeConfig, capacity: int, device, wave: bool = False,
                 **engine) -> TorchConflictSet:
     """The mode's engine; ``engine`` holds further constructor arguments
-    (dict_hot_capacity, dict_delta_slots, spec_resolve, spec_depth; with
+    (dict_hot_capacity, dict_delta_slots, spec_resolve, spec_depth,
+    resident; with
     ``n_shards`` a ShardedConflictSet, and its splits and auto_reshard)."""
     cls = ShardedConflictSet if "n_shards" in engine else TorchConflictSet
     return cls(
@@ -437,6 +441,8 @@ def main(argv=None) -> int:
     ap.add_argument("--resolvers", type=int, default=1,
                     help="N > 1: N keyspace shards on the card, split at "
                          "the stream sample's density quantiles")
+    ap.add_argument("--resident", choices=("0", "1"), default="1",
+                    help="0: the packed non-resident engine")
     ap.add_argument("--profile", action="store_true",
                     help="also time each kernel launch of one warm window "
                          "(needs the card)")
@@ -446,6 +452,12 @@ def main(argv=None) -> int:
     if args.profile and dev.type != "cuda":
         raise SystemExit("--profile times kernel launches on the card; "
                          "it needs --device cuda")
+    if args.profile and args.resident == "0":
+        raise SystemExit("--profile replays the resident window program; "
+                         "it needs --resident 1")
+    if args.resident == "0" and args.resolvers > 1:
+        raise SystemExit("--resolvers N needs --resident 1 (the sharded "
+                         "non-resident engine is not ported)")
     mode = MODES[args.mode]
     window = max(1, min(args.window, max(1, args.txns // mode.batch)))
     n_batches = max(1, args.txns // mode.batch) // window * window
@@ -455,7 +467,8 @@ def main(argv=None) -> int:
     engine = {"dict_hot_capacity": args.dict_hot_capacity,
               "dict_delta_slots": args.dict_delta_slots,
               "spec_resolve": args.spec_resolve == "1",
-              "spec_depth": args.spec_depth}
+              "spec_depth": args.spec_depth,
+              "resident": args.resident == "1"}
     if args.resolvers > 1:
         engine.update(sharded_engine(args.resolvers,
                                      density_sample(stream[1], mode)))
@@ -466,7 +479,8 @@ def main(argv=None) -> int:
         engine=engine)
     out = {"bench": "resolve_stream", "mode": args.mode, "device": str(dev),
            "workload": "shifting_hotspot" if args.shifting_hotspot
-           else "zipf", "resolvers": args.resolvers, **record}
+           else "zipf", "resolvers": args.resolvers,
+           "resident": args.resident == "1", **record}
     if dev.type == "cuda":
         out["card"] = card_line()
         out["kind"] = torch.cuda.get_device_name(0)

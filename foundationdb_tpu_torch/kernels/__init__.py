@@ -57,6 +57,25 @@ _SIGNATURES = {
         "sh_probe": [_P, _I, _P, _I] + [_P] * 8 + [_I] * 2 + [_P] * 5,
         "sh_exchange": [_P, _I, _I, _I, _P, _P, _P],
     },
+    "word_probe": {
+        "wp_search": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P],
+        "wp_probe": [_P, _I, _P, _P, _P, _I, _P, _P] + [_P] * 6 + [_I] * 2
+        + [_P] * 4,
+    },
+    "word_compact": {
+        "wc_paint": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                     _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+        "wc_fold": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                    _P, _P, _P, _P, _P],
+        "wc_compact": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _P],
+    },
+    "admission": {
+        "ad_set": [_P, _I, _I, _P, _I, _P],
+        "ad_clear": [_P, _I, _I, _P],
+        "ad_probe": [_P, _I, _I, _P, _I, _I, _P, _P, _P],
+        "ad_count": [_P, _I, _I, _P, _P],
+    },
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
 
@@ -508,3 +527,206 @@ def wave_exchange(ps, stats=None):
     _call("shard", "sh_exchange", dev, _ptr(ps), s, bp, nw, _ptr(p),
           _ptr(stats))
     return p, stats
+
+
+# ----------------------------------------------------------------- K11
+
+
+def _check_words(words: torch.Tensor, nbits: int) -> tuple[int, int]:
+    banks, nw = words.shape
+    _check(words, _i32, "banks", (banks, (nbits + 31) // 32))
+    return banks, nw
+
+
+def admission_set(words, bank: int, idx, nbits: int) -> None:
+    """In place: slot ``idx[i]`` (int64 [m], each in [0, nbits)) of bank
+    ``bank`` set in the packed banks ``words`` int32 [banks, nw]."""
+    banks, nw = _check_words(words, nbits)
+    _check(idx, _i64, "idx", (idx.shape[0],))
+    if not 0 <= bank < banks:
+        raise ValueError(f"bank {bank} outside [0, {banks})")
+    _call("admission", "ad_set", words.device, _ptr(words), nw, int(bank),
+          _ptr(idx), idx.shape[0])
+
+
+def admission_clear(words, bank: int) -> None:
+    """In place: bank ``bank`` of the packed banks zeroed."""
+    banks, nw = words.shape
+    _check(words, _i32, "banks")
+    if not 0 <= bank < banks:
+        raise ValueError(f"bank {bank} outside [0, {banks})")
+    _call("admission", "ad_clear", words.device, _ptr(words), nw, int(bank))
+
+
+def admission_probe(words, idx, bank_mask, nbits: int):
+    """bool [n]: all k slots of row i (``idx`` int64 [n, k]) set in some
+    bank that ``bank_mask`` (bool [banks]) selects."""
+    banks, nw = _check_words(words, nbits)
+    n, k = idx.shape
+    _check(idx, _i64, "idx", (n, k))
+    _check(bank_mask, _bool, "bank_mask", (banks,))
+    out = torch.empty(n, dtype=_bool, device=words.device)
+    _call("admission", "ad_probe", words.device, _ptr(words), banks, nw,
+          _ptr(idx), n, k, _ptr(bank_mask), _ptr(out))
+    return out
+
+
+def admission_count(words):
+    """int32 [banks]: the set bits of each packed bank."""
+    banks, nw = words.shape
+    _check(words, _i32, "banks")
+    counts = torch.zeros(banks, dtype=_i32, device=words.device)
+    _call("admission", "ad_count", words.device, _ptr(words), banks, nw,
+          _ptr(counts))
+    return counts
+
+
+# ----------------------------------------------------------------- K12
+
+
+def word_search(keys0, dict_keys, keys1=None):
+    """(ls0, rs0, ls1, rs1) int32 [N+1]: the left and right insertion
+    points of every dictionary row ``dict_keys`` [N+1, W] in the sorted
+    [C, W] ``keys0`` and, when given, ``keys1`` (else None, None)."""
+    n1, w = dict_keys.shape
+    _check(dict_keys, _i32, "dict_keys")
+    c0 = keys0.shape[0]
+    _check(keys0, _i32, "keys0", (c0, w))
+    c1 = 0
+    if keys1 is not None:
+        c1 = keys1.shape[0]
+        _check(keys1, _i32, "keys1", (c1, w))
+    dev = dict_keys.device
+    out = torch.empty((4 if keys1 is not None else 2, n1), dtype=_i32,
+                      device=dev)
+    ls0, rs0 = out[0], out[1]
+    ls1, rs1 = (out[2], out[3]) if keys1 is not None else (None, None)
+    _call("word_probe", "wp_search", dev, _ptr(keys0), c0, _ptr(keys1), c1,
+          _ptr(dict_keys), n1, w, _ptr(ls0), _ptr(rs0), _ptr(ls1), _ptr(rs1))
+    return ls0, rs0, ls1, rs1
+
+
+def word_probe(st0, ls0, rs0, st1, ls1, rs1, read_begin, read_end,
+               read_mask, read_version, txn_mask, floor):
+    """(too_old bool [B], hist_mask bool [B, R], cand bool [B]): the read
+    slots' rank bounds gathered from K12's search of the base (``st0``
+    its sparse table [L, C], ``ls0``/``rs0``) and, unless ``st1`` is None
+    (a flat history), the delta's; ``floor`` is the 0-dim too-old floor."""
+    b, r = read_begin.shape
+    n1 = ls0.shape[0]
+    c0 = st0.shape[1]
+    _check(st0, _i32, "st0", (table_levels(c0), c0))
+    _check(ls0, _i32, "ls0", (n1,))
+    _check(rs0, _i32, "rs0", (n1,))
+    c1 = 0
+    if st1 is not None:
+        c1 = st1.shape[1]
+        _check(st1, _i32, "st1", (table_levels(c1), c1))
+        _check(ls1, _i32, "ls1", (n1,))
+        _check(rs1, _i32, "rs1", (n1,))
+    _check(read_begin, _i32, "read_begin")
+    _check(read_end, _i32, "read_end", (b, r))
+    _check(read_mask, _bool, "read_mask", (b, r))
+    _check(read_version, _i32, "read_version", (b,))
+    _check(txn_mask, _bool, "txn_mask", (b,))
+    _check(floor, _i32, "floor", ())
+    dev = read_begin.device
+    too_old = torch.empty(b, dtype=_bool, device=dev)
+    cand = torch.empty(b, dtype=_bool, device=dev)
+    hist_mask = torch.empty((b, r), dtype=_bool, device=dev)
+    _call("word_probe", "wp_probe", dev, _ptr(st0), c0, _ptr(ls0), _ptr(rs0),
+          _ptr(st1), c1, _ptr(ls1), _ptr(rs1), _ptr(read_begin),
+          _ptr(read_end), _ptr(read_mask), _ptr(read_version),
+          _ptr(txn_mask), _ptr(floor), b, r, _ptr(hist_mask), _ptr(too_old),
+          _ptr(cand))
+    return too_old, hist_mask, cand
+
+
+# ----------------------------------------------------------------- K13
+
+
+def _check_word_state(st, name: str):
+    c, w = st.keys.shape
+    _check(st.keys, _i32, f"{name}.keys", (c, w))
+    _check(st.versions, _i32, f"{name}.versions", (c,))
+    _check(st.n_used, _i32, f"{name}.n_used", ())
+    _check(st.oldest, _i32, f"{name}.oldest", ())
+    _check(st.overflow, _bool, f"{name}.overflow", ())
+    return c, w
+
+
+def word_paint(state, dict_keys, rs, wb, we, write_mask, accepted, paint_src,
+               cv: int, floor) -> None:
+    """Paint in place into ``state`` (a [C, W] ConflictState): the
+    accepted writes' endpoints gathered from ``dict_keys`` [N+1, W] by
+    rank, in the host's ``paint_src`` order, merged at their cross ranks
+    ``rs`` [N+1] (K12's right search of the dictionary into the state)."""
+    c, w = _check_word_state(state, "state")
+    n1 = dict_keys.shape[0]
+    b, q = wb.shape
+    _check(dict_keys, _i32, "dict_keys", (n1, w))
+    _check(rs, _i32, "rs", (n1,))
+    _check(wb, _i32, "write_begin")
+    _check(we, _i32, "write_end", (b, q))
+    _check(write_mask, _bool, "write_mask", (b, q))
+    _check(accepted, _bool, "accepted", (b,))
+    _check(paint_src, _i32, "paint_src", (2 * b * q,))
+    _check(floor, _i32, "floor", ())
+    dev = wb.device
+    n2 = 2 * b * q
+    n = c + n2
+    snew = torch.empty((n2, w), dtype=_i32, device=dev)
+    mk = torch.empty((n, w), dtype=_i32, device=dev)
+    mv, t0, t1 = _scratch(n, dev, 3)
+    bsum = torch.empty((n + 1023) // 1024, dtype=_i32, device=dev)
+    _call("word_compact", "wc_paint", dev, _ptr(state.keys),
+          _ptr(state.versions), c, w, _ptr(state.n_used),
+          _ptr(state.overflow), _ptr(state.oldest), _ptr(dict_keys), _ptr(rs),
+          _ptr(wb), _ptr(we), _ptr(write_mask), _ptr(accepted),
+          _ptr(paint_src), b, q, int(cv), _ptr(floor), _ptr(snew), _ptr(mk),
+          _ptr(mv), _ptr(t0), _ptr(t1), _ptr(bsum))
+
+
+def word_fold(base, delta, floor, need) -> None:
+    """Fold the [Cd, W] ``delta`` into the [C, W] ``base`` in place
+    (skipped on the device when the 0-dim bool ``need`` is False; None
+    means always)."""
+    c, w = _check_word_state(base, "base")
+    cd, wd = _check_word_state(delta, "delta")
+    if wd != w:
+        raise ValueError(f"base width {w} != delta width {wd}")
+    _check(floor, _i32, "floor", ())
+    if need is not None:
+        _check(need, _bool, "need", ())
+    dev = base.keys.device
+    n = c + cd
+    mk = torch.empty((n, w), dtype=_i32, device=dev)
+    mv, t0, t1 = _scratch(n, dev, 3)
+    bsum = torch.empty((n + 1023) // 1024, dtype=_i32, device=dev)
+    _call("word_compact", "wc_fold", dev, _ptr(base.keys),
+          _ptr(base.versions), c, w, _ptr(base.n_used), _ptr(base.overflow),
+          _ptr(base.oldest), _ptr(delta.keys), _ptr(delta.versions), cd,
+          _ptr(delta.overflow), _ptr(floor), _ptr(need), _ptr(mk), _ptr(mv),
+          _ptr(t0), _ptr(t1), _ptr(bsum))
+
+
+def word_compact(skeys, newv, c_out: int, prior_overflow):
+    """_dedup_compact of sorted [n, W] rows: (keys [c_out, W], versions
+    [c_out], n_used, overflow)."""
+    n, w = skeys.shape
+    _check(skeys, _i32, "skeys", (n, w))
+    _check(newv, _i32, "newv", (n,))
+    _check(prior_overflow, _bool, "prior_overflow", ())
+    if n < 1 or c_out < 1:
+        raise ValueError("compact needs n >= 1 and c_out >= 1")
+    dev = skeys.device
+    ok = torch.empty((c_out, w), dtype=_i32, device=dev)
+    ov = torch.empty(c_out, dtype=_i32, device=dev)
+    n_used = torch.empty((), dtype=_i32, device=dev)
+    overflow = torch.empty((), dtype=_bool, device=dev)
+    t0, t1 = _scratch(n, dev, 2)
+    bsum = torch.empty((n + 1023) // 1024, dtype=_i32, device=dev)
+    _call("word_compact", "wc_compact", dev, _ptr(skeys), _ptr(newv), n, w,
+          c_out, _ptr(prior_overflow), _ptr(ok), _ptr(ov), _ptr(n_used),
+          _ptr(overflow), _ptr(t0), _ptr(t1), _ptr(bsum))
+    return ok, ov, n_used, overflow

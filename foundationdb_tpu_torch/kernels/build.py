@@ -16,7 +16,8 @@ import subprocess
 from pathlib import Path
 
 SOURCES = ("dict_insert", "dict_evict", "history_probe", "accept",
-           "step_compact", "wave", "shard")
+           "step_compact", "wave", "shard", "admission", "word_probe",
+           "word_compact")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

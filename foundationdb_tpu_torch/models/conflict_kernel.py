@@ -35,6 +35,19 @@ The sharded engine (section B3: S keyspace shards on one card, each with
 a flat history) runs ``sharded_resolve_res_many``: K1 once, then per step
 K9, K2's table and K8, K3 (or K5 per shard, K10 and K6) and K4 per shard.
 
+The packed non-resident engine (section B4: ``resident=False``) keeps a
+two-level history of full [C, W] word keys and gets, with every batch, a
+host-built dictionary of the batch's unique endpoint keys: K12
+``word_probe.cu`` searches every dictionary row into the base and the
+delta (the W-word two-sided search) and probes the read slots by rank
+over K2's tables; K13 ``word_compact.cu`` is K4 at width W (paint with
+the keys gathered from the dictionary by rank, fold, compaction). Its
+window program ``resolve_many_hist_packed`` is, per step, the gated K13
+fold and K2 base table, K12's search, K2's delta table and K12's probe,
+K3 (or K5 and K6) and the K13 paint; speculation's dependency probe
+paints rejected writes into a flat scratch state (K13) and probes each
+younger window's dictionaries against it (K12).
+
 JAX donates the state argument of every entry point. Here each function
 that takes a state CONSUMES it: on the card the history arrays are updated
 in place, on the CPU a new state is built; either way callers rebind to
@@ -56,7 +69,11 @@ from foundationdb_tpu_torch.ops.bitset import (
     to_int32_bits,
     unpack_bits_u32,
 )
-from foundationdb_tpu_torch.ops.lex import searchsorted_words, searchsorted_words_fp
+from foundationdb_tpu_torch.ops.lex import (
+    searchsorted_words,
+    searchsorted_words_2sided_fp,
+    searchsorted_words_fp,
+)
 from foundationdb_tpu_torch.ops.rmq import range_max, sparse_table
 
 INT32_MAX = int(_I32MAX)
@@ -71,7 +88,8 @@ _ACCEPT_BLOCK = 512
 # Window launch sequences issued on the card (resolve_many_res,
 # paint_many_res, sharded_resolve_res_many), counted like the kernel
 # launches in kernels.LAUNCHES.
-LAUNCHES = {"resolve_many": 0, "paint_many": 0, "sharded_many": 0}
+LAUNCHES = {"resolve_many": 0, "paint_many": 0, "sharded_many": 0,
+            "packed_many": 0}
 
 
 def reset_launches() -> None:
@@ -613,10 +631,12 @@ def _dedup_compact_plain(skeys, newv, c_out: int, prior_overflow):
 
 
 def _dedup_compact(skeys, newv, c_out: int, prior_overflow):
-    """The shared compaction tail; on the card the K4 compact launch
-    (width-1 keys only, the rank-space history's width)."""
+    """The shared compaction tail; on the card the K4 compact launch for
+    width-1 (rank-space) rows, K13's for [n, W] word rows."""
     if _on_card(skeys):
-        return K.compact(skeys, newv, c_out, prior_overflow)
+        if skeys.shape[1] == 1:
+            return K.compact(skeys, newv, c_out, prior_overflow)
+        return K.word_compact(skeys, newv, c_out, prior_overflow)
     return _dedup_compact_plain(skeys, newv, c_out, prior_overflow)
 
 
@@ -736,6 +756,16 @@ def _maybe_merge_plain(hist: HistState, demand: int, floor) -> HistState:
     return HistState(nb, sparse_table(nb.versions), _reset_delta(delta, floor))
 
 
+def _fold_launch(base: ConflictState, delta: ConflictState, floor,
+                 need) -> None:
+    """The fold on the card: K4 for the rank-space (width-1) history, K13
+    for a non-resident engine's [C, W] word keys."""
+    if base.keys.shape[1] == 1:
+        K.fold(base, delta, floor, need)
+    else:
+        K.word_fold(base, delta, floor, need)
+
+
 def _maybe_merge(hist: HistState, demand: int, floor) -> HistState:
     """Fold the delta into the base when ``demand`` more boundaries would
     not fit, or when at least C/8 base segments have expired.
@@ -752,7 +782,7 @@ def _maybe_merge(hist: HistState, demand: int, floor) -> HistState:
     reclaimable = ((base.versions <= floor)
                    & (base.versions > NEG_VERSION)).sum()
     need = (delta.n_used + demand > cd) | (reclaimable >= max(c // 8, 1))
-    K.fold(base, delta, floor, need)
+    _fold_launch(base, delta, floor, need)
     K.build_table(base.versions, out=base_st, need=need)
     delta.keys[1:].masked_fill_(need, INT32_MAX)
     delta.versions.masked_fill_(need, NEG_VERSION)
@@ -770,7 +800,7 @@ def advance_hist(hist: HistState, commit_version, new_oldest) -> HistState:
         nb = _merge_delta_plain(base, delta, floor)
         return HistState(nb, sparse_table(nb.versions),
                          _reset_delta(delta, floor))
-    K.fold(base, delta, floor, None)
+    _fold_launch(base, delta, floor, None)
     K.build_table(base.versions, out=base_st)
     delta.keys[1:].fill_(INT32_MAX)
     delta.versions.fill_(NEG_VERSION)
@@ -937,19 +967,26 @@ def rebase(state: ConflictState, delta: int) -> ConflictState:
                           oldest=(state.oldest - delta).clamp(min=0))
 
 
-def rebase_res(res: ResState, delta: int) -> ResState:
-    """Version rebase of both history levels plus the base table rebuild;
-    a flat (sharded) history has no table."""
-    h = res.hist
-    if not isinstance(h, HistState):
-        return res._replace(hist=rebase(h, delta))
+def rebase_hist(h: HistState, delta: int) -> HistState:
+    """Version rebase of both history levels plus the base table rebuild."""
     base = rebase(h.base, delta)
     if _on_card(base.versions):
         K.build_table(base.versions, out=h.base_st)
         st = h.base_st
     else:
         st = sparse_table(base.versions)
-    return res._replace(hist=HistState(base, st, rebase(h.delta, delta)))
+    return HistState(base, st, rebase(h.delta, delta))
+
+
+def rebase_res(res, delta: int):
+    """Version rebase of a ResState (a flat sharded history has no table)
+    or of a non-resident engine's bare HistState."""
+    if isinstance(res, HistState):
+        return rebase_hist(res, delta)
+    h = res.hist
+    if not isinstance(h, HistState):
+        return res._replace(hist=rebase(h, delta))
+    return res._replace(hist=rebase_hist(h, delta))
 
 
 # ---------------------------------------------------------------------------
@@ -1668,3 +1705,342 @@ def _paint_many_sharded(res: ResState, rb: ResidentBatch, accepted,
         hist = _paint_shards(hist, rbk, clip, accepted[i],
                              int(commit_versions[i]), floor, plain)
     return res._replace(hist=hist)
+
+
+# ---------------------------------------------------------------------------
+# B4: the packed non-resident engine (resident=False)
+# ---------------------------------------------------------------------------
+#
+# The JAX default design point with resident=False: the history holds full
+# [C, W] word keys (base + delta), and every dispatch brings its own sorted
+# unique dictionary of the batch's endpoint keys, against which the batch
+# is in rank space. The history is searched once per unique key (K12); read
+# slots gather their bounds by rank; the paint gathers its boundary keys
+# back from the dictionary by rank in the host's paint order (K13). Every
+# function takes ``plain`` to run the plain versions wherever the tensors
+# live (the yardstick on the card).
+
+
+class PackedBatch(NamedTuple):
+    """One batch (or a [k]-leading window) of the non-resident engine: the
+    sorted unique endpoint-key dictionary (+inf padded; the last row is
+    always +inf) and the batch as ranks into it (the JAX PackedBatch; the
+    RankBatch carries the host's paint order)."""
+
+    dict_keys: torch.Tensor  # int32 [N + 1, W] (a window: [k, N + 1, W])
+    ranks: RankBatch
+
+
+class DictSearch(NamedTuple):
+    """Left and right insertion points int32 [N + 1] of every dictionary
+    row in the base (``_b``) and the delta (``_d``; None for a flat
+    history). ``rs - 1`` is a range begin's segment, ``ls`` the first
+    segment at or after a range end, ``rs_d`` the paint's cross rank."""
+
+    ls_b: torch.Tensor
+    rs_b: torch.Tensor
+    ls_d: torch.Tensor | None
+    rs_d: torch.Tensor | None
+
+
+SPEC_DEP_VERSION = INT32_MAX - 1
+
+
+def _card(t: torch.Tensor, plain: bool) -> bool:
+    return not plain and _on_card(t)
+
+
+def _step_packed(pb: PackedBatch, i: int) -> PackedBatch:
+    return PackedBatch(pb.dict_keys[i], _step(pb.ranks, i))
+
+
+def dict_history_search(keys_b, dict_keys, keys_d=None,
+                        plain: bool = False) -> DictSearch:
+    """K12's search (the JAX ``_dict_history_search``, :1445, of the base
+    and the delta): one two-sided W-word search per dictionary row."""
+    if _card(dict_keys, plain):
+        return DictSearch(*K.word_search(keys_b, dict_keys, keys_d))
+    ls_b, rs_b = searchsorted_words_2sided_fp(keys_b, dict_keys)
+    if keys_d is None:
+        return DictSearch(ls_b, rs_b, None, None)
+    ls_d, rs_d = searchsorted_words_2sided_fp(keys_d, dict_keys)
+    return DictSearch(ls_b, rs_b, ls_d, rs_d)
+
+
+def _history_conflict_ranges_hist_packed(base_st, delta_versions,
+                                         rbk: RankBatch, search: DictSearch):
+    """bool [B, R]: a read slot overlaps a write newer than its read
+    version (the JAX :1597; the flat :1458 when ``delta_versions`` is
+    None). The delta's sparse table is built here, as JAX builds it."""
+    b, r = rbk.read_begin.shape
+    rbf = rbk.read_begin.reshape(-1).long()
+    ref = rbk.read_end.reshape(-1).long()
+    newest = range_max(base_st, (search.rs_b[rbf] - 1).clamp(min=0),
+                       search.ls_b[ref], NEG_VERSION)
+    if delta_versions is not None:
+        newest_d = range_max(sparse_table(delta_versions),
+                             (search.rs_d[rbf] - 1).clamp(min=0),
+                             search.ls_d[ref], NEG_VERSION)
+        newest = torch.maximum(newest, newest_d)
+    live = rbk.read_mask & (rbk.read_begin < rbk.read_end)
+    return live & (newest.reshape(b, r) > rbk.read_version[:, None])
+
+
+def packed_probe(rbk: RankBatch, floor, search: DictSearch, base_st,
+                 delta_versions=None, plain: bool = False):
+    """(too_old [B], hist_mask [B, R], cand [B]) with ``floor`` the 0-dim
+    too-old floor. On the card: K2's table over the delta's versions (none
+    for a flat history), then K12's probe launch."""
+    if _card(rbk.read_begin, plain):
+        delta_st = (None if delta_versions is None
+                    else K.build_table(delta_versions))
+        return K.word_probe(base_st, search.ls_b, search.rs_b, delta_st,
+                            search.ls_d, search.rs_d, rbk.read_begin,
+                            rbk.read_end, rbk.read_mask, rbk.read_version,
+                            rbk.txn_mask, floor)
+    has_reads = (rbk.read_mask & (rbk.read_begin < rbk.read_end)).any(1)
+    too_old = rbk.txn_mask & has_reads & (rbk.read_version < floor)
+    hist_mask = _history_conflict_ranges_hist_packed(base_st, delta_versions,
+                                                     rbk, search)
+    cand = rbk.txn_mask & ~too_old & ~hist_mask.any(1)
+    return too_old, hist_mask, cand
+
+
+def _paint_and_compact_packed_plain(state: ConflictState, dict_keys,
+                                    rbk: RankBatch, accepted,
+                                    commit_version: int, new_oldest, rs):
+    b, q = rbk.write_begin.shape
+    e2 = b * q
+    valid = (accepted[:, None] & rbk.write_mask
+             & (rbk.write_begin < rbk.write_end)).reshape(e2).to(torch.int32)
+    new_ranks = torch.cat([rbk.write_begin.reshape(e2),
+                           rbk.write_end.reshape(e2)]).long()
+    new_delta = torch.cat([valid, -valid])
+    cross = rs[new_ranks]
+    new_oldv = state.versions[(cross - 1).clamp(min=0).long()]
+    sidx = rbk.paint_src.long()
+    return _paint_tail(state, dict_keys[new_ranks[sidx]], new_delta[sidx],
+                       new_oldv[sidx], cross[sidx], commit_version,
+                       new_oldest)
+
+
+def _paint_and_compact_packed(state: ConflictState, dict_keys,
+                              rbk: RankBatch, accepted, commit_version: int,
+                              new_oldest, rs=None,
+                              plain: bool = False) -> ConflictState:
+    """K13 paint (the JAX :1489): the accepted writes' endpoints, gathered
+    from the dictionary by rank in the host's ``paint_src`` order, merge
+    into ``state`` at their cross ranks ``rs`` (K12's right search of the
+    dictionary into ``state``, searched here when None); the commit
+    version is painted where coverage is positive, GC to the floor,
+    compaction. A rejected write merges as a no-op endpoint, which leaves
+    the state the JAX paint leaves by parking it on the +inf row. In place
+    on the card."""
+    if rs is None:
+        rs = dict_history_search(state.keys, dict_keys, plain=plain).rs_b
+    if _card(state.keys, plain):
+        K.word_paint(state, dict_keys, rs, rbk.write_begin, rbk.write_end,
+                     rbk.write_mask, accepted, rbk.paint_src,
+                     int(commit_version), _i32(new_oldest, rs.device))
+        return state
+    return _paint_and_compact_packed_plain(state, dict_keys, rbk, accepted,
+                                           commit_version, new_oldest, rs)
+
+
+def _resolve_core_packed(hist: HistState, pb: PackedBatch,
+                         commit_version: int, new_oldest, report: bool = False,
+                         demand: int | None = None, wave: bool = False,
+                         stats=None, verdicts_out=None, levels_out=None,
+                         plain: bool = False):
+    """The JAX ``resolve_batch_hist_packed`` (:1634): the gated fold, the
+    probe of base and delta, acceptance (or the wave schedule), the paint
+    of the post-fold delta with the probe's delta search as its cross
+    rank. Returns (verdicts[, levels][, losers], new_hist)."""
+    rbk = pb.ranks
+    floor, _ = too_old_mask_packed(hist.delta, rbk, new_oldest)
+    if demand is None:
+        demand = write_demand(rbk)
+    hist = (_maybe_merge_plain if plain else _maybe_merge)(hist, demand,
+                                                           floor)
+    search = dict_history_search(hist.base.keys, pb.dict_keys,
+                                 hist.delta.keys, plain)
+    too_old, hist_mask, cand = packed_probe(rbk, floor, search, hist.base_st,
+                                            hist.delta.versions, plain)
+    ranks = endpoint_ranks_live_packed(rbk)
+    levels = None
+    if not plain:
+        accepted, verdicts, levels = _schedule(
+            cand, too_old, rbk.txn_mask, ranks, wave, stats, verdicts_out,
+            levels_out)
+    elif wave:
+        accepted, levels, verdicts = wave_level_plain(
+            cand, wave_pred_matrix_plain(cand, ranks), too_old, rbk.txn_mask,
+            stats)
+    else:
+        accepted, verdicts = accept_plain(cand, too_old, rbk.txn_mask, ranks)
+    delta = _paint_and_compact_packed(hist.delta, pb.dict_keys, rbk, accepted,
+                                      commit_version, floor, search.rs_d,
+                                      plain)
+    new_hist = HistState(hist.base, hist.base_st, delta)
+    out = (verdicts, levels) if wave else (verdicts,)
+    if report:
+        losers = (loser_mask_plain if plain else loser_mask)(
+            hist_mask, ranks, accepted, verdicts)
+        return (*out, losers, new_hist)
+    return (*out, new_hist)
+
+
+def resolve_batch_hist_packed(hist: HistState, pb: PackedBatch,
+                              commit_version: int, new_oldest,
+                              report: bool = False,
+                              demand: int | None = None, wave: bool = False,
+                              stats=None, out: WindowOut | None = None):
+    """One packed batch (the object and wire paths). Returns (verdicts
+    int8 [B][, levels int32 [B]][, losers], new HistState); the verdicts
+    and levels go into row 0 of ``out`` when it is given."""
+    return _resolve_core_packed(
+        hist, pb, commit_version, new_oldest, report=report, demand=demand,
+        wave=wave, stats=stats,
+        verdicts_out=None if out is None else out.verdicts[0],
+        levels_out=None if out is None or not wave else out.levels[0])
+
+
+def resolve_many_hist_packed_plain(hist: HistState, pb: PackedBatch,
+                                   commit_versions, new_oldests,
+                                   wave: bool = False, stats=None):
+    """Plain version of the packed window program: k steps in order, each
+    with its own dictionary. Returns (verdicts int8 [k, B][, levels], new
+    HistState)."""
+    rows = []
+    for i in range(pb.ranks.txn_mask.shape[0]):
+        *step, hist = _resolve_core_packed(
+            hist, _step_packed(pb, i), int(commit_versions[i]),
+            int(new_oldests[i]), wave=wave, stats=stats, plain=True)
+        rows.append(step)
+    return (*(torch.stack(x) for x in zip(*rows)), hist)
+
+
+def resolve_many_hist_packed(hist: HistState, pb: PackedBatch,
+                             commit_versions, new_oldests, demands=None,
+                             wave: bool = False, stats=None,
+                             out: WindowOut | None = None):
+    """The packed window program (the JAX ``resolve_many_hist_packed``,
+    :1672): k steps, each against its own batch dictionary. Returns
+    (verdicts int8 [k, B][, levels int32 [k, B]], new HistState), also
+    written into ``out`` when given. On the card, per step: the gated K13
+    fold and K2 base table, K12's search, K2's delta table and K12's
+    probe, K3 (or K5 and K6) into row i of the window's buffers, the K13
+    paint. ``demands`` (the host's 2·live-write-ranges per step) are
+    required there: counting them on the card would sync."""
+    if not _on_card(hist.base.keys):
+        *got, hist = resolve_many_hist_packed_plain(
+            hist, pb, commit_versions, new_oldests, wave, stats)
+        if out is not None:
+            got = [_written(o, g) for o, g in zip(out[1:], got)]
+        return (*got, hist)
+    k, b = pb.ranks.txn_mask.shape
+    if demands is None or len(demands) != k:
+        raise ValueError("the card's window program needs one host-known "
+                         "write demand per step")
+    LAUNCHES["packed_many"] += 1
+    if out is None:
+        out = window_out(k, b, hist.base.keys.device, wave)
+    for i in range(k):
+        *_, hist = _resolve_core_packed(
+            hist, _step_packed(pb, i), int(commit_versions[i]),
+            int(new_oldests[i]), demand=int(demands[i]), wave=wave,
+            stats=stats, verdicts_out=out.verdicts[i],
+            levels_out=out.levels[i] if wave else None)
+    got = (out.verdicts, out.levels) if wave else (out.verdicts,)
+    return (*got, hist)
+
+
+def paint_many_hist_packed(hist: HistState, pb: PackedBatch, accepted,
+                           commit_versions, new_oldests, demands=None,
+                           plain: bool = False) -> HistState:
+    """Paint-only re-advance of a window (the JAX ``paint_many_hist_packed``,
+    :2747): per step the too-old floor, the demand-driven fold and a paint
+    of the host-forced ``accepted`` [k, B] mask (its cross ranks searched
+    against the post-fold delta). ``demands`` are the host's counts (counted
+    here when omitted)."""
+    for i in range(pb.ranks.txn_mask.shape[0]):
+        step = _step_packed(pb, i)
+        floor, _ = too_old_mask_packed(hist.delta, step.ranks,
+                                       int(new_oldests[i]))
+        demand = (write_demand(step.ranks) if demands is None
+                  else int(demands[i]))
+        hist = (_maybe_merge_plain if plain else _maybe_merge)(hist, demand,
+                                                               floor)
+        delta = _paint_and_compact_packed(
+            hist.delta, step.dict_keys, step.ranks, accepted[i],
+            int(commit_versions[i]), floor, plain=plain)
+        hist = HistState(hist.base, hist.base_st, delta)
+    return hist
+
+
+def wave_edges_hist_packed(hist: HistState, pb: PackedBatch, new_oldest):
+    """Phase 1 of the two-phase wave (the JAX
+    ``wave_edges_batch_hist_packed``, :2433): (too_old [B], hist_conflict
+    [B], pred int32 [BP, BP/32]); the probe runs against base and delta
+    unmerged (it is merge-invariant) and nothing is painted."""
+    rbk = pb.ranks
+    floor, _ = too_old_mask_packed(hist.delta, rbk, new_oldest)
+    search = dict_history_search(hist.base.keys, pb.dict_keys,
+                                 hist.delta.keys)
+    too_old, hist_mask, cand = packed_probe(rbk, floor, search, hist.base_st,
+                                            hist.delta.versions)
+    p = wave_pred_matrix(cand, endpoint_ranks_live_packed(rbk))
+    return too_old, hist_mask.any(1), p
+
+
+def wave_apply_hist_packed(hist: HistState, pb: PackedBatch, cand, p,
+                           commit_version: int, new_oldest,
+                           demand: int | None = None, stats=None):
+    """Phase 2 (the JAX ``wave_apply_batch_hist_packed``, :2501): the
+    demand-driven fold, the leveling of the global graph (K6) and the
+    paint of this shard's globally accepted writes (K13). Returns (levels
+    int32 [B], new HistState)."""
+    floor = torch.maximum(hist.delta.oldest,
+                          _i32(new_oldest, hist.delta.oldest.device))
+    if demand is None:
+        demand = write_demand(pb.ranks)
+    hist = _maybe_merge(hist, demand, floor)
+    accepted, levels = wave_level_from_graph(cand, p, stats)
+    delta = _paint_and_compact_packed(hist.delta, pb.dict_keys, pb.ranks,
+                                      accepted, commit_version, floor)
+    return levels, HistState(hist.base, hist.base_st, delta)
+
+
+def spec_mark_rejected(scratch: ConflictState, pb: PackedBatch, rejected,
+                       plain: bool = False) -> ConflictState:
+    """The JAX ``_spec_mark_rejected`` (:2854): the reconciling window's
+    rejected writes ([k, B] mask) painted into a flat scratch state at
+    version INT32_MAX - 1 (K13 per step, in place on the card)."""
+    zero = _i32(0, scratch.keys.device)
+    for i in range(pb.ranks.txn_mask.shape[0]):
+        step = _step_packed(pb, i)
+        scratch = _paint_and_compact_packed(
+            scratch, step.dict_keys, step.ranks, rejected[i],
+            SPEC_DEP_VERSION, zero, plain=plain)
+    return scratch
+
+
+def spec_dep_window(scratch: ConflictState, pb: PackedBatch,
+                    plain: bool = False) -> torch.Tensor:
+    """The JAX ``_spec_dep_window`` (:2867): 0-dim bool, True when a read
+    of the younger window ``pb`` overlaps a rejected write in ``scratch``
+    (or the scratch overflowed). K2's table over the scratch, then per
+    step K12's flat search and probe."""
+    dev = scratch.keys.device
+    st = (K.build_table(scratch.versions) if _card(scratch.versions, plain)
+          else sparse_table(scratch.versions))
+    dep = scratch.overflow.clone()
+    zero = _i32(0, dev)
+    for i in range(pb.ranks.txn_mask.shape[0]):
+        step = _step_packed(pb, i)
+        search = dict_history_search(scratch.keys, step.dict_keys,
+                                     plain=plain)
+        _, hist_mask, _ = packed_probe(step.ranks, zero, search, st,
+                                       plain=plain)
+        dep = dep | hist_mask.any()
+    return dep

@@ -19,7 +19,11 @@ global wave protocol of sharded resolvers (``resolve_edges`` /
 dictionary (``dict_hot_capacity``: demotion by K7 at the hot watermark,
 promotion through the ordinary delta); and speculative window and object
 resolve (``spec_resolve``: ``spec_dispatch_window``, ``reconcile_window``,
-``spec_resolve_async``). The device programs sit behind ``_init_engine``,
+``spec_resolve_async``); an attached admission filter
+(``attach_admission_filter``), fed the accepted writes' fingerprints; and
+the packed non-resident engine (``resident=False``: no mirror, every
+batch packed into its own dictionary by ``_pack_dict``, a [C, W] word-key
+history on the card). The device programs sit behind ``_init_engine``,
 ``_batch_program`` and ``_window_program``, which the sharded engine
 (``parallel/sharded_resolver.py``) overrides; every host behaviour is
 shared.
@@ -60,6 +64,7 @@ import torch
 
 from foundationdb_tpu_torch import kernels as K
 from foundationdb_tpu_torch import native
+from foundationdb_tpu_torch.admission.filter import u64_cols_fingerprint
 from foundationdb_tpu_torch.core import wavemesh
 from foundationdb_tpu_torch.core.keypack import INT32_MAX, KeyCodec, row_sort_keys
 from foundationdb_tpu_torch.core.types import KeyRange, TxnConflictInfo, Verdict
@@ -482,7 +487,9 @@ class HostBatch(NamedTuple):
 class HostRankBatch(NamedTuple):
     """A packed dispatch before upload: numpy ResidentBatch leaves plus
     the two host-known counts the device path uses instead of reads. A
-    window's rank leaves have a leading [k] axis; its delta has none."""
+    window's rank leaves have a leading [k] axis; its delta has none. For
+    a non-resident engine the key leaf is the batch dictionary instead
+    ([N + 1, W], a window's [k, N + 1, W]) and ``n_new`` is 0."""
 
     delta_keys: np.ndarray  # int32 [M, W]
     ranks: tuple  # numpy RankBatch fields, in RankBatch order
@@ -516,10 +523,12 @@ class _SpecPending:
     read: tuple | None = None  # (verdicts, levels) [k, B] once read
 
 
-def upload(hb: HostRankBatch, device: torch.device) -> ck.ResidentBatch:
+def upload(hb: HostRankBatch, device: torch.device, packed: bool = False):
     """Copy a packed batch or window to ``device``: every int32 leaf in one
     buffer and every bool leaf in another, so a dispatch is two
-    host-to-device copies that do not wait for the device."""
+    host-to-device copies that do not wait for the device. A ResidentBatch,
+    or with ``packed`` (a non-resident engine's batch, whose key leaf is
+    its dictionary) a PackedBatch."""
     leaves = [hb.delta_keys, *hb.ranks]
     ints = [a for a in leaves if a.dtype == np.int32]
     bools = [a for a in leaves if a.dtype == np.bool_]
@@ -535,6 +544,8 @@ def upload(hb: HostRankBatch, device: torch.device) -> ck.ResidentBatch:
         else:
             out.append(bt[bo:bo + a.size].view(a.shape))
             bo += a.size
+    if packed:
+        return ck.PackedBatch(dict_keys=out[0], ranks=ck.RankBatch(*out[1:]))
     return ck.ResidentBatch(delta_keys=out[0], ranks=ck.RankBatch(*out[1:]))
 
 
@@ -578,9 +589,12 @@ class TorchConflictSet:
     design point (the resident rank-space engine), its wave-commit arm
     (``wave_commit=True``: reorder, don't abort), the tiered HBM/host
     dictionary (``dict_hot_capacity > 0``) and speculative window resolve
-    (``spec_resolve=True``), in any combination. ``resident=False`` (the
-    non-resident design matrix) raises ``NotImplementedError`` naming the
-    ROADMAP item that ports it.
+    (``spec_resolve=True``), in any combination; and the packed
+    non-resident engine (``resident=False``: a [C, W] word-key history and
+    a per-dispatch batch dictionary, K12 and K13), sequential, wave or
+    speculative, on which ``dict_hot_capacity`` is inert (as in JAX) and
+    speculation's repair keeps the verdicts of a younger window that read
+    no revoked write (a paint-only re-advance).
 
     Tiered: the device dictionary is the HOT tier of ``dict_hot_capacity``
     keys (``dict_capacity`` becomes that, the delta slots are capped at
@@ -617,10 +631,9 @@ class TorchConflictSet:
         spec_depth: int = 2,
         device=None,
     ):
-        if resident is False:
-            raise NotImplementedError(
-                "TorchConflictSet(resident=False) is not ported yet: see "
-                "ROADMAP.md Queue 1 item 10 (design-matrix alternates)")
+        # resident=False: the packed non-resident engine (a per-dispatch
+        # batch dictionary over a [C, W] word-key history, K12 and K13).
+        self.resident = resident is not False
         if (wave_commit and batch_size > K.WAVE_MAX_TXNS
                 and torch.device("cuda" if device is None else device).type
                 == "cuda"):
@@ -645,7 +658,7 @@ class TorchConflictSet:
         )
         # Tiered: the device dictionary becomes the hot tier.
         self.dict_hot_capacity = int(dict_hot_capacity or 0)
-        self.tiered = self.dict_hot_capacity > 0
+        self.tiered = self.dict_hot_capacity > 0 and self.resident
         if self.tiered:
             self.dict_capacity = self.dict_hot_capacity
             self.dict_delta_slots = min(self.dict_delta_slots,
@@ -709,6 +722,11 @@ class TorchConflictSet:
                                         device=self.device)
                             if self.wave_commit else None)
         self.host_syncs = 0  # device -> host reads, see the module docstring
+        # The attached admission filter (attach_admission_filter), fed the
+        # ACCEPTED writes' fingerprints at collect time, and the last
+        # object-path pack's write fingerprints awaiting their verdicts.
+        self.admission_filter = None
+        self._adm_stash = None  # (fps [B, Q], valid [B, Q])
         self._init_engine()
 
     # -- device programs (the seam a sharded engine overrides) ---------------
@@ -717,8 +735,25 @@ class TorchConflictSet:
     #: asks for its conflicting keys then fills ``last_conflicting``.
     can_report = True
 
+    def attach_admission_filter(self, f) -> None:
+        """Attach a RecentWritesFilter: every object- and wire-path resolve
+        feeds it the accepted writes' fingerprints, which are the mirror's
+        u64 key columns (so resident engines only, as in JAX)."""
+        if not self.resident:
+            raise ValueError(
+                "admission filter attaches to the resident engine only "
+                "(resident=True)")
+        self.admission_filter = f
+
     def _init_engine(self) -> None:
-        """The host mirror and the device state."""
+        """The host mirror and the device state (a non-resident engine: no
+        mirror, a bare two-level HistState of [C, W] word keys)."""
+        if not self.resident:
+            self._mirror = None
+            self.state = ck.init_hist(self.capacity, self.codec.width,
+                                      self.codec.min_key, self.delta_capacity,
+                                      self.device)
+            return
         self._mirror = _ResidentMirror(
             self.codec.min_key[None, :], self.dict_capacity,
             self.dict_delta_slots, _DICT_FRAG, tiered=self.tiered,
@@ -734,6 +769,10 @@ class TorchConflictSet:
         """One chunk's device program on ``self.state``: (verdicts[,
         levels][, losers], new state), the verdicts (and levels) in row 0
         of ``out``."""
+        if not self.resident:
+            return ck.resolve_batch_hist_packed(
+                self.state, rb, cv, oldest, report=report, demand=hb.demand,
+                wave=self.wave_commit, stats=self._wave_stats, out=out)
         return ck.resolve_batch_res(
             self.state, rb, cv, oldest, report=report, n_new=hb.n_new,
             demand=hb.demand, wave=self.wave_commit, stats=self._wave_stats,
@@ -743,6 +782,10 @@ class TorchConflictSet:
                         cvs_rel, olds_rel, out: ck.WindowOut) -> ck.ResState:
         """One window's device program on ``self.state``; returns the new
         state, the verdicts (and levels) in ``out``."""
+        if not self.resident:
+            return ck.resolve_many_hist_packed(
+                self.state, rb, cvs_rel, olds_rel, demands=hb.demand,
+                wave=self.wave_commit, stats=self._wave_stats, out=out)[-1]
         return ck.resolve_many_res(
             self.state, rb, cvs_rel, olds_rel, n_new=hb.n_new,
             demands=hb.demand, wave=self.wave_commit, stats=self._wave_stats,
@@ -774,8 +817,21 @@ class TorchConflictSet:
         n_r, n_q = nl * b * r, nl * b * q
         delta = np.full((self.dict_delta_slots, w), INT32_MAX, np.int32)
         delta[: len(delta_rows)] = delta_rows
-        wb = ranks[2 * n_r : 2 * n_r + n_q].reshape(*lead, b, q)
-        we = ranks[2 * n_r + n_q :].reshape(*lead, b, q)
+        return self._rank_batch(
+            bt, ranks[:n_r].reshape(*lead, b, r),
+            ranks[n_r : 2 * n_r].reshape(*lead, b, r),
+            ranks[2 * n_r : 2 * n_r + n_q].reshape(*lead, b, q),
+            ranks[2 * n_r + n_q :].reshape(*lead, b, q), delta,
+            len(delta_rows))
+
+    def _rank_batch(self, bt: HostBatch, rb, re_, wb, we, keys: np.ndarray,
+                    n_new: int) -> HostRankBatch:
+        """The HostRankBatch of a batch's endpoint ranks (``[..., B, R]``
+        and ``[..., B, Q]``) and its key leaf (a delta or a dictionary),
+        with the host's paint order and write demands."""
+        lead = wb.shape[:-2]
+        b, q = wb.shape[-2:]
+        nl = int(np.prod(lead)) if lead else 1
         # The paint permutation (acceptance-independent: rejected writes
         # merge as delta-0 no-ops), the same introsort call as the JAX
         # engine so the permutation is the same.
@@ -787,10 +843,10 @@ class TorchConflictSet:
         live = 2 * (wm & (wb < we)).reshape(nl, b * q).sum(-1)
         demand = tuple(int(x) for x in live) if lead else int(live[0])
         return HostRankBatch(
-            delta_keys=delta,
+            delta_keys=keys,
             ranks=(
-                ranks[:n_r].reshape(*lead, b, r),
-                ranks[n_r : 2 * n_r].reshape(*lead, b, r),
+                rb,
+                re_,
                 np.asarray(bt.read_mask),
                 wb,
                 we,
@@ -799,9 +855,48 @@ class TorchConflictSet:
                 np.asarray(bt.txn_mask),
                 paint_src,
             ),
-            n_new=len(delta_rows),
+            n_new=n_new,
             demand=demand,
         )
+
+    def _pack_dict(self, bt: HostBatch) -> HostRankBatch:
+        """The non-resident pack (the JAX ``_pack_dict``): per batch (per
+        step of a [k]-leading window) dedup and sort every endpoint key
+        into a dictionary of N + 1 rows (N = 2·B·(R + Q), the last always
+        +inf) and rank each endpoint into it; plus the paint order and the
+        write demands."""
+        rb = np.asarray(bt.read_begin)
+        lead = rb.shape[:-3]
+        b, r, w = rb.shape[-3:]
+        q = np.asarray(bt.write_begin).shape[-2]
+        nl = int(np.prod(lead)) if lead else 1
+        secs = [np.asarray(x).reshape(nl, -1, w) for x in (
+            bt.read_begin, bt.read_end, bt.write_begin, bt.write_end)]
+        dicts, invs = [], []
+        for i in range(nl):
+            d, inv = pack_rank_dictionary(np.concatenate([x[i] for x in secs]))
+            dicts.append(d)
+            invs.append(inv)
+        inv = np.stack(invs)
+        n_r, n_q = b * r, b * q
+
+        def part(lo, hi, cols):
+            return np.ascontiguousarray(inv[:, lo:hi]).reshape(*lead, b, cols)
+
+        return self._rank_batch(
+            bt, part(0, n_r, r), part(n_r, 2 * n_r, r),
+            part(2 * n_r, 2 * n_r + n_q, q), part(2 * n_r + n_q, None, q),
+            np.stack(dicts).reshape(*lead, *dicts[0].shape), 0)
+
+    def _pack_batch(self, bt: HostBatch, defer_repack: bool = False):
+        """The engine's pack: the resident rank-space pack (which may
+        defer a repack or a demotion), or the non-resident ``_pack_dict``."""
+        if self.resident:
+            return self._pack_resident(bt, defer_repack)
+        return self._pack_dict(bt)
+
+    def _upload(self, hb: HostRankBatch):
+        return upload(hb, self.device, packed=not self.resident)
 
     def _pack_resident(self, bt: HostBatch, defer_repack: bool = False):
         """Rank-space pack against the mirror: classify every endpoint as
@@ -894,7 +989,48 @@ class TorchConflictSet:
             )
             st["unique_keys"] += m + uniq_found
             st["delta_new_keys"] += m
+        self._note_write_fps(qu, is_pad, dims)
         return self._ranks_to_batch(bt, ranks, dims, new_rows)
+
+    def _note_write_fps(self, qu: np.ndarray, is_pad: np.ndarray,
+                        dims) -> None:
+        """Stash the pack's write-begin fingerprints for the admission
+        feed (``u64_cols_fingerprint`` of the endpoint u64 columns already
+        computed, never a key re-hash). A window pack ([k]-leading) clears
+        the stash: the window path feeds no engine-attached filter."""
+        if self.admission_filter is None:
+            return
+        lead, b, r, q, _w = dims
+        if lead:
+            self._adm_stash = None
+            return
+        sect = slice(2 * b * r, 2 * b * r + b * q)
+        fps = u64_cols_fingerprint(qu[sect])
+        self._adm_stash = (fps.reshape(b, q), (~is_pad[sect]).reshape(b, q))
+
+    def _take_adm(self, commit_version: int):
+        """Claim the last pack's fingerprint stash, bound to its resolve's
+        commit version (None when no filter is attached or the pack left
+        none). The version rides in the pending tuple, not in the engine,
+        so a later dispatch cannot relabel an earlier one's writes."""
+        stash, self._adm_stash = self._adm_stash, None
+        return None if stash is None else (stash, commit_version)
+
+    def _feed_admission(self, rows: list[tuple], pending: list[tuple]) -> None:
+        """Record the accepted write fingerprints of each collected chunk
+        at its commit version (a chunk with none ages the banks)."""
+        if self.admission_filter is None:
+            return
+        for (v, _), (*_, adm) in zip(rows, pending):
+            if adm is None:
+                continue
+            (fps, valid), cv = adm
+            n = len(v)
+            sel = valid[:n] & (v == Verdict.COMMITTED)[:, None]
+            if sel.any():
+                self.admission_filter.record_u64(fps[:n][sel], cv)
+            else:
+                self.admission_filter.advance(cv)
 
     def _device_live_ranks(self) -> np.ndarray:
         """Every rank the device history still references (one sync)."""
@@ -982,6 +1118,7 @@ class TorchConflictSet:
                 ranks[plan.is_pad] = INT32_MAX
             finally:
                 mir.gate.set()
+        self._note_write_fps(plan.qu, plan.is_pad, plan.dims)
         return self._ranks_to_batch(
             plan.bt, ranks, plan.dims,
             np.zeros((0, plan.dims[-1]), np.int32),
@@ -995,12 +1132,11 @@ class TorchConflictSet:
         device history still references stay (evicting one would skew
         every younger rank through the shift table); keys used inside the
         MVCC window (last used >= oldest_version) stay; the current
-        dispatch's keys (``protect``: its probed u64 rows) stay. The JAX
-        engine also keeps keys that an attached admission filter reports
-        written since the floor; the port has no admission filter yet
-        (ROADMAP Queue 1 item 12), so that exclusion waits for it. The
-        survivors demote oldest-last-used first, enough to get past the
-        watermark plus half an evict chunk, as K7 launches on ascending
+        dispatch's keys (``protect``: its probed u64 rows) stay; with an
+        admission filter attached, keys its banks report maybe written
+        since the floor stay. The survivors demote oldest-last-used first,
+        enough to get past the watermark plus half an evict chunk, as K7
+        launches on ascending
         chunks of ``dict_demote_batch`` ranks, each rebased by the count
         already gone. Returns the count demoted (0: nothing evictable)."""
         mir = self._mirror
@@ -1013,6 +1149,13 @@ class TorchConflictSet:
                 pids = mir.probe(qu, ~is_pad)
                 pf = pids[pids >= 0]
                 cand[mir.rank_of_id[pf[mir.hot_by_id[pf]]]] = False
+            if self.admission_filter is not None:
+                idx = np.flatnonzero(cand)
+                if idx.size:
+                    recent = np.asarray(self.admission_filter.probe_u64(
+                        u64_cols_fingerprint(mir.u64[idx]),
+                        self.oldest_version))
+                    cand[idx[recent]] = False
             idx = np.flatnonzero(cand)
             if not idx.size:
                 return 0
@@ -1060,13 +1203,16 @@ class TorchConflictSet:
         return self._demote_and_rank(plan)
 
     @property
-    def dict_stats(self) -> dict:
+    def dict_stats(self) -> dict | None:
         """Dictionary-economics counters: unique keys/dispatch, delta hit
         rate, evictions, forced full repacks, and the tier economics
         (zeros when untiered): demotions, promotions, demotion stalls,
         events and bytes, hot occupancy, cold-tier keys, and the bytes one
-        full repack would ship."""
+        full repack would ship. None for a non-resident engine (no
+        dictionary), as in JAX."""
         mir = self._mirror
+        if mir is None:
+            return None
         s = dict(mir.stats)
         d = max(1, s["dispatches"])
         e = max(1, s["endpoints"])
@@ -1117,11 +1263,12 @@ class TorchConflictSet:
             batch, reads = self._pack(chunk)
             # Pack BEFORE reading self.state: a repack inside the packer
             # replaces it.
-            hb = self._pack_resident(batch)
+            hb = self._pack_batch(batch)
             out, got = self._resolve_chunk(hb, cv, oldest, report)
             losers = got[-2] if report else None
             flags = [t.report_conflicting_keys for t in chunk]
-            pending.append((out, len(chunk), losers, reads, flags))
+            pending.append((out, len(chunk), losers, reads, flags,
+                            self._take_adm(commit_version)))
         return lambda: self._collect(pending)
 
     def _resolve_chunk(self, hb: HostRankBatch, cv: int, oldest: int,
@@ -1130,7 +1277,7 @@ class TorchConflictSet:
         outputs). The verdicts (and levels) land in the WindowOut, which
         the collector reads with one device-to-host copy."""
         out = ck.window_out(1, self.batch_size, self.device, self.wave_commit)
-        got = self._batch_program(upload(hb, self.device), hb, cv, oldest,
+        got = self._batch_program(self._upload(hb), hb, cv, oldest,
                                   report, out)
         self.state = got[-1]
         return out, got
@@ -1176,13 +1323,15 @@ class TorchConflictSet:
         while remaining > 0:
             n = min(remaining, self.batch_size)
             batch, offset = self._pack_wire(buf, offset, n)
-            hb = self._pack_resident(batch)  # may repack: before self.state
+            hb = self._pack_batch(batch)  # may repack: before self.state
             out, _ = self._resolve_chunk(hb, cv, oldest)
-            pending.append((out, n, None, None, None))
+            pending.append((out, n, None, None, None,
+                            self._take_adm(commit_version)))
             remaining -= n
         if as_array:
             def collect_array() -> np.ndarray:
                 rows = self._read_chunks(pending)
+                self._feed_admission(rows, pending)
                 return np.concatenate([v for v, _ in rows]
                                       or [np.zeros(0, np.int8)])
 
@@ -1236,19 +1385,40 @@ class TorchConflictSet:
                 [max(0, int(v) - self.base_version) for v in oldest_abs],
                 np.int32)
             batches = self._empty_batch(k)
-            offset = 0
-            for i in range(k):
-                offset = native.pack_batch(
-                    buf, offset, count, self.codec.n_words, self.base_version,
-                    HostBatch(*(a[i] for a in batches)))
-                if offset < 0:
-                    raise ValueError("malformed resolver wire batch")
-            batch = self._pack_resident(batches, defer_repack=True)
+            if self.spec_resolve and not self.resident:
+                # The fused C window pack feeds the speculative
+                # non-resident engine, as in JAX.
+                batch = self._pack_window_native(buf, batches, count)
+            else:
+                offset = 0
+                for i in range(k):
+                    offset = native.pack_batch(
+                        buf, offset, count, self.codec.n_words,
+                        self.base_version, HostBatch(*(a[i] for a in batches)))
+                    if offset < 0:
+                        raise ValueError("malformed resolver wire batch")
+                batch = self._pack_batch(batches, defer_repack=True)
         except BaseException:
             self.base_version, self.oldest_version, self._last_commit = snap
             raise
         return PreparedWindow(batch=batch, cvs_rel=cvs_rel, olds_rel=olds_rel,
                               count=count, rebase_delta=rebase_delta)
+
+    def _pack_window_native(self, buf: np.ndarray, bt: HostBatch,
+                            count: int) -> HostRankBatch:
+        """One ``kp_pack_window`` call (the wire walk and every batch's
+        dictionary in one C pass; a library without the symbol raises):
+        the window's padded batch ``bt`` ([k]-leading, prefilled) and its
+        dictionaries and ranks, bit for bit ``_pack_dict``'s."""
+        k, b, r, w = bt.read_begin.shape
+        q = bt.write_begin.shape[2]
+        n = 2 * b * (r + q)
+        dict_keys = np.full((k, n + 1, w), INT32_MAX, np.int32)
+        ranks = [np.empty((k, b, c), np.int32) for c in (r, r, q, q)]
+        if native.pack_window(buf, 0, k, count, self.codec.n_words,
+                              self.base_version, bt, dict_keys, *ranks) < 0:
+            raise ValueError("malformed resolver wire batch")
+        return self._rank_batch(bt, *ranks, dict_keys, 0)
 
     def dispatch_window(self, prepared: PreparedWindow
                         ) -> Callable[[], np.ndarray]:
@@ -1278,7 +1448,7 @@ class TorchConflictSet:
         hb = prepared.batch
         if isinstance(hb, (_RepackPlan, _DemotePlan)):
             hb = self._run_plan(hb)
-        out = self._resolve_window(upload(hb, self.device), hb,
+        out = self._resolve_window(self._upload(hb), hb,
                                    prepared.cvs_rel, prepared.olds_rel)
 
         def collect() -> np.ndarray:
@@ -1309,12 +1479,13 @@ class TorchConflictSet:
     # spec_depth unconfirmed windows, each with a snapshot of the state
     # before it. Reconcile confirms the oldest (drop the snapshot) or
     # rolls back to it, re-paints it with the confirmed accepts only and
-    # re-resolves every younger window against the corrected history.
-    # The JAX engine's dependency probe, which lets a younger window that
-    # read no revoked write keep its verdicts, runs over the packed
-    # non-resident batch; for a resident engine the JAX engine repairs
-    # every younger window (its _spec_dep_windows), and so does the port.
-    # The probe comes with the non-resident design (ROADMAP item 10).
+    # re-resolves every younger window against the corrected history. A
+    # non-resident engine first runs the dependency probe: the rejected
+    # writes painted into a scratch history, each younger window's
+    # dictionaries probed against it; a window that read none of them
+    # keeps its verdicts and is only re-painted. A resident engine's
+    # windows rank against per-window dictionaries the scratch cannot
+    # share, so it re-resolves every younger window (as JAX does).
 
     def spec_dispatch_window(self, prepared: PreparedWindow) -> int:
         """Dispatch a packed window speculatively; returns its reconcile
@@ -1341,7 +1512,7 @@ class TorchConflictSet:
     def _spec_launch(self, hb: HostRankBatch, cvs_rel, olds_rel,
                      count: int) -> int:
         snapshot = ck.snapshot_res(self.state)
-        rb = upload(hb, self.device)
+        rb = self._upload(hb)
         out = self._resolve_window(rb, hb, cvs_rel, olds_rel)
         seq = self._spec_seq
         self._spec_seq += 1
@@ -1401,20 +1572,55 @@ class TorchConflictSet:
         self._spec_stats["chain_rolls"] += 1
         # Roll back to the snapshot and re-advance with the confirmed
         # accepts only: the same delta, folds and paints, no decision.
-        self.state = ck.paint_many_res(
-            p.snapshot, p.rb,
-            torch.from_numpy(spec_acc & ~rejected).to(self.device),
-            p.cvs_rel, p.olds_rel, n_new=p.hb.n_new, demands=p.hb.demand)
-        # Re-resolve every younger window against the corrected history,
-        # in dispatch order, each under a fresh snapshot.
-        for y in self._spec_ring:
+        self.state = self._paint_window(p, spec_acc & ~rejected, p.snapshot)
+        # Repair every younger window against the corrected history, in
+        # dispatch order, each under a fresh snapshot: re-resolve a window
+        # that depends on a rejected write, re-paint one that does not.
+        deps = self._spec_dep_windows(p, rejected)
+        for y, dep in zip(self._spec_ring, deps):
             old_acc = self._spec_accept_mask(y)
             y.snapshot = ck.snapshot_res(self.state)
+            if not dep:
+                self.state = self._paint_window(y, old_acc, self.state)
+                continue
             y.out = self._resolve_window(y.rb, y.hb, y.cvs_rel, y.olds_rel)
             y.read = None
             self._spec_stats["spec_flipped"] += int(
                 (old_acc != self._spec_accept_mask(y))[:, : y.count].sum())
         return verdicts_np
+
+    def _paint_window(self, p: _SpecPending, accepted: np.ndarray, state):
+        """``state`` advanced by a ring entry's window with a host-forced
+        accept mask [k, B] (the paint-only re-advance)."""
+        acc = torch.from_numpy(accepted).to(self.device)
+        if not self.resident:
+            return ck.paint_many_hist_packed(state, p.rb, acc, p.cvs_rel,
+                                             p.olds_rel, demands=p.hb.demand)
+        return ck.paint_many_res(state, p.rb, acc, p.cvs_rel, p.olds_rel,
+                                 n_new=p.hb.n_new, demands=p.hb.demand)
+
+    def _spec_dep_windows(self, p: _SpecPending,
+                          rejected: np.ndarray) -> list[bool]:
+        """Per younger window in the ring: does any of its reads overlap a
+        write that the reconciling window ``p`` had rejected? (The JAX
+        ``_spec_dep_windows``.) The rejected writes are painted into a
+        small flat scratch history at version INT32_MAX - 1 (K13), then
+        each younger window's dictionaries probe it (K12): one device read
+        per younger window. A resident engine answers True for every
+        window."""
+        if self.resident or not self._spec_ring:
+            return [True] * len(self._spec_ring)
+        k, b = rejected.shape
+        cap = min(self.capacity, 2 * k * b * self.max_write_ranges + 2)
+        scratch = ck.init_state(cap, self.codec.width, self.codec.min_key,
+                                self.device)
+        scratch = ck.spec_mark_rejected(
+            scratch, p.rb, torch.from_numpy(rejected).to(self.device))
+        deps = []
+        for y in self._spec_ring:
+            deps.append(bool(ck.spec_dep_window(scratch, y.rb)))
+            self.host_syncs += 1
+        return deps
 
     def reconcile_all(self) -> None:
         """Drain the in-flight ring (confirmations via spec_confirm_hook)."""
@@ -1453,12 +1659,19 @@ class TorchConflictSet:
         cv_rel = np.asarray([self._rel(commit_version)], np.int32)
         old_rel = np.asarray([self._rel(self.oldest_version)], np.int32)
         batch, _ = self._pack(txns)
-        hb = self._pack_resident(batch, defer_repack=True)
+        # Speculative accepts feed no filter (a revocation could poison
+        # it); as in JAX the stash is cleared before this pack.
+        self._adm_stash = None
+        hb = self._pack_batch(batch, defer_repack=True)
         if isinstance(hb, (_RepackPlan, _DemotePlan)):
             self.reconcile_all()
             hb = self._run_plan(hb)
+        # A window of 1: the ranks get the step axis, and so does a
+        # non-resident engine's dictionary (a resident delta has none).
         hb = hb._replace(ranks=tuple(a[None] for a in hb.ranks),
-                         demand=(hb.demand,))
+                         demand=(hb.demand,),
+                         delta_keys=hb.delta_keys if self.resident
+                         else hb.delta_keys[None])
         seq = self._spec_launch(hb, cv_rel, old_rel, len(txns))
 
         def collect() -> list[Verdict]:
@@ -1516,11 +1729,16 @@ class TorchConflictSet:
                                       hist_conflict=np.zeros(0, bool),
                                       chunks=[])
         batch, _ = self._pack(txns)
-        hb = self._pack_resident(batch)  # may repack: before self.state
-        rb = upload(hb, self.device)
-        too_old, hist_c, p, self.state = ck.wave_edges_res(
-            self.state, rb, oldest, n_new=hb.n_new)
-        self._wave_pending = ([(rb.ranks, n, cv, oldest, hb.demand)],
+        hb = self._pack_batch(batch)  # may repack: before self.state
+        rb = self._upload(hb)
+        if self.resident:
+            too_old, hist_c, p, self.state = ck.wave_edges_res(
+                self.state, rb, oldest, n_new=hb.n_new)
+        else:
+            too_old, hist_c, p = ck.wave_edges_hist_packed(self.state, rb,
+                                                           oldest)
+        self._wave_pending = ([(rb, n, cv, oldest, hb.demand,
+                                self._take_adm(commit_version))],
                               commit_version)
         flags = torch.stack([too_old, hist_c]).cpu().numpy()
         p = p.cpu().numpy().view(np.uint32)
@@ -1554,8 +1772,9 @@ class TorchConflictSet:
                 f"packed {len(pend)}")
         gi = 0
         parts: list[np.ndarray] = []
-        for (rbk, n, cv, oldest, demand), (nc, pred) in zip(pend,
-                                                             graph.chunks):
+        feed: list[tuple] = []
+        for (rb, n, cv, oldest, demand, adm), (nc, pred) in zip(
+                pend, graph.chunks):
             if nc != n:
                 raise ValueError(
                     f"global graph chunk of {nc} txns vs local pack of {n}")
@@ -1563,15 +1782,29 @@ class TorchConflictSet:
             cand[:n] = graph.cand[gi : gi + n]
             p = torch.from_numpy(
                 np.ascontiguousarray(pred, np.uint32).view(np.int32))
-            levels, self.state = ck.wave_apply_res(
-                self.state, rbk, torch.from_numpy(cand).to(self.device),
-                p.to(self.device), cv, oldest, demand=demand,
-                stats=self._wave_stats)
+            apply = (ck.wave_apply_res if self.resident
+                     else ck.wave_apply_hist_packed)
+            levels, self.state = apply(
+                self.state, rb.ranks if self.resident else rb,
+                torch.from_numpy(cand).to(self.device), p.to(self.device),
+                cv, oldest, demand=demand, stats=self._wave_stats)
             parts.append(levels.cpu().numpy()[:n])
             self.host_syncs += 1
+            if adm is not None:
+                feed.append((parts[-1], adm))
             gi += n
         self.last_wave, self.last_reordered = _stitch_waves(parts)
         self.last_conflicting = {}
+        # The admission feed: accepted writes at this window's commit
+        # version, judged on the GLOBAL schedule.
+        if self.admission_filter is not None:
+            for lv, ((fps, valid), adm_cv) in feed:
+                sel = valid[: len(lv)] & (lv >= 0)[:, None]
+                if sel.any():
+                    self.admission_filter.record_u64(fps[: len(lv)][sel],
+                                                     adm_cv)
+                else:
+                    self.admission_filter.advance(adm_cv)
         return wavemesh.verdicts_from_schedule(graph, self.last_wave)
 
     @property
@@ -1606,7 +1839,8 @@ class TorchConflictSet:
         self.last_conflicting = {}
         gi = 0
         rows = self._read_chunks(pending)
-        for (v, _), (_, n, losers, reads, flags) in zip(rows, pending):
+        self._feed_admission(rows, pending)
+        for (v, _), (_, n, losers, reads, flags, _) in zip(rows, pending):
             if losers is not None:
                 m = losers.cpu().numpy()[:n]
                 self.host_syncs += 1
@@ -1652,8 +1886,13 @@ class TorchConflictSet:
         return delta
 
     @property
+    def _hist(self) -> ck.HistState:
+        """The two-level history (a non-resident engine's whole state)."""
+        return self.state.hist if self.resident else self.state
+
+    @property
     def overflowed(self) -> bool:
-        h = self.state.hist
+        h = self._hist
         flags = torch.stack([h.base.overflow, h.delta.overflow]).cpu()
         self.host_syncs += 1
         return bool(flags.any())
@@ -1662,7 +1901,7 @@ class TorchConflictSet:
         """Free boundary slots (one device sync): room in the merged base
         and a delta that can absorb one whole batch. The Resolver compares
         it with :meth:`worst_case_growth` before every batch."""
-        h = self.state.hist
+        h = self._hist
         used = torch.stack([h.base.n_used, h.delta.n_used]).cpu()
         self.host_syncs += 1
         return min(self.capacity - int(used.sum()), self.delta_capacity)
@@ -1673,7 +1912,7 @@ class TorchConflictSet:
 
     def clear_overflow(self) -> None:
         """Reset the sticky device overflow flags (in place)."""
-        h = self.state.hist
+        h = self._hist
         h.base.overflow.fill_(False)
         h.delta.overflow.fill_(False)
 
@@ -1683,9 +1922,11 @@ class TorchConflictSet:
         without painting writes, forcing a fold so headroom recovers."""
         self._spec_drain_serial()
         self._begin_resolve(commit_version, oldest_version)
+        if self.admission_filter is not None:
+            self.admission_filter.advance(commit_version)  # age the banks
         oldest = self._rel(self.oldest_version)
-        self.state = self.state._replace(hist=ck.advance_hist(
-            self.state.hist, self._rel(commit_version), oldest))
+        hist = ck.advance_hist(self._hist, self._rel(commit_version), oldest)
+        self.state = self.state._replace(hist=hist) if self.resident else hist
 
     # -- internals ----------------------------------------------------------
 

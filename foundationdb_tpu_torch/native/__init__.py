@@ -8,7 +8,9 @@ failed build raises.
 
 ``count_txns`` validates a whole wire buffer; ``pack_batch`` packs ``count``
 transactions from a byte offset into padded batch arrays that the caller
-allocates (and keeps alive, C-contiguous, until their data is uploaded).
+allocates (and keeps alive, C-contiguous, until their data is uploaded);
+``pack_window`` packs k such batches and each one's sorted unique
+endpoint-key dictionary and ranks (the non-resident engine's pack).
 """
 
 from __future__ import annotations
@@ -37,6 +39,9 @@ _SIGNATURES = {
     "kp_pack_batch": [_U8P, _I64, _I64, _INT, _INT, _INT, _INT, _INT, _I64,
                       _I32P, _I32P, _U8P, _I32P, _I32P, _U8P, _I32P, _U8P],
     "kp_count_txns": [_U8P, _I64, _I64],
+    "kp_pack_window": [_U8P, _I64, _I64, _INT, _INT, _INT, _INT, _INT, _INT,
+                       _I64, _I32P, _I32P, _U8P, _I32P, _I32P, _U8P, _I32P,
+                       _U8P, _I32P, _I32P, _I32P, _I32P, _I32P],
 }
 
 
@@ -123,3 +128,31 @@ def pack_batch(buf: np.ndarray, offset: int, count: int, n_words: int,
         base_version, i32(bt.read_begin), i32(bt.read_end), u8(bt.read_mask),
         i32(bt.write_begin), i32(bt.write_end), u8(bt.write_mask),
         i32(bt.read_version), u8(bt.txn_mask)))
+
+
+def pack_window(buf: np.ndarray, offset: int, k: int, count: int,
+                n_words: int, base_version: int, bt, dict_keys: np.ndarray,
+                rb_rank: np.ndarray, re_rank: np.ndarray, wb_rank: np.ndarray,
+                we_rank: np.ndarray) -> int:
+    """Pack k batches of ``count`` transactions from ``buf[offset:]`` into
+    the [k]-leading padded batch ``bt`` (prefilled as for ``pack_batch``),
+    with each batch's dictionary ``dict_keys`` [k, N + 1, W] (prefilled
+    INT32_MAX; N = 2·B·(R + Q)) and the ranks [k, B, R] / [k, B, Q] of its
+    endpoints: bit for bit the non-resident engine's ``_pack_dict``.
+    Returns the offset past the last batch, or -1 on malformed input."""
+    kk, b, r, w = bt.read_begin.shape
+    q = bt.write_begin.shape[2]
+    if (kk != k or w != n_words + 1 or not 0 <= count <= b
+            or dict_keys.shape != (k, 2 * b * (r + q) + 1, w)
+            or rb_rank.shape != (k, b, r) or re_rank.shape != (k, b, r)
+            or wb_rank.shape != (k, b, q) or we_rank.shape != (k, b, q)):
+        raise ValueError("window arrays do not fit k, count and n_words")
+    i32 = lambda a: _ptr(a, np.int32, _I32P)  # noqa: E731
+    u8 = lambda a: _ptr(a.view(np.uint8), np.uint8, _U8P)  # noqa: E731
+    return int(keypack().kp_pack_window(
+        _ptr(buf, np.uint8, _U8P), buf.size, offset, k, count, b, r, q,
+        n_words, base_version, i32(bt.read_begin), i32(bt.read_end),
+        u8(bt.read_mask), i32(bt.write_begin), i32(bt.write_end),
+        u8(bt.write_mask), i32(bt.read_version), u8(bt.txn_mask),
+        i32(dict_keys), i32(rb_rank), i32(re_rank), i32(wb_rank),
+        i32(we_rank)))

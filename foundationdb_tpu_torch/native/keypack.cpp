@@ -1,8 +1,8 @@
 // Resolver wire format -> padded batch arrays, for foundationdb_tpu_torch.
 //
-// The port's own copy of the repository's batch packer (kp_pack_batch and
-// kp_count_txns; the fused window packer of the speculative arm is not
-// part of the port yet). The reference resolver receives
+// The port's own copy of the repository's batch packer (kp_pack_batch,
+// kp_count_txns and the fused window packer kp_pack_window of the
+// speculative non-resident engine). The reference resolver receives
 // ResolveTransactionBatchRequest as flat serialized bytes and walks them in
 // C++ (fdbserver/Resolver.actor.cpp + ConflictSet.h
 // ConflictBatch::addTransaction). Here one C pass over the batch blob emits
@@ -178,6 +178,86 @@ int64_t kp_pack_batch(
                 read_end + t * r_cap * w, read_mask + t * r_cap);
     emit_ranges(writes, q_cap, n_words, write_begin + t * q_cap * w,
                 write_end + t * q_cap * w, write_mask + t * q_cap);
+  }
+  return offset;
+}
+
+// Fused window pack: k consecutive batches of `count` txns each, plus each
+// batch's sorted-unique endpoint-key dictionary and per-slot ranks — the
+// full host half of the packed window path (models/conflict_set.py
+// pack_wire_window + _pack_dict) in one C pass, so packing window N+2 on
+// the packer thread never stalls the device on window N+1 (the speculative
+// pipeline's host half). Tensor arguments carry a [k] leading axis; callers
+// prefill them exactly like kp_pack_batch's (masked slots all-INT32_MAX, so
+// they dedup into the +inf dictionary row by construction). dict_keys is
+// [k, n+1, W] for n = 2*B*(R+Q) input rows — the unique count can never
+// reach n+1, so the +inf padding row the kernel parks masked slots on
+// always survives. Rank order must match models/conflict_set.py
+// pack_rank_dictionary bit-for-bit: rows compare lexicographically by
+// SIGNED int32 words (the packing bias makes that equal to key byte order;
+// the trailing length column is a small non-negative int in both).
+// Returns the wire offset past the last batch, or -1 on malformed input.
+int64_t kp_pack_window(
+    const uint8_t* wire, int64_t wire_len, int64_t offset, int k, int count,
+    int b_cap, int r_cap, int q_cap, int n_words, int64_t base_version,
+    int32_t* read_begin, int32_t* read_end, uint8_t* read_mask,
+    int32_t* write_begin, int32_t* write_end, uint8_t* write_mask,
+    int32_t* read_version, uint8_t* txn_mask,
+    int32_t* dict_keys, int32_t* rb_rank, int32_t* re_rank,
+    int32_t* wb_rank, int32_t* we_rank) {
+  const int w = n_words + 1;
+  const int64_t nr = static_cast<int64_t>(b_cap) * r_cap;
+  const int64_t nq = static_cast<int64_t>(b_cap) * q_cap;
+  const int64_t n = 2 * (nr + nq);
+  const int64_t pad_rows = n + 1;
+  std::vector<int32_t> idx(n);
+  std::vector<int32_t> rank_of(n);
+  for (int i = 0; i < k; ++i) {
+    int32_t* rb = read_begin + i * nr * w;
+    int32_t* re = read_end + i * nr * w;
+    int32_t* wb = write_begin + i * nq * w;
+    int32_t* we = write_end + i * nq * w;
+    offset = kp_pack_batch(wire, wire_len, offset, count, b_cap, r_cap,
+                           q_cap, n_words, base_version, rb, re,
+                           read_mask + i * nr, wb, we, write_mask + i * nq,
+                           read_version + static_cast<int64_t>(i) * b_cap,
+                           txn_mask + static_cast<int64_t>(i) * b_cap);
+    if (offset < 0) return -1;
+    // Flat dictionary-input row j, section order rb/re/wb/we (the order
+    // _pack_dict concatenates — ranks scatter back by the same layout).
+    auto row = [&](int64_t j) -> const int32_t* {
+      if (j < nr) return rb + j * w;
+      j -= nr;
+      if (j < nr) return re + j * w;
+      j -= nr;
+      if (j < nq) return wb + j * w;
+      return we + (j - nq) * w;
+    };
+    for (int64_t j = 0; j < n; ++j) idx[j] = static_cast<int32_t>(j);
+    std::sort(idx.begin(), idx.end(), [&](int32_t a, int32_t b) {
+      const int32_t* ra = row(a);
+      const int32_t* rb2 = row(b);
+      for (int c = 0; c < w; ++c)
+        if (ra[c] != rb2[c]) return ra[c] < rb2[c];
+      return false;
+    });
+    int32_t* dict = dict_keys + static_cast<int64_t>(i) * pad_rows * w;
+    int32_t u = -1;
+    const int32_t* prev = nullptr;
+    for (int64_t s = 0; s < n; ++s) {
+      const int32_t* r = row(idx[s]);
+      if (!prev || std::memcmp(prev, r, w * 4) != 0) {
+        ++u;
+        std::memcpy(dict + static_cast<int64_t>(u) * w, r, w * 4);
+        prev = dict + static_cast<int64_t>(u) * w;
+      }
+      rank_of[idx[s]] = u;
+    }
+    for (int64_t j = 0; j < nr; ++j) rb_rank[i * nr + j] = rank_of[j];
+    for (int64_t j = 0; j < nr; ++j) re_rank[i * nr + j] = rank_of[nr + j];
+    for (int64_t j = 0; j < nq; ++j) wb_rank[i * nq + j] = rank_of[2 * nr + j];
+    for (int64_t j = 0; j < nq; ++j)
+      we_rank[i * nq + j] = rank_of[2 * nr + nq + j];
   }
   return offset;
 }

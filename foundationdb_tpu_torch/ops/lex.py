@@ -2,10 +2,11 @@
 
 Keys are ``[..., W]`` int32 word vectors (see core/keypack.py) in
 column-lexicographic order. These are the plain versions of
-``foundationdb_tpu/ops/lex.py``'s ``searchsorted_words`` and
-``searchsorted_words_fp``; on the card the same searches run inside the
-hand-written kernels (kernels/csrc/dict_insert.cu, history_probe.cu,
-step_compact.cu), never through these functions.
+``foundationdb_tpu/ops/lex.py``'s ``searchsorted_words``,
+``searchsorted_words_fp`` and ``searchsorted_words_2sided_fp``; on the
+card the same searches run inside the hand-written kernels
+(kernels/csrc/dict_insert.cu, history_probe.cu, step_compact.cu,
+word_probe.cu, word_compact.cu), never through these functions.
 """
 
 from __future__ import annotations
@@ -59,3 +60,13 @@ def searchsorted_words_fp(
     same indices as :func:`searchsorted_words`; only its memory access
     pattern differs, which a plain version has no reason to copy."""
     return searchsorted_words(sorted_keys, queries, side)
+
+
+def searchsorted_words_2sided_fp(
+    sorted_keys: torch.Tensor, queries: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(left, right) insertion indices of ``[..., W]`` queries into a sorted
+    ``[N, W]`` array, as the JAX column-cascade search returns them (its
+    run of equal keys is exactly [left, right))."""
+    return (searchsorted_words(sorted_keys, queries, "left"),
+            searchsorted_words(sorted_keys, queries, "right"))

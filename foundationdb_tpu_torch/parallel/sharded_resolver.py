@@ -96,8 +96,8 @@ class ShardedConflictSet(TorchConflictSet):
     compare split policies pass ``auto_reshard=False``.
 
     Not ported: ``resident=False`` (the non-resident sharded body,
-    ROADMAP.md Queue 1 item 10) and ``spec_resolve=True`` (item 15); both
-    raise ``NotImplementedError``."""
+    ROADMAP.md Queue 1 item 10b) and ``spec_resolve=True`` (item 15);
+    both raise ``NotImplementedError``."""
 
     #: bytes of one 32x32-bit predecessor tile (32 rows x 1 uint32 word).
     EXCHANGE_TILE_BYTES = 128
@@ -115,7 +115,7 @@ class ShardedConflictSet(TorchConflictSet):
             raise NotImplementedError(
                 "ShardedConflictSet(resident=False) is not ported yet: the "
                 "non-resident sharded body (_sharded_resolve, clip_batch, "
-                "_redistribute_history) is ROADMAP.md Queue 1 item 10")
+                "_redistribute_history) is ROADMAP.md Queue 1 item 10b")
         if kw.get("spec_resolve"):
             raise NotImplementedError(
                 "ShardedConflictSet(spec_resolve=True) is not ported yet: "

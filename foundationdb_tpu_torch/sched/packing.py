@@ -60,7 +60,8 @@ class PipelinedWindowRunner:
         # A pack behind a deferred repack waits for it here, so that its
         # pack time counts host work only.
         t0 = time.perf_counter()
-        self._cs._mirror.gate.wait()
+        if self._cs._mirror is not None:  # a non-resident engine has none
+            self._cs._mirror.gate.wait()
         self.gate_wait_s += time.perf_counter() - t0
         t0 = time.perf_counter()
         prepared = self._cs.pack_wire_window(wire, cvs, count)
@@ -83,7 +84,8 @@ class PipelinedWindowRunner:
     # -- submit / dispatch / collect ------------------------------------------
 
     def _gate_closed(self) -> bool:
-        return not self._cs._mirror.gate.is_set()
+        mirror = self._cs._mirror
+        return mirror is not None and not mirror.gate.is_set()
 
     def _put_draining(self, item) -> None:
         """Blocking put on the bounded request queue that cannot deadlock

@@ -517,3 +517,233 @@ def test_sharded_engine_cuda_equals_cpu(card, wave):
             assert sa["state"][k].tobytes() == v.tobytes(), (i, k)
         assert sa["sharded"] == sb["sharded"], i
     assert eng[card].reshard_moved_shards > 0
+
+
+# ------------------------------------------------------ K11 (admission)
+
+
+@pytest.mark.parametrize("banks,nbits,m,n,k", [(1, 32, 1, 1, 1),
+                                               (3, 200, 37, 41, 2),
+                                               (5, 1 << 12, 1001, 999, 3),
+                                               (4, 1 << 20, 16385, 8191, 2)])
+def test_admission_banks(card, banks, nbits, m, n, k):
+    """K11's set, clear, probe and count against the plain versions over
+    bool banks: odd row counts, odd bank counts, a bank size below one
+    word and the smoke's 2^20 bits."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.admission import filter as af
+
+    rng = np.random.default_rng(banks * nbits + m)
+    words = torch.zeros((banks, (nbits + 31) // 32), dtype=torch.int32,
+                        device=card)
+    bits = torch.zeros((banks, nbits), dtype=torch.bool, device=card)
+    for bank in rng.integers(0, banks, 4):
+        idx = on(rng.integers(0, nbits, m), card)
+        K.admission_set(words, int(bank), idx, nbits)
+        af.banks_set_plain(bits, int(bank), idx)
+    K.admission_clear(words, banks - 1)
+    bits[banks - 1] = False
+    assert torch.equal(af.unpack_banks(words, nbits), bits)
+    assert torch.equal(af.pack_banks(bits), words)
+    idx = on(rng.integers(0, nbits, (n, k)), card)
+    for mask in (rng.random(banks) < 0.5, np.ones(banks, bool)):
+        bm = on(mask, card)
+        assert torch.equal(K.admission_probe(words, idx, bm, nbits),
+                           af.banks_probe_plain(bits, idx, bm))
+    assert K.admission_count(words).long().tolist() == \
+        af.banks_count_plain(bits).tolist()
+
+
+def test_device_filter_equals_numpy_filter(card):
+    from foundationdb_tpu_torch.admission import RecentWritesFilter
+
+    rng = np.random.default_rng(3)
+    fs = [RecentWritesFilter(bits_log2=10, banks=3, window_versions=300,
+                             backend=b, device=card if b == "device" else None)
+          for b in ("numpy", "device")]
+    v = 0
+    for _ in range(40):
+        v += int(rng.integers(1, 40))
+        fps = rng.integers(0, 2**64 - 1, int(rng.integers(0, 60)),
+                           dtype=np.uint64)
+        probe = rng.integers(0, 2**64 - 1, 77, dtype=np.uint64)
+        for f in fs:
+            f.record_u64(fps, v)
+        a, b = (f.probe_u64(probe, v - 100) for f in fs)
+        assert a.tolist() == b.tolist()
+        assert fs[0].saturation() == fs[1].saturation()
+
+
+# ------------------------------------------------ K12, K13 (non-resident)
+
+
+def word_rows(rng, n, w, spread):
+    rows = rng.integers(-spread, spread, (n, w)).astype(np.int32)
+    rows[:, : max(0, w - 2)] = 7  # a shared prefix
+    rows = np.unique(rows, axis=0)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def word_state(rng, c, w, n_live, dev):
+    keys = np.full((c, w), ck.INT32_MAX, np.int32)
+    live = word_rows(rng, 3 * n_live, w, 40)[:n_live]
+    keys[: len(live)] = live
+    vers = np.full(c, ck.NEG_VERSION, np.int32)
+    vers[: len(live)] = rng.integers(0, 50, len(live))
+    return ck.ConflictState(on(keys, dev), on(vers, dev),
+                            torch.tensor(len(live), dtype=torch.int32,
+                                         device=dev),
+                            torch.tensor(3, dtype=torch.int32, device=dev),
+                            torch.tensor(False, device=dev))
+
+
+def packed_batch(rng, b, r, q, w, dev):
+    """A PackedBatch with its host paint order, ranks into a dictionary
+    of 2·B·(R+Q)+1 rows (the +inf row last)."""
+    n = 2 * b * (r + q)
+    uniq = word_rows(rng, n, w, 40)[: n // 2]
+    dict_keys = np.full((n + 1, w), ck.INT32_MAX, np.int32)
+    dict_keys[: len(uniq)] = uniq
+    u = len(uniq)
+
+    def pair(cols):
+        a = rng.integers(0, u, (b, cols))
+        z = np.minimum(a + rng.integers(0, 4, (b, cols)), u)
+        return a.astype(np.int32), z.astype(np.int32)
+
+    rb, re_ = pair(r)
+    wb, we = pair(q)
+    paint = np.concatenate([wb.reshape(-1), we.reshape(-1)])
+    ranks = ck.RankBatch(
+        on(rb, dev), on(re_, dev), on(rng.random((b, r)) < 0.9, dev),
+        on(wb, dev), on(we, dev), on(rng.random((b, q)) < 0.8, dev),
+        on(rng.integers(0, 60, b).astype(np.int32), dev),
+        on(rng.random(b) < 0.95, dev),
+        on(np.argsort(paint, kind="stable").astype(np.int32), dev))
+    return ck.PackedBatch(on(dict_keys, dev), ranks)
+
+
+@pytest.mark.parametrize("w,b,c", [(1, 33, 70), (4, 100, 1000),
+                                   (9, 129, 300), (4, 8192, 4099)])
+def test_word_search_and_probe(card, w, b, c):
+    """K12 (base and delta, and flat) against its plain version at W = 1,
+    4, 9, with dictionaries and batches not multiples of the block."""
+    rng = np.random.default_rng(w * b)
+    base, delta = word_state(rng, c, w, c // 2, card), \
+        word_state(rng, 67, w, 40, card)
+    pb = packed_batch(rng, b, 2, 1, w, card)
+    got = ck.dict_history_search(base.keys, pb.dict_keys, delta.keys)
+    want = ck.dict_history_search(base.keys, pb.dict_keys, delta.keys,
+                                  plain=True)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    floor = torch.tensor(5, dtype=torch.int32, device=card)
+    st = ck.build_table(base.versions)
+    for dv in (delta.versions, None):
+        s = got if dv is not None else ck.dict_history_search(base.keys,
+                                                              pb.dict_keys)
+        for g, x in zip(ck.packed_probe(pb.ranks, floor, s, st, dv),
+                        ck.packed_probe(pb.ranks, floor, s, st, dv,
+                                        plain=True)):
+            assert torch.equal(g, x)
+
+
+@pytest.mark.parametrize("b,c,cd", [(100, 500, 300), (33, 64, 64),
+                                    (1000, 4096, 2100)])
+def test_word_paint_fold_compact(card, b, c, cd):
+    """K13's paint, fold and compaction against the plain versions at
+    W = 4 (a paint and a fold that overflow at the small capacities)."""
+    rng = np.random.default_rng(b + c)
+    w = 4
+    pb = packed_batch(rng, b, 2, 1, w, card)
+    for floor_v in (0, 20):
+        floor = torch.tensor(floor_v, dtype=torch.int32, device=card)
+        acc = on(rng.random(b) < 0.7, card)
+        st = word_state(rng, cd, w, cd // 3, card)
+        want = ck._paint_and_compact_packed(
+            ck.snapshot_res(st), pb.dict_keys, pb.ranks, acc, 77, floor,
+            plain=True)
+        got = ck._paint_and_compact_packed(ck.snapshot_res(st), pb.dict_keys,
+                                           pb.ranks, acc, 77, floor)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x)
+        base, delta = word_state(rng, c, w, c // 2, card), want
+        fold_want = ck._merge_delta_plain(base, delta, floor)
+        ck.K.word_fold(base, delta, floor, None)
+        for g, x in zip(base, fold_want):
+            assert torch.equal(g, x)
+    skeys = torch.cat([base.keys, delta.keys])
+    order = np.lexsort(skeys.cpu().numpy().T[::-1])
+    skeys = skeys[on(order, card)].contiguous()
+    newv = on(rng.integers(0, 4, skeys.shape[0]).astype(np.int32), card)
+    prior = torch.tensor(False, device=card)
+    for c_out in (5, c):
+        for g, x in zip(ck._dedup_compact(skeys, newv, c_out, prior),
+                        ck._dedup_compact_plain(skeys, newv, c_out, prior)):
+            assert torch.equal(g, x)
+
+
+def test_width1_k4_launches_unchanged(card):
+    """A resident engine still runs K4 (step_compact.cu) for its rank-space
+    history and never K13; a non-resident one runs K12 and K13 and never
+    K1, K4 or K2's probe."""
+    from foundationdb_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(1)
+    txns = [rand_txn(rng, 990) for _ in range(20)]
+    kw = dict(capacity=64, batch_size=24, max_read_ranges=2,
+              max_write_ranges=2, max_key_bytes=8)
+    for resident in (True, False):
+        cs = TorchConflictSet(device=card, resident=resident, **kw)
+        K.reset_launches()
+        cs.resolve(txns, 1000)
+        e = K.ENTRY_LAUNCHES
+        if resident:
+            assert e.get("sc_paint") == 1 and "wc_paint" not in e, e
+        else:
+            assert e.get("wc_paint") == 1 and e.get("wp_search") == 1, e
+            assert e.get("wp_probe") == 1 and "sc_paint" not in e, e
+            assert "di_insert" not in e and "hp_probe" not in e, e
+
+
+@pytest.mark.parametrize("wave", [False, True])
+def test_non_resident_engine_cuda_equals_cpu(card, wave):
+    """Object (with reports), wire and window paths of a non-resident
+    engine with a tiny delta (folds) on the card against the CPU plain
+    run, through advances and a rebase: verdicts, levels, every leaf."""
+    from foundationdb_tpu_torch.models.conflict_set import encode_resolve_batch
+
+    kw = dict(capacity=96, batch_size=21, max_read_ranges=2,
+              max_write_ranges=2, max_key_bytes=8, window_versions=300,
+              delta_capacity=30, wave_commit=wave, resident=False)
+    eng = {dev: TorchConflictSet(device=dev, **kw) for dev in (card, "cpu")}
+    rng = np.random.default_rng(5 + wave)
+    cv = 1000
+    for i in range(12):
+        cv += int(rng.integers(1, 40)) + (1 << 30 if i == 8 else 0)
+        txns = [rand_txn(rng, int(rng.integers(cv - 250, cv)))
+                for _ in range(int(rng.integers(2, 42)))]
+        out = {}
+        for dev, cs in eng.items():
+            if i == 5:
+                cs.advance(cv, cv - 100)
+                v = []
+            elif i % 3 == 0:
+                v = [int(x) for x in cs.resolve(txns, cv, cv - 200)]
+            elif i % 3 == 1:
+                v = cs.resolve_wire_async(encode_resolve_batch(txns), cv,
+                                          cv - 200, as_array=True)().tolist()
+            else:
+                count = min(len(txns) // 2, 21)
+                v = cs.resolve_wire_window(
+                    encode_resolve_batch(txns[:2 * count]), [cv, cv + 1],
+                    count).tolist()
+            out[dev] = (v, cs.last_wave, cs.last_conflicting,
+                        None if cs.last_wave_window is None
+                        else cs.last_wave_window.tolist(), cs.headroom())
+        cv += 1
+        assert out[card] == out["cpu"], i
+        sa, sb = (convert.snapshot(e) for e in (eng[card], eng["cpu"]))
+        for k, v in sb["state"].items():
+            assert sa["state"][k].tobytes() == v.tobytes(), (i, k)
+    assert eng[card].base_version > 1 << 29

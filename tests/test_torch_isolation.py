@@ -5,6 +5,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -68,6 +69,18 @@ got = sh.resolve([TxnConflictInfo(5, [KeyRange(b"", b"z")], []),
                   TxnConflictInfo(15, [pt(b"c")], [])], 20)
 assert [int(v) for v in got] == [1, 0] and sh.last_wave == [-1, 0], got
 assert sh.exchange_stats()["wave_batches"] == 2
+from foundationdb_tpu_torch.admission import RecentWritesFilter
+f = RecentWritesFilter(bits_log2=10, backend="device", device="cpu")
+cs.attach_admission_filter(f)
+cs.resolve([TxnConflictInfo(35, [], [pt(b"q")])], 40)
+assert f.recorded == 1 and f.metrics()["backend"] == "device"
+nr = TorchConflictSet(device="cpu", resident=False, capacity=64,
+                      batch_size=8, max_read_ranges=2, max_write_ranges=2,
+                      max_key_bytes=8)
+nr.resolve([TxnConflictInfo(5, [], [pt(b"a")])], 10)
+got = nr.resolve([TxnConflictInfo(5, [pt(b"a")], []),
+                  TxnConflictInfo(15, [pt(b"a")], [])], 20)
+assert [int(v) for v in got] == [1, 0] and nr.dict_stats is None, got
 print("ok")
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -119,10 +132,36 @@ def test_sharded_default_device_is_cuda_and_raises_without_a_card():
                                 dict(resident=False, spec_resolve=True)],
                          ids=lambda kw: "+".join(kw))
 def test_other_designs_name_their_roadmap_item(kw):
-    """Wave commit, tiering and speculation are ported; combined with the
-    non-resident design, which is not, each still raises."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        TorchConflictSet(device="cpu", **kw)
+    """The non-resident design, alone or with wave commit, tiering or
+    speculation, builds on the CPU and resolves as the JAX engine of the
+    same configuration does (verdicts, levels, every history leaf); the
+    tiering request stays inert there, as in JAX (no mirror, no tier)."""
+    from foundationdb_tpu.core.types import KeyRange as JRange
+    from foundationdb_tpu.core.types import TxnConflictInfo as JTxn
+    from foundationdb_tpu.models.conflict_set import TPUConflictSet
+    from foundationdb_tpu_torch import convert
+    from foundationdb_tpu_torch.core.types import KeyRange, TxnConflictInfo
+
+    cfg = dict(capacity=64, batch_size=8, max_read_ranges=2,
+               max_write_ranges=2, max_key_bytes=8, **kw)
+    port = TorchConflictSet(device="cpu", **cfg)
+    jax = TPUConflictSet(**cfg)
+    assert not port.resident and not port.tiered and port.dict_stats is None
+    assert jax.tiered == port.tiered
+    for cv, (r, w) in enumerate([(b"a", b"b"), (b"b", b"a"), (b"a", b"c"),
+                                 (b"c", b"a")], start=10):
+        rows = [(5 + 4 * (cv - 10), r, w), (cv - 1, w, r)]
+        got = port.resolve([TxnConflictInfo(v, [KeyRange(x, x + b"\0")],
+                                            [KeyRange(y, y + b"\0")])
+                            for v, x, y in rows], cv)
+        want = jax.resolve([JTxn(v, [JRange(x, x + b"\0")],
+                                 [JRange(y, y + b"\0")])
+                            for v, x, y in rows], cv)
+        assert [int(v) for v in got] == [int(v) for v in want], cv
+        assert port.last_wave == jax.last_wave
+    for k, v in convert.state_leaves(jax.state).items():
+        assert convert.state_leaves(port.state)[k].numpy().tobytes() == \
+            np.asarray(v).tobytes(), k
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

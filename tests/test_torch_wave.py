@@ -491,8 +491,28 @@ def test_two_phase_errors_and_guards():
                                 dict(resident=False, spec_resolve=True)],
                          ids=lambda kw: "+".join(kw))
 def test_wave_with_unported_design_raises(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        TorchConflictSet(device="cpu", wave_commit=True, **kw)
+    """A wave engine of the non-resident design (tiering inert, or
+    speculative) equals the JAX one on the ring, chain and clique graphs
+    of ``tests/test_conflict_wave.py`` and a random stream: verdicts,
+    ``last_wave``, ``last_reordered`` and every history leaf."""
+    cfg = dict(KW, wave_commit=True, **kw)
+    port = TorchConflictSet(device="cpu", **cfg)
+    jcs = TPUConflictSet(**cfg)
+    assert not port.resident and not port.tiered
+    rng = np.random.default_rng(len(kw))
+    batches = [ring(5), chain(6), rmw_clique(4)] + [
+        [rand_txn(rng, read_version=90 + 10 * i) for _ in range(12)]
+        for i in range(3)]
+    for i, txns in enumerate(batches):
+        cv = 100 + 10 * i
+        want = [int(v) for v in jcs.resolve(txns, cv)]
+        got = [int(v) for v in port.resolve([port_txn(t) for t in txns], cv)]
+        assert got == want, i
+        assert port.last_wave == jcs.last_wave, i
+        assert port.last_reordered == jcs.last_reordered, i
+    for k, v in convert.state_leaves(jcs.state).items():
+        assert convert.state_leaves(port.state)[k].numpy().tobytes() == \
+            np.asarray(v).tobytes(), k
 
 
 def test_wave_batch_over_one_block_is_refused_on_cuda():
