@@ -96,13 +96,30 @@ Phases, each fatal on failure:
    (the gated K13 fold, K12's search of base and delta and its probe,
    K13's paint, a forced K13 fold, K13's compaction) and one captured
    window program equal their plain versions bit for bit.
+3h. Non-resident sharded phase (``ShardedConflictSet(n_shards=4,
+   resident=False)``: full-key batches, four flat [2^20, 4] shard
+   histories): (a) the stream of 3b through the same runner: 3b's hash,
+   no overflow, per window K2's table, K16, K15, K14's ranks and K3 k
+   times and the unpacked paint (K13's keys, K12's search, K14's sort,
+   K13's sorted paint) 4k times, never K1, K4, K8 or K12's probe;
+   ``shard_occupancy`` printed. (b) The same stream starting on uniform
+   splits, resharded to the density splits at its middle: the same
+   hash. (c) A 4-shard non-resident wave engine over 16 batches equals
+   3c's verdicts and levels. (d) One captured step launch by launch (K16
+   with its K2 table, K15 with and without the reads, K14's ranks, its
+   sort of one shard's paint rows, K13's sorted paint, each shard's whole
+   paint) and one captured window program equal their plain versions bit
+   for bit, every state leaf included. (e) Window 0 on the CPU (a worker
+   process beside phase 4, checked after it) equals the card's in
+   verdicts and every state leaf.
 4. Cross-check: the first 16 batches again on the CPU (plain versions),
    and 16 batches each of the mako and tpcc shapes on cuda against the
    CPU: the verdicts must be equal.
 5. The seconds of each phase, a ``kernels`` JSON line (K1-K4, the
    window program, K5, K6, K7, the paint-only window, K8, K9, K10, the
-   sharded window program, K11, K12, K13 and the non-resident window
-   program), then the card line, then the result line.
+   sharded window program, K11, K12, K13, the non-resident window
+   program, K14, K15, K16, K13's sorted paint and the non-resident
+   sharded window program), then the card line, then the result line.
 
 Exits non-zero, printing no result, when no CUDA card is available or when
 run without the rest of the repository.
@@ -141,6 +158,11 @@ REPLACES = {
     "word_probe": "foundationdb_tpu/models/conflict_kernel.py:1445",
     "word_compact": "foundationdb_tpu/models/conflict_kernel.py:1489",
     "packed_many": "foundationdb_tpu/models/conflict_kernel.py:1672",
+    "word_sort": "foundationdb_tpu/ops/lex.py:160",
+    "word_clip": "foundationdb_tpu/models/conflict_kernel.py:1028",
+    "word_shard_probe": "foundationdb_tpu/parallel/sharded_resolver.py:115",
+    "word_paint_sorted": "foundationdb_tpu/models/conflict_kernel.py:925",
+    "nr_sharded_many": "foundationdb_tpu/parallel/sharded_resolver.py:551",
 }
 # The kernel sources each path launches: the sequential-order paths run
 # K1-K4, the wave paths K1, K2, K4 and K5/K6 (wave.cu), never K3.
@@ -168,6 +190,13 @@ ADM_TIER_BATCHES, ADM_TIER_WINDOW = 24, 8
 # only for its sparse tables; K1 and K4 never).
 NR_SEQ = ("history_probe", "accept", "word_probe", "word_compact")
 NR_WAVE = ("history_probe", "wave", "word_probe", "word_compact")
+# Phase 3h: the kernel sources the non-resident sharded window path
+# launches (K2 for its table, K12 for the paint's search; K1, K4, K8 and
+# K12's probe never).
+NRS_SEQ = ("history_probe", "accept", "word_probe", "word_compact",
+           "word_sort", "word_shard")
+NRS_WAVE = ("history_probe", "wave", "shard", "word_probe", "word_compact",
+            "word_sort", "word_shard")
 
 
 def fail(msg: str) -> None:
@@ -1238,10 +1267,12 @@ def sharded_engine(stream, mode, uniform: bool = False) -> dict:
         SHARDS, None if uniform else bench.density_sample(stream[1], mode))
 
 
-def sharded_window0(seed: int, n_batches: int, device: str):
-    """Check (e) of phase 3e: window 0 of the YCSB-A stream through a
-    sharded engine on ``device``. Returns (verdicts [k, B], state leaves
-    as numpy, seconds); run in a worker process for the CPU."""
+def sharded_window0(seed: int, n_batches: int, device: str,
+                    resident: bool = True):
+    """Check (e) of phase 3e (and, with ``resident`` False, of 3h): window
+    0 of the YCSB-A stream through a sharded engine on ``device``. Returns
+    (verdicts [k, B], state leaves as numpy, seconds); run in a worker
+    process for the CPU."""
     import torch
 
     from foundationdb_tpu_torch import bench, convert
@@ -1253,23 +1284,26 @@ def sharded_window0(seed: int, n_batches: int, device: str):
     mode = MODES["ycsb"]
     stream = gen_workload(n_batches * mode.batch, N_KEYS, seed, mode)
     blob, ends, _ = wire_stream(stream, mode, WINDOW_K)
-    cs = bench.make_engine(mode, CAP, device, **sharded_engine(stream, mode))
+    engine = sharded_engine(stream, mode)
+    if not resident:
+        engine["resident"] = False
+    cs = bench.make_engine(mode, CAP, device, **engine)
     v = cs.resolve_wire_window(
         *bench.window_wire(blob, ends, mode, WINDOW_K, 0), mode.batch)
     return v, convert.snapshot(cs)["state"], time.perf_counter() - t0
 
 
-def check_sharded_cpu(sh: dict, job) -> None:
+def check_sharded_cpu(sh: dict, job, label: str = "sharded") -> None:
     """Check (e)'s CPU half: window 0 on the CPU (a worker process, beside
     phase 4) equals the card's in verdicts and every state leaf."""
     v, state, seconds = job.get()
     cv, cstate, _ = sh["window0_cuda"]
     if not np.array_equal(v, cv):
-        fail("sharded window 0: cuda and cpu verdicts differ")
+        fail(f"{label} window 0: cuda and cpu verdicts differ")
     for k, a in state.items():
         if cstate[k].tobytes() != a.tobytes():
-            fail(f"sharded window 0: state leaf {k} differs on cuda and cpu")
-    print(f"cross-check sharded window 0: {v.size} txns and every state "
+            fail(f"{label} window 0: state leaf {k} differs on cuda and cpu")
+    print(f"cross-check {label} window 0: {v.size} txns and every state "
           f"leaf equal on cuda and cpu ({seconds:.1f} s in a worker process)")
 
 
@@ -1962,6 +1996,312 @@ def nonresident_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
     }
 
 
+def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
+                     card: str, seq_rec: dict, wave_out: dict) -> dict:
+    """Phase 3h: the non-resident sharded engine (SHARDS flat full-key
+    shard histories on the card) on the window path, counted, and checks
+    (a)-(d) and the card's half of (e). Returns the K14, K15, K16, K13
+    sorted paint and window program rows' measurements."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+    from foundationdb_tpu_torch.models.conflict_set import upload_keys
+    from foundationdb_tpu_torch.ops.lex import sort_keys_with_payload
+
+    b = mode.batch
+    s_n = SHARDS
+    n_windows = n_batches // WINDOW_K
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(label: str) -> None:
+        nonlocal t0
+        now = time.perf_counter()
+        seconds[label] = now - t0
+        t0 = now
+
+    engine = {**sharded_engine(stream, mode), "resident": False}
+    # (a) The window path, counted.
+    rec, _, _, _, launches, per_window = counted_run(
+        blob, ends, mode, n_batches, wave=False, engine=engine,
+        label="non-resident sharded", program="nr_sharded_many",
+        sources=NRS_SEQ)
+    want = {"hp_table": WINDOW_K, "wsh_probe": WINDOW_K,
+            "wsh_clip": WINDOW_K, "wso_ranks": WINDOW_K,
+            "ac_accept": WINDOW_K, **{e: s_n * WINDOW_K for e in (
+                "wc_paint_keys", "wp_search", "wso_sort", "wc_paint_sorted")}}
+    never = ("di_insert", "sc_paint", "sh_probe", "wp_probe", "wc_paint",
+             "hp_probe")
+    for i, pw in enumerate(per_window):
+        if (any(pw.get(e, 0) != n for e, n in want.items())
+                or any(pw.get(e, 0) for e in never)):
+            fail(f"non-resident sharded window {i}: launches {pw} (want "
+                 f"{want}, none of {never})")
+    if rec["verdicts_sha256"] != seq_rec["verdicts_sha256"]:
+        fail("non-resident sharded window path and the single engine's "
+             "(phase 3b) verdicts differ")
+    entries = {e: sum(pw.get(e, 0) for pw in per_window)
+               for e in (*want, "wso_ranks")}
+    print(json.dumps({
+        "phase": "non-resident sharded", "stream": "ycsb-a",
+        "shards": s_n, "splits": [x.hex() for x in engine["splits"]],
+        **{k: rec[k] for k in (
+            "txns", "batches", "window", "pipeline_depth", "threaded",
+            "txns_per_s", "window_ms_p50", "window_ms_p99", "committed",
+            "conflict", "too_old", "verdicts_sha256", "shard_occupancy",
+            "host_syncs_per_window", "host_pack_ms_per_window",
+            "host_pack_ms_warm", "pack_gate_wait_s")},
+        "launches_per_window": {**{k: launches[k] / n_windows
+                                   for k in NRS_SEQ},
+                                **{e: n / n_windows
+                                   for e, n in entries.items()}},
+        "single_engine_sha_equal": True, "card": card}))
+    lap("a")
+
+    # (b) Uniform splits (every key below 2^20 lies in shard 0), then a
+    # reshard to the density splits at the middle of the stream.
+    mid = n_windows // 2
+    rb_rec = bench.run_wire(
+        blob, ends, mode, n_batches, CAP, "cuda", window=WINDOW_K,
+        pipeline_depth=WINDOW_DEPTH, repeats=1, warmup=False,
+        engine={**sharded_engine(stream, mode, uniform=True),
+                "resident": False},
+        reshard=(mid, engine["splits"]))[0]
+    before, after = rb_rec["reshard"]["occupancy_before"], \
+        rb_rec["shard_occupancy"]
+    if rb_rec["verdicts_sha256"] != seq_rec["verdicts_sha256"]:
+        fail("resharded non-resident sharded run and the single engine's "
+             "verdicts differ")
+    if rb_rec["overflowed"] or before == after or min(after) <= 1:
+        fail(f"non-resident reshard: occupancy {before} -> {after}, "
+             f"overflowed {rb_rec['overflowed']}")
+    print(json.dumps({
+        "phase": "non-resident sharded reshard",
+        "reshard": rb_rec["reshard"], "shard_occupancy": after,
+        "txns_per_s": rb_rec["txns_per_s"],
+        "verdicts_sha256": rb_rec["verdicts_sha256"], "card": card}))
+    lap("b")
+
+    # (c) A wave engine of SHARDS shards on the first two windows against
+    # phase 3c's single wave engine: verdicts and levels.
+    n_wave = 2 * WINDOW_K
+    wb, we = blob[: int(ends[n_wave * b])], ends[: n_wave * b + 1]
+    wrec, wv, wl, _, _, wpw = counted_run(
+        wb, we, mode, n_wave, wave=True, engine=engine,
+        label="non-resident sharded wave", program="nr_sharded_many",
+        sources=NRS_WAVE)
+    if not (np.array_equal(wv, wave_out["verdicts"][:2])
+            and np.array_equal(wl, wave_out["levels"][:2])):
+        fail("non-resident sharded wave engine: verdicts or levels differ "
+             "from the single wave engine's (phase 3c)")
+    for i, pw in enumerate(wpw):
+        if (pw.get("sh_exchange", 0) != WINDOW_K
+                or pw.get("wv_pred", 0) != s_n * WINDOW_K
+                or pw.get("wso_ranks", 0) != s_n * WINDOW_K
+                or pw.get("wv_level", 0) != WINDOW_K or pw.get("ac_accept")):
+            fail(f"non-resident sharded wave window {i}: launches {pw}")
+    xs = wrec["exchange_stats"]
+    if not 0 < xs["tiles_occupied"] <= xs["tiles_total"]:
+        fail(f"exchange_stats {xs}")
+    print(json.dumps({"phase": "non-resident sharded wave",
+                      "txns": wrec["txns"], "committed": wrec["committed"],
+                      "reordered": wrec["reordered"],
+                      "cycle_aborted": wrec["cycle_aborted"],
+                      "exchange_stats": xs, "levels_equal_phase_3c": True,
+                      "card": card}))
+    lap("c")
+
+    # (d) One captured step launch by launch, and one captured window
+    # program, against the plain versions: window 1 after window 0.
+    cs = bench.make_engine(mode, CAP, "cuda", **engine)
+    cs.resolve_wire_window(*bench.window_wire(blob, ends, mode, WINDOW_K, 0),
+                           b)
+    prepared = cs.pack_wire_window(
+        *bench.window_wire(blob, ends, mode, WINDOW_K, 1), b)
+    if prepared.rebase_delta:
+        fail("unexpected rebase in the captured window")
+    bt = upload_keys(prepared.batch, cs.device)
+    cvs, olds = prepared.cvs_rel, prepared.olds_rel
+    state, lo, hi = cs.state, cs._lo_dev, cs._hi_dev
+    step = ck._step_batch(bt, 0)
+    floor = torch.maximum(state.oldest, torch.full(
+        (), int(olds[0]), dtype=torch.int32, device="cuda"))
+    assert_equal("word_shard_probe",
+                 ck.word_shard_probe(state, step, lo, hi, floor[0]),
+                 ck.word_shard_probe_plain(state, step, lo, hi, floor[0]))
+    for reads in (False, True):
+        assert_equal("word_clip",
+                     [x for x in ck.word_clip(step, lo, hi, reads)
+                      if x is not None],
+                     [x for x in ck.word_clip_plain(step, lo, hi, reads)
+                      if x is not None])
+    assert_equal("word_sort.ranks", ck.endpoint_ranks_live(step),
+                 ck.endpoint_ranks_live_plain(step))
+    too_old, _, _, cand = ck.word_shard_probe(state, step, lo, hi, floor[0])
+    ranks = ck.endpoint_ranks_live(step)
+    accepted, _ = ck.accept(cand, too_old, step.txn_mask, ranks)
+    clip = ck.word_clip(step, lo, hi, False)
+    cv0 = int(cvs[0])
+    n_used = [int(x) for x in state.n_used.cpu()]
+    big = int(np.argmax(n_used))  # the shard timed below
+    paint_in = {}
+    for s in range(s_n):
+        view = ck.clip_view(step, clip, s)
+        hs = ck._shard_hist(state, s)
+        keys, delta = K.word_paint_keys(view.write_begin, view.write_end,
+                                        view.write_mask, accepted)
+        cross = K.word_search(hs.keys, keys)[1]
+        snew, (sdelta, scross) = K.word_sort(keys, (delta, cross))
+        assert_equal("word_sort.sort", [snew, sdelta, scross],
+                     list(sort_keys_with_payload(keys, delta, cross)))
+        got = clone(hs)
+        K.word_paint_sorted(got, snew, sdelta, scross, cv0, floor[s])
+        soldv = hs.versions[(scross - 1).clamp(min=0).long()]
+        assert_equal("word_paint_sorted", got, ck._paint_tail(
+            hs, snew, sdelta, soldv, scross, cv0, floor[s]))
+        assert_equal("word_paint_sorted.composed", ck._paint_and_compact(
+            clone(hs), view, accepted, cv0, floor[s]),
+            ck._paint_and_compact_plain(hs, view, accepted, cv0, floor[s]))
+        if s == big:
+            paint_in = dict(hs=hs, keys=keys, delta=delta, cross=cross,
+                            snew=snew, sdelta=sdelta, scross=scross,
+                            soldv=soldv, floor=floor[s], view=view)
+
+    def many(st):
+        v, _, _, h = ck.sharded_resolve_many(st, bt, cvs, olds, lo, hi)
+        return v, h
+
+    def many_plain(st):
+        v, _, _, h = ck.sharded_resolve_many(st, bt, cvs, olds, lo, hi,
+                                             plain=True)
+        return v, h
+
+    assert_equal("nr_sharded_many", many(clone(state)),
+                 many_plain(clone(state)))
+    torch.cuda.synchronize()
+
+    pi = paint_in
+    flat = torch.cat([step.read_begin.reshape(-1, step.read_begin.shape[-1]),
+                      step.read_end.reshape(-1, step.read_end.shape[-1]),
+                      step.write_begin.reshape(-1, step.write_begin.shape[-1]),
+                      step.write_end.reshape(-1, step.write_end.shape[-1])])
+    table = K.build_table(state.versions.reshape(-1))
+    t = {
+        "word_sort": (time_ms(lambda: ck.endpoint_ranks_live(step)),
+                      time_ms(lambda: ck.endpoint_ranks_live_plain(step),
+                              reps=3)),
+        "word_clip": (time_ms(lambda: ck.word_clip(step, lo, hi, False)),
+                      time_ms(lambda: ck.word_clip_plain(step, lo, hi,
+                                                         False), reps=3)),
+        "word_shard_probe": (
+            time_ms(lambda: ck.word_shard_probe(state, step, lo, hi,
+                                                floor[0])),
+            time_ms(lambda: ck.word_shard_probe_plain(state, step, lo, hi,
+                                                      floor[0]), reps=2)),
+        "word_paint_sorted": (
+            time_ms(lambda h: K.word_paint_sorted(
+                h, pi["snew"], pi["sdelta"], pi["scross"], cv0, pi["floor"]),
+                lambda: (clone(pi["hs"]),)),
+            time_ms(lambda: ck._paint_tail(
+                pi["hs"], pi["snew"], pi["sdelta"], pi["soldv"],
+                pi["scross"], cv0, pi["floor"]), reps=3)),
+        "nr_sharded_many": (time_ms(many, lambda: (clone(state),), reps=3),
+                            time_ms(many_plain, lambda: (clone(state),),
+                                    reps=1)),
+    }
+    torch_sort_ms = time_ms(lambda: sort_keys_with_payload(flat))
+    paint_sort_ms = time_ms(lambda: K.word_sort(pi["keys"], (pi["delta"],
+                                                             pi["cross"])))
+    paint_ms = time_ms(lambda h: ck._paint_and_compact(
+        h, pi["view"], accepted, cv0, pi["floor"]),
+        lambda: (clone(pi["hs"]),))
+    probe_only_ms = time_ms(lambda: K.word_shard_probe(
+        state.keys, table, step.read_begin, step.read_end, step.read_mask,
+        step.read_version, step.txn_mask, lo, hi, floor[0]))
+    table_ms = time_ms(lambda: K.build_table(state.versions.reshape(-1)))
+    for name, (ms, plain) in t.items():
+        print(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f} ms)")
+    print(f"kernel word_sort: {flat.shape[0]} rows ranked in "
+          f"{t['word_sort'][0]:.4f} ms; {flat.shape[1]} stable torch.sort "
+          f"passes over them {torch_sort_ms:.4f} ms; one shard's paint sort "
+          f"({pi['keys'].shape[0]} rows, 2 payloads) {paint_sort_ms:.4f} ms;"
+          f" word_shard_probe: K16 alone {probe_only_ms:.4f} ms, K2's table "
+          f"over S x C {table_ms:.4f} ms; one shard's whole unpacked paint "
+          f"{paint_ms:.4f} ms")
+
+    # Bounds at the capture's shapes. K14 (the ranks): the endpoint rows
+    # and masks read once, the ranks and live masks written; its operations
+    # a comparison sort's n·log2(n) row compares of W words. K15 (writes
+    # only, the main path): the write rows and masks read once, S clipped
+    # copies written. K16: the shards' live keys and versions, the read
+    # slots, read versions and txn mask read once, the [B, R] mask and
+    # three [B] outputs written. K13's sorted paint (the timed shard): its
+    # live rows and the sorted new rows read, its [C, W] keys and [C]
+    # versions written. The window program: k x (K16 + K14 + K3 + K15 +
+    # S paints, each K13's keys, K12's search, K14's sort and the sorted
+    # paint).
+    r, w = step.read_begin.shape[1], step.read_begin.shape[2]
+    q = step.write_begin.shape[1]
+    c = state.keys.shape[1]
+    n = flat.shape[0]
+    n2 = 2 * b * q
+    bytes_k14 = n * w * 4 + b * (r + q) + n * 4 + b * (r + q)
+    ops_k14 = float(n * math.ceil(math.log2(n)) * w)
+    bytes_k15 = b * q * (8 * w + 1) + s_n * b * q * (8 * w + 1) + 8 * s_n * w
+    bytes_k16 = (4 * (w + 1) * sum(n_used) + b * r * (8 * w + 1) + 5 * b
+                 + b * r + 3 * b + 8 * s_n * w + 4)
+    bytes_paint = (4 * (w + 1) * n_used[big] + 4 * (w + 1) * c
+                   + n2 * (w + 2) * 4 + 4)
+    bytes_sort = n2 * (w + 2) * 4 * 2
+    ops_sort = float(n2 * math.ceil(math.log2(n2)) * w)
+    idx = torch.nonzero(cand).flatten().double()
+    ops_k3 = float(3 * r * q * idx.sum())
+    bytes_k3 = 3 * b + b * r * 9 + b * q * 9 + 2 * b
+    bytes_keys = b * q * (8 * w + 1) + b + n2 * (w + 1) * 4
+    bytes_search = n2 * w * 4 + 4 * (w + 1) * n_used[big] + 8 * n2
+    step_b = {"bytes": 0.0, "operations": 0.0}
+    for nbytes, ops, times in (
+            (bytes_k16, 0.0, 1), (bytes_k14, ops_k14, 1),
+            (bytes_k3, ops_k3, 1), (bytes_k15, 0.0, 1),
+            (bytes_keys + bytes_search + bytes_paint, 0.0, s_n),
+            (bytes_sort, ops_sort, s_n)):
+        lo_ms, by = bound(nbytes, ops)
+        step_b[by] += lo_ms * times * WINDOW_K
+    lap("d")
+    # (e) The card's half: window 0 on cuda (the CPU half runs in a worker
+    # beside phase 4, checked by check_sharded_cpu).
+    window0 = sharded_window0(seed, len(stream[0]) // b, "cuda",
+                              resident=False)
+    lap("e")
+    print(json.dumps({"phase 3h seconds": seconds}))
+    k14_launches = launches["word_sort"]
+    return {
+        "window0_cuda": window0,
+        "word_sort": {"launches": k14_launches, "timing": t["word_sort"],
+                      "bound": bound(bytes_k14, ops_k14),
+                      "torch_sort_passes_ms": torch_sort_ms,
+                      "paint_sort_ms": paint_sort_ms,
+                      "paint_sort_bound_ms": bound(bytes_sort, ops_sort)[0]},
+        "word_clip": {"launches": entries["wsh_clip"],
+                      "timing": t["word_clip"], "bound": bound(bytes_k15)},
+        "word_shard_probe": {"launches": entries["wsh_probe"],
+                             "timing": t["word_shard_probe"],
+                             "bound": bound(bytes_k16),
+                             "probe_only_ms": probe_only_ms,
+                             "table_ms": table_ms},
+        "word_paint_sorted": {"launches": entries["wc_paint_sorted"],
+                              "timing": t["word_paint_sorted"],
+                              "bound": bound(bytes_paint),
+                              "whole_paint_ms": paint_ms},
+        "nr_sharded_many": {"launches": launches["nr_sharded_many"],
+                            "timing": t["nr_sharded_many"],
+                            "bound": (sum(step_b.values()),
+                                      max(step_b, key=step_b.get))},
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1980,11 +2320,11 @@ def main() -> int:
         return 2
 
     # The host replay of check (c) of phase 3c (beside phases 3-4), the CPU
-    # runs of check (c) of phase 3d, the CPU half of check (e) of phase 3e,
-    # of the tiered run of 3f and of the adversary of 3g (beside phase 4)
-    # run in five worker processes; the workers are stopped however the
-    # run ends.
-    pool = multiprocessing.get_context("spawn").Pool(5)
+    # runs of check (c) of phase 3d, the CPU half of check (e) of phases 3e
+    # and 3h, of the tiered run of 3f and of the adversary of 3g (beside
+    # phase 4) run in six worker processes; the workers are stopped
+    # however the run ends.
+    pool = multiprocessing.get_context("spawn").Pool(6)
     try:
         return smoke(args, pool)
     finally:
@@ -2087,6 +2427,12 @@ def smoke(args, pool) -> int:
                            wp["record"], wv)
     lap("3g non-resident path")
 
+    # 3h. The non-resident sharded engine on the window path, and its
+    # checks.
+    nrs = nr_sharded_phase(blob, ends, ycsb, n_wire, stream, args.seed, card,
+                           wp["record"], wv)
+    lap("3h non-resident sharded path")
+
     # Check (c) of phase 3d, check (e) of phase 3e, the tiered run of 3f
     # and the adversary of 3g on the CPU, in the workers beside phase 4
     # (the measured phases run without them).
@@ -2098,6 +2444,8 @@ def smoke(args, pool) -> int:
                                       (args.seed, "cpu"))
     cpu_nr_spec = {False: pool.apply_async(
         spec_run, (args.seed, "cpu", 3, False, False))}
+    cpu_nr_sharded = pool.apply_async(sharded_window0,
+                                      (args.seed, args.batches, "cpu", False))
 
     # 4. Cross-checks against the plain versions on the CPU.
     n_cross = min(16, args.batches)
@@ -2121,6 +2469,7 @@ def smoke(args, pool) -> int:
     check_sharded_cpu(sh, cpu_sharded)
     check_tiered_admission(ad, cpu_tiered_adm)
     check_spec_cpu(nr, cpu_nr_spec, " non-resident")
+    check_sharded_cpu(nrs, cpu_nr_sharded, "non-resident sharded")
     lap("4 cross-checks")
     print(json.dumps({"phase_seconds": phase_s}))
 
@@ -2220,6 +2569,35 @@ def smoke(args, pool) -> int:
             "max_abs_err": MAX_ABS_ERR[k], "ms": r["timing"][0],
             "plain_ms": r["timing"][1], "bound_ms": lo, "bound_by": by,
             "library_ms": None})
+    # K14 is timed by its rank launch on the unclipped endpoint rows (the
+    # sequential path's use), with W stable torch.sort passes over the
+    # same rows beside it (no one PyTorch call sorts W-word rows); K16 with
+    # the K2 table build it needs; K13's sorted paint on the fullest shard.
+    for k, source in (
+            ("word_sort", "foundationdb_tpu_torch/kernels/csrc/word_sort.cu"),
+            ("word_clip", "foundationdb_tpu_torch/kernels/csrc/word_shard.cu"),
+            ("word_shard_probe",
+             "foundationdb_tpu_torch/kernels/csrc/word_shard.cu"),
+            ("word_paint_sorted",
+             "foundationdb_tpu_torch/kernels/csrc/word_compact.cu"),
+            ("nr_sharded_many",
+             "foundationdb_tpu_torch/models/conflict_kernel.py")):
+        r = nrs[k]
+        lo, by = r["bound"]
+        rows.append({
+            "name": k, "route": "cuda", "source": source,
+            "replaces": REPLACES[k], "launches": r["launches"],
+            "max_abs_err": MAX_ABS_ERR[k], "ms": r["timing"][0],
+            "plain_ms": r["timing"][1], "bound_ms": lo, "bound_by": by,
+            "library_ms": None})
+    rows[-5].update(torch_sort_passes_ms=nrs["word_sort"][
+        "torch_sort_passes_ms"], paint_sort_ms=nrs["word_sort"][
+        "paint_sort_ms"], paint_sort_bound_ms=nrs["word_sort"][
+        "paint_sort_bound_ms"])
+    rows[-3].update(probe_only_ms=nrs["word_shard_probe"]["probe_only_ms"],
+                    table_ms=nrs["word_shard_probe"]["table_ms"])
+    rows[-2].update(whole_paint_ms=nrs["word_paint_sorted"][
+        "whole_paint_ms"])
     print(json.dumps({"kernels": rows}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

@@ -36,7 +36,10 @@ auto-reshard off; the record adds ``shard_occupancy`` and, on a wave
 engine, ``exchange_stats``. ``--resident 0`` resolves with the packed
 non-resident engine (a [C, W] word-key history and a dictionary per
 batch: K12 and K13 in place of K1, K2's probe and K4); its record has no
-``dict_stats`` (null). Prints one JSON line.
+``dict_stats`` (null). ``--resident 0 --resolvers N`` resolves with the
+non-resident sharded engine (full-key batches, N flat [C, W] shard
+histories: K2's table, K14, K15, K16, K3 or K5/K10/K6, and the unpacked
+paint of K12, K13 and K14). Prints one JSON line.
 
 The run is on the card (``--device cuda``, the default, raises without
 one); ``--device cpu`` runs the plain torch versions.
@@ -455,9 +458,6 @@ def main(argv=None) -> int:
     if args.profile and args.resident == "0":
         raise SystemExit("--profile replays the resident window program; "
                          "it needs --resident 1")
-    if args.resident == "0" and args.resolvers > 1:
-        raise SystemExit("--resolvers N needs --resident 1 (the sharded "
-                         "non-resident engine is not ported)")
     mode = MODES[args.mode]
     window = max(1, min(args.window, max(1, args.txns // mode.batch)))
     n_batches = max(1, args.txns // mode.batch) // window * window

@@ -26,7 +26,13 @@ either package can be captured mid-stream and continued by the port:
 A non-resident engine (``resident=False``) has no mirror and a bare
 ``HistState``: its ``state`` leaves are ``base.keys``, ..., ``base_st``,
 ``delta.keys``, ... (no ``hist.`` prefix, no dictionary) and its snapshot
-has no ``mirror`` entry.
+has no ``mirror`` entry. A non-resident sharded engine's state is its S
+flat histories: the leaves ``keys`` [S, C, W], ``versions`` [S, C],
+``n_used``, ``oldest`` and ``overflow`` [S], with the ``sharded`` entry and
+no ``mirror``; a JAX non-resident ``ShardedConflictSet``'s state (a
+ConflictState of [D, C, W] keys and [D] scalars, as numpy) has the same
+leaves, and :func:`flat_shards_from_leaves` makes the port's state of
+them.
 
 An admission filter travels on its own (``filter_snapshot`` /
 ``filter_from_snapshot``): its geometry, the banks as bool [banks, nbits],
@@ -72,8 +78,11 @@ def hist_leaves(hist) -> dict[str, object]:
 
 def state_leaves(res) -> dict[str, object]:
     """Dotted-path leaves of a ResState (either package's: only field
-    names are read), its history two-level or flat (sharded); or of a
-    non-resident engine's bare HistState."""
+    names are read), its history two-level or flat (sharded); of a
+    non-resident engine's bare HistState; or of a non-resident sharded
+    engine's bare flat ConflictState."""
+    if hasattr(res, "keys") and hasattr(res, "overflow"):
+        return {f: getattr(res, f) for f in STATE_FIELDS}
     if not hasattr(res, "dict_keys"):
         return hist_leaves(res)
     out = {"dict_keys": res.dict_keys, "n_keys": res.n_keys}
@@ -82,6 +91,16 @@ def state_leaves(res) -> dict[str, object]:
         return out | {"shard_lo": res.shard_lo, "shard_hi": res.shard_hi}
     out.update({f"hist.{k}": v for k, v in hist_leaves(res.hist).items()})
     return out | {"shard_lo": res.shard_lo, "shard_hi": res.shard_hi}
+
+
+def flat_shards_from_leaves(leaves: dict, device=None) -> ck.ConflictState:
+    """The port's non-resident sharded state (S flat [C, W] histories on
+    ``device``) from the state leaves of a snapshot, or of a JAX
+    non-resident ``ShardedConflictSet`` (``state_leaves`` of its numpy
+    state: [D, C, W] keys, [D, C] versions, [D] scalars)."""
+    return ck.ConflictState(*(
+        torch.from_numpy(np.array(leaves[f], copy=True)).to(device)
+        for f in STATE_FIELDS))
 
 
 def snapshot(cs: TorchConflictSet) -> dict:
@@ -140,7 +159,9 @@ def engine_from_snapshot(snap: dict, device=None) -> TorchConflictSet:
         return ck.ConflictState(*(t(f"{prefix}{name}.{f}")
                                   for f in STATE_FIELDS))
 
-    if not cs.resident:
+    if not cs.resident and sh is not None:
+        cs.state = flat_shards_from_leaves(st, cs.device)
+    elif not cs.resident:
         cs.state = ck.HistState(level("base", ""), t("base_st"),
                                 level("delta", ""))
     else:

@@ -69,6 +69,17 @@ _SIGNATURES = {
                     _P, _P, _P, _P, _P],
         "wc_compact": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P],
+        "wc_paint_keys": [_P] * 4 + [_I] * 3 + [_P] * 3,
+        "wc_paint_sorted": [_P, _P, _I, _I] + [_P] * 6 + [_I] * 2
+        + [_P] * 7,
+    },
+    "word_sort": {
+        "wso_sort": [_P, _I, _I] + [_P] * 4 + [_I] + [_P] * 8,
+        "wso_ranks": [_P] * 4 + [_I] * 3 + [_P] * 12,
+    },
+    "word_shard": {
+        "wsh_clip": [_P] * 6 + [_I] * 4 + [_P] * 2 + [_I] * 2 + [_P] * 7,
+        "wsh_probe": [_P, _I, _I, _P, _I] + [_P] * 8 + [_I] * 2 + [_P] * 5,
     },
     "admission": {
         "ad_set": [_P, _I, _I, _P, _I, _P],
@@ -730,3 +741,173 @@ def word_compact(skeys, newv, c_out: int, prior_overflow):
           c_out, _ptr(prior_overflow), _ptr(ok), _ptr(ov), _ptr(n_used),
           _ptr(overflow), _ptr(t0), _ptr(t1), _ptr(bsum))
     return ok, ov, n_used, overflow
+
+
+def word_paint_keys(wb, we, write_mask, accepted):
+    """(keys int32 [2BQ, W], delta int32 [2BQ]): the accepted writes'
+    endpoint rows of [B, Q, W] ``wb``/``we``, begins then ends, a rejected
+    or empty write on the +inf row with delta 0 (the unpacked paint's
+    new endpoints)."""
+    b, q, w = wb.shape
+    _check(wb, _i32, "write_begin")
+    _check(we, _i32, "write_end", (b, q, w))
+    _check(write_mask, _bool, "write_mask", (b, q))
+    _check(accepted, _bool, "accepted", (b,))
+    dev = wb.device
+    keys = torch.empty((2 * b * q, w), dtype=_i32, device=dev)
+    delta = torch.empty(2 * b * q, dtype=_i32, device=dev)
+    _call("word_compact", "wc_paint_keys", dev, _ptr(wb), _ptr(we),
+          _ptr(write_mask), _ptr(accepted), b, q, w, _ptr(keys), _ptr(delta))
+    return keys, delta
+
+
+def word_paint_sorted(state, snew, sdelta, scross, cv: int, floor) -> None:
+    """The unpacked paint's tail in place into ``state`` (a [C, W]
+    ConflictState): the sorted new rows ``snew`` [n2, W] with their
+    coverage deltas and cross ranks into the state (K14's output) merged
+    in, the commit version painted where coverage is positive, GC to the
+    0-dim ``floor``, compaction."""
+    c, w = _check_word_state(state, "state")
+    n2 = snew.shape[0]
+    _check(snew, _i32, "snew", (n2, w))
+    _check(sdelta, _i32, "sdelta", (n2,))
+    _check(scross, _i32, "scross", (n2,))
+    _check(floor, _i32, "floor", ())
+    dev = snew.device
+    n = c + n2
+    mk = torch.empty((n, w), dtype=_i32, device=dev)
+    mv, t0, t1 = _scratch(n, dev, 3)
+    bsum = torch.empty((n + 1023) // 1024, dtype=_i32, device=dev)
+    _call("word_compact", "wc_paint_sorted", dev, _ptr(state.keys),
+          _ptr(state.versions), c, w, _ptr(state.n_used),
+          _ptr(state.overflow), _ptr(state.oldest), _ptr(snew), _ptr(sdelta),
+          _ptr(scross), n2, int(cv), _ptr(floor), _ptr(mk), _ptr(mv),
+          _ptr(t0), _ptr(t1), _ptr(bsum))
+
+
+# ----------------------------------------------------------------- K14
+
+
+def word_sort(keys, payloads=()):
+    """(sorted keys [N, W], [sorted payloads]): the stable lexicographic
+    sort of the [N, W] int32 rows ``keys`` carrying up to four int32 [N]
+    payload columns (lax.sort's order, equal rows in input order)."""
+    n, w = keys.shape
+    _check(keys, _i32, "keys", (n, w))
+    if len(payloads) > 4:
+        raise ValueError("at most four payload columns per sort")
+    for i, p in enumerate(payloads):
+        _check(p, _i32, f"payload[{i}]", (n,))
+    dev = keys.device
+    out = torch.empty_like(keys)
+    outs = [torch.empty(n, dtype=_i32, device=dev) for _ in payloads]
+    perm0, perm1 = _scratch(max(n, 1), dev, 2)
+    ins = [_ptr(p) for p in payloads] + [None] * (4 - len(payloads))
+    ptrs = [_ptr(o) for o in outs] + [None] * (4 - len(outs))
+    _call("word_sort", "wso_sort", dev, _ptr(keys), n, w, *ins,
+          len(payloads), _ptr(out), *ptrs, _ptr(perm0), _ptr(perm1))
+    return out, outs
+
+
+def word_ranks(rb, re_, read_mask, wb, we, write_mask):
+    """(rb, re int32 [B, R], read_live bool [B, R], wb, we int32 [B, Q],
+    write_live bool [B, Q]): every endpoint row of the [B, R, W] reads and
+    [B, Q, W] writes ranked into the sorted multiset of all of them
+    (searchsorted left, so equal rows share a rank), and the liveness
+    masks (mask and begin rank < end rank)."""
+    b, r, w = rb.shape
+    q = wb.shape[1]
+    _check(rb, _i32, "read_begin", (b, r, w))
+    _check(re_, _i32, "read_end", (b, r, w))
+    _check(read_mask, _bool, "read_mask", (b, r))
+    _check(wb, _i32, "write_begin", (b, q, w))
+    _check(we, _i32, "write_end", (b, q, w))
+    _check(write_mask, _bool, "write_mask", (b, q))
+    dev = rb.device
+    n = 2 * b * (r + q)
+    ranks = torch.empty(n, dtype=_i32, device=dev)
+    nr, nq = b * r, b * q
+    orb, ore, owb, owe = (ranks[:nr].view(b, r), ranks[nr:2 * nr].view(b, r),
+                          ranks[2 * nr:2 * nr + nq].view(b, q),
+                          ranks[2 * nr + nq:].view(b, q))
+    live = torch.empty(nr + nq, dtype=_bool, device=dev)
+    rlive, wlive = live[:nr].view(b, r), live[nr:].view(b, q)
+    perm0, perm1 = _scratch(max(n, 1), dev, 2)
+    srt = torch.empty((max(n, 1), w), dtype=_i32, device=dev)
+    _call("word_sort", "wso_ranks", dev, _ptr(rb), _ptr(re_), _ptr(wb),
+          _ptr(we), nr, nq, w, _ptr(read_mask), _ptr(write_mask), _ptr(orb),
+          _ptr(ore), _ptr(owb), _ptr(owe), _ptr(rlive), _ptr(wlive),
+          _ptr(perm0), _ptr(perm1), _ptr(srt))
+    return orb, ore, rlive, owb, owe, wlive
+
+
+# ----------------------------------------------------------------- K15, K16
+
+
+def word_clip(rb, re_, read_mask, wb, we, write_mask, lo, hi, reads: bool):
+    """K15: the [B, ., W] full-key batch clipped to each shard's [lo[s],
+    hi[s]) (``lo``/``hi`` [S, W]): (write_begin, write_end int32 [S, B, Q,
+    W], write_mask bool [S, B, Q], read_begin, read_end int32 [S, B, R,
+    W], read_mask bool [S, B, R]); the read three are None unless
+    ``reads``. A clipped mask is the mask and begin < end after the
+    clamp."""
+    b, r, w = rb.shape
+    q = wb.shape[1]
+    _check(rb, _i32, "read_begin", (b, r, w))
+    _check(re_, _i32, "read_end", (b, r, w))
+    _check(read_mask, _bool, "read_mask", (b, r))
+    _check(wb, _i32, "write_begin", (b, q, w))
+    _check(we, _i32, "write_end", (b, q, w))
+    _check(write_mask, _bool, "write_mask", (b, q))
+    s = lo.shape[0]
+    _check(lo, _i32, "shard_lo", (s, w))
+    _check(hi, _i32, "shard_hi", (s, w))
+    dev = lo.device
+    owb, owe = (torch.empty((s, b, q, w), dtype=_i32, device=dev)
+                for _ in range(2))
+    owm = torch.empty((s, b, q), dtype=_bool, device=dev)
+    orb = ore = orm = None
+    if reads:
+        orb, ore = (torch.empty((s, b, r, w), dtype=_i32, device=dev)
+                    for _ in range(2))
+        orm = torch.empty((s, b, r), dtype=_bool, device=dev)
+    _call("word_shard", "wsh_clip", dev, _ptr(rb), _ptr(re_),
+          _ptr(read_mask), _ptr(wb), _ptr(we), _ptr(write_mask), b, r, q, w,
+          _ptr(lo), _ptr(hi), s, int(reads), _ptr(owb), _ptr(owe),
+          _ptr(owm), _ptr(orb), _ptr(ore), _ptr(orm))
+    return owb, owe, owm, orb, ore, orm
+
+
+def word_shard_probe(keys, table, read_begin, read_end, read_mask,
+                     read_version, txn_mask, lo, hi, floor):
+    """K16: (too_old bool [B], hist_mask bool [B, R], hist_conflict bool
+    [B], cand bool [B]) over the S flat [C, W] shard histories ``keys``
+    [S, C, W], ``table`` the sparse table [L, S*C] of their versions; each
+    read slot is clipped to the shard's [lo[s], hi[s]) (``lo``/``hi``
+    [S, W], or both None for no clip); ``hist_mask`` ORs a slot's conflict
+    over the shards; ``floor`` (0-dim) is the too-old floor."""
+    s, c, w = keys.shape
+    b, r, _ = read_begin.shape
+    _check(keys, _i32, "keys", (s, c, w))
+    _check(table, _i32, "table", (table_levels(s * c), s * c))
+    _check(read_begin, _i32, "read_begin", (b, r, w))
+    _check(read_end, _i32, "read_end", (b, r, w))
+    _check(read_mask, _bool, "read_mask", (b, r))
+    _check(read_version, _i32, "read_version", (b,))
+    _check(txn_mask, _bool, "txn_mask", (b,))
+    if (lo is None) != (hi is None):
+        raise ValueError("shard bounds: give both lo and hi, or neither")
+    if lo is not None:
+        _check(lo, _i32, "shard_lo", (s, w))
+        _check(hi, _i32, "shard_hi", (s, w))
+    _check(floor, _i32, "floor", ())
+    dev = keys.device
+    hist_mask = torch.empty((b, r), dtype=_bool, device=dev)
+    too_old, hist, cand = (torch.empty(b, dtype=_bool, device=dev)
+                           for _ in range(3))
+    _call("word_shard", "wsh_probe", dev, _ptr(keys), c, w, _ptr(table), s,
+          _ptr(read_begin), _ptr(read_end), _ptr(read_mask),
+          _ptr(read_version), _ptr(txn_mask), _ptr(lo), _ptr(hi),
+          _ptr(floor), b, r, _ptr(hist_mask), _ptr(too_old), _ptr(hist),
+          _ptr(cand))
+    return too_old, hist_mask, hist, cand

@@ -17,7 +17,7 @@ from pathlib import Path
 
 SOURCES = ("dict_insert", "dict_evict", "history_probe", "accept",
            "step_compact", "wave", "shard", "admission", "word_probe",
-           "word_compact")
+           "word_compact", "word_sort", "word_shard")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

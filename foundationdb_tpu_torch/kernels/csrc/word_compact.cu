@@ -8,12 +8,24 @@
 //   (:2854);
 //   _merge_delta (:1243) at width W, as run by _maybe_merge (:1290) and
 //   advance_hist (:1404);
-//   _dedup_compact (:977) over [n, W] rows.
+//   _dedup_compact (:977) over [n, W] rows;
+//   _paint_and_compact (:869) -> _paint_tail (:925), the unpacked flat
+//   paint (wc_paint_keys, wc_paint_sorted), as run by resolve_batch
+//   (:1108) and parallel/sharded_resolver.py _sharded_resolve (:160).
 //
 // Bound on the H100: bytes. The fold reads the [C, W] base and [Cd, W]
 // delta and rewrites the base (C = 2^20, W = 4: ~20 MB of state, ~40 MB of
 // scratch through the merge and the two scans); a paint touches Cd + 2BQ
 // rows (~33 K at W words). The searches add dependent loads mostly in L2.
+//
+// The unpacked flat programs (the sharded full-key engine, B3 with
+// resident=False, and the single flat B5 resolve) paint through two more
+// entries: wc_paint_keys writes the accepted writes' endpoint rows (a
+// rejected write parked on the +inf row, as the JAX _paint_and_compact
+// parks it, :893-900) and their coverage deltas; K12's search gives their
+// cross ranks, K14 (word_sort.cu) sorts the rows carrying deltas and cross
+// ranks; wc_paint_sorted is _paint_tail (:925) from those sorted rows,
+// over the same merge-scatter, scans and compaction as wc_paint.
 //
 // Design: K4 (step_compact.cu) at width W, one word row per thread. A
 // paint takes the host's paint order (``paint_src``: a stable argsort of
@@ -356,5 +368,75 @@ extern "C" int wc_compact(const int* mk, const int* mv, int n, int w,
                           int* bsum, cudaStream_t s) {
   compact(mk, mv, n, w, c_out, ok, ov, n_used, overflow, prior, nullptr,
           nullptr, nullptr, t0, t1, bsum, nullptr, s);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------- the unpacked paint
+
+// The unpacked flat paint (the JAX _paint_and_compact, :869): the 2BQ new
+// endpoint rows of the accepted writes, begins then ends, a rejected or
+// empty write parked on the +inf row with coverage delta 0.
+__global__ void k_paint_keys(const int* wb, const int* we, const bool* wmask,
+                             const bool* accepted, int B, int Q, int w,
+                             int* keys, int* delta) {
+  int e2 = B * Q;
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= 2 * e2) return;
+  bool is_begin = k < e2;
+  int slot = is_begin ? k : k - e2;
+  const int* a = row(wb, slot, w);
+  const int* z = row(we, slot, w);
+  bool valid = accepted[slot / Q] && wmask[slot] && cmp_row(a, z, w) < 0;
+  const int* src = is_begin ? a : z;
+  for (int j = 0; j < w; ++j) keys[(int64_t)k * w + j] = valid ? src[j] : I32MAX;
+  delta[k] = valid ? (is_begin ? 1 : -1) : 0;
+}
+
+// The SORTED new rows (K14's output: keys, deltas, cross ranks into the
+// history) to their merge slots, each with its segment's pre-paint
+// version.
+__global__ void k_sorted_new(const int* vers, const int* snew,
+                             const int* sdelta, const int* scross, int n2,
+                             int w, int* mk, int* md, int* mv) {
+  int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= n2) return;
+  int cross = scross[k];
+  int64_t pos = (int64_t)k + cross;
+  copy_row(mk + pos * w, row(snew, k, w), w);
+  md[pos] = sdelta[k];
+  mv[pos] = vers[cross > 0 ? cross - 1 : 0];
+}
+
+// keys [B*Q*2, w] and delta [B*Q*2] of the accepted writes wb/we [B, Q, w].
+extern "C" int wc_paint_keys(const int* wb, const int* we, const bool* wmask,
+                             const bool* accepted, int B, int Q, int w,
+                             int* keys, int* delta, cudaStream_t s) {
+  const int T = 256;
+  if (B * Q > 0)
+    k_paint_keys<<<blocks(2 * B * Q, T), T, 0, s>>>(wb, we, wmask, accepted,
+                                                    B, Q, w, keys, delta);
+  return (int)cudaGetLastError();
+}
+
+// _paint_tail at width w from sorted new rows (snew [n2, w], sdelta,
+// scross [n2]): merge into the history (keys [c, w] / vers [c], in
+// place), paint, GC to the floor, compact. Scratch as wc_paint's.
+extern "C" int wc_paint_sorted(int* keys, int* vers, int c, int w,
+                               int* n_used, bool* overflow, int* oldest,
+                               const int* snew, const int* sdelta,
+                               const int* scross, int n2, int cv,
+                               const int* floor_p, int* mk, int* mv, int* t0,
+                               int* t1, int* bsum, cudaStream_t s) {
+  const int T = 256;
+  int n = c + n2;
+  if (n2 > 0)
+    k_sorted_new<<<blocks(n2, T), T, 0, s>>>(vers, snew, sdelta, scross, n2,
+                                             w, mk, t0, mv);
+  k_paint_old<<<blocks(c, T), T, 0, s>>>(keys, vers, c, w, snew, n2, mk, t0,
+                                         mv);
+  scan(t0, t1, n, bsum, nullptr, s);
+  k_newv<<<blocks(n, T), T, 0, s>>>(mk, t1, mv, n, w, cv, floor_p);
+  compact(mk, mv, n, w, c, keys, vers, n_used, overflow, overflow, nullptr,
+          oldest, floor_p, t0, t1, bsum, nullptr, s);
   return (int)cudaGetLastError();
 }

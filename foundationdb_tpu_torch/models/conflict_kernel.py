@@ -48,6 +48,19 @@ K3 (or K5 and K6) and the K13 paint; speculation's dependency probe
 paints rejected writes into a flat scratch state (K13) and probes each
 younger window's dictionaries against it (K12).
 
+The unpacked flat programs (section B5 flat: a batch of full [B, ., W] key
+rows, one flat [C, W] history whose sparse table is rebuilt every batch)
+and the non-resident sharded engine that runs them (section B3 with
+``resident=False``: S flat histories stacked on a leading axis) sort on
+the card: K14 ``word_sort.cu`` is a stable sort of W-word rows carrying
+payload columns, with a rank tail that gives ``endpoint_ranks_live``;
+K15 and K16 ``word_shard.cu`` clip a full-key batch to every shard and
+probe the clipped reads of every shard with the cross-shard OR; the paint
+is K13's ``wc_paint_keys``, K12's search, K14's sort and K13's
+``wc_paint_sorted``. Its window program ``sharded_resolve_many`` is, per
+step, K2's table and K16, K15, K14 and K3 (or per shard K14 and K5, then
+K10 and K6), and the paint of each shard.
+
 JAX donates the state argument of every entry point. Here each function
 that takes a state CONSUMES it: on the card the history arrays are updated
 in place, on the CPU a new state is built; either way callers rebind to
@@ -70,9 +83,13 @@ from foundationdb_tpu_torch.ops.bitset import (
     unpack_bits_u32,
 )
 from foundationdb_tpu_torch.ops.lex import (
+    lex_lt,
+    lex_max,
+    lex_min,
     searchsorted_words,
     searchsorted_words_2sided_fp,
     searchsorted_words_fp,
+    sort_keys_with_payload,
 )
 from foundationdb_tpu_torch.ops.rmq import range_max, sparse_table
 
@@ -86,10 +103,11 @@ V_TOO_OLD = 2
 _ACCEPT_BLOCK = 512
 
 # Window launch sequences issued on the card (resolve_many_res,
-# paint_many_res, sharded_resolve_res_many), counted like the kernel
-# launches in kernels.LAUNCHES.
+# paint_many_res, sharded_resolve_res_many, resolve_many_hist_packed,
+# sharded_resolve_many), counted like the kernel launches in
+# kernels.LAUNCHES.
 LAUNCHES = {"resolve_many": 0, "paint_many": 0, "sharded_many": 0,
-            "packed_many": 0}
+            "packed_many": 0, "nr_sharded_many": 0}
 
 
 def reset_launches() -> None:
@@ -979,10 +997,13 @@ def rebase_hist(h: HistState, delta: int) -> HistState:
 
 
 def rebase_res(res, delta: int):
-    """Version rebase of a ResState (a flat sharded history has no table)
-    or of a non-resident engine's bare HistState."""
+    """Version rebase of a ResState (a flat sharded history has no table),
+    of a non-resident engine's bare HistState, or of the non-resident
+    sharded engine's bare flat ConflictState."""
     if isinstance(res, HistState):
         return rebase_hist(res, delta)
+    if isinstance(res, ConflictState):
+        return rebase(res, delta)
     h = res.hist
     if not isinstance(h, HistState):
         return res._replace(hist=rebase(h, delta))
@@ -2044,3 +2065,451 @@ def spec_dep_window(scratch: ConflictState, pb: PackedBatch,
                                        plain=plain)
         dep = dep | hist_mask.any()
     return dep
+
+
+# ---------------------------------------------------------------------------
+# B5 flat and B3 non-resident: full-key batches over flat [C, W] histories
+# ---------------------------------------------------------------------------
+#
+# The JAX unpacked flat programs (a batch of full [B, ., W] key rows, one
+# flat [C, W] step function whose sparse table is rebuilt every batch) and
+# the non-resident sharded engine that runs them on S keyspace shards
+# (``_sharded_resolve``, sharded_resolver.py:107-166), the shards a
+# leading [S] axis of one state on one card and the mesh's OR an OR over
+# that axis. On the card: K2's table over the S·C versions and K16
+# (word_shard.cu) probe the clipped reads of every shard; K14
+# (word_sort.cu) ranks the batch's endpoint rows by sorting them on the
+# card, for K3 (or, per shard on the clipped rows, for K5, then K10 and
+# K6); K15 (word_shard.cu) clips the writes to every shard; each shard's
+# paint is K13's wc_paint_keys, K12's search of the new rows into the
+# shard, K14's sort and K13's wc_paint_sorted, in place. At S = 1 with no
+# bounds (``resolve_batch``, ``resolve_many``) these are the single flat
+# engine's programs. Every function with a kernel route has a ``*_plain``
+# twin, or takes ``plain`` to run the plain versions wherever the tensors
+# live (the yardstick on the card).
+
+
+class BatchTensors(NamedTuple):
+    """One padded batch of full key rows (the JAX BatchTensors); a window
+    has a leading [k] axis on every leaf."""
+
+    read_begin: torch.Tensor  # int32 [B, R, W]
+    read_end: torch.Tensor
+    read_mask: torch.Tensor  # bool [B, R]
+    write_begin: torch.Tensor  # int32 [B, Q, W]
+    write_end: torch.Tensor
+    write_mask: torch.Tensor  # bool [B, Q]
+    read_version: torch.Tensor  # int32 [B] (relative)
+    txn_mask: torch.Tensor  # bool [B]
+
+
+class WordClip(NamedTuple):
+    """A full-key batch clipped to each of S shards (the JAX ``clip_batch``
+    of every shard, stacked): the writes always, the reads for a wave
+    engine."""
+
+    write_begin: torch.Tensor  # int32 [S, B, Q, W]
+    write_end: torch.Tensor
+    write_mask: torch.Tensor  # bool [S, B, Q]: mask & (begin < end)
+    read_begin: torch.Tensor | None  # int32 [S, B, R, W]
+    read_end: torch.Tensor | None
+    read_mask: torch.Tensor | None
+
+
+def init_flat_shards(capacity: int, width: int, lo_rows,
+                     device) -> ConflictState:
+    """S flat [C, W] histories stacked on a leading axis (the JAX
+    per-shard ``init_state(capacity, W, lo[d])``): shard s starts with one
+    boundary, its lower bound ``lo_rows[s]`` ([S, W])."""
+    lo = torch.as_tensor(lo_rows, dtype=torch.int32)
+    s, w = lo.shape
+    keys = torch.full((s, capacity, w), INT32_MAX, dtype=torch.int32,
+                      device=device)
+    keys[:, 0] = lo.to(device)
+    return ConflictState(
+        keys=keys,
+        versions=torch.full((s, capacity), NEG_VERSION, dtype=torch.int32,
+                            device=device),
+        n_used=torch.ones(s, dtype=torch.int32, device=device),
+        oldest=torch.zeros(s, dtype=torch.int32, device=device),
+        overflow=torch.zeros(s, dtype=torch.bool, device=device))
+
+
+def _as_shards(state: ConflictState) -> ConflictState:
+    """A flat [C, W] state as a one-shard stack (views)."""
+    return ConflictState(*(x[None] for x in state))
+
+
+def _step_batch(batch: BatchTensors, i: int) -> BatchTensors:
+    """Step ``i`` of a [k]-leading BatchTensors (views, contiguous)."""
+    return BatchTensors(*(x[i] for x in batch))
+
+
+def too_old_mask(state: ConflictState, batch: BatchTensors, new_oldest):
+    """(floor, too_old [B]) (the JAX :1056): the floor never regresses,
+    write-only txns are never too old."""
+    has_reads = (batch.read_mask
+                 & lex_lt(batch.read_begin, batch.read_end)).any(1)
+    floor = torch.maximum(state.oldest, _i32(new_oldest, state.oldest.device))
+    too_old = batch.txn_mask & has_reads & (batch.read_version < floor)
+    return floor, too_old
+
+
+def _history_conflict_ranges(state: ConflictState, batch: BatchTensors):
+    """bool [B, R]: a read slot overlaps a write of the flat history newer
+    than its read version (the JAX :219; the table is built here, as JAX
+    builds it every batch)."""
+    b, r, w = batch.read_begin.shape
+    lo = searchsorted_words(state.keys, batch.read_begin.reshape(b * r, w),
+                            "right") - 1
+    hi = searchsorted_words(state.keys, batch.read_end.reshape(b * r, w),
+                            "left")
+    newest = range_max(sparse_table(state.versions), lo.clamp(min=0), hi,
+                       NEG_VERSION).reshape(b, r)
+    live = batch.read_mask & lex_lt(batch.read_begin, batch.read_end)
+    return live & (newest > batch.read_version[:, None])
+
+
+def _history_conflicts(state: ConflictState, batch: BatchTensors):
+    """bool [B] (the JAX :252)."""
+    return _history_conflict_ranges(state, batch).any(1)
+
+
+def clip_batch(batch: BatchTensors, lo, hi) -> BatchTensors:
+    """The batch restricted to the keyspace shard [lo, hi) ([W] rows; the
+    JAX :1028): a range outside the shard drops out of its mask;
+    read_version and txn_mask are untouched."""
+    rb = lex_max(batch.read_begin, lo)
+    re_ = lex_min(batch.read_end, hi)
+    wb = lex_max(batch.write_begin, lo)
+    we = lex_min(batch.write_end, hi)
+    return batch._replace(
+        read_begin=rb, read_end=re_,
+        read_mask=batch.read_mask & lex_lt(rb, re_),
+        write_begin=wb, write_end=we,
+        write_mask=batch.write_mask & lex_lt(wb, we))
+
+
+def word_clip_plain(batch: BatchTensors, lo, hi, reads: bool) -> WordClip:
+    """Plain twin of K15: ``clip_batch`` of every shard ([S, W] bounds),
+    stacked; the reads only when ``reads``."""
+    per = [clip_batch(batch, lo[s], hi[s]) for s in range(lo.shape[0])]
+
+    def stack(f):
+        return torch.stack([getattr(x, f) for x in per])
+
+    return WordClip(stack("write_begin"), stack("write_end"),
+                    stack("write_mask"),
+                    *((stack("read_begin"), stack("read_end"),
+                       stack("read_mask")) if reads else (None,) * 3))
+
+
+def word_clip(batch: BatchTensors, lo, hi, reads: bool,
+              plain: bool = False) -> WordClip:
+    """K15: the batch clipped to every shard's [lo[s], hi[s]), one
+    elementwise launch; the reads too when ``reads`` (a wave engine's
+    predecessor rows come from clipped reads and writes)."""
+    if _card(lo, plain):
+        return WordClip(*K.word_clip(
+            batch.read_begin, batch.read_end, batch.read_mask,
+            batch.write_begin, batch.write_end, batch.write_mask, lo, hi,
+            reads))
+    return word_clip_plain(batch, lo, hi, reads)
+
+
+def clip_view(batch: BatchTensors, clip: WordClip, s: int) -> BatchTensors:
+    """Shard s's view of the batch: its clipped writes, and its clipped
+    reads where the clip has them."""
+    out = batch._replace(write_begin=clip.write_begin[s],
+                         write_end=clip.write_end[s],
+                         write_mask=clip.write_mask[s])
+    if clip.read_begin is None:
+        return out
+    return out._replace(read_begin=clip.read_begin[s],
+                        read_end=clip.read_end[s],
+                        read_mask=clip.read_mask[s])
+
+
+def word_shard_probe_plain(hist: ConflictState, batch: BatchTensors, lo, hi,
+                           floor):
+    """Plain twin of K16: (too_old [B], hist_mask [B, R], hist_conflict
+    [B], cand [B]) over the S flat histories ``hist`` ([S, C, W]): the
+    too-old mask of the unclipped batch at ``floor`` (0-dim), each shard's
+    ``_history_conflict_ranges`` of the batch clipped to it (unclipped when
+    ``lo`` is None), OR-ed over the shards as the mesh ORs them."""
+    has_reads = (batch.read_mask
+                 & lex_lt(batch.read_begin, batch.read_end)).any(1)
+    too_old = batch.txn_mask & has_reads & (batch.read_version < floor)
+    hist_mask = torch.stack([
+        _history_conflict_ranges(
+            _shard_hist(hist, s),
+            batch if lo is None else clip_batch(batch, lo[s], hi[s]))
+        for s in range(hist.keys.shape[0])]).any(0)
+    hist_conflict = hist_mask.any(1)
+    cand = batch.txn_mask & ~too_old & ~hist_conflict
+    return too_old, hist_mask, hist_conflict, cand
+
+
+def word_shard_probe(hist: ConflictState, batch: BatchTensors, lo, hi,
+                     floor, plain: bool = False):
+    """(too_old, hist_mask, hist_conflict, cand) over every shard. On the
+    card: K2's sparse table over the S histories' versions as one [S·C]
+    array (a query never leaves its shard's segment), then K16, one launch
+    over every (shard, read slot) that ORs the shards' conflict bits."""
+    if _card(hist.keys, plain):
+        table = K.build_table(hist.versions.reshape(-1))
+        return K.word_shard_probe(
+            hist.keys, table, batch.read_begin, batch.read_end,
+            batch.read_mask, batch.read_version, batch.txn_mask, lo, hi,
+            floor)
+    return word_shard_probe_plain(hist, batch, lo, hi, floor)
+
+
+def _endpoint_ranks(batch: BatchTensors):
+    """(rb, re, wb, we): every endpoint row ranked into the sorted
+    multiset of the batch's endpoints, searchsorted left (the JAX :291;
+    plain)."""
+    b, r, w = batch.read_begin.shape
+    q = batch.write_begin.shape[1]
+    flat = torch.cat([batch.read_begin.reshape(b * r, w),
+                      batch.read_end.reshape(b * r, w),
+                      batch.write_begin.reshape(b * q, w),
+                      batch.write_end.reshape(b * q, w)])
+    (sorted_keys,) = sort_keys_with_payload(flat)
+    ranks = searchsorted_words(sorted_keys, flat, "left")
+    n_r, n_q = b * r, b * q
+    return (ranks[:n_r].reshape(b, r), ranks[n_r:2 * n_r].reshape(b, r),
+            ranks[2 * n_r:2 * n_r + n_q].reshape(b, q),
+            ranks[2 * n_r + n_q:].reshape(b, q))
+
+
+def endpoint_ranks_live_plain(batch: BatchTensors):
+    """Plain twin of K14's rank launch (the JAX ``endpoint_ranks_live``,
+    :365): (rb, re, read_live, wb, we, write_live)."""
+    rb, re_, wb, we = _endpoint_ranks(batch)
+    return (rb, re_, batch.read_mask & (rb < re_), wb, we,
+            batch.write_mask & (wb < we))
+
+
+def endpoint_ranks_live(batch: BatchTensors, plain: bool = False):
+    """K14 with its rank tail: the batch's endpoint rows sorted on the
+    card, every endpoint's rank and the liveness masks, the shared
+    precursor of K3 and K5."""
+    if _card(batch.read_begin, plain):
+        return K.word_ranks(batch.read_begin, batch.read_end,
+                            batch.read_mask, batch.write_begin,
+                            batch.write_end, batch.write_mask)
+    return endpoint_ranks_live_plain(batch)
+
+
+def _paint_and_compact_plain(state: ConflictState, batch: BatchTensors,
+                             accepted, commit_version: int, new_oldest):
+    """Plain twin of the unpacked paint (the JAX :869): the accepted
+    writes' endpoints (a rejected one parked on the +inf row), searched
+    into the history, sorted with their deltas, pre-paint versions and
+    cross ranks, then ``_paint_tail``."""
+    c, w = state.keys.shape
+    b, q, _ = batch.write_begin.shape
+    e2 = b * q
+    valid = (accepted[:, None] & batch.write_mask
+             & lex_lt(batch.write_begin, batch.write_end))
+    inf_row = torch.full((w,), INT32_MAX, dtype=torch.int32,
+                         device=state.keys.device)
+    wb = torch.where(valid[..., None], batch.write_begin, inf_row)
+    we = torch.where(valid[..., None], batch.write_end, inf_row)
+    new_keys = torch.cat([wb.reshape(e2, w), we.reshape(e2, w)])
+    v = valid.reshape(e2).to(torch.int32)
+    new_delta = torch.cat([v, -v])
+    cross_rank = searchsorted_words(state.keys, new_keys, "right")
+    new_oldv = state.versions[(cross_rank - 1).clamp(min=0).long()]
+    snew, sdelta, soldv, scross = sort_keys_with_payload(
+        new_keys, new_delta, new_oldv, cross_rank)
+    return _paint_tail(state, snew, sdelta, soldv, scross, commit_version,
+                       new_oldest)
+
+
+def _paint_and_compact(state: ConflictState, batch: BatchTensors, accepted,
+                       commit_version: int, new_oldest,
+                       plain: bool = False) -> ConflictState:
+    """The unpacked paint, in place on the card: K13's wc_paint_keys (the
+    new endpoint rows, rejected ones on +inf), K12's right search of them
+    into the history (their cross ranks), K14's sort carrying deltas and
+    cross ranks, and K13's wc_paint_sorted (``_paint_tail``).
+    ``new_oldest`` is the 0-dim floor."""
+    if _card(state.keys, plain):
+        keys, delta = K.word_paint_keys(batch.write_begin, batch.write_end,
+                                        batch.write_mask, accepted)
+        _, cross, _, _ = K.word_search(state.keys, keys)
+        snew, (sdelta, scross) = K.word_sort(keys, (delta, cross))
+        K.word_paint_sorted(state, snew, sdelta, scross, int(commit_version),
+                            _i32(new_oldest, keys.device))
+        return state
+    return _paint_and_compact_plain(state, batch, accepted, commit_version,
+                                    new_oldest)
+
+
+def _accept_or_schedule(cand, too_old, txn_mask, ranks, wave: bool,
+                        stats=None, plain: bool = False, verdicts_out=None,
+                        levels_out=None):
+    """(accepted, verdicts, levels or None): the JAX ``_accept_or_schedule``
+    (:1100) with the verdict epilogue: sequential-order acceptance (K3)
+    or the wave schedule (K5 then K6)."""
+    if not plain:
+        return _schedule(cand, too_old, txn_mask, ranks, wave, stats,
+                         verdicts_out, levels_out)
+    if wave:
+        accepted, levels, verdicts = wave_level_plain(
+            cand, wave_pred_matrix_plain(cand, ranks), too_old, txn_mask,
+            stats)
+        return (accepted, _written(verdicts_out, verdicts),
+                _written(levels_out, levels))
+    accepted, verdicts = accept_plain(cand, too_old, txn_mask, ranks)
+    return accepted, _written(verdicts_out, verdicts), None
+
+
+def resolve_batch(state: ConflictState, batch: BatchTensors,
+                  commit_version: int, new_oldest, report: bool = False,
+                  wave: bool = False, stats=None, out: WindowOut | None = None,
+                  plain: bool = False):
+    """One batch of the single flat engine (the JAX :1108): K2's table and
+    K16 unclipped, K14's ranks, K3 (or K5 and K6), the unpacked paint.
+    Returns (verdicts int8 [B][, levels int32 [B]][, losers], new state);
+    the losers in ``pack_loser_mask``'s layout (K3's report launch). The
+    verdicts and levels go into row 0 of ``out`` when it is given."""
+    dev = state.keys.device
+    floor = torch.maximum(state.oldest, _i32(new_oldest, dev))
+    too_old, hist_mask, _, cand = word_shard_probe(
+        _as_shards(state), batch, None, None, floor, plain)
+    ranks = endpoint_ranks_live(batch, plain)
+    accepted, verdicts, levels = _accept_or_schedule(
+        cand, too_old, batch.txn_mask, ranks, wave, stats, plain,
+        None if out is None else out.verdicts[0],
+        None if out is None or not wave else out.levels[0])
+    state = _paint_and_compact(state, batch, accepted, commit_version, floor,
+                               plain)
+    got = (verdicts, levels) if wave else (verdicts,)
+    if report:
+        losers = (loser_mask_plain if plain else loser_mask)(
+            hist_mask, ranks, accepted, verdicts)
+        return (*got, losers, state)
+    return (*got, state)
+
+
+def resolve_many(state: ConflictState, batches: BatchTensors,
+                 commit_versions, new_oldests, wave: bool = False,
+                 stats=None, plain: bool = False):
+    """k flat batches in order (the JAX :1156): (verdicts int8 [k, B][,
+    levels int32 [k, B]], new state)."""
+    rows = []
+    for i in range(batches.txn_mask.shape[0]):
+        *step, state = resolve_batch(
+            state, _step_batch(batches, i), int(commit_versions[i]),
+            int(new_oldests[i]), wave=wave, stats=stats, plain=plain)
+        rows.append(step)
+    return (*(torch.stack(x) for x in zip(*rows)), state)
+
+
+def word_pred_matrices(cand, batch: BatchTensors, clip: WordClip,
+                       plain: bool = False) -> torch.Tensor:
+    """int32 [S, BP, BP/32]: each shard's predecessor rows from its
+    clipped ranges (per shard K14's ranks of the clipped rows, then K5,
+    into one buffer)."""
+    n_shards = clip.write_begin.shape[0]
+    if not _card(cand, plain):
+        return torch.stack([
+            wave_pred_matrix_plain(
+                cand, endpoint_ranks_live_plain(clip_view(batch, clip, s)))
+            for s in range(n_shards)])
+    bp = (cand.shape[0] + 31) // 32 * 32
+    ps = torch.empty((n_shards, bp, bp // 32), dtype=torch.int32,
+                     device=cand.device)
+    for s in range(n_shards):
+        K.wave_pred(cand, *endpoint_ranks_live(clip_view(batch, clip, s)),
+                    out=ps[s])
+    return ps
+
+
+def _paint_word_shards(hist: ConflictState, batch: BatchTensors,
+                       clip: WordClip, accepted, commit_version: int, floor,
+                       plain: bool = False) -> ConflictState:
+    """Each shard's clipped accepted writes painted into its history (in
+    place on the card). ``floor`` [S] holds each shard's too-old floor."""
+    n_shards = hist.keys.shape[0]
+    if _card(hist.keys, plain):
+        for s in range(n_shards):
+            _paint_and_compact(_shard_hist(hist, s), clip_view(batch, clip, s),
+                               accepted, commit_version, floor[s])
+        return hist
+    outs = [_paint_and_compact_plain(_shard_hist(hist, s),
+                                     clip_view(batch, clip, s), accepted,
+                                     commit_version, floor[s])
+            for s in range(n_shards)]
+    return ConflictState(*(torch.stack(x) for x in zip(*outs)))
+
+
+def sharded_resolve(hist: ConflictState, batch: BatchTensors,
+                    commit_version: int, new_oldest, lo, hi,
+                    wave: bool = False, stats=None, verdicts_out=None,
+                    levels_out=None, xstats_out=None, plain: bool = False):
+    """One step of the JAX ``_sharded_resolve`` (:107-166) on every shard
+    of ``hist`` ([S, C, W]; bounds ``lo``/``hi`` [S, W]). On the card:
+    K2's table and K16, K15, then K14's ranks and K3 on the unclipped
+    batch, or per shard K14's ranks of the clipped batch and K5, then K10
+    and K6 (the port of ``_wave_exchange_and_level``, :169-185); then the
+    unpacked paint per shard. The verdicts, levels and exchange stats go
+    into the given buffers. Returns (verdicts, levels or None, exchange
+    stats int32 [2] or None, new hist)."""
+    dev = hist.keys.device
+    floor = torch.maximum(hist.oldest, _i32(new_oldest, dev))
+    too_old, _, _, cand = word_shard_probe(hist, batch, lo, hi, floor[0],
+                                           plain)
+    clip = word_clip(batch, lo, hi, wave, plain)
+    xstats = None
+    if wave and plain:
+        p, xstats = wave_exchange_plain(
+            word_pred_matrices(cand, batch, clip, True))
+        xstats = _written(xstats_out, xstats)
+        accepted, levels, verdicts = wave_level_plain(
+            cand, p, too_old, batch.txn_mask, stats)
+        verdicts = _written(verdicts_out, verdicts)
+        levels = _written(levels_out, levels)
+    elif wave:
+        p, xstats = wave_exchange(word_pred_matrices(cand, batch, clip),
+                                  xstats_out)
+        accepted, levels, verdicts = wave_level(
+            cand, p, too_old, batch.txn_mask, stats=stats,
+            level_out=levels_out, verdicts_out=verdicts_out)
+    else:
+        accepted, verdicts, levels = _accept_or_schedule(
+            cand, too_old, batch.txn_mask, endpoint_ranks_live(batch, plain),
+            False, plain=plain, verdicts_out=verdicts_out)
+    hist = _paint_word_shards(hist, batch, clip, accepted, commit_version,
+                              floor, plain)
+    return verdicts, levels, xstats, hist
+
+
+def sharded_resolve_many(hist: ConflictState, batches: BatchTensors,
+                         commit_versions, new_oldests, lo, hi,
+                         wave: bool = False, stats=None,
+                         out: WindowOut | None = None, xstats=None,
+                         plain: bool = False):
+    """The non-resident sharded window program (the JAX scan, :551-558): k
+    steps of ``sharded_resolve`` with no host sync inside the window.
+    Returns (verdicts int8 [k, B], levels int32 [k, B] or None, exchange
+    stats int32 [k, 2] or None, new hist), written into ``out`` and
+    ``xstats`` when given."""
+    k, b = batches.txn_mask.shape
+    dev = hist.keys.device
+    if _card(hist.keys, plain):
+        LAUNCHES["nr_sharded_many"] += 1
+    if out is None:
+        out = window_out(k, b, dev, wave)
+    if wave and xstats is None:
+        xstats = torch.empty((k, 2), dtype=torch.int32, device=dev)
+    for i in range(k):
+        *_, hist = sharded_resolve(
+            hist, _step_batch(batches, i), int(commit_versions[i]),
+            int(new_oldests[i]), lo, hi, wave, stats, out.verdicts[i],
+            out.levels[i] if wave else None, xstats[i] if wave else None,
+            plain)
+    return out.verdicts, out.levels, xstats if wave else None, hist

@@ -529,7 +529,23 @@ def upload(hb: HostRankBatch, device: torch.device, packed: bool = False):
     host-to-device copies that do not wait for the device. A ResidentBatch,
     or with ``packed`` (a non-resident engine's batch, whose key leaf is
     its dictionary) a PackedBatch."""
-    leaves = [hb.delta_keys, *hb.ranks]
+    out = _upload_leaves([hb.delta_keys, *hb.ranks], device)
+    if packed:
+        return ck.PackedBatch(dict_keys=out[0], ranks=ck.RankBatch(*out[1:]))
+    return ck.ResidentBatch(delta_keys=out[0], ranks=ck.RankBatch(*out[1:]))
+
+
+def upload_keys(bt: HostBatch, device: torch.device) -> ck.BatchTensors:
+    """Copy a batch (or window) of full key rows to ``device`` as
+    BatchTensors, in the same two copies as :func:`upload` (the
+    non-resident sharded engine's dispatch: its device program takes the
+    key rows themselves)."""
+    return ck.BatchTensors(*_upload_leaves(list(bt), device))
+
+
+def _upload_leaves(leaves: list, device: torch.device) -> list:
+    """The int32 leaves in one host-to-device copy and the bool leaves in
+    another; returns the device views in leaf order."""
     ints = [a for a in leaves if a.dtype == np.int32]
     bools = [a for a in leaves if a.dtype == np.bool_]
     ibuf = np.concatenate([a.reshape(-1) for a in ints])
@@ -544,9 +560,7 @@ def upload(hb: HostRankBatch, device: torch.device, packed: bool = False):
         else:
             out.append(bt[bo:bo + a.size].view(a.shape))
             bo += a.size
-    if packed:
-        return ck.PackedBatch(dict_keys=out[0], ranks=ck.RankBatch(*out[1:]))
-    return ck.ResidentBatch(delta_keys=out[0], ranks=ck.RankBatch(*out[1:]))
+    return out
 
 
 def _coalesce(ranges: list[KeyRange], limit: int) -> list[KeyRange]:

@@ -1,12 +1,15 @@
-"""Binary search over packed multi-word keys, in plain torch.
+"""Binary search, clamps and sorts over packed multi-word keys, in plain
+torch.
 
 Keys are ``[..., W]`` int32 word vectors (see core/keypack.py) in
 column-lexicographic order. These are the plain versions of
 ``foundationdb_tpu/ops/lex.py``'s ``searchsorted_words``,
-``searchsorted_words_fp`` and ``searchsorted_words_2sided_fp``; on the
-card the same searches run inside the hand-written kernels
+``searchsorted_words_fp``, ``searchsorted_words_2sided_fp``, ``lex_max``,
+``lex_min`` and ``sort_keys_with_payload``; on the card the same searches,
+clamps and sorts run inside the hand-written kernels
 (kernels/csrc/dict_insert.cu, history_probe.cu, step_compact.cu,
-word_probe.cu, word_compact.cu), never through these functions.
+word_probe.cu, word_compact.cu, word_sort.cu, word_shard.cu), never
+through these functions.
 """
 
 from __future__ import annotations
@@ -70,3 +73,32 @@ def searchsorted_words_2sided_fp(
     run of equal keys is exactly [left, right))."""
     return (searchsorted_words(sorted_keys, queries, "left"),
             searchsorted_words(sorted_keys, queries, "right"))
+
+
+def lex_max(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise lexicographic max of ``[..., W]`` key vectors
+    (broadcasting), the JAX ``lex_max``."""
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.where(lex_lt(a, b)[..., None], b, a)
+
+
+def lex_min(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise lexicographic min (the JAX ``lex_min``)."""
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.where(lex_lt(a, b)[..., None], a, b)
+
+
+def sort_keys_with_payload(
+    keys: torch.Tensor, *payloads: torch.Tensor
+) -> tuple[torch.Tensor, ...]:
+    """Stable lexicographic sort of ``[N, W]`` keys carrying payload
+    columns: (sorted_keys, *sorted_payloads), the permutation of the JAX
+    ``lax.sort(..., num_keys=W, is_stable=True)``. W stable passes of
+    ``torch.sort``, least significant word first; on the card the sort is
+    K14 (kernels/csrc/word_sort.cu), never this function."""
+    n, w = keys.shape
+    perm = torch.arange(n, device=keys.device)
+    for j in range(w - 1, -1, -1):
+        order = torch.sort(keys[perm, j], stable=True).indices
+        perm = perm[order]
+    return (keys[perm], *(p[perm] for p in payloads))

@@ -1,17 +1,31 @@
 """Multi-resolver conflict detection: S keyspace shards on one card.
 
-The port of ``foundationdb_tpu/parallel/sharded_resolver.py``'s resident
-``ShardedConflictSet``. The reference scales resolution by sharding the
-keyspace across Resolver processes (a txn commits only if every resolver
-reports no conflict); the JAX engine runs that as one SPMD program over a
-mesh of devices. Here the S shards are a leading axis of one device
-state on one card (``models/conflict_kernel.py``, section B3): one shared
-dictionary, one flat rank-space history per shard, the shard bounds kept
-as ranks in the state so that dictionary inserts shift them like history
-ranks. A step clips the batch to every shard (K9), ORs the shards'
+The port of ``foundationdb_tpu/parallel/sharded_resolver.py``'s
+``ShardedConflictSet``, resident and non-resident. The reference scales
+resolution by sharding the keyspace across Resolver processes (a txn
+commits only if every resolver reports no conflict); the JAX engine runs
+that as one SPMD program over a mesh of devices. Here the S shards are a
+leading axis of one device state on one card (``models/conflict_kernel.
+py``, section B3): one shared dictionary, one flat rank-space history per
+shard, the shard bounds kept as ranks in the state so that dictionary
+inserts shift them like history ranks. A step clips the batch to every shard (K9), ORs the shards'
 history conflicts (K8), accepts on the unclipped batch (K3) or, on a
 wave engine, levels the OR of the shards' clipped predecessor matrices
 (K5, K10, K6), and paints each shard's clipped writes (K4).
+
+The non-resident engine (``resident=False``, the JAX ``_sharded_resolve``
+body) keeps no dictionary: the batch goes to the card as full [B, ., W]
+key rows (the host pack is the wire pack alone) and each shard holds a
+flat [C, W] word-key history that starts with one boundary at its lower
+bound (``models/conflict_kernel.py``, section B5 flat and B3
+non-resident). A step probes every shard's clipped reads with the
+cross-shard OR (K2's table and K16), ranks the batch's endpoints by
+sorting them on the card (K14) for K3, or on a wave engine ranks each
+shard's clipped endpoints for K5 before K10 and K6, clips the writes to
+every shard (K15) and paints each shard (K13, K12, K14). The shard bounds
+are [S, W] key rows on the card, replaced by ``reshard``, which
+redistributes the downloaded histories on the host
+(``_redistribute_history``, a copy of the JAX one).
 
 Every host behaviour is ``TorchConflictSet``'s; this module adds the
 split helpers (numpy only, copies of the JAX ones), the density-reshard
@@ -26,16 +40,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from foundationdb_tpu_torch.core.keypack import INT32_MAX, KeyCodec
+from foundationdb_tpu_torch.core.keypack import INT32_MAX, KeyCodec, row_sort_keys
 from foundationdb_tpu_torch.models import conflict_kernel as ck
 from foundationdb_tpu_torch.models.conflict_set import (
     _DICT_FRAG,
+    HostBatch,
     TorchConflictSet,
     _ResidentMirror,
     _rows_to_u64,
     _u64_searchsorted,
     _u64_unique_sorted,
-    upload,
+    upload_keys,
 )
 
 #: auto-reshard defaults: check the occupancy skew every N dispatches and
@@ -95,9 +110,13 @@ class ShardedConflictSet(TorchConflictSet):
     there against a mirror that is ahead of the device). Harnesses that
     compare split policies pass ``auto_reshard=False``.
 
-    Not ported: ``resident=False`` (the non-resident sharded body,
-    ROADMAP.md Queue 1 item 10b) and ``spec_resolve=True`` (item 15);
-    both raise ``NotImplementedError``."""
+    ``resident=False`` gives the non-resident engine (flat [C, W]
+    histories, full-key batches; see the module docstring); its reshard
+    and auto-reshard redistribute the histories on the host and never
+    wait for a packed window.
+
+    Not ported: ``spec_resolve=True`` (ROADMAP.md Queue 1 item 15), which
+    raises ``NotImplementedError``."""
 
     #: bytes of one 32x32-bit predecessor tile (32 rows x 1 uint32 word).
     EXCHANGE_TILE_BYTES = 128
@@ -111,11 +130,6 @@ class ShardedConflictSet(TorchConflictSet):
                  auto_reshard: bool = True,
                  reshard_interval: int = AUTO_RESHARD_INTERVAL,
                  reshard_skew: float = AUTO_RESHARD_SKEW, **kw):
-        if kw.get("resident") is False:
-            raise NotImplementedError(
-                "ShardedConflictSet(resident=False) is not ported yet: the "
-                "non-resident sharded body (_sharded_resolve, clip_batch, "
-                "_redistribute_history) is ROADMAP.md Queue 1 item 10b")
         if kw.get("spec_resolve"):
             raise NotImplementedError(
                 "ShardedConflictSet(spec_resolve=True) is not ported yet: "
@@ -144,8 +158,10 @@ class ShardedConflictSet(TorchConflictSet):
     # -- device programs ------------------------------------------------------
 
     def _init_engine(self) -> None:
-        """The mirror seeded with the S shard lower bounds (pinned, so no
-        repack evicts one) and the sharded state."""
+        """Resident: the mirror seeded with the S shard lower bounds
+        (pinned, so no repack evicts one) and the sharded state.
+        Non-resident: no mirror, S flat [C, W] histories and the bounds as
+        [S, W] key rows on the card."""
         if self.batch_size % self.n_shards:
             raise ValueError("batch_size must be divisible by n_shards")
         bounds = pack_splits(
@@ -155,24 +171,62 @@ class ShardedConflictSet(TorchConflictSet):
         self._lo = np.ascontiguousarray(bounds[:-1])  # [S, W]
         self._hi = np.ascontiguousarray(bounds[1:])
         self.reshard_moved_shards = 0  # scoped-repack economy counter
+        if not self.resident:
+            self._mirror = None
+            self.state = ck.init_flat_shards(self.capacity, self.codec.width,
+                                             self._lo, self.device)
+            self._set_bounds(self._lo, self._hi)
+            return
         self._mirror = _ResidentMirror(
             self._lo, self.dict_capacity, self.dict_delta_slots, _DICT_FRAG,
             tiered=self.tiered)
         self.state = ck.init_sharded_res(self._lo, self.dict_capacity,
                                          self.capacity, self.device)
 
+    def _set_bounds(self, lo: np.ndarray, hi: np.ndarray) -> None:
+        """The non-resident engine's [S, W] bound rows on the card (runtime
+        arguments of its programs, so a reshard swaps them)."""
+        self._lo_dev = torch.from_numpy(np.array(lo, np.int32)).to(
+            self.device)
+        self._hi_dev = torch.from_numpy(np.array(hi, np.int32)).to(
+            self.device)
+
+    def _pack_batch(self, bt: HostBatch, defer_repack: bool = False):
+        """Non-resident: the key rows themselves (the JAX ``_dev_batch`` is
+        the identity there); resident: the rank-space pack."""
+        if self.resident:
+            return super()._pack_batch(bt, defer_repack)
+        return bt
+
+    def _upload(self, hb):
+        if self.resident:
+            return super()._upload(hb)
+        return upload_keys(hb, self.device)
+
     def _batch_program(self, rb, hb, cv, oldest, report, out) -> tuple:
-        v, lv, x, state = ck.sharded_resolve_res(
-            self.state, rb, cv, oldest, n_new=hb.n_new, wave=self.wave_commit,
-            stats=self._wave_stats, out=out)
+        wave = self.wave_commit
+        if self.resident:
+            v, lv, x, state = ck.sharded_resolve_res(
+                self.state, rb, cv, oldest, n_new=hb.n_new, wave=wave,
+                stats=self._wave_stats, out=out)
+        else:
+            v, lv, x, state = ck.sharded_resolve(
+                self.state, rb, cv, oldest, self._lo_dev, self._hi_dev, wave,
+                self._wave_stats, out.verdicts[0],
+                out.levels[0] if wave else None)
         if x is not None:
             self._note_exchange(x)
-        return (v, lv, state) if self.wave_commit else (v, state)
+        return (v, lv, state) if wave else (v, state)
 
-    def _window_program(self, rb, hb, cvs_rel, olds_rel, out) -> ck.ResState:
-        *_, x, state = ck.sharded_resolve_res_many(
-            self.state, rb, cvs_rel, olds_rel, n_new=hb.n_new,
-            wave=self.wave_commit, stats=self._wave_stats, out=out)
+    def _window_program(self, rb, hb, cvs_rel, olds_rel, out):
+        if self.resident:
+            *_, x, state = ck.sharded_resolve_res_many(
+                self.state, rb, cvs_rel, olds_rel, n_new=hb.n_new,
+                wave=self.wave_commit, stats=self._wave_stats, out=out)
+        else:
+            *_, x, state = ck.sharded_resolve_many(
+                self.state, rb, cvs_rel, olds_rel, self._lo_dev,
+                self._hi_dev, self.wave_commit, self._wave_stats, out)
         if x is not None:
             self._note_exchange(x)
         return state
@@ -230,9 +284,13 @@ class ShardedConflictSet(TorchConflictSet):
                                           oldest_version, count, as_array)
 
     def dispatch_window(self, prepared):
-        # After the dispatch, so that this window's delta is on the card;
-        # a younger window already packed defers the policy (see
-        # _reshard_resident).
+        # Non-resident: before the dispatch, as in JAX (a reshard touches
+        # only device state, which no pack reads). Resident: after the
+        # dispatch, so that this window's delta is on the card; a younger
+        # window already packed defers the policy (see _reshard_resident).
+        if not self.resident:
+            self._maybe_auto_reshard()
+            return super().dispatch_window(prepared)
         collect = super().dispatch_window(prepared)
         self._maybe_auto_reshard()
         return collect
@@ -253,13 +311,22 @@ class ShardedConflictSet(TorchConflictSet):
         splits = self.density_splits_from_history()
         if splits is None:
             return
-        if self._reshard_resident(splits, auto=True):
-            self.auto_reshards += 1
+        if not self.resident:
+            self._reshard_flat(splits)
+        elif not self._reshard_resident(splits, auto=True):
+            return
+        self.auto_reshards += 1
+
+    @property
+    def _flat(self) -> ck.ConflictState:
+        """The S flat shard histories (the non-resident engine's whole
+        state)."""
+        return self.state.hist if self.resident else self.state
 
     def shard_occupancy(self) -> list[int]:
         """Live history boundaries per shard (one device read): the load
         balance the density splits are judged by."""
-        used = self.state.hist.n_used.cpu()
+        used = self._flat.n_used.cpu()
         self.host_syncs += 1
         return [int(x) for x in used]
 
@@ -268,24 +335,33 @@ class ShardedConflictSet(TorchConflictSet):
         boundaries (``density_splits`` over the device's boundary ranks,
         mapped to keys through the mirror, so every candidate split key is
         already resident). None when the history is too small or too
-        concentrated to yield n_shards - 1 distinct keys. One device read."""
-        h = self.state.hist
+        concentrated to yield n_shards - 1 distinct keys. One device read.
+        Non-resident: the boundary rows are the keys themselves."""
+        h = self._flat
         s = self.n_shards
         a = torch.cat([h.n_used, h.keys.reshape(-1)]).cpu().numpy()
         self.host_syncs += 1
-        n_used, keys = a[:s], a[s:].reshape(s, -1)
+        n_used = a[:s]
         nw = self.codec.n_words
         sample: list[bytes] = []
-        mir = self._mirror
-        with mir.lock:
-            rows = mir.rows
-            n_mir = len(rows)
+        if not self.resident:
+            keys = a[s:].reshape(s, -1, self.codec.width)
             for d in range(s):
-                for r in keys[d, : int(n_used[d])]:
-                    r = int(r)
-                    if r >= n_mir or int(rows[r][nw]) >= int(INT32_MAX):
-                        continue
-                    sample.append(self.codec.unpack(rows[r]))
+                for row in keys[d, : int(n_used[d])]:
+                    if int(row[nw]) < int(INT32_MAX):  # +inf is no split
+                        sample.append(self.codec.unpack(row))
+        else:
+            keys = a[s:].reshape(s, -1)
+            mir = self._mirror
+            with mir.lock:
+                rows = mir.rows
+                n_mir = len(rows)
+                for d in range(s):
+                    for r in keys[d, : int(n_used[d])]:
+                        r = int(r)
+                        if r >= n_mir or int(rows[r][nw]) >= int(INT32_MAX):
+                            continue
+                        sample.append(self.codec.unpack(rows[r]))
         if len(sample) < 2 * s:
             return None
         splits = density_splits(s, sample)
@@ -299,11 +375,48 @@ class ShardedConflictSet(TorchConflictSet):
         dictionary with the rank shift a delta merge applies, so every
         packed window must have been dispatched first; one that has not
         raises ``ValueError``. Verdicts are unchanged; only the per-shard
-        load moves."""
+        load moves. Non-resident: the histories are downloaded, re-clipped
+        to the new bounds on the host and uploaded (every shard moves)."""
         if len(splits) != self.n_shards - 1:
             raise ValueError(
                 f"need {self.n_shards - 1} interior splits, got {len(splits)}")
+        if not self.resident:
+            self._reshard_flat(splits)
+            return
         self._reshard_resident(splits)
+
+    def _reshard_flat(self, splits: list[bytes]) -> None:
+        """The JAX non-resident ``reshard`` (:692-713): one device read of
+        the flat histories, ``_redistribute_history`` to the new bounds
+        (sticky overflow: a shard that no longer fits its capacity is cut
+        there and flagged), one upload."""
+        st = self.state
+        s, c, w = st.keys.shape
+        flat = torch.cat([st.keys.reshape(-1), st.versions.reshape(-1),
+                          st.n_used, st.overflow.to(torch.int32)]
+                         ).cpu().numpy()
+        self.host_syncs += 1
+        sc = s * c
+        keys = flat[:sc * w].reshape(s, c, w)
+        vers = flat[sc * w:sc * (w + 1)].reshape(s, c)
+        n_used = flat[sc * (w + 1):sc * (w + 1) + s]
+        over = flat[sc * (w + 1) + s:].astype(bool)
+        bounds = pack_splits(self.codec, splits)
+        lo = np.ascontiguousarray(bounds[:-1])
+        hi = np.ascontiguousarray(bounds[1:])
+        nk, nv, nu, nover = _redistribute_history(keys, vers, n_used, lo, hi,
+                                                  self.capacity)
+        dev = self.device
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        self.state = ck.ConflictState(
+            keys=t(nk), versions=t(nv), n_used=t(nu.astype(np.int32)),
+            oldest=st.oldest, overflow=t(over | nover))
+        self._interior_splits = list(splits)
+        self._lo, self._hi = lo, hi
+        self._set_bounds(lo, hi)
 
     def _reshard_resident(self, splits: list[bytes],
                           auto: bool = False) -> bool:
@@ -454,18 +567,18 @@ class ShardedConflictSet(TorchConflictSet):
 
     @property
     def overflowed(self) -> bool:
-        flags = self.state.hist.overflow.cpu()
+        flags = self._flat.overflow.cpu()
         self.host_syncs += 1
         return bool(flags.any())
 
     def headroom(self) -> int:
         """Free boundary slots in the tightest shard (one device read)."""
-        used = int(self.state.hist.n_used.max())
+        used = int(self._flat.n_used.max())
         self.host_syncs += 1
         return self.capacity - used
 
     def clear_overflow(self) -> None:
-        self.state.hist.overflow.fill_(False)
+        self._flat.overflow.fill_(False)
 
     def advance(self, commit_version: int,
                 oldest_version: int | None = None) -> None:
@@ -476,11 +589,50 @@ class ShardedConflictSet(TorchConflictSet):
         cv = self._rel(commit_version)
         oldest = self._rel(self.oldest_version)
         if self._empty_rb is None:
-            hb = self._pack_resident(self._empty_batch())
-            self._empty_rb = (hb, upload(hb, self.device))
+            hb = self._pack_batch(self._empty_batch())
+            self._empty_rb = (hb, self._upload(hb))
         hb, rb = self._empty_rb
         out = ck.window_out(1, self.batch_size, self.device, self.wave_commit)
         self.state = self._batch_program(rb, hb, cv, oldest, False, out)[-1]
+
+
+def _redistribute_history(
+    keys: np.ndarray, vers: np.ndarray, n_used: np.ndarray,
+    lo: np.ndarray, hi: np.ndarray, capacity: int,
+) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """Re-clip a sharded step-function history to new shard bounds (a copy
+    of the JAX host function, :851-888).
+
+    keys/vers: [S, C, W]/[S, C] per-shard histories whose live prefixes
+    concatenate to the global sorted boundary list. Returns (keys',
+    vers', n_used', overflow') for the bounds lo/hi [S, W]: each shard's
+    segment starts with its lower bound (the version of the segment that
+    contains it carries over) and is cut at ``capacity`` with overflow
+    set."""
+    d_n, _, _ = keys.shape
+    glob_k = np.concatenate([keys[d, : n_used[d]] for d in range(d_n)])
+    glob_v = np.concatenate([vers[d, : n_used[d]] for d in range(d_n)])
+    gsort = row_sort_keys(glob_k)
+    new_keys = np.full_like(keys, ck.INT32_MAX)
+    new_vers = np.full_like(vers, ck.NEG_VERSION)
+    new_used = np.zeros(d_n, np.int32)
+    new_over = np.zeros(d_n, bool)
+    for d in range(d_n):
+        lo_sk = row_sort_keys(lo[d : d + 1])[0]
+        hi_sk = row_sort_keys(hi[d : d + 1])[0]
+        i0 = np.searchsorted(gsort, lo_sk, side="right") - 1
+        i1 = np.searchsorted(gsort, hi_sk, side="left")
+        seg_k = glob_k[i0:i1].copy()
+        seg_v = glob_v[i0:i1].copy()
+        seg_k[0] = lo[d]
+        n = len(seg_k)
+        if n > capacity:
+            new_over[d] = True
+            seg_k, seg_v, n = seg_k[:capacity], seg_v[:capacity], capacity
+        new_keys[d, :n] = seg_k
+        new_vers[d, :n] = seg_v
+        new_used[d] = n
+    return new_keys, new_vers, new_used, new_over
 
 
 __all__ = ["ShardedConflictSet", "uniform_splits", "density_splits",

@@ -747,3 +747,262 @@ def test_non_resident_engine_cuda_equals_cpu(card, wave):
         for k, v in sb["state"].items():
             assert sa["state"][k].tobytes() == v.tobytes(), (i, k)
     assert eng[card].base_version > 1 << 29
+
+
+# --------------------------------------- K14-K16 and the unpacked paint
+
+
+def key_rows(rng, n, w, kind):
+    """[n, w] int32 rows: random words, a few distinct rows (long equal
+    runs), signed extremes, or packed-looking keys with +inf pads."""
+    if kind == "random":
+        return rng.integers(-2**31, 2**31, (n, w), dtype=np.int64).astype(
+            np.int32)
+    if kind == "runs":
+        base = rng.integers(-2, 2, (7, w)).astype(np.int32)
+        return base[rng.integers(0, 7, n)]
+    if kind == "extremes":
+        return rng.choice(np.array([-2**31, -2**31 + 1, -1, 0, 1,
+                                    2**31 - 2, 2**31 - 1], np.int64),
+                          (n, w)).astype(np.int32)
+    rows = rng.integers(-2**31, -2**31 + 4, (n, w)).astype(np.int32)
+    rows[rng.random(n) < 0.3] = ck.INT32_MAX
+    return rows
+
+
+@pytest.mark.parametrize("n,w,kind", [(1, 4, "random"), (7, 1, "runs"),
+                                      (1000, 4, "runs"), (1025, 4, "random"),
+                                      (3000, 9, "extremes"),
+                                      (16384, 4, "padded"),
+                                      (49153, 4, "runs"),
+                                      (5000, 24, "random")])
+def test_word_sort(card, n, w, kind):
+    """K14 against the plain sort (W stable torch.sort passes): keys and
+    payloads bit for bit, so equal rows keep their input order; N of one,
+    below and above a tile, not a power of two; W up to 24 words (a
+    smaller shared-memory tile)."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.ops.lex import sort_keys_with_payload
+
+    rng = np.random.default_rng(n + w)
+    keys = on(key_rows(rng, n, w, kind), card)
+    pays = [torch.arange(n, dtype=torch.int32, device=card),
+            on(rng.integers(-9, 9, n).astype(np.int32), card)]
+    got_k, got_p = K.word_sort(keys, pays)
+    want = sort_keys_with_payload(keys, *pays)
+    assert torch.equal(got_k, want[0])
+    for g, x in zip(got_p, want[1:]):
+        assert torch.equal(g, x)
+
+
+def key_batch(rng, b, r, q, w, dev, kind="runs"):
+    """A BatchTensors of [B, ., W] key rows on ``dev`` (begin <= end per
+    slot, some empty, some masked and +inf padded)."""
+    def rows(n):
+        a = key_rows(rng, 2 * b * n, w, kind).reshape(b, n, 2, w)
+        swap = ck.lex_lt(torch.from_numpy(a[:, :, 1]),
+                         torch.from_numpy(a[:, :, 0])).numpy()[..., None]
+        lo = np.where(swap, a[:, :, 1], a[:, :, 0])
+        hi = np.where(swap, a[:, :, 0], a[:, :, 1])
+        m = rng.random((b, n)) < 0.85
+        lo = np.where(m[..., None], lo, ck.INT32_MAX)
+        hi = np.where(m[..., None], hi, ck.INT32_MAX)
+        return on(lo.astype(np.int32), dev), on(hi.astype(np.int32), dev), \
+            on(m, dev)
+
+    rb, re_, rm = rows(r)
+    wb, we, wm = rows(q)
+    return ck.BatchTensors(rb, re_, rm, wb, we, wm,
+                           on(rng.integers(0, 30, b).astype(np.int32), dev),
+                           on(rng.random(b) < 0.9, dev))
+
+
+@pytest.mark.parametrize("b,r,q,w,kind", [(1, 1, 1, 4, "runs"),
+                                          (33, 3, 2, 4, "extremes"),
+                                          (100, 2, 1, 1, "runs"),
+                                          (8192, 2, 1, 4, "random"),
+                                          (500, 12, 8, 4, "runs")])
+def test_word_ranks(card, b, r, q, w, kind):
+    """K14's rank launch against ``endpoint_ranks_live_plain``."""
+    rng = np.random.default_rng(b * w)
+    bt = key_batch(rng, b, r, q, w, card, kind)
+    got = ck.endpoint_ranks_live(bt)
+    want = ck.endpoint_ranks_live_plain(bt)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+def word_bounds(s, w, dev):
+    """[S, W] shard bounds: the minimum key row, interior rows, +inf."""
+    lo = np.zeros((s, w), np.int32)
+    lo[:, 0] = -2**31 + np.arange(s) * 2
+    lo[:, 1:] = -2**31
+    hi = np.concatenate([lo[1:], np.full((1, w), ck.INT32_MAX, np.int32)])
+    return on(lo, dev), on(hi, dev)
+
+
+@pytest.mark.parametrize("b,s", [(30, 1), (33, 4), (8192, 4)])
+def test_word_clip(card, b, s):
+    rng = np.random.default_rng(b + s)
+    bt = key_batch(rng, b, 2, 1, 4, card, "padded")
+    lo, hi = word_bounds(s, 4, card)
+    for reads in (False, True):
+        got = ck.word_clip(bt, lo, hi, reads)
+        want = ck.word_clip_plain(bt, lo, hi, reads)
+        for g, x in zip(got, want):
+            assert (g is None and x is None) or torch.equal(g, x)
+
+
+def nr_sharded(s, capacity, dev, seed=0, batch=None):
+    """A non-resident sharded engine (batch size ``batch``, default 8·S)
+    after a seeded stream on the CPU, its state copied to ``dev``:
+    (engine, state on dev)."""
+    from foundationdb_tpu_torch.parallel.sharded_resolver import (
+        ShardedConflictSet,
+    )
+
+    batch = batch or 8 * s
+    cs = ShardedConflictSet(n_shards=s, device="cpu", capacity=capacity,
+                            batch_size=batch, max_read_ranges=2,
+                            max_write_ranges=2, max_key_bytes=8,
+                            resident=False, auto_reshard=False, splits=[
+                                bytes([97 + i]) for i in range(1, s)])
+    rng = np.random.default_rng(seed)
+    for i in range(6):
+        cv = 100 + 10 * i
+        cs.resolve([rand_txn(rng, cv - 5) for _ in range(min(8 * s, batch))],
+                   cv, cv - 40)
+    return cs, ck.ConflictState(*(x.to(dev) for x in cs.state))
+
+
+@pytest.mark.parametrize("b,s,clip", [(30, 1, False), (36, 4, True),
+                                      (63, 3, True), (1000, 1, False)])
+def test_word_shard_probe(card, b, s, clip):
+    """K16 (with K2's table over the S histories) against its plain
+    version, clipped to the shards or (S = 1) unclipped; odd B."""
+    cs, hist = nr_sharded(s, 64, card, seed=b, batch=b)
+    rng = np.random.default_rng(b)
+    bt, _ = cs._pack([rand_txn(rng, 120) for _ in range(b)])
+    big = ck.BatchTensors(*(on(x, card) for x in bt))
+    lo = on(cs._lo, card) if clip else None
+    hi = on(cs._hi, card) if clip else None
+    floor = torch.tensor(103, dtype=torch.int32, device=card)
+    got = ck.word_shard_probe(hist, big, lo, hi, floor)
+    want = ck.word_shard_probe_plain(hist, big, lo, hi, floor)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+@pytest.mark.parametrize("cap", [12, 64, 200])
+def test_unpacked_paint(card, cap):
+    """The unpacked paint (K13's wc_paint_keys, K12's search, K14's sort,
+    K13's wc_paint_sorted) against its plain version on every shard of a
+    non-resident state: rejected writes on +inf, clipped begins at lo,
+    and a capacity small enough to overflow."""
+    cs, hist = nr_sharded(4, cap, card, seed=cap)
+    rng = np.random.default_rng(cap)
+    bt, _ = cs._pack([rand_txn(rng, 150) for _ in range(32)])
+    bt = ck.BatchTensors(*(on(x, card) for x in bt))
+    lo, hi = on(cs._lo, card), on(cs._hi, card)
+    clip = ck.word_clip(bt, lo, hi, False)
+    accepted = on(rng.random(32) < 0.7, card)
+    for s in range(4):
+        view = ck.clip_view(bt, clip, s)
+        floor = torch.tensor(112, dtype=torch.int32, device=card)
+        base = ck._shard_hist(hist, s)
+        got = ck._paint_and_compact(ck.ConflictState(*(x.clone()
+                                                       for x in base)),
+                                    view, accepted, 160, floor)
+        want = ck._paint_and_compact_plain(base, view, accepted, 160, floor)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), s
+
+
+@pytest.mark.parametrize("wave", [False, True])
+def test_flat_resolve_batch_cuda_equals_cpu(card, wave):
+    """The single flat engine's resolve_batch (with the report) and
+    resolve_many on the card against the CPU."""
+    cs, _ = nr_sharded(1, 128, "cpu", seed=4)
+    rng = np.random.default_rng(9)
+    state = ck.init_state(128, cs.codec.width, cs.codec.min_key, "cpu")
+    gstate = ck.ConflictState(*(x.to(card) for x in state))
+    for i in range(6):
+        cv = 200 + 10 * i
+        bt, _ = cs._pack([rand_txn(rng, cv - int(rng.integers(1, 40)))
+                          for _ in range(8)])
+        tb = ck.BatchTensors(*(torch.from_numpy(x) for x in bt))
+        want = ck.resolve_batch(state, tb, cv, cv - 30, report=True,
+                                wave=wave)
+        got = ck.resolve_batch(gstate, ck.BatchTensors(*(x.to(card)
+                                                         for x in tb)),
+                               cv, cv - 30, report=True, wave=wave)
+        for g, x in zip(got[:-1], want[:-1]):
+            assert torch.equal(g.cpu(), x), i
+        for g, x in zip(got[-1], want[-1]):
+            assert torch.equal(g.cpu(), x), i
+        state, gstate = want[-1], got[-1]
+
+
+@pytest.mark.parametrize("wave", [False, True])
+def test_nr_sharded_engine_cuda_equals_cpu(card, wave):
+    """Object, wire and window paths of a 3-shard non-resident engine on
+    the card against the CPU plain run (odd batch size), through a reshard
+    into a small shard, an advance and a rebase: verdicts, levels, every
+    leaf; per resolve step K16, K15 and K14 launch once and the paint of
+    K13, K12 and K14 once per shard, never K1, K4, K8 or K13's packed
+    paint."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.models.conflict_set import encode_resolve_batch
+    from foundationdb_tpu_torch.parallel.sharded_resolver import (
+        ShardedConflictSet,
+    )
+
+    kw = dict(n_shards=3, capacity=96, batch_size=21, max_read_ranges=2,
+              max_write_ranges=2, max_key_bytes=8, window_versions=300,
+              wave_commit=wave, auto_reshard=False, resident=False)
+    eng = {dev: ShardedConflictSet(device=dev, **kw) for dev in (card, "cpu")}
+    rng = np.random.default_rng(12)
+    cv = 1000
+    for i in range(12):
+        cv += int(rng.integers(1, 40)) + (1 << 30 if i == 9 else 0)
+        txns = [rand_txn(rng, int(rng.integers(cv - 250, cv)))
+                for _ in range(int(rng.integers(2, 22)))]
+        out = {}
+        for dev, cs in eng.items():
+            if i == 4:
+                cs.reshard([b"b", b"b\x01"])
+            K.reset_launches()
+            if i == 7:
+                cs.advance(cv, cv - 100)
+                v = []
+            elif i % 3 == 0:
+                v = [int(x) for x in cs.resolve(txns, cv, cv - 200)]
+            elif i % 3 == 1:
+                v = cs.resolve_wire_async(encode_resolve_batch(txns), cv,
+                                          cv - 200, as_array=True)().tolist()
+            else:
+                count = len(txns) // 2
+                v = cs.resolve_wire_window(
+                    encode_resolve_batch(txns[:2 * count]), [cv, cv + 1],
+                    count).tolist()
+            if dev != "cpu" and i % 3 == 0 and i != 7:
+                e = K.ENTRY_LAUNCHES
+                assert e.get("wsh_probe") == 1 and e.get("wsh_clip") == 1, e
+                assert e.get("wc_paint_sorted") == 3, e
+                assert e.get("wso_sort") == 3, e
+                assert e.get("wso_ranks") == (3 if wave else 1), e
+                for k in ("di_insert", "sc_paint", "sh_probe", "wc_paint",
+                          "hp_probe"):
+                    assert k not in e, e
+            out[dev] = (v, cs.last_wave, None if cs.last_wave_window is None
+                        else cs.last_wave_window.tolist(),
+                        cs.shard_occupancy(), cs.headroom(), cs.overflowed)
+        cv += 1
+        assert out[card] == out["cpu"], i
+        sa, sb = (convert.snapshot(e) for e in (eng[card], eng["cpu"]))
+        for k, v in sb["state"].items():
+            assert sa["state"][k].tobytes() == v.tobytes(), (i, k)
+        assert sa["sharded"] == sb["sharded"], i
+    assert eng[card].base_version > 1 << 29
+    if wave:
+        assert eng[card].exchange_stats() == eng["cpu"].exchange_stats()

@@ -81,6 +81,19 @@ nr.resolve([TxnConflictInfo(5, [], [pt(b"a")])], 10)
 got = nr.resolve([TxnConflictInfo(5, [pt(b"a")], []),
                   TxnConflictInfo(15, [pt(b"a")], [])], 20)
 assert [int(v) for v in got] == [1, 0] and nr.dict_stats is None, got
+nrs = ShardedConflictSet(n_shards=2, device="cpu", capacity=64, batch_size=8,
+                         max_read_ranges=2, max_write_ranges=2,
+                         max_key_bytes=8, splits=[b"b"], resident=False,
+                         wave_commit=True)
+nrs.resolve([TxnConflictInfo(5, [], [KeyRange(b"a", b"c")])], 10)
+got = nrs.resolve([TxnConflictInfo(5, [KeyRange(b"", b"z")], []),
+                   TxnConflictInfo(15, [pt(b"b")], [])], 20)
+assert [int(v) for v in got] == [1, 0] and nrs.last_wave == [-1, 0], got
+nrs.reshard([b"a\x00"])
+assert nrs.shard_occupancy() == [2, 4], nrs.shard_occupancy()
+got = nrs.resolve([TxnConflictInfo(5, [pt(b"b")], []),
+                   TxnConflictInfo(12, [pt(b"b")], [])], 30)
+assert [int(v) for v in got] == [1, 0], got
 print("ok")
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -169,3 +182,21 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
     with pytest.raises(ValueError, match="CUDA tensor"):
         kernels.build_table(torch.zeros(8, dtype=torch.int32))
+
+
+def test_word_kernel_wrappers_refuse_cpu_tensors():
+    """The K14-K16 and unpacked-paint wrappers take CUDA tensors only (the
+    plain versions run for CPU tensors one level up)."""
+    from foundationdb_tpu_torch import kernels
+
+    rows = torch.zeros((4, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.word_sort(rows)
+    b3 = torch.zeros((2, 1, 3), dtype=torch.int32)
+    m = torch.ones((2, 1), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.word_ranks(b3, b3, m, b3, b3, m)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.word_clip(b3, b3, m, b3, b3, m, rows[:2], rows[:2], True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        kernels.word_paint_keys(b3, b3, m, m[:, 0])

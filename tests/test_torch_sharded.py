@@ -592,8 +592,6 @@ def test_paint_only_window_equals_the_resolve():
 
 def test_constructor_refusals():
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
-        tsr.ShardedConflictSet(n_shards=2, device="cpu", resident=False, **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         tsr.ShardedConflictSet(n_shards=2, device="cpu", spec_resolve=True,
                                **KW)
     with pytest.raises(ValueError, match="divisible"):
