@@ -39,7 +39,17 @@ Phases, each fatal on failure:
    and the CPU; (e) two wave shards on the card, fed the
    ``wavemesh.clip_txns`` halves of 16 batches through ``resolve_edges``
    / ``combine_edges`` / ``resolve_apply``, give the single wave
-   engine's verdicts and ``last_wave``.
+   engine's verdicts and ``last_wave``. K6's stats build on phase 2's
+   captured batch prints its phase counters (``k6_phase_clocks``: the
+   prologue with the first wave, the level kernel's wave and stall rounds,
+   the stalls' prefix, walk, rescan and release time, and the counts).
+   (g) The stream's txns in batches of 32,768 (K6's round state then
+   lives in global scratch, not shared memory) through a cuda wave engine
+   on the object path: every batch's K6 levels equal the host
+   replay (``wavemesh.level_wave_edges`` of its K5 matrix, in the workers
+   beside the later phases, checked after phase 4), and the last batch's
+   K6 output and stats equal ``wave_level_plain``; K6's time on it and
+   the run's txns/s are printed.
 3d. Tiered phase: the YCSB-A shape over 2^23 keys (the touched set
    outgrows the hot tier; ``loadgen/ycsb.dictionary_counts`` checks the
    sizing first) through the same runner on an engine with a tiered
@@ -67,8 +77,10 @@ Phases, each fatal on failure:
    same hash, shards moved. (c) A 4-shard wave engine over the first 16
    batches equals 3c's single wave engine in verdicts and levels; K10
    launches once per batch and 0 < occupied tiles <= total tiles. (d) One
-   captured step launch by launch (K9 with and without the reads, K8 with
-   its K2 table, K5 per shard, K10) and one captured sharded window
+   captured step launch by launch (K9 with and without the reads, through
+   its checked entry and as the window program launches it, into buffers
+   allocated and checked once a window; K8 with its K2 table, K5 per
+   shard, K10) and one captured sharded window
    program equal their plain versions bit for bit, every state leaf
    included. (e) Window 0 on the CPU (a worker process beside phase 4,
    checked after it) equals the card's in verdicts and every state leaf.
@@ -234,6 +246,10 @@ TIER_HOT, TIER_DELTA = 1_310_720, 262_144
 TIER = {"dict_hot_capacity": TIER_HOT, "dict_delta_slots": TIER_DELTA}
 SPEC_K, SPEC_BATCHES = 4, 16  # check (c): window, batches
 SHARDS = 4  # phase 3e: keyspace shards on the card (a 4-resolver config)
+# Check (g) of phase 3c: a wave batch four times the stream's, too large
+# for K6's round state to fit in one block's shared memory (it then lives
+# in global scratch).
+BIG_WAVE_BATCH = 32768
 # Phase 3f: the admission filter's geometry (2^20 bits: the repository's
 # default of 2^16 saturates at 8192-txn batches), the object-path batches
 # it is fed, the one whose K11 launches are captured (the 17th record: its
@@ -845,7 +861,8 @@ def wave_kernel_phase(stream, mode, pool) -> dict:
           f"batch would take {jax_rounds_ms:.4f} ms at the HBM rate")
     return {"timings": timings, "bounds": bounds, "rounds": rounds,
             "victims": victims, "replay": replay,
-            "levels": got[1].cpu().numpy().tolist(), "index": cap.index}
+            "levels": got[1].cpu().numpy().tolist(), "index": cap.index,
+            "tensors": (cand, p, too_old, tm)}
 
 
 def check_replay(wk: dict) -> None:
@@ -858,10 +875,141 @@ def check_replay(wk: dict) -> None:
           f"({seconds:.1f} s in a worker process)")
 
 
+def k6_phase_clocks(clk) -> dict:
+    """K6's stats-build counters (``kernels.WAVE_CLOCKS``) as ms and
+    counts: the level kernel's clock64 cycles convert at its own
+    globaltimer span."""
+    from foundationdb_tpu_torch import kernels as K
+
+    c = dict(zip(K.WAVE_CLOCKS, (int(x) for x in clk.cpu())))
+    level_ns = c["level_t1"] - c["level_t0"]
+    per_ms = c["cycles"] / (level_ns / 1e6)
+    out = {"prologue_and_first_wave_ms": (c["prologue_t1"]
+                                          - c["prologue_t0"]) / 1e6,
+           "level_ms": level_ns / 1e6, "cycles_per_ns": per_ms / 1e6}
+    for k in ("init", "wave_rounds", "stall_rounds", "stall_prefix",
+              "stall_walk", "stall_rescan", "stall_release"):
+        out[f"{k}_ms"] = c[k] / per_ms
+    for k in ("walk_steps", "prefix_reused", "rescans", "rescan_words",
+              "decrements"):
+        out[k] = c[k]
+    return out
+
+
+def replay_edges(bp: int, b: int, cand: list, rows, words, vals):
+    """Check (g)'s host half, in a worker: the levels of one batch by
+    ``wavemesh.level_wave_edges`` over the set bits of the nonzero words
+    (row, word, value) of its K5 matrix."""
+    from foundationdb_tpu_torch.core import wavemesh
+
+    t0 = time.perf_counter()
+    bits = np.unpackbits(vals.view(np.uint8).reshape(-1, 4), axis=1,
+                         bitorder="little")
+    k, bit = np.nonzero(bits)
+    levels = wavemesh.level_wave_edges(
+        bp, cand, rows[k], words[k].astype(np.int64) * 32 + bit)
+    return levels[:b], time.perf_counter() - t0
+
+
+def big_wave_check(stream, pool, card: str) -> dict:
+    """Check (g) of phase 3c: the stream's txns in batches of
+    BIG_WAVE_BATCH through a cuda wave engine on the object path. Every
+    batch's K5 matrix (its nonzero words) goes to a worker for the host
+    replay, checked by ``check_big_replay``; the last batch's K6 output
+    and stats are held against ``wave_level_plain`` and K6 is timed on
+    it."""
+    import dataclasses
+
+    import torch
+
+    from foundationdb_tpu_torch.loadgen.ycsb import (
+        MODES,
+        batch_versions,
+        build_txns,
+    )
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+
+    mode = dataclasses.replace(MODES["ycsb"], batch=BIG_WAVE_BATCH)
+    n = len(stream[0]) // mode.batch
+    cs = make_engine(mode, "cuda", wave=True)
+    real, seen = ck.wave_level, []
+
+    def capturing(cand, p, *args, **kw):
+        out = real(cand, p, *args, **kw)
+        seen.append((cand, p, args, out[1]))
+        return out
+
+    jobs, last, capture_s = [], None, 0.0
+    ck.wave_level = capturing
+    t0 = time.perf_counter()
+    try:
+        for i in range(n):
+            cv, old = batch_versions(i)
+            cs.resolve(build_txns(*stream, i, mode), cv, old)
+            if len(seen) != 1:
+                fail(f"big wave batch {i}: K6 ran {len(seen)} times")
+            t1 = time.perf_counter()
+            cand, p, args, levels = seen.pop()
+            nz = torch.nonzero(p)
+            vals = p[nz[:, 0], nz[:, 1]]
+            b = cand.shape[0]
+            jobs.append((levels.cpu().numpy().tolist(), pool.apply_async(
+                replay_edges, (p.shape[0], b,
+                               np.nonzero(cand.cpu().numpy())[0].tolist(),
+                               nz[:, 0].cpu().numpy(), nz[:, 1].cpu().numpy(),
+                               vals.cpu().numpy()))))
+            if i == n - 1:
+                last = (cand, p, args)
+            capture_s += time.perf_counter() - t1
+    finally:
+        ck.wave_level = real
+    wall = time.perf_counter() - t0
+    if cs.overflowed:
+        fail("big wave batches: the history overflowed")
+    cand, p, (too_old, tm) = last[0], last[1], last[2][:2]
+    st = [torch.zeros(5, dtype=torch.int64, device="cuda") for _ in range(2)]
+    t1 = time.perf_counter()
+    want = ck.wave_level_plain(cand, p, too_old, tm, stats=st[1])
+    plain_s = time.perf_counter() - t1
+    assert_equal("wave_level.big", ck.wave_level(cand, p, too_old, tm,
+                                                 stats=st[0]), want)
+    assert_equal("wave_level.big.stats", st[0], st[1])
+    k6_ms = time_ms(lambda: ck.wave_level(cand, p, too_old, tm))
+    _, rounds, victims, _, _ = (int(x) for x in st[0].cpu())
+    ws = cs.wave_stats
+    print(json.dumps({
+        "check": "3c(g) big wave batches", "batch_size": mode.batch,
+        "batches": n, "txns": n * mode.batch,
+        "txns_per_s_with_capture": n * mode.batch / wall,
+        "capture_s": capture_s,
+        "k6_rounds_per_batch_mean": ws["rounds"] / ws["batches"],
+        "k6_victims_per_batch_mean": ws["victims"] / ws["batches"],
+        "last_batch": {"candidates": int(cand.sum()), "rounds": rounds,
+                       "victims": victims, "k6_ms": k6_ms,
+                       "plain_s": plain_s},
+        "card": card}))
+    return {"jobs": jobs, "batch": mode.batch}
+
+
+def check_big_replay(gk: dict) -> None:
+    """Check (g)'s host half: every batch's K6 levels equal the replay."""
+    seconds = 0.0
+    for i, (levels, job) in enumerate(gk["jobs"]):
+        want, s = job.get()
+        seconds += s
+        if levels != want:
+            fail(f"big wave batch {i}: K6 levels differ from the host "
+                 "replay (wavemesh.level_wave_edges)")
+    print(f"big wave batches: {len(gk['jobs'])} batches of {gk['batch']}: "
+          f"K6 levels equal the host replay ({seconds:.1f} s in workers)")
+
+
 def wave_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
-               stream, seq_rec: dict) -> dict:
+               stream, seq_rec: dict, wk: dict, pool) -> dict:
     """Phase 3c: the wave-commit engine on the window path, counted, then
-    checks (a), (b), (d), (e). Returns the wave rows' launch counts."""
+    checks (a), (b), (d), (e), K6's phase counters on phase 2's captured
+    batch, and check (g). Returns the wave rows' launch counts and check
+    (g)'s replay jobs."""
     import torch
 
     from foundationdb_tpu_torch import bench, convert
@@ -995,7 +1143,22 @@ def wave_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
     torch.cuda.synchronize()
     print(f"cross-check two-phase: {n_two} batches through 2 shards equal "
           "the single wave engine (verdicts and last_wave)")
-    return {"launches": entries, "verdicts": verdicts, "levels": levels}
+
+    # K6's phase counters: its stats build on phase 2's captured batch.
+    from foundationdb_tpu_torch import kernels as K
+
+    cand, p, too_old, tm = wk["tensors"]
+    clk = torch.zeros(len(K.WAVE_CLOCKS), dtype=torch.int64, device="cuda")
+    got = K.wave_level(cand, p, too_old, tm, clocks=clk)
+    if got[1].cpu().numpy().tolist() != wk["levels"]:
+        fail("wave_level: the stats build's levels differ from K6's")
+    print(json.dumps({"k6_phase_clocks": k6_phase_clocks(clk),
+                      "wave_batch": wk["index"], "card": card}))
+
+    # (g) Batches of 32,768 txns through a cuda wave engine.
+    big = big_wave_check(stream, pool, card)
+    return {"launches": entries, "verdicts": verdicts, "levels": levels,
+            "big": big}
 
 
 def revoke_first(seq, verdicts):
@@ -1495,12 +1658,19 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     h, lo, hi = res1.hist, res1.shard_lo, res1.shard_hi
     floor = torch.maximum(h.oldest, torch.full(
         (), int(olds[0]), dtype=torch.int32, device="cuda"))
+    # K9 through its checked entry and as the window program launches it
+    # (buffers and checks once a window, ck.WindowClip).
+    wclips = {reads: ck.WindowClip.of(rb.ranks, lo, hi, reads)
+              for reads in (False, True)}
     for reads in (False, True):
+        want = [x for x in ck.shard_clip_plain(rbk, lo, hi, reads)
+                if x is not None]
         assert_equal("shard_clip",
                      [x for x in ck.shard_clip(rbk, lo, hi, reads)
-                      if x is not None],
-                     [x for x in ck.shard_clip_plain(rbk, lo, hi, reads)
-                      if x is not None])
+                      if x is not None], want)
+        assert_equal("shard_clip.window",
+                     [x for x in wclips[reads].step(rbk) if x is not None],
+                     want)
     assert_equal("shard_probe", ck.shard_probe(h, rbk, lo, hi, floor[0]),
                  ck.shard_probe_plain(h, rbk, lo, hi, floor[0]))
     too_old, _, cand = ck.shard_probe(h, rbk, lo, hi, floor[0])
@@ -1527,7 +1697,7 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     pairs = torch.stack([rbk.write_begin, rbk.write_end])
     lo4, hi4 = lo[:, None, None, None], hi[:, None, None, None]
     t = {
-        "shard_clip": (time_ms(lambda: ck.shard_clip(rbk, lo, hi, False)),
+        "shard_clip": (time_ms(lambda: wclips[False].step(rbk)),
                        time_ms(lambda: ck.shard_clip_plain(rbk, lo, hi,
                                                            False))),
         "shard_probe": (
@@ -1540,6 +1710,7 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
                          time_ms(many_plain, lambda: (clone(state),), reps=2)),
     }
     clamp_ms = time_ms(lambda: torch.clamp(pairs[None], lo4, hi4))
+    entry_ms = time_ms(lambda: ck.shard_clip(rbk, lo, hi, False))
     probe_only_ms = time_ms(lambda: K.shard_probe(
         h.keys, table, rbk.read_begin, rbk.read_end, rbk.read_mask,
         rbk.read_version, rbk.txn_mask, lo, hi, floor[0]))
@@ -1547,8 +1718,11 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     for name, (ms, plain) in t.items():
         print(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f} ms)")
     print(f"kernel shard_probe: K8 alone {probe_only_ms:.4f} ms, K2's table "
-          f"over S x C {table_ms:.4f} ms; shard_clip: torch.clamp over the "
-          f"stacked write ranks {clamp_ms:.4f} ms")
+          f"over S x C {table_ms:.4f} ms")
+    print(f"kernel shard_clip: the window program's launch "
+          f"{t['shard_clip'][0]:.4f} ms, the checked entry (allocating) "
+          f"{entry_ms:.4f} ms, torch.clamp over the stacked write ranks "
+          f"{clamp_ms:.4f} ms")
 
     # Bounds at the capture's shapes. K9 (writes only, the main path): the
     # write ranks and masks read once, S clipped copies written. K8: the
@@ -1595,7 +1769,7 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
                         "table_ms": table_ms},
         "shard_clip": {"launches": entries["sh_clip"],
                        "timing": t["shard_clip"], "bound": bound(bytes_k9),
-                       "library_ms": clamp_ms},
+                       "library_ms": clamp_ms, "entry_ms": entry_ms},
         "wave_exchange": {"launches": k10_launches,
                           "timing": t["wave_exchange"],
                           "bound": bound(bytes_k10)},
@@ -3350,7 +3524,7 @@ def smoke(args, pool) -> int:
 
     # 3c. The wave-commit engine on the window path, and its checks.
     wv = wave_phase(blob, ends, ycsb, n_wire, args.seed, card, stream,
-                    wp["record"])
+                    wp["record"], wk, pool)
     lap("3c wave path")
 
     # 3d. The tiered speculative engine on the window path, and its checks.
@@ -3423,6 +3597,7 @@ def smoke(args, pool) -> int:
               f"(committed {c[0]}, conflict {c[1]}, too_old {c[2]})")
 
     check_replay(wk)
+    check_big_replay(wv["big"])
     check_spec_cpu(td, cpu_spec)
     check_sharded_cpu(sh, cpu_sharded)
     check_tiered_admission(ad, cpu_tiered_adm)
@@ -3501,6 +3676,7 @@ def smoke(args, pool) -> int:
             "library_ms": r.get("library_ms")})
     rows[-4].update(probe_only_ms=sh["shard_probe"]["probe_only_ms"],
                     table_ms=sh["shard_probe"]["table_ms"])
+    rows[-3].update(checked_entry_ms=sh["shard_clip"]["entry_ms"])
     # K11 is timed by its set launch (the per-batch feed), with
     # ``index_fill_`` on bool banks (the same sets, 32x the bytes) as its
     # yardstick; no one PyTorch call searches word rows (K12), paints or

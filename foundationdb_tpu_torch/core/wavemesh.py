@@ -283,6 +283,71 @@ def level_wave_graph(n: int, cand: "set[int] | list[int]",
     return level
 
 
+def level_wave_edges(n: int, cand, rows, cols) -> "list[int]":
+    """``level_wave_graph``'s schedule over an edge list (txn cols[e] must
+    serialize before txn rows[e]; edges touching a non-candidate are
+    ignored), for graphs too large for sets of predecessors: a batch of
+    32,768 txns with millions of edges. The same rule, counted rather
+    than searched: a txn is ready once its count of undetermined
+    predecessors reaches zero, and a stall walks the min-predecessor
+    chain from the lowest undetermined txn, each row's predecessors
+    sorted with a pointer past those already determined (the set only
+    shrinks), to the first repeated txn; the victim is the minimum of the
+    cycle from there."""
+    is_c = np.zeros(n, bool)
+    is_c[np.asarray(list(cand), dtype=np.int64)] = True
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    keep = is_c[rows] & is_c[cols]
+    key = np.unique(rows[keep] * n + cols[keep])
+    rows, cols = key // n, key % n  # sorted by row, then column
+    pin = np.searchsorted(rows, np.arange(n + 1))
+    order = np.argsort(cols, kind="stable")
+    succ = rows[order]
+    sin = np.searchsorted(cols[order], np.arange(n + 1))
+    indeg = np.diff(pin)
+    undet = is_c.copy()
+    level = np.full(n, LEVEL_NONE, dtype=np.int64)
+    ptr = pin[:-1].copy()
+    ready = np.nonzero(undet & (indeg == 0))[0]
+    left, wave, low = int(undet.sum()), 0, 0
+
+    def release(done):
+        s = np.concatenate([succ[sin[i]:sin[i + 1]] for i in done])
+        s = s[undet[s]]
+        np.subtract.at(indeg, s, 1)
+        return np.unique(s[indeg[s] == 0])
+
+    def min_pred(j):
+        k = ptr[j]
+        while not undet[cols[k]]:
+            k += 1
+        ptr[j] = k
+        return int(cols[k])
+
+    while left:
+        if ready.size:
+            level[ready] = wave
+            undet[ready] = False
+            left -= ready.size
+            wave += 1
+            ready = release(ready)
+            continue
+        while not undet[low]:
+            low += 1
+        seen, path, j = {}, [], low
+        while j not in seen:
+            seen[j] = len(path)
+            path.append(j)
+            j = min_pred(j)
+        victim = min(path[seen[j]:])
+        level[victim] = LEVEL_CYCLE
+        undet[victim] = False
+        left -= 1
+        ready = release([victim])
+    return level.tolist()
+
+
 def schedule_graph(graph: WaveGraph) -> "tuple[list[int], int]":
     """Level every chunk of the combined graph on the host and stitch the
     chunk schedules into one coherent window schedule (chunk i+1's wave 0

@@ -2,7 +2,9 @@
 
 Each wrapper checks device, dtype, shape and contiguity, allocates outputs
 and scratch with ``torch.empty``, launches on the current CUDA stream, and
-raises if the C entry returns a CUDA error. ``LAUNCHES`` holds one integer
+raises if the C entry returns a CUDA error. K9 also has an unchecked
+launch into given buffers (``shard_clip_into``), for a window program
+that checks and allocates once a window. ``LAUNCHES`` holds one integer
 per kernel source, ``ENTRY_LAUNCHES`` one per C entry point; a wrapper
 adds one to both where it calls into its library and nowhere else. The
 libraries are built (build.py) the first time any wrapper runs, never at
@@ -51,7 +53,7 @@ _SIGNATURES = {
     },
     "wave": {
         "wv_pred": [_P] * 7 + [_I] * 4 + [_P] * 2,
-        "wv_level": [_P] * 4 + [_I] * 2 + [_P] * 5,
+        "wv_level": [_P] * 4 + [_I] * 2 + [_P] * 7,
     },
     "shard": {
         "sh_clip": [_P] * 6 + [_I] * 3 + [_P] * 2 + [_I] * 2 + [_P] * 7,
@@ -99,6 +101,7 @@ _SIGNATURES = {
     },
 }
 _LIBS: dict[str, ctypes.CDLL] = {}
+_FNS: dict[str, ctypes._CFuncPtr] = {}  # entry point -> bound function
 
 
 def reset_launches() -> None:
@@ -118,13 +121,23 @@ def ensure_built() -> None:
             f = getattr(lib, fn)
             f.argtypes = argtypes
             f.restype = ctypes.c_int
+            _FNS[fn] = f
         _LIBS[name] = lib
 
 
 def _call(source: str, fn: str, device: torch.device, *args) -> None:
-    ensure_built()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(_LIBS[source], fn)(*args, stream)
+    """Launch entry ``fn`` of ``source`` on the current stream of
+    ``device``. The bound function is looked up once (the build runs at
+    the first launch only) and the raw stream handle is read without
+    building a Stream object: a launch's host cost is this call."""
+    f = _FNS.get(fn)
+    if f is None:
+        ensure_built()
+        f = _FNS[fn]
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    rc = f(*args, torch._C._cuda_getCurrentRawStream(index))
     if rc != 0:
         raise RuntimeError(f"{source}.cu {fn}: CUDA error {rc}")
     LAUNCHES[source] += 1
@@ -410,15 +423,21 @@ def compact(skeys, newv, c_out: int, prior_overflow):
 
 # ----------------------------------------------------------------- K5, K6
 
-# K6 keeps two int32 arrays of BP and two bitsets of BP/32 words in the
-# shared memory of its one block (227 KB on the H100), which caps a wave
-# batch at WAVE_MAX_TXNS txns (ROADMAP: K6's multi-block round lifts it).
-_SMEM_LIMIT = 232448
-WAVE_MAX_TXNS = _SMEM_LIMIT * 32 // (8 * 33) // 32 * 32  # 28160
+# K6's stats build writes these int64 counters (wave.cu, WV_CLK_*): the
+# prologue's and the level kernel's globaltimer spans (ns), the level
+# kernel's clock64 cycles by phase, then counts of the whole leveling.
+WAVE_CLOCKS = ("prologue_t0", "prologue_t1", "level_t0", "level_t1",
+               "cycles", "init", "wave_rounds", "stall_rounds",
+               "stall_prefix", "stall_walk", "stall_rescan", "stall_release",
+               "walk_steps", "prefix_reused", "rescans", "rescan_words",
+               "decrements")
 
 
-def _wave_smem(bp: int) -> int:
-    return 8 * (bp + bp // 32)
+def _wave_scratch(bp: int) -> int:
+    """int32 words of K6's scratch (wv_level in wave.cu): the successor
+    rows, the in-degrees, the round state and the first wave."""
+    nw = bp // 32
+    return bp * nw + 5 * bp + 3 * nw
 
 
 def wave_pred(cand, rb, re_, read_live, wb, we, write_live, out=None):
@@ -439,21 +458,21 @@ def wave_pred(cand, rb, re_, read_live, wb, we, write_live, out=None):
 
 
 def wave_level(cand, p, too_old=None, txn_mask=None, stats=None, level=None,
-               verdicts=None):
+               verdicts=None, clocks=None):
     """(accepted bool [B], level int32 [B], verdicts int8 [B] or None):
     the wave schedule of the candidates over the packed predecessor rows
     ``p``; the verdicts need ``too_old`` and ``txn_mask``. ``level`` and
     ``verdicts`` are written in place when given; ``stats`` (int64 [5])
-    accumulates (batches, rounds, victims, max rounds, max victims)."""
+    accumulates (batches, rounds, victims, max rounds, max victims).
+    ``clocks`` (int64 [len(WAVE_CLOCKS)]) runs the stats build and takes
+    this launch's phase counters. Any batch size: the round state moves to
+    global scratch when it outgrows shared memory."""
     b = cand.shape[0]
     bp = p.shape[0]
     _check(cand, _bool, "cand", (b,))
     _check(p, _i32, "p", (bp, bp // 32))
     if bp % 32 or bp < b:
         raise ValueError(f"p: {bp} rows for {b} txns (want a multiple of 32)")
-    if _wave_smem(bp) > _SMEM_LIMIT:
-        raise ValueError(f"wave_level: {b} txns exceed one block's shared "
-                         f"memory ({WAVE_MAX_TXNS} at most)")
     dev = cand.device
     if level is None:
         level = torch.empty(b, dtype=_i32, device=dev)
@@ -470,14 +489,78 @@ def wave_level(cand, p, too_old=None, txn_mask=None, stats=None, level=None,
         raise ValueError("verdicts need too_old and txn_mask")
     if stats is not None:
         _check(stats, _i64, "stats", (5,))
+    if clocks is not None:
+        _check(clocks, _i64, "clocks", (len(WAVE_CLOCKS),))
     accepted = torch.empty(b, dtype=_bool, device=dev)
+    scratch = torch.empty(_wave_scratch(bp), dtype=_i32, device=dev)
     _call("wave", "wv_level", dev, _ptr(p), _ptr(cand), _ptr(too_old),
           _ptr(txn_mask), b, bp, _ptr(level), _ptr(accepted), _ptr(verdicts),
-          _ptr(stats))
+          _ptr(stats), _ptr(scratch), _ptr(clocks))
     return accepted, level, verdicts
 
 
 # ----------------------------------------------------------------- K8-K10
+
+
+def shard_clip_out(s: int, b: int, r: int, q: int, reads: bool, device):
+    """K9's outputs, carved from ONE allocation: (write_begin, write_end
+    int32 [S, B, Q], write_mask bool [S, B, Q], read_begin, read_end int32
+    [S, B, R], read_mask bool [S, B, R]), the read three None unless
+    ``reads``. The int32 views come first, so each starts 16-byte aligned
+    when S·B·Q and S·B·R are multiples of 4 (K9's vector path)."""
+    nq, nr = s * b * q, (s * b * r if reads else 0)
+    buf = torch.empty(4 * (2 * nq + 2 * nr) + nq + nr, dtype=torch.uint8,
+                      device=device)
+    ints = buf[:4 * (2 * nq + 2 * nr)].view(_i32)
+    masks = buf[4 * (2 * nq + 2 * nr):].view(_bool)
+    out = [ints[:nq].view(s, b, q), ints[nq:2 * nq].view(s, b, q),
+           masks[:nq].view(s, b, q)]
+    if not reads:
+        return tuple(out) + (None, None, None)
+    return tuple(out) + (ints[2 * nq:2 * nq + nr].view(s, b, r),
+                         ints[2 * nq + nr:].view(s, b, r),
+                         masks[nq:].view(s, b, r))
+
+
+def check_shard_clip(rb, re_, read_mask, wb, we, write_mask, lo, hi,
+                     reads: bool, out) -> None:
+    """K9's checks of a batch of rank arrays ([B, R] / [B, Q], or a window
+    of them, [k, B, R] / [k, B, Q]: every step's slice is then contiguous
+    too), the shard bounds and the outputs ``out`` (``shard_clip_out``)."""
+    lead = rb.shape[:-2]
+    b, r = rb.shape[-2:]
+    q = wb.shape[-1]
+    _check(rb, _i32, "read_begin")
+    _check(re_, _i32, "read_end", (*lead, b, r))
+    _check(read_mask, _bool, "read_mask", (*lead, b, r))
+    _check(wb, _i32, "write_begin", (*lead, b, q))
+    _check(we, _i32, "write_end", (*lead, b, q))
+    _check(write_mask, _bool, "write_mask", (*lead, b, q))
+    s = lo.shape[0]
+    _check(lo, _i32, "shard_lo", (s,))
+    _check(hi, _i32, "shard_hi", (s,))
+    for name, t, dtype, width in (
+            ("write_begin", out[0], _i32, q), ("write_end", out[1], _i32, q),
+            ("write_mask", out[2], _bool, q), ("read_begin", out[3], _i32, r),
+            ("read_end", out[4], _i32, r), ("read_mask", out[5], _bool, r)):
+        if t is None:
+            if reads:
+                raise ValueError(f"out {name}: needed with reads")
+            continue
+        _check(t, dtype, f"out {name}", (s, b, width))
+
+
+def shard_clip_into(rb, re_, read_mask, wb, we, write_mask, lo, hi,
+                    reads: bool, out) -> None:
+    """K9 into ``out``, unchecked: the window program's launch of each
+    step, after ``check_shard_clip`` of the window's arrays."""
+    s, b, q = out[0].shape
+    _call("shard", "sh_clip", lo.device, rb.data_ptr(), re_.data_ptr(),
+          read_mask.data_ptr(), wb.data_ptr(), we.data_ptr(),
+          write_mask.data_ptr(), b, rb.shape[-1], q, lo.data_ptr(),
+          hi.data_ptr(), s, int(reads), out[0].data_ptr(),
+          out[1].data_ptr(), out[2].data_ptr(), _ptr(out[3]), _ptr(out[4]),
+          _ptr(out[5]))
 
 
 def shard_clip(rb, re_, read_mask, wb, we, write_mask, lo, hi, reads: bool):
@@ -486,24 +569,13 @@ def shard_clip(rb, re_, read_mask, wb, we, write_mask, lo, hi, reads: bool):
     read_begin, read_end int32 [S, B, R], read_mask bool [S, B, R]); the
     read three are None unless ``reads``. A clipped mask is the mask and
     begin < end after the clamp."""
-    b, r, q = _check_ranks(rb, re_, read_mask, wb, we, write_mask)
-    s = lo.shape[0]
-    _check(lo, _i32, "shard_lo", (s,))
-    _check(hi, _i32, "shard_hi", (s,))
-    dev = lo.device
-    owb, owe = (torch.empty((s, b, q), dtype=_i32, device=dev)
-                for _ in range(2))
-    owm = torch.empty((s, b, q), dtype=_bool, device=dev)
-    orb = ore = orm = None
-    if reads:
-        orb, ore = (torch.empty((s, b, r), dtype=_i32, device=dev)
-                    for _ in range(2))
-        orm = torch.empty((s, b, r), dtype=_bool, device=dev)
-    _call("shard", "sh_clip", dev, _ptr(rb), _ptr(re_), _ptr(read_mask),
-          _ptr(wb), _ptr(we), _ptr(write_mask), b, r, q, _ptr(lo), _ptr(hi),
-          s, int(reads), _ptr(owb), _ptr(owe), _ptr(owm), _ptr(orb),
-          _ptr(ore), _ptr(orm))
-    return owb, owe, owm, orb, ore, orm
+    b, r = rb.shape
+    out = shard_clip_out(lo.shape[0], b, r, wb.shape[1], reads, lo.device)
+    check_shard_clip(rb, re_, read_mask, wb, we, write_mask, lo, hi, reads,
+                     out)
+    shard_clip_into(rb, re_, read_mask, wb, we, write_mask, lo, hi, reads,
+                    out)
+    return out
 
 
 def shard_probe(keys, table, read_begin, read_end, read_mask, read_version,

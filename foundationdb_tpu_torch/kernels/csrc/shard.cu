@@ -13,10 +13,14 @@
 //
 // K9 is elementwise and bound by bytes: per shard it reads the batch's
 // endpoint ranks and masks and writes their clamped copies (S x B x Q
-// writes, and S x B x R reads on a wave engine). One thread per output
-// element of the [S, ...] arrays; the clamp is the same two-sided
+// writes, and S x B x R reads on a wave engine). One block row per (shard,
+// array), four elements a thread with 16-byte loads and stores where the
+// lengths and pointers allow; the clamp is the same two-sided
 // min(max(v, lo), hi) on both endpoints, a monotone map, so the host's
 // paint order of the unclipped endpoints stays sorted for every shard.
+// Its card work is microseconds: what a launch costs is the host's
+// wrapper, so the window program checks shapes once a window and clips
+// into buffers it allocates once a window (kernels.shard_clip_into).
 //
 // K8 is one launch over every (read slot, shard) pair (grid.y = S): the
 // slot's range clamped to the shard, two binary searches in the shard's
@@ -85,34 +89,53 @@ static inline int blocks(int64_t n, int t) { return (int)((n + t - 1) / t); }
 
 // ------------------------------------------------------------------ K9
 
-// Thread t < S*nq clips write element t; past it (reads on), read element
-// t - S*nq.
-__global__ void k_clip(const int* rb, const int* re, const bool* rm,
-                       const int* wb, const int* we, const bool* wm,
-                       int64_t nr, int64_t nq, const int* lo, const int* hi,
-                       int S, bool reads, int* owb, int* owe, bool* owm,
-                       int* orb, int* ore, bool* orm) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  int64_t nw_all = (int64_t)S * nq;
-  const int *a, *z;
-  const bool* m;
-  int *oa, *oz;
-  bool* om;
-  int64_t n;
-  if (t < nw_all) {
-    a = wb; z = we; m = wm; oa = owb; oz = owe; om = owm; n = nq;
+// blockIdx.y < S clips shard y's writes, past it (reads on) shard y - S's
+// reads; each thread four consecutive elements of its array (int4 loads and
+// stores of the endpoints, 4 mask bytes at once) when every length is a
+// multiple of 4 and every pointer aligned (VEC), else one element.
+template <bool VEC>
+__global__ void k_clip(const int* __restrict__ rb, const int* __restrict__ re,
+                       const bool* __restrict__ rm,
+                       const int* __restrict__ wb, const int* __restrict__ we,
+                       const bool* __restrict__ wm, int64_t nr, int64_t nq,
+                       const int* __restrict__ lo, const int* __restrict__ hi,
+                       int S, int* owb, int* owe, bool* owm, int* orb,
+                       int* ore, bool* orm) {
+  const bool rd = blockIdx.y >= (unsigned)S;
+  const int s = rd ? blockIdx.y - S : blockIdx.y;
+  const int *a = rd ? rb : wb, *z = rd ? re : we;
+  const bool* m = rd ? rm : wm;
+  const int64_t n = rd ? nr : nq;
+  int* oa = (rd ? orb : owb) + s * n;
+  int* oz = (rd ? ore : owe) + s * n;
+  bool* om = (rd ? orm : owm) + s * n;
+  const int l = lo[s], h = hi[s];
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (VEC) {
+    if (4 * t >= n) return;
+    const int4 x = reinterpret_cast<const int4*>(a)[t];
+    const int4 y = reinterpret_cast<const int4*>(z)[t];
+    const uchar4 k = reinterpret_cast<const uchar4*>(m)[t];
+    const int4 cx = make_int4(clamp(x.x, l, h), clamp(x.y, l, h),
+                              clamp(x.z, l, h), clamp(x.w, l, h));
+    const int4 cy = make_int4(clamp(y.x, l, h), clamp(y.y, l, h),
+                              clamp(y.z, l, h), clamp(y.w, l, h));
+    reinterpret_cast<int4*>(oa)[t] = cx;
+    reinterpret_cast<int4*>(oz)[t] = cy;
+    reinterpret_cast<uchar4*>(om)[t] = make_uchar4(
+        k.x && cx.x < cy.x, k.y && cx.y < cy.y, k.z && cx.z < cy.z,
+        k.w && cx.w < cy.w);
   } else {
-    t -= nw_all;
-    if (!reads || t >= (int64_t)S * nr) return;
-    a = rb; z = re; m = rm; oa = orb; oz = ore; om = orm; n = nr;
+    if (t >= n) return;
+    const int x = clamp(a[t], l, h), y = clamp(z[t], l, h);
+    oa[t] = x;
+    oz[t] = y;
+    om[t] = m[t] && x < y;
   }
-  int s = (int)(t / n);
-  int64_t i = t % n;
-  int l = lo[s], h = hi[s];
-  int x = clamp(a[i], l, h), y = clamp(z[i], l, h);
-  oa[t] = x;
-  oz[t] = y;
-  om[t] = m[i] && x < y;
+}
+
+static inline bool aligned(const void* p, uintptr_t a) {
+  return ((uintptr_t)p & (a - 1)) == 0;
 }
 
 extern "C" int sh_clip(const int* rb, const int* re, const bool* rm,
@@ -121,12 +144,23 @@ extern "C" int sh_clip(const int* rb, const int* re, const bool* rm,
                        int reads, int* owb, int* owe, bool* owm, int* orb,
                        int* ore, bool* orm, cudaStream_t s) {
   const int T = 256;
-  int64_t nr = (int64_t)B * R, nq = (int64_t)B * Q;
-  int64_t n = (int64_t)S * (nq + (reads ? nr : 0));
-  if (n > 0)
-    k_clip<<<blocks(n, T), T, 0, s>>>(rb, re, rm, wb, we, wm, nr, nq, lo, hi,
-                                      S, reads != 0, owb, owe, owm, orb, ore,
-                                      orm);
+  const int64_t nr = (int64_t)B * R, nq = (int64_t)B * Q;
+  const int64_t n = reads && nr > nq ? nr : nq;
+  if (n <= 0 || S <= 0) return (int)cudaGetLastError();
+  bool vec = nq % 4 == 0 && aligned(wb, 16) && aligned(we, 16) &&
+             aligned(owb, 16) && aligned(owe, 16) && aligned(wm, 4) &&
+             aligned(owm, 4);
+  if (reads)
+    vec = vec && nr % 4 == 0 && aligned(rb, 16) && aligned(re, 16) &&
+          aligned(orb, 16) && aligned(ore, 16) && aligned(rm, 4) &&
+          aligned(orm, 4);
+  const dim3 grid(blocks(vec ? n / 4 : n, T), S * (reads ? 2 : 1));
+  if (vec)
+    k_clip<true><<<grid, T, 0, s>>>(rb, re, rm, wb, we, wm, nr, nq, lo, hi, S,
+                                    owb, owe, owm, orb, ore, orm);
+  else
+    k_clip<false><<<grid, T, 0, s>>>(rb, re, rm, wb, we, wm, nr, nq, lo, hi,
+                                     S, owb, owe, owm, orb, ore, orm);
   return (int)cudaGetLastError();
 }
 

@@ -1550,6 +1550,36 @@ def shard_clip(rbk: RankBatch, lo, hi, reads: bool) -> ShardClip:
     return shard_clip_plain(rbk, lo, hi, reads)
 
 
+class WindowClip(NamedTuple):
+    """K9 for every step of a window: its buffers, allocated once and
+    checked once against the window's [k, ...] rank arrays; ``step``
+    clips step i into them unchecked (on the card) or through the plain
+    version (on the CPU)."""
+
+    out: ShardClip | None
+    lo: torch.Tensor
+    hi: torch.Tensor
+    reads: bool
+
+    @classmethod
+    def of(cls, ranks: RankBatch, lo, hi, reads: bool) -> "WindowClip":
+        out = None
+        if _on_card(lo):
+            _, b, r = ranks.read_begin.shape
+            q = ranks.write_begin.shape[2]
+            out = ShardClip(*K.shard_clip_out(lo.shape[0], b, r, q, reads,
+                                              lo.device))
+            K.check_shard_clip(*ranks[:6], lo, hi, reads, out)
+        return cls(out, lo, hi, reads)
+
+    def step(self, rbk: RankBatch) -> ShardClip:
+        if _on_card(self.lo):
+            K.shard_clip_into(*rbk[:6], self.lo, self.hi, self.reads,
+                              self.out)
+            return self.out
+        return shard_clip_plain(rbk, self.lo, self.hi, self.reads)
+
+
 def shard_ranks(rbk: RankBatch, clip: ShardClip, s: int) -> RankBatch:
     """Shard s's view of the batch: its clipped writes, and its clipped
     reads where the clip has them."""
@@ -1727,7 +1757,8 @@ def _sharded_step_plain(hist: ConflictState, lo, hi, rbk: RankBatch,
 def _sharded_step(hist: ConflictState, lo, hi, rbk: RankBatch,
                   commit_version: int, new_oldest, wave: bool = False,
                   stats=None, verdicts_out=None, levels_out=None,
-                  xstats_out=None, rmq: str = "sparse"):
+                  xstats_out=None, rmq: str = "sparse",
+                  wclip: WindowClip | None = None):
     """One step of the JAX ``_res_shard_step`` on every shard. On the card:
     K9, K2's table and K8 (blocked: K17's build and sharded probe), then K3
     once on the unclipped batch, or K5 per shard, K10 and K6 on the
@@ -1742,7 +1773,8 @@ def _sharded_step(hist: ConflictState, lo, hi, rbk: RankBatch,
                 None if lv is None else _written(levels_out, lv),
                 None if x is None else _written(xstats_out, x), hist)
     floor = torch.maximum(hist.oldest, _i32(new_oldest, hist.oldest.device))
-    clip = shard_clip(rbk, lo, hi, wave)
+    clip = (shard_clip(rbk, lo, hi, wave) if wclip is None
+            else wclip.step(rbk))
     too_old, _, cand = shard_probe(hist, rbk, lo, hi, floor[0], rmq)
     levels = xstats = None
     if wave:
@@ -1800,12 +1832,13 @@ def sharded_resolve_res_many(res: ResState, rb: ResidentBatch,
     if wave and xstats is None:
         xstats = torch.empty((k, 2), dtype=torch.int32, device=dev)
     hist = res.hist
+    wclip = WindowClip.of(rb.ranks, res.shard_lo, res.shard_hi, wave)
     for i in range(k):
         *_, hist = _sharded_step(
             hist, res.shard_lo, res.shard_hi, _step(rb.ranks, i),
             int(commit_versions[i]), int(new_oldests[i]), wave, stats,
             out.verdicts[i], out.levels[i] if wave else None,
-            xstats[i] if wave else None, rmq)
+            xstats[i] if wave else None, rmq, wclip)
     return out.verdicts, out.levels, xstats if wave else None, \
         res._replace(hist=hist)
 
@@ -1842,12 +1875,14 @@ def _paint_many_sharded(res: ResState, rb: ResidentBatch, accepted,
             LAUNCHES["paint_many"] += 1
         res = apply_delta(res, rb.delta_keys, n_new)
     hist = res.hist
-    clip_fn = shard_clip_plain if plain else shard_clip
+    wclip = None if plain else WindowClip.of(rb.ranks, res.shard_lo,
+                                             res.shard_hi, False)
     for i in range(rb.ranks.txn_mask.shape[0]):
         rbk = _step(rb.ranks, i)
         floor = torch.maximum(hist.oldest,
                               _i32(int(new_oldests[i]), hist.oldest.device))
-        clip = clip_fn(rbk, res.shard_lo, res.shard_hi, False)
+        clip = (shard_clip_plain(rbk, res.shard_lo, res.shard_hi, False)
+                if plain else wclip.step(rbk))
         hist = _paint_shards(hist, rbk, clip, accepted[i],
                              int(commit_versions[i]), floor, plain)
     return res._replace(hist=hist)

@@ -62,7 +62,6 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from foundationdb_tpu_torch import kernels as K
 from foundationdb_tpu_torch import native
 from foundationdb_tpu_torch.admission.filter import u64_cols_fingerprint
 from foundationdb_tpu_torch.core import wavemesh
@@ -693,14 +692,6 @@ class TorchConflictSet:
         # batch dictionary over a [C, W] word-key history, K12 and K13).
         # The unpacked engine has no dictionary: resident is inert there.
         self.resident = resident is not False and packed
-        if (wave_commit and batch_size > K.WAVE_MAX_TXNS
-                and torch.device("cuda" if device is None else device).type
-                == "cuda"):
-            raise ValueError(
-                f"TorchConflictSet(wave_commit=True) on cuda takes at most "
-                f"batch_size={K.WAVE_MAX_TXNS} (K6 levels a batch in one "
-                f"thread block), not {batch_size}: see ROADMAP.md Queue 2, "
-                "K6 wave_level")
         self.device = resolve_device(device)
         self.codec = KeyCodec(max_key_bytes)
         self.dict_capacity = int(

@@ -278,19 +278,71 @@ def test_wave_level_adversarial_graphs(card, shape):
     assert torch.equal(st[0], st[1])
 
 
-def test_wave_engine_at_the_batch_limit(card):
-    """A cuda wave engine at K6's largest batch (one block's shared
-    memory) resolves like the CPU plain path; one more txn is refused."""
+def big_graph(b: int, n: int, kind: str, rng, dev):
+    """(cand bool [b], p int32 [BP, BP/32]) on ``dev``: n candidates spread
+    over a batch of b txns, their edges random, one chain, one ring with
+    chords, or nested small cycles; built from an edge list on the card
+    (a dense [b, b] on the host would be gigabytes)."""
+    bp = (b + 31) // 32 * 32
+    idx = np.sort(rng.choice(b, size=n, replace=False))
+    cand = np.zeros(b, bool)
+    cand[idx] = True
+    if kind == "random":
+        e = rng.integers(0, n, (4 * n, 2))
+    elif kind == "chain":
+        e = np.stack([np.arange(1, n), np.arange(n - 1)], 1)
+    elif kind == "ring":
+        e = np.concatenate([np.stack([np.arange(n), (np.arange(n) + 1) % n],
+                                     1), rng.integers(0, n, (n // 3, 2))])
+    else:
+        e = []
+        for s in range(0, n, 9):
+            t = min(n, s + int(rng.integers(2, 14)))
+            e += [(j + 1, j) for j in range(s, t - 1)] + [(s, t - 1)]
+        e = np.concatenate([np.array(e).reshape(-1, 2),
+                            rng.integers(0, n, (n // 20 + 1, 2))])
+    j, i = idx[e[:, 0]], idx[e[:, 1]]
+    key = np.unique(j[j != i].astype(np.int64) * bp + i[j != i])
+    j, i = key // bp, key % bp
+    nw = bp // 32
+    flat = torch.zeros(bp * nw, dtype=torch.int64, device=dev)
+    flat.index_add_(0, on(j * nw + (i >> 5), dev), on(np.int64(1) << (i & 31),
+                                                         dev))
+    p = ((flat + 2**31) % 2**32 - 2**31).to(torch.int32).view(bp, nw)
+    return on(cand, dev), p
+
+
+@pytest.mark.parametrize("b", [32768, 57344])
+@pytest.mark.parametrize("kind", ["random", "chain", "ring", "nested"])
+def test_wave_level_at_big_batches(card, b, kind):
+    """K6 at batches whose round state does not fit in one block's shared
+    memory (it lives in global scratch): levels, verdicts and stats equal
+    the plain version's."""
+    rng = np.random.default_rng(b + len(kind))
+    cand, p = big_graph(b, 600, kind, rng, card)
+    too_old = on(rng.random(b) < 0.05, card) & ~cand
+    tmask = cand | too_old
+    st = [torch.zeros(5, dtype=torch.int64, device=card) for _ in range(2)]
+    got = ck.wave_level(cand, p, too_old, tmask, stats=st[0])
+    want = ck.wave_level_plain(cand, p, too_old, tmask, stats=st[1])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert torch.equal(st[0], st[1])
+    assert int(st[0][1]) > (50 if kind != "chain" else 599)
+
+
+@pytest.mark.parametrize("batch_size", [32768, 57344])
+def test_wave_engine_at_big_batches(card, batch_size):
+    """A cuda wave engine at a batch size whose K6 round state does not
+    fit in one block's shared memory constructs and resolves like the CPU
+    plain engine: verdicts, levels and conflicting-key reports."""
     from foundationdb_tpu_torch import kernels as K
 
     kw = dict(capacity=4096, max_read_ranges=4, max_write_ranges=4,
               max_key_bytes=8, wave_commit=True)
-    with pytest.raises(ValueError, match="ROADMAP.md Queue 2"):
-        TorchConflictSet(device=card, batch_size=K.WAVE_MAX_TXNS + 1, **kw)
-    eng = {card: TorchConflictSet(device=card, batch_size=K.WAVE_MAX_TXNS,
-                                  **kw),
+    eng = {card: TorchConflictSet(device=card, batch_size=batch_size, **kw),
            "cpu": TorchConflictSet(device="cpu", batch_size=512, **kw)}
-    rng = np.random.default_rng(9)
+    rng = np.random.default_rng(batch_size)
     K.reset_launches()
     for i in range(3):
         cv = 1000 + 10 * i
@@ -409,6 +461,25 @@ def test_shard_clip(card, b, r, q, s, empty):
         want = ck.shard_clip_plain(rbk, lo, hi, reads)
         for g, w in zip(got, want):
             assert (g is None and w is None) or torch.equal(g, w)
+
+
+@pytest.mark.parametrize("b,r,q,s", [(30, 3, 1, 4), (33, 2, 2, 3),
+                                     (8192, 2, 1, 4)])
+def test_shard_clip_window_buffers(card, b, r, q, s):
+    """K9 as the window program launches it: buffers and checks once a
+    window (``ck.WindowClip``), every step clipped into them; the vector
+    path (B·Q and B·R multiples of 4) and the scalar one."""
+    rng = np.random.default_rng(b + q)
+    steps = [rank_batch(rng, b, r, q, 200, card) for _ in range(3)]
+    window = ck.RankBatch(*(torch.stack(x) for x in zip(*steps)))
+    lo, hi = (on(x, card) for x in shard_bounds(s, 200, True))
+    for reads in (False, True):
+        wclip = ck.WindowClip.of(window, lo, hi, reads)
+        for i in range(3):
+            got = wclip.step(ck._step(window, i))
+            want = ck.shard_clip_plain(steps[i], lo, hi, reads)
+            for g, w in zip(got, want):
+                assert (g is None and w is None) or torch.equal(g, w)
 
 
 def sharded_history(s, capacity, dev, seed=0):

@@ -334,3 +334,18 @@ def test_ctypes_signatures_match_the_c_entry_points():
                     for p in params]
             got = ["P" if t is ctypes.c_void_p else "I" for t in argtypes]
             assert got == want, f"{source}.cu {fn}: {got} vs {want}"
+
+
+def test_wave_clock_names_match_the_c_counters():
+    """``kernels.WAVE_CLOCKS`` names K6's stats-build counters in the order
+    of the ``WV_CLK_*`` enum of ``csrc/wave.cu``, one name each."""
+    import re
+
+    from foundationdb_tpu_torch import kernels
+
+    text = (ROOT / "foundationdb_tpu_torch" / "kernels" / "csrc"
+            / "wave.cu").read_text()
+    body = re.search(r"enum \{(.*?)\};", text, re.S).group(1)
+    names = re.findall(r"WV_CLK_(\w+)", body)
+    assert names[-1] == "N"
+    assert len(names) - 1 == len(kernels.WAVE_CLOCKS)

@@ -157,6 +157,46 @@ def test_clip_ranks_equal_jax(b):
             same(getattr(view, f), getattr(want, f), f"clip {s}.{f}")
 
 
+@pytest.mark.parametrize("reads", [False, True])
+def test_window_clip_equals_jax_every_step(reads):
+    """K9 as the window program runs it (``tck.WindowClip``: one set of
+    buffers and one check a window, each step clipped into them) equals
+    JAX ``clip_ranks`` of every shard at every step on the CPU, and
+    ``kernels.shard_clip_out`` carves K9's six outputs, of the plain
+    version's shapes and dtypes, from one allocation, the int32 ones
+    first."""
+    from foundationdb_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(7 + reads)
+    steps = [rank_batch(rng, 30, 3, 2, 60) for _ in range(3)]
+    lo = np.array([0, 13, 13, 40], np.int32)
+    hi = np.array([13, 13, 40, jck.INT32_MAX], np.int32)
+    window = tck.RankBatch(*(T(np.stack(x)) for x in zip(*steps)))
+    wclip = tck.WindowClip.of(window, T(lo), T(hi), reads)
+    for i, jrb in enumerate(steps):
+        clip = wclip.step(tck._step(window, i))
+        assert (clip.read_begin is None) == (not reads)
+        for s in range(4):
+            want = jck.clip_ranks(jrb, jnp.int32(lo[s]), jnp.int32(hi[s]))
+            view = tck.shard_ranks(tck._step(window, i), clip, s)
+            for f in (("read_begin", "read_end", "read_mask") * reads
+                      + ("write_begin", "write_end", "write_mask")):
+                same(getattr(view, f), getattr(want, f), f"{i}.{s}.{f}")
+    out = K.shard_clip_out(4, 30, 3, 2, reads, "cpu")
+    want = tck.shard_clip_plain(tck._step(window, 1), T(lo), T(hi), reads)
+    for o, w in zip(out, want):
+        assert (o is None) == (w is None)
+        assert w is None or (o.shape == w.shape and o.dtype == w.dtype)
+    base = out[0].data_ptr()
+    spans = sorted((t.data_ptr() - base, t.numel() * t.element_size())
+                   for t in out if t is not None)
+    assert all(a + n <= b for (a, n), (b, _) in zip(spans, spans[1:]))
+    assert [t.dtype for t in out if t is not None] == \
+        [torch.int32, torch.int32, torch.bool] * (2 if reads else 1)
+    assert all((t.data_ptr() - base) % 16 == 0 for t in out
+               if t is not None and t.dtype == torch.int32)
+
+
 @pytest.mark.parametrize("b", [32, 30])
 def test_flat_probe_and_or_equal_jax(jax_mesh, b):
     """K8's plain version vs the JAX per-shard probe + the mesh's OR: the

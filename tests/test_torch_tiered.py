@@ -11,6 +11,8 @@ stationary thrash regime (demotion cannot free room: full repacks), the
 deferred demotion of the threaded window path, and the victim policy.
 """
 
+import threading
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -235,3 +237,88 @@ def test_demote_victim_policy_equals_jax():
     assert mir.n == n0 - demoted and mir.hot_by_id[pinned_ids].all()
     assert int(mir.pinned[:mir.n].sum()) == 2
     same_engine(pair.port, pair.jax, "after the sweep")
+
+
+def test_deferred_demotion_gate_order_settled_by_the_oracle():
+    """ROADMAP Queue 3's departure in ``_demote_and_rank``, settled.
+    JAX function: ``TPUConflictSet._demote_and_rank``
+    (``foundationdb_tpu/models/conflict_set.py:1165-1170``) opens the
+    mirror's gate, then re-packs the stalled window; the port re-packs,
+    then opens it. Input: ``hotspot_windows(b"w", 24, 16, 5)`` on a tiered
+    engine (hot tier 384, delta slots 128, ``WINDOW_KW``); windows 15 and
+    20 defer a demotion. First output that differs: with the interleaving
+    the JAX order allows (the packing thread, woken by the open gate,
+    packs window 16 before window 15's re-pack runs) JAX's verdicts leave
+    the oracle's from window 16 on; run in order, JAX equals the oracle.
+    The port holds its gate closed through the re-pack (a spy sees it
+    closed there, and open there in JAX), and its threaded runner with
+    windows packed ahead equals the oracle and the in-order JAX run
+    verdict for verdict. Neither a plain twin nor a kernel is involved:
+    the difference is the host's order of gate and re-pack."""
+    from foundationdb_tpu.models.conflict_set import _DemotePlan
+    from tests.test_torch_window import oracle_window
+
+    windows = hotspot_windows(b"w", 24, 16, 5)
+    tier = dict(dict_hot_capacity=384, dict_delta_slots=128)
+
+    def oracle_rows():
+        oracle = OracleConflictSet()
+        return [oracle_window(oracle, txns, cvs, 16,
+                              WINDOW_KW["window_versions"])
+                for txns, cvs in windows]
+
+    want = oracle_rows()
+
+    def jax_run(race: bool):
+        jcs = TPUConflictSet(resident=True, **tier, **WINDOW_KW)
+        real, gate_open, prepared, rows = jcs._pack_resident, [], {}, []
+        for w, (txns, cvs) in enumerate(windows):
+            p = prepared.pop(w, None) or jcs.pack_wire_window(jenc(txns),
+                                                              cvs, 16)
+            if isinstance(p.batch, _DemotePlan):
+                def repack(bt, defer_repack=False, nxt=w + 1):
+                    jcs._pack_resident = real
+                    gate_open.append(jcs._mirror.gate.is_set())
+                    if race and nxt < len(windows):
+                        t2, c2 = windows[nxt]
+                        prepared[nxt] = jcs.pack_wire_window(jenc(t2), c2,
+                                                             16)
+                    return real(bt, defer_repack)
+                jcs._pack_resident = repack
+            rows.append(np.asarray(jcs.dispatch_window(p)()))
+            jcs._pack_resident = real
+        return rows, gate_open
+
+    in_order, gate_open = jax_run(race=False)
+    assert gate_open == [True, True]
+    assert all(np.array_equal(a, b) for a, b in zip(in_order, want))
+    raced, _ = jax_run(race=True)
+    differ = [w for w, (a, b) in enumerate(zip(raced, want))
+              if not np.array_equal(a, b)]
+    assert differ and differ[0] == 16, differ
+
+    tcs = TorchConflictSet(device="cpu", **tier, **WINDOW_KW)
+    real_ranked, port_gate = tcs._pack_ranked, []
+
+    def spy(bt, defer_repack=False):
+        if threading.current_thread() is threading.main_thread():
+            port_gate.append(tcs._mirror.gate.is_set())
+        return real_ranked(bt, defer_repack)
+
+    tcs._pack_ranked = spy
+    runner = PipelinedWindowRunner(tcs, threaded=True, max_pending=4)
+    try:
+        for txns, cvs in windows[:4]:
+            runner.submit(tenc([port_txn(t) for t in txns]), cvs, 16)
+        got = []
+        for txns, cvs in windows[4:]:
+            got.append(runner.collect_next())
+            runner.submit(tenc([port_txn(t) for t in txns]), cvs, 16)
+        got += [runner.collect_next() for _ in range(4)]
+    finally:
+        runner.close()
+    st = tcs.dict_stats
+    assert st["demotion_stalls"] > 0 and st["full_repacks"] == 0, st
+    assert port_gate and not any(port_gate), port_gate
+    for w, (a, b, c) in enumerate(zip(got, want, in_order)):
+        assert np.array_equal(a, b) and np.array_equal(a, c), w

@@ -515,22 +515,117 @@ def test_wave_with_unported_design_raises(kw):
             np.asarray(v).tobytes(), k
 
 
-def test_wave_batch_over_one_block_is_refused_on_cuda():
-    """K6 levels a batch in one thread block: a cuda wave engine whose
-    batch would not fit its shared memory is refused when it is built,
-    before any state exists; the CPU plain path takes any batch size."""
-    from foundationdb_tpu_torch import kernels as K
+def stress_graph(kind: str):
+    """(B, candidates, {j: predecessors}) of a graph that stresses K6's
+    bookkeeping (the in-degrees, the ready list, the lazy witnesses and
+    the reused walk prefix): predecessors are candidates only."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "chain300":  # one wave per txn, B not a multiple of 32
+        return 300, list(range(300)), {j: {j + 1} for j in range(299)}
+    if kind == "nested_cycles":  # rings inside rings, tails into them
+        pred = {j: {(j + 1) % 60} for j in range(60)}
+        for a_, b_ in ((0, 20), (20, 40), (5, 15), (25, 35), (41, 59)):
+            pred[b_].add(a_)
+        pred.update({j: {j - 1, int(rng.integers(0, 60))}
+                     for j in range(61, 97)})
+        pred[60] = {7}
+        return 97, list(range(97)), pred
+    if kind == "overlapping_cycles":  # rings sharing txns, a chain after
+        pred = {}
+        for start, size in ((0, 9), (4, 11), (10, 7), (13, 23), (30, 5)):
+            ring_ = list(range(start, start + size))
+            for x, y in zip(ring_, ring_[1:] + ring_[:1]):
+                pred.setdefault(y, set()).add(x)
+        pred.update({j: {j - 1} for j in range(36, 130)})
+        return 130, list(range(130)), pred
+    if kind == "strongly_connected":  # one SCC over every candidate
+        n = 200
+        pred = {j: {(j + 1) % n} for j in range(n)}
+        for _ in range(120):
+            i, j = (int(x) for x in rng.integers(0, n, 2))
+            if i != j:
+                pred[j].add(i)
+        return n, list(range(n)), pred
+    # "padded_32768": a full-size padded batch, a few hundred candidates
+    # spread over it: chains up to 30 waves long and small cycles with
+    # tails, so that a row, its witness and its successors sit far apart.
+    b = 32768
+    cand = sorted(rng.choice(b, 320, replace=False).tolist())
+    pred = {}
+    for c0 in range(0, 240, 30):
+        for x, y in zip(cand[c0:c0 + 30], cand[c0 + 1:c0 + 30]):
+            pred.setdefault(x, set()).add(y)
+    for c0 in range(240, 320, 10):
+        ring_ = cand[c0:c0 + 4]
+        for x, y in zip(ring_, ring_[1:] + ring_[:1]):
+            pred.setdefault(y, set()).add(x)
+        for x, y in zip(cand[c0 + 3:c0 + 10], cand[c0 + 4:c0 + 10]):
+            pred.setdefault(y, set()).add(x)
+    return b, cand, pred
 
-    limit = K.WAVE_MAX_TXNS
-    assert K._wave_smem(limit) <= K._SMEM_LIMIT < K._wave_smem(limit + 32)
-    small = dict(capacity=64, max_read_ranges=1, max_write_ranges=1,
-                 max_key_bytes=8)
-    for device in (None, "cuda"):
-        with pytest.raises(ValueError, match=f"batch_size={limit} .*"
-                           "ROADMAP.md Queue 2"):
-            TorchConflictSet(device=device, wave_commit=True,
-                             batch_size=limit + 1, **small)
-    cs = TorchConflictSet(device="cpu", wave_commit=True,
-                          batch_size=limit + 1, **small)
-    assert cs.wave_commit and cs.batch_size == limit + 1
 
+@pytest.mark.parametrize("kind", ["chain300", "nested_cycles",
+                                  "overlapping_cycles", "strongly_connected",
+                                  "padded_32768"])
+def test_plain_leveling_on_stress_graphs_equals_jax_and_host_replay(kind):
+    """K6's plain twin against JAX ``wave_level_from_graph`` (the global
+    matrix entry, B not a multiple of 32 included) and the host replay
+    ``wavemesh.level_wave_graph``: levels, victims and the round count
+    (waves plus victims); a cuda wave engine takes any batch size, so the
+    port's leveling is held at a padded 32,768-txn batch too."""
+    b, cands, pred = stress_graph(kind)
+    cand = np.zeros(b, bool)
+    cand[cands] = True
+    p = jwm.pack_pred_rows({j: s for j, s in pred.items() if s}, b)
+    bp = p.shape[0]
+    ja, jl = jax.jit(jck.wave_level_from_graph)(jnp.asarray(cand),
+                                                jnp.asarray(p))
+    want = np.asarray(jl).tolist()
+    stats = torch.zeros(5, dtype=torch.int64)
+    acc, got, _ = tck.wave_level_plain(torch.from_numpy(cand),
+                                       torch.from_numpy(p.view(np.int32)),
+                                       stats=stats)
+    assert got.numpy().tolist() == want
+    assert acc.numpy().tolist() == np.asarray(ja).tolist()
+    replay = twm.level_wave_graph(bp, set(cands), pred)[:b]
+    assert replay == want
+    victims = want.count(tck.LEVEL_CYCLE)
+    waves = max(want) + 1
+    assert stats.tolist() == [1, waves + victims, victims, waves + victims,
+                              victims]
+    if kind == "chain300":
+        assert waves == 300 and victims == 0
+    else:
+        assert victims > 0
+
+
+@pytest.mark.parametrize("name", sorted(GRAPHS) + [
+    "chain300", "nested_cycles", "overlapping_cycles", "strongly_connected",
+    "padded_32768"])
+def test_edge_list_replay_equals_level_wave_graph(name):
+    """``wavemesh.level_wave_edges`` (the host replay the smoke runs on
+    32,768-txn batches) against ``level_wave_graph`` of the port and of
+    the JAX package, on the same graphs: edges touching a non-candidate
+    and repeated edges are ignored."""
+    if name in GRAPHS:
+        n, pred = GRAPHS[name]
+        rng = np.random.default_rng(len(name))
+        cands = [j for j in range(n) if rng.random() >= 0.1]
+    else:
+        n, cands, pred = stress_graph(name)
+    rows = [j for j, s in pred.items() for _ in s]
+    cols = [i for s in pred.values() for i in s]
+    noise = np.random.default_rng(5).integers(0, n, (2, 40))
+    rows += rows[:7] + noise[0].tolist()  # repeats, and edges that the
+    cols += cols[:7] + noise[1].tolist()  # candidate filter must drop
+    cset = set(cands)
+    keep = [(r, c) for r, c in zip(noise[0], noise[1])
+            if r in cset and c in cset and r != c]
+    full = {j: set(s) & cset for j, s in pred.items()}
+    for r, c in keep:
+        full.setdefault(int(r), set()).add(int(c))
+    want = twm.level_wave_graph(n, cset, full)
+    assert jwm.level_wave_graph(n, cset, full) == want
+    rows_k = [r for r, c in zip(rows, cols) if r != c]
+    cols_k = [c for r, c in zip(rows, cols) if r != c]
+    assert twm.level_wave_edges(n, cands, rows_k, cols_k) == want
