@@ -8,7 +8,13 @@ Phases, each fatal on failure:
 1. Device: the card's name and power limit; the kernel build, timed.
 2. Per kernel: K1-K4, every launch of each, on inputs captured from the
    YCSB-A stream at its full shapes (B = 8192, R = 2, Q = 1, 12-byte keys,
-   capacity 2^20), plus one forced fold and one report chunk; and K5/K6
+   capacity 2^20), plus one forced fold and one report chunk, K2's table
+   over the delta, the base and gated off (its CUDA launches a build
+   printed as ``k2_table_launches``), K3's stats build on the captured
+   batch (``k3_phase_clocks``: overlap and settle ms, edgeful and pending
+   rows, relaxation rounds, walk steps) and K3 on the dense worst case
+   (every txn reads and writes one key) and on a 32,768-txn batch of the
+   stream, each against its plain version and timed; and K5/K6
    (wave_pred, wave_level) on a batch captured from a wave engine on the
    same stream, whose levels must also equal the host replay
    (``core/wavemesh.level_wave_graph``) of the unpacked K5 matrix, run in
@@ -401,6 +407,74 @@ def capture_batch(stream, mode, wave: bool, report: bool = False):
         cand=cand, ranks=ck.endpoint_ranks_live_packed(rb.ranks))
 
 
+def dense_batch(b: int, device):
+    """K3's inputs for the dense worst case: every txn reads and writes
+    key rank 0 (one live read of two), so every row has an edge."""
+    import torch
+
+    def full(shape, v, dtype):
+        return torch.full(shape, v, dtype=dtype, device=device)
+
+    read_live = full((b, 2), False, torch.bool)
+    read_live[:, 0] = True
+    cand = full((b,), True, torch.bool)
+    return (cand, full((b,), False, torch.bool), cand.clone(),
+            (full((b, 2), 0, torch.int32), full((b, 2), 1, torch.int32),
+             read_live, full((b, 1), 0, torch.int32),
+             full((b, 1), 1, torch.int32), full((b, 1), True, torch.bool)))
+
+
+def big_seq_batch(stream, b: int):
+    """K3's inputs (cand, too_old, txn_mask, ranks) of the stream's 4th
+    batch of ``b`` txns on a cuda engine of that batch size (three
+    batches warm it)."""
+    import dataclasses
+
+    from foundationdb_tpu_torch.loadgen.ycsb import (
+        MODES,
+        batch_versions,
+        build_txns,
+    )
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+
+    mode = dataclasses.replace(MODES["ycsb"], batch=b)
+    cs = make_engine(mode, "cuda")
+    real, seen = ck.accept, []
+
+    def capturing(cand, too_old, txn_mask, ranks, out=None):
+        seen.append((cand, too_old, txn_mask, ranks))
+        return real(cand, too_old, txn_mask, ranks, out)
+
+    ck.accept = capturing
+    try:
+        for i in range(4):
+            cv, old = batch_versions(i)
+            cs.resolve(build_txns(*stream, i, mode), cv, old)
+    finally:
+        ck.accept = real
+    if cs.overflowed or len(seen) != 4:
+        fail(f"{b}-txn batches: overflow or K3 ran {len(seen)} times")
+    return seen[-1]
+
+
+def k3_phase_clocks(clk) -> dict:
+    """K3's stats-build counters (``kernels.ACCEPT_CLOCKS``) as ms and
+    counts: the overlap launch, the settle (prune and walk launches), the
+    walk kernel alone, the counts and the walk kernel's cycles by phase."""
+    from foundationdb_tpu_torch import kernels as K
+
+    c = dict(zip(K.ACCEPT_CLOCKS, (int(x) for x in clk.cpu())))
+    out = {"overlap_ms": (c["overlap_t1"] - c["overlap_t0"]) / 1e6,
+           "settle_ms": (c["walk_t1"] - c["prune_t0"]) / 1e6,
+           "prune_ms": (c["prune_t1"] - c["prune_t0"]) / 1e6,
+           "walk_kernel_ms": (c["walk_t1"] - c["walk_t0"]) / 1e6}
+    for k in ("edgeful", "pending", "rounds", "walk_steps", "walk_words",
+              "prefix_cycles", "stage_cycles", "round_cycles",
+              "walking_cycles"):
+        out[k] = c[k]
+    return out
+
+
 def k1_bytes(n_keys: int, n_new: int, d1: int, w: int, c: int,
              cd: int) -> int:
     """K1's least bytes for one insert: the live dictionary rows and the
@@ -494,8 +568,22 @@ def kernel_phase(stream, mode) -> dict:
 
     too_old, hist_mask, cand = cap.too_old, cap.hist_mask, cap.cand
     assert_equal("history_probe", k2(hist2), k2_plain(hist2))
+    assert_equal("history_probe.delta_table",
+                 K.build_table(hist2.delta.versions),
+                 sparse_table(hist2.delta.versions))
+    table_launches = {"delta": K.TABLE_KERNELS["last"]}
     assert_equal("history_probe.table", K.build_table(hist2.base.versions),
                  sparse_table(hist2.base.versions))
+    table_launches["base"] = K.TABLE_KERNELS["last"]
+    gated = hist2.base_st.clone()
+    no = torch.zeros((), dtype=torch.bool, device="cuda")
+    K.build_table(hist2.base.versions, out=gated, need=no)
+    assert_equal("history_probe.gated_table", gated, hist2.base_st)
+    table_launches["base_gated_off"] = K.TABLE_KERNELS["last"]
+    gated_ms = time_ms(lambda: K.build_table(hist2.base.versions, out=gated,
+                                             need=no))
+    print(json.dumps({"k2_table_launches": table_launches,
+                      "gated_base_table_ms": gated_ms}))
     timings["history_probe"] = (time_ms(k2, lambda: (hist2,)),
                                 time_ms(k2_plain, lambda: (hist2,), reps=3))
     table_ms = (time_ms(lambda: K.build_table(hist2.base.versions)),
@@ -516,6 +604,27 @@ def kernel_phase(stream, mode) -> dict:
     timings["accept"] = (
         time_ms(lambda: ck.accept(cand, too_old, tm, ranks)),
         time_ms(lambda: ck.accept_plain(cand, too_old, tm, ranks), reps=2))
+    # K3's stats build on the captured batch (its phases and counts), then
+    # the dense worst case and a 32,768-txn batch of the stream against
+    # the plain version.
+    clk = torch.zeros(len(K.ACCEPT_CLOCKS), dtype=torch.int64, device="cuda")
+    assert_equal("accept.stats", K.accept(cand, too_old, tm, *ranks,
+                                          clocks=clk),
+                 ck.accept_plain(cand, too_old, tm, ranks))
+    k3_clocks = k3_phase_clocks(clk)
+    print(json.dumps({"k3_phase_clocks": k3_clocks}))
+    k3_more = {}
+    for label, args in (("dense_8192", dense_batch(b, "cuda")),
+                        ("stream_32768", big_seq_batch(stream, 32768))):
+        assert_equal(f"accept.{label}", ck.accept(*args),
+                     ck.accept_plain(*args))
+        clk.zero_()
+        K.accept(*args[:3], *args[3], clocks=clk)
+        k3_more[label] = {"ms": time_ms(lambda: ck.accept(*args)),
+                          "plain_ms": time_ms(lambda: ck.accept_plain(*args),
+                                              reps=1),
+                          "phase_clocks": k3_phase_clocks(clk)}
+        print(json.dumps({"k3_check": label, **k3_more[label]}))
     loser_ms = (
         time_ms(lambda: ck.loser_mask(hist_mask, ranks, accepted, verdicts)),
         time_ms(lambda: ck.loser_mask_plain(hist_mask, ranks, accepted,
@@ -573,7 +682,11 @@ def kernel_phase(stream, mode) -> dict:
             ("accept losers (report chunk)", loser_ms, loser_bound)):
         print(f"kernel {label}: {ms:.4f} ms (plain {plain:.4f} ms, "
               f"bound {lo:.6f} ms by {by})")
-    return {"timings": timings, "bounds": bounds}
+    return {"timings": timings, "bounds": bounds,
+            "accept_more": {"phase_clocks": k3_clocks, **k3_more},
+            "table_more": {"table_launches": table_launches,
+                           "base_table_ms": table_ms[0],
+                           "gated_base_table_ms": gated_ms}}
 
 
 def run_stream(stream, mode, n_batches: int, device, label: str):
@@ -3618,6 +3731,8 @@ def smoke(args, pool) -> int:
             "max_abs_err": MAX_ABS_ERR[k], "ms": ms, "plain_ms": plain,
             "bound_ms": lo, "bound_by": by,
             "library_ms": None})
+    rows[2].update(kp["accept_more"])
+    rows[1].update(kp["table_more"])
     # The window program's bound: K1 once plus k steps of K2, K3 and K4,
     # each at the per-batch bound above; bound by what most of it is.
     share = {"bytes": 0.0, "operations": 0.0}

@@ -36,12 +36,12 @@ _SIGNATURES = {
         "de_evict": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P],
     },
     "history_probe": {
-        "hp_table": [_P, _I, _I, _P, _P, _P],
+        "hp_table": [_P, _I, _I, _P, _P, _P, _P],
         "hp_probe": [_P, _I, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                      _P, _P, _P, _P],
     },
     "accept": {
-        "ac_accept": [_P] * 9 + [_I] * 3 + [_P] * 4,
+        "ac_accept": [_P] * 9 + [_I] * 3 + [_P] * 6,
         "ac_losers": [_P] * 9 + [_I] * 3 + [_P] * 3,
     },
     "step_compact": {
@@ -238,6 +238,11 @@ def dict_evict(dict_keys: torch.Tensor, n_keys: torch.Tensor,
 # ----------------------------------------------------------------- K2
 
 
+# CUDA kernel launches made by the last ``build_table`` (hp_table reports
+# them: a group of levels a launch, two for N up to 2^22).
+TABLE_KERNELS = {"last": 0}
+
+
 def build_table(values: torch.Tensor, out: torch.Tensor | None = None,
                 need: torch.Tensor | None = None) -> torch.Tensor:
     """Sparse table [L, N] over values (into ``out`` if given; skipped on
@@ -252,8 +257,10 @@ def build_table(values: torch.Tensor, out: torch.Tensor | None = None,
     _check(out, _i32, "table", (levels, n))
     if need is not None:
         _check(need, _bool, "need", ())
+    launched = ctypes.c_int(0)
     _call("history_probe", "hp_table", values.device, _ptr(values), n, levels,
-          _ptr(out), _ptr(need))
+          _ptr(out), _ptr(need), ctypes.addressof(launched))
+    TABLE_KERNELS["last"] = launched.value
     return out
 
 
@@ -303,24 +310,41 @@ def _check_ranks(rb, re_, read_live, wb, we, write_live):
     return b, r, q
 
 
+# K3's stats build writes these int64 counters (accept.cu, AC_CLK_*): the
+# globaltimer spans (ns) of the overlap, prune and walk launches, the rows
+# with a candidate predecessor, the pending rows, the relaxation rounds, the
+# rows the serial walk visits and their words, and the walk kernel's
+# clock64 cycles by phase.
+ACCEPT_CLOCKS = ("overlap_t0", "overlap_t1", "prune_t0", "prune_t1",
+                 "walk_t0", "walk_t1", "edgeful", "pending", "rounds",
+                 "walk_steps", "walk_words", "prefix_cycles", "stage_cycles",
+                 "round_cycles", "walking_cycles")
+
+
 def accept(cand, too_old, txn_mask, rb, re_, read_live, wb, we, write_live,
-           verdicts=None):
+           verdicts=None, clocks=None):
     """(accepted bool [B], verdicts int8 [B]); the verdicts are written
-    into ``verdicts`` when it is given."""
+    into ``verdicts`` when it is given. ``clocks`` (int64
+    [len(ACCEPT_CLOCKS)]) runs the stats build and takes this launch's
+    phase counters."""
     b, r, q = _check_ranks(rb, re_, read_live, wb, we, write_live)
     for name, t in (("cand", cand), ("too_old", too_old),
                     ("txn_mask", txn_mask)):
         _check(t, _bool, name, (b,))
     dev = cand.device
-    rows = torch.empty(b * ((b + 31) // 32), dtype=_i32, device=dev)
+    nw = (b + 31) // 32
+    scratch = torch.empty(b * nw + 2 * b + 3 * nw, dtype=_i32, device=dev)
+    rows, aux = scratch[:b * nw], scratch[b * nw:]
     accepted = torch.empty(b, dtype=_bool, device=dev)
     if verdicts is None:
         verdicts = torch.empty(b, dtype=_i8, device=dev)
     _check(verdicts, _i8, "verdicts", (b,))
+    if clocks is not None:
+        _check(clocks, _i64, "clocks", (len(ACCEPT_CLOCKS),))
     _call("accept", "ac_accept", dev, _ptr(cand), _ptr(too_old),
           _ptr(txn_mask), _ptr(rb), _ptr(re_), _ptr(read_live), _ptr(wb),
-          _ptr(we), _ptr(write_live), b, r, q, _ptr(rows), _ptr(accepted),
-          _ptr(verdicts))
+          _ptr(we), _ptr(write_live), b, r, q, _ptr(rows), _ptr(aux),
+          _ptr(accepted), _ptr(verdicts), _ptr(clocks))
     return accepted, verdicts
 
 

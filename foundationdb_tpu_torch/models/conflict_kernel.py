@@ -424,6 +424,72 @@ def _block_accept_fused(base, rb, re_, read_live, wb, we, write_live):
     return acc
 
 
+def accept_rows_plain(cand, ranks):
+    """Plain twin of K3's overlap stage: (rows int32 [B, ceil(B/32)],
+    first int32 [B], last int32 [B]). Bit j of row i is set when a live
+    read of candidate i overlaps a live write of candidate j < i (a
+    non-candidate can never be accepted, so its column is dropped, and
+    its row stays zero); ``first``/``last`` are the row's first and last
+    nonzero words, -1 both for a row with no bit."""
+    b = cand.shape[0]
+    nw = (b + 31) // 32
+    m = _overlap_rows(*ranks) & cand[:, None] & cand[None, :]
+    m &= torch.ones((b, b), dtype=torch.bool, device=cand.device).tril(-1)
+    rows = pack_bits_u32(_pad0(m.T, nw * 32).T)
+    nz = rows != 0
+    idx = torch.arange(nw, device=cand.device)
+    first = torch.where(nz, idx, nw).min(1).values
+    last = torch.where(nz, idx, -1).max(1).values
+    first = torch.where(last >= 0, first, -1)
+    return rows, first.to(torch.int32), last.to(torch.int32)
+
+
+def settle_plain(cand, rows, first, last):
+    """Plain twin of K3's settle stage: (accepted bool [B], pending int64
+    [P], the rows left after the first pass, in index order). A candidate
+    with no bit is accepted at once (``acc0``); a row with bits that meets
+    ``acc0`` is rejected at once (those rows are final); the pending rest
+    are settled in index order, each accepted when none of its nonzero
+    words meets the accepted set so far: the exact sequential result. (The
+    card settles part of them by relaxation rounds before its serial walk;
+    the answer is the same.)"""
+    nw = rows.shape[1]
+    acc = cand & (last < 0)
+    acc0 = pack_bits_u32(_pad0(acc, nw * 32))
+    hit0 = ((rows & acc0[None, :]) != 0).any(1)
+    pending = torch.nonzero(cand & (last >= 0) & ~hit0).flatten()
+    accw = (acc0.long() & 0xFFFFFFFF).tolist()
+    acc = acc.clone()
+    for i in pending.tolist():
+        f, n = int(first[i]), int(last[i]) + 1
+        words = (rows[i, f:n].long() & 0xFFFFFFFF).tolist()
+        if not any(w & a for w, a in zip(words, accw[f:n])):
+            acc[i] = True
+            accw[i >> 5] |= 1 << (i & 31)
+    return acc, pending
+
+
+def accept_counts(cand, too_old, txn_mask, ranks) -> dict:
+    """What K3's two designs do on one batch, by the plain twins: the
+    candidate rows, the rows with a candidate predecessor (``edgeful``)
+    and their bits, the words the one-block scan's demotion reads (each
+    candidate row's words before its 512-txn block), the edgeful rows
+    rejected at once and the pending rest with their words."""
+    rows, first, last = accept_rows_plain(cand, ranks)
+    _, pending = settle_plain(cand, rows, first, last)
+    edge = last >= 0
+    idx = torch.nonzero(cand).flatten()
+    span = (last - first + 1)[pending]
+    return {
+        "candidates": int(cand.sum()), "edgeful_rows": int(edge.sum()),
+        "edge_bits": int(unpack_bits_u32(rows, rows.shape[1] * 32).sum()),
+        "demotion_words": int(((idx // _ACCEPT_BLOCK)
+                               * (_ACCEPT_BLOCK // 32)).sum()),
+        "pruned_rows": int(edge.sum()) - pending.numel(),
+        "pending_rows": pending.numel(), "pending_words": int(span.sum()),
+        "transactions": int(txn_mask.sum()), "too_old": int(too_old.sum())}
+
+
 def assemble_verdicts(too_old, txn_mask, accepted) -> torch.Tensor:
     return torch.where(
         too_old,

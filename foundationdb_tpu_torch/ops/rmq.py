@@ -36,6 +36,25 @@ def sparse_table(values: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows)
 
 
+def windowed_table(values: torch.Tensor) -> torch.Tensor:
+    """``sparse_table`` by its closed form, as K2's table kernel computes
+    it: ST[l, i] = max(values[i : min(i + 2**l, N)]), each level from the
+    one below with the positions past the end read as INT32_MIN (a tile
+    padded at the array's end) in place of the JAX clamp to N - 1. The two
+    agree: a window that reaches the end already holds values[N - 1]."""
+    n = values.shape[0]
+    if n == 0:
+        return values.new_zeros((1, 0))
+    levels = max(1, math.ceil(math.log2(n))) + 1
+    rows = [values]
+    for l in range(1, levels):
+        d = min(1 << (l - 1), n)
+        prev = rows[-1]
+        shifted = torch.cat([prev[d:], prev.new_full((d,), -(2**31))])
+        rows.append(torch.maximum(prev, shifted))
+    return torch.stack(rows)
+
+
 def floor_log2(x: torch.Tensor) -> torch.Tensor:
     """floor(log2(x)) for positive int32 x (the JAX ``31 - _clz32(x)``),
     by bit smearing and popcount in int64 so no sign bit intervenes."""

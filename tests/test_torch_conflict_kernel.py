@@ -18,7 +18,9 @@ from foundationdb_tpu.models import conflict_kernel as jck
 from foundationdb_tpu.models.conflict_set import TPUConflictSet
 from foundationdb_tpu_torch.convert import STATE_FIELDS, state_leaves
 from foundationdb_tpu_torch.models import conflict_kernel as tck
+from foundationdb_tpu.ops import bitset as jbits
 from tests.test_conflict_oracle import rand_txn
+from tests.test_torch_cuda import accept_graph
 
 NEG = tck.NEG_VERSION
 I32MAX = tck.INT32_MAX
@@ -221,6 +223,59 @@ def test_block_accept_fused(b):
                     tuple(T(x) for x in (rb, re_, read_live, wb, we,
                                          write_live)))[1],
          jck.assemble_verdicts(too_old, txn_mask, want), "verdicts")
+
+
+def _graph(b, kind):
+    """An adversarial acceptance graph (``tests/test_torch_cuda``'s), or a
+    seeded random one."""
+    if kind != "random":
+        return accept_graph(b, kind)
+    rng = np.random.default_rng(b)
+    rb = rng.integers(0, 48, size=(b, 2)).astype(np.int32)
+    wb = rng.integers(0, 48, size=(b, 1)).astype(np.int32)
+    cand = rng.random(b) < 0.85
+    ranks = (rb, rb + rng.integers(1, 4, size=(b, 2)).astype(np.int32),
+             rng.random((b, 2)) < 0.9, wb,
+             wb + rng.integers(1, 4, size=(b, 1)).astype(np.int32),
+             rng.random((b, 1)) < 0.6)
+    return cand, ~cand & (rng.random(b) < 0.3), np.ones(b, bool), ranks
+
+
+@pytest.mark.parametrize("b", [1, 31, 33, 511, 513, 1024])
+@pytest.mark.parametrize("kind", ["hot", "chain", "cross", "noncand",
+                                  "nocand", "free", "random"])
+def test_accept_rows_and_settle_match_jax(b, kind):
+    """K3's design through its plain twins: the overlap rows restricted to
+    candidate rows and columns equal JAX ``_overlap_rows`` so masked and
+    packed; the settle (candidates with no bit at once, rows meeting them
+    rejected at once, a walk over the rest in index order) gives JAX
+    ``_block_accept_fused``'s accepted set, and within one 32-aligned batch
+    ``_wave_accept_packed``'s over the same packed rows."""
+    cand, too_old, txn_mask, ranks = _graph(b, kind)
+    nw = (b + 31) // 32
+    m = np.asarray(jax.jit(jck._overlap_rows)(*ranks))
+    m = m & cand[:, None] & cand[None, :] & np.tri(b, k=-1, dtype=bool)
+    m = np.pad(m, ((0, 0), (0, nw * 32 - b)))
+    want_rows = np.asarray(jax.jit(jbits.pack_bits_u32)(m))
+    rows, first, last = tck.accept_rows_plain(
+        T(cand), tuple(T(x) for x in ranks))
+    same(rows, want_rows, "rows")
+    nz = want_rows != 0
+    assert (last.numpy() >= 0).tolist() == nz.any(1).tolist()
+    for i in np.nonzero(nz.any(1))[0]:
+        w = np.nonzero(nz[i])[0]
+        assert (first[i], last[i]) == (w[0], w[-1])
+    want = jax.jit(jck._block_accept_fused)(cand, *ranks)
+    acc, pending = tck.settle_plain(T(cand), rows, first, last)
+    same(acc, want, "accepted")
+    assert pending.tolist() == sorted(pending.tolist())
+    if b % 32 == 0:
+        same(acc, jax.jit(jck._wave_accept_packed)(cand, want_rows),
+             "accepted (wave)")
+    counts = tck.accept_counts(T(cand), T(too_old), T(txn_mask),
+                               tuple(T(x) for x in ranks))
+    assert counts["pending_rows"] == pending.numel()
+    assert counts["edgeful_rows"] == int(nz.any(1).sum())
 
 
 def test_paint_loser_mask(steps):

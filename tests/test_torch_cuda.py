@@ -54,6 +54,184 @@ def test_accept_and_losers(card, b, r, q):
                        ck.loser_mask_plain(hist_mask, ranks, *got))
 
 
+def accept_graph(b: int, kind: str):
+    """(cand, too_old, txn_mask, ranks) of one adversarial acceptance
+    graph in rank space (key k is the range [k, k + 1)), numpy."""
+    i = np.arange(b, dtype=np.int32)
+    rk, wk = np.zeros(b, np.int32), np.zeros(b, np.int32)
+    cand = np.ones(b, bool)
+    write_live = np.ones(b, bool)
+    if kind == "hot":  # one key read and written by all
+        pass
+    elif kind == "chain":  # i reads what i - 1 writes: accept, reject, ...
+        rk, wk = i, i + 1
+    elif kind == "cross":  # i reads what i - 512 writes: edges only
+        rk, wk = i - 512 + (1 << 20), i + (1 << 20)  # across 512-txn blocks
+    elif kind == "noncand":  # every overlapping writer is a non-candidate
+        cand = i % 2 == 1
+        write_live = ~cand
+    elif kind == "nocand":
+        cand[:] = False
+    elif kind == "free":  # every txn a candidate, no overlap at all
+        rk, wk = 2 * i, 2 * i + 1
+    rb = np.stack([rk, rk + 5 * b + 7], 1).astype(np.int32)
+    wb = wk[:, None].astype(np.int32)
+    read_live = np.zeros((b, 2), bool)
+    read_live[:, 0] = True
+    ranks = (rb, rb + 1, read_live, wb, wb + 1, write_live[:, None])
+    return cand, np.zeros(b, bool), np.ones(b, bool), ranks
+
+
+@pytest.mark.parametrize("b", [1, 31, 33, 511, 513, 8192, 32768])
+@pytest.mark.parametrize("kind", ["hot", "chain", "cross", "noncand",
+                                  "nocand", "free"])
+def test_accept_adversarial_graphs(card, b, kind):
+    """K3 (overlap rows across the card, the settle walk over only the
+    rows with edges) equals ``accept_plain`` in accepted and verdicts:
+    B not a multiple of 32 or of 512, one txn, 32,768 txns; a hot key,
+    an alternating chain (every row walked), chains whose edges all cross
+    512-txn blocks, only non-candidate predecessors, no candidates, no
+    edges. Its stats build gives the same answer and the plain twins'
+    counts of edgeful and pending rows."""
+    from foundationdb_tpu_torch import kernels as K
+
+    cand, too_old, txn_mask, ranks = accept_graph(b, kind)
+    args = (on(cand, card), on(too_old, card), on(txn_mask, card),
+            tuple(on(x, card) for x in ranks))
+    got = ck.accept(*args)
+    want = ck.accept_plain(*args)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    clk = torch.zeros(len(K.ACCEPT_CLOCKS), dtype=torch.int64, device=card)
+    stats = K.accept(*args[:3], *args[3], clocks=clk)
+    for g, w in zip(stats, want):
+        assert torch.equal(g, w)
+    c = dict(zip(K.ACCEPT_CLOCKS, clk.tolist()))
+    if b <= 8192:
+        counts = ck.accept_counts(*args)
+        assert c["edgeful"] == counts["edgeful_rows"]
+        assert c["pending"] == counts["pending_rows"]
+        assert c["walk_words"] <= counts["pending_words"]
+    assert c["walk_steps"] <= c["pending"]
+    assert c["overlap_t0"] <= c["overlap_t1"] <= c["prune_t1"] \
+        <= c["walk_t1"]
+
+
+@pytest.mark.parametrize("b,r,q", [(700, 3, 2), (2000, 40, 1), (513, 1, 9),
+                                   (1500, 2, 16)])
+def test_accept_generic_widths(card, b, r, q):
+    """K3's generic overlap build (R, Q other than 2, 1: R past one warp,
+    Q wide enough to shrink the staged tile) on dense random graphs."""
+    rng = np.random.default_rng(b * r * q)
+    space = 60
+    rb = rng.integers(0, space, (b, r)).astype(np.int32)
+    re_ = rb + rng.integers(0, 3, (b, r)).astype(np.int32)
+    wb = rng.integers(0, space, (b, q)).astype(np.int32)
+    we = wb + rng.integers(0, 3, (b, q)).astype(np.int32)
+    ranks = (on(rb, card), on(re_, card),
+             on(rng.random((b, r)) < 0.5, card) & (on(rb, card)
+                                                   < on(re_, card)),
+             on(wb, card), on(we, card),
+             on(rng.random((b, q)) < 0.5, card) & (on(wb, card)
+                                                   < on(we, card)))
+    cand = on(rng.random(b) < 0.9, card)
+    too_old = on(rng.random(b) < 0.05, card) & ~cand
+    txn_mask = cand | too_old
+    got = ck.accept(cand, too_old, txn_mask, ranks)
+    want = ck.accept_plain(cand, too_old, txn_mask, ranks)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 1024, 1025, 4097, 16386, 1 << 20,
+                               1 << 22, (1 << 22) + 3])
+def test_table_few_launches(card, n):
+    """K2's table equals ``sparse_table`` bit for bit (INT32_MIN and
+    INT32_MAX among the values), in one CUDA launch up to 13 levels and two
+    up to 2^22 entries; a gated build with ``need`` False leaves ``out``
+    untouched, in the same launches; with True it writes the table."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.ops.rmq import sparse_table
+
+    rng = np.random.default_rng(n)
+    v = rng.integers(-2**31, 2**31 - 1, n, dtype=np.int64).astype(np.int32)
+    v[rng.random(n) < 0.2] = ck.NEG_VERSION
+    v[rng.random(n) < 0.01] = -2**31
+    v[rng.random(n) < 0.01] = 2**31 - 1
+    vt = on(v, card)
+    want = sparse_table(vt)
+    levels = K.table_levels(n)
+    launches = 1 if levels <= 13 else 2 if levels <= 23 else 3
+    assert torch.equal(K.build_table(vt), want)
+    assert K.TABLE_KERNELS["last"] == launches
+    out = torch.full_like(want, 7)
+    K.build_table(vt, out=out, need=torch.zeros((), dtype=torch.bool,
+                                                device=card))
+    assert K.TABLE_KERNELS["last"] == launches
+    assert bool((out == 7).all())
+    K.build_table(vt, out=out, need=torch.ones((), dtype=torch.bool,
+                                               device=card))
+    assert torch.equal(out, want)
+    if n > 1:  # row 0 aliasing the values: the levels above it only
+        alias = want.clone()
+        alias[1:] = 7
+        K.build_table(alias[0], out=alias)
+        assert torch.equal(alias, want)
+
+
+def _rank_level(rng, c, n_used, card):
+    """A ConflictState of ``n_used`` sorted distinct rank keys (row 0 =
+    rank 0), INT32_MAX padded to capacity ``c``, and random versions."""
+    keys = np.full((c, 1), 2**31 - 1, np.int32)
+    keys[:n_used, 0] = np.sort(rng.choice(np.arange(1, 4 * c), n_used - 1,
+                                          replace=False).tolist() + [0])
+    vers = np.full(c, ck.NEG_VERSION, np.int32)
+    vers[:n_used] = rng.integers(-50, 50, n_used)
+    return ck.ConflictState(on(keys, card), on(vers, card),
+                            torch.tensor(n_used, dtype=torch.int32,
+                                         device=card),
+                            torch.zeros((), dtype=torch.int32, device=card),
+                            torch.zeros((), dtype=torch.bool, device=card))
+
+
+@pytest.mark.parametrize("c,cd,b,r", [(5, 3, 40, 1), (5000, 100, 300, 2),
+                                      (1 << 20, 16386, 2000, 3),
+                                      (70000, 1000, 100, 33)])
+def test_history_probe_at_the_key_arrays_ends(card, c, cd, b, r):
+    """K2's probe (fenced searches, R slots on adjacent lanes) equals
+    ``history_probe_plain`` with read slots at both ends of the key
+    arrays: below every key, at rank 0, on the first and last live keys,
+    among the INT32_MAX padding, past it; R of 1, 2, 3 and 33 (a lane
+    group of 1, 2, 4 and 32 lanes with two slots a lane); and the flat
+    history (no delta)."""
+    rng = np.random.default_rng(c + r)
+    base = _rank_level(rng, c, max(1, c // 2), card)
+    delta = _rank_level(rng, cd, max(1, cd - 1), card)
+    hist = ck.HistState(base, ck.build_table(base.versions), delta)
+    bk = base.keys[:, 0].cpu().numpy()
+    dk = delta.keys[:, 0].cpu().numpy()
+    ends = np.array([0, 1, bk[0], bk[1 % c], bk[c // 2 - 1], bk[c // 2],
+                     bk[-1], dk[0], dk[-1], dk[cd // 2], 2**31 - 2,
+                     2**31 - 1], np.int64)
+    pool = np.concatenate([ends, rng.integers(0, 4 * c + 2, 64)])
+    qb = rng.choice(pool, (b, r)).astype(np.int32)
+    qe = np.maximum(qb, rng.choice(pool, (b, r))).astype(np.int32)
+    qe[rng.random((b, r)) < 0.3] = 2**31 - 1
+    rbk = ck.RankBatch(
+        on(qb, card), on(qe, card), on(rng.random((b, r)) < 0.8, card),
+        on(np.zeros((b, 1), np.int32), card),
+        on(np.zeros((b, 1), np.int32), card),
+        on(np.zeros((b, 1), bool), card),
+        on(rng.integers(-60, 60, b).astype(np.int32), card),
+        on(rng.random(b) < 0.9, card), on(np.zeros(2 * b, np.int32), card))
+    floor = torch.tensor(-40, dtype=torch.int32, device=card)
+    for h in (hist, base):
+        got = ck.history_probe(h, rbk, floor)
+        want = ck.history_probe_plain(h, rbk, floor)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("c_out", [5, 40, 200])
 def test_compaction_overflow_and_min_run(card, c_out):
     rng = np.random.default_rng(c_out)

@@ -349,3 +349,18 @@ def test_wave_clock_names_match_the_c_counters():
     names = re.findall(r"WV_CLK_(\w+)", body)
     assert names[-1] == "N"
     assert len(names) - 1 == len(kernels.WAVE_CLOCKS)
+
+
+def test_accept_clock_names_match_the_c_counters():
+    """``kernels.ACCEPT_CLOCKS`` names K3's stats-build counters in the
+    order of the ``AC_CLK_*`` enum of ``csrc/accept.cu``, one name each."""
+    import re
+
+    from foundationdb_tpu_torch import kernels
+
+    text = (ROOT / "foundationdb_tpu_torch" / "kernels" / "csrc"
+            / "accept.cu").read_text()
+    body = re.search(r"enum \{(.*?)\};", text, re.S).group(1)
+    names = re.findall(r"AC_CLK_(\w+)", body)
+    assert names[-1] == "N"
+    assert [n.lower() for n in names[:-1]] == list(kernels.ACCEPT_CLOCKS)

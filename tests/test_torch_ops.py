@@ -61,6 +61,21 @@ def test_searchsorted_words_fp(side):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 1024, 1025, 4097, 16386])
+def test_windowed_table_equals_jax_sparse_table(n):
+    """K2's table by its closed form (each level the windowed max, past
+    the end read as INT32_MIN) equals the JAX clamped recurrence, the
+    int32 extremes among the values."""
+    rng = np.random.default_rng(n)
+    v = rng.integers(-2**31, 2**31 - 1, n, dtype=np.int64).astype(np.int32)
+    v[rng.random(n) < 0.2] = NEG
+    v[rng.random(n) < 0.05] = -2**31
+    v[rng.random(n) < 0.05] = 2**31 - 1
+    st_j = np.asarray(jax.jit(jrmq.sparse_table)(v))
+    st_t = trmq.windowed_table(torch.from_numpy(v)).numpy()
+    assert st_t.tobytes() == st_j.tobytes() and st_t.shape == st_j.shape
+
+
 @pytest.mark.parametrize("n", [1, 2, 5, 16, 17, 100])
 def test_sparse_table_and_range_max(n):
     rng = np.random.default_rng(n)
