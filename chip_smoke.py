@@ -362,6 +362,32 @@ def time_ms(fn, setup=None, reps: int = 10) -> float:
     return total / reps
 
 
+def cuda_kernels(fn, setup=None, reps: int = 5) -> dict:
+    """CUDA kernels one call of ``fn`` launches and their device ms, from
+    ``torch.profiler`` (copies and fills of device memory apart); a call
+    that rewrites its state gets a copy made by ``setup`` before the
+    profiled span."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    args = [setup() if setup else () for _ in range(reps + 1)]
+    fn(*args[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for a in args[1:]:
+            fn(*a)
+        torch.cuda.synchronize()
+    launches = device_us = 0.0
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", None)
+        if us is None:
+            us = ev.cuda_time_total
+        if us and not ev.key.startswith(("Memcpy", "Memset")):
+            launches += ev.count
+            device_us += us
+    return {"launches": launches / reps, "device_ms": device_us / 1e3 / reps}
+
+
 def make_engine(mode, device, wave: bool = False):
     from foundationdb_tpu_torch.bench import make_engine as bench_engine
 
@@ -483,6 +509,81 @@ def k1_bytes(n_keys: int, n_new: int, d1: int, w: int, c: int,
     return 4 * ((n_keys + n_new) * w + d1 * w + 2 * (c + cd))
 
 
+def k1_k4_adversarial(res, rb) -> None:
+    """K4 and K1 at the main path's shapes on inputs its stream never
+    gives, each run twice against its plain version: the paint with every
+    write a range between two ranks, with every endpoint on one rank (a
+    run of 2BQ rows, longer than a tile), with no accepted write, and with
+    every row below the floor; the fold with every row below the floor;
+    the compaction with runs starting at tile edges and longer than a
+    tile; K1 with M delta rows equal to live dictionary rows and M past
+    every live row."""
+    import torch
+
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+
+    dev = res.dict_keys.device
+    rbk, hist = rb.ranks, res.hist
+    b, q = rbk.write_begin.shape
+    src = torch.arange(2 * b * q, dtype=torch.int32, device=dev)
+    yes = torch.ones(b, dtype=torch.bool, device=dev)
+
+    def floor_of(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def rank(v):
+        return torch.full_like(rbk.write_begin, v)
+
+    on = torch.ones_like(rbk.write_mask)
+    for label, ranks, acc, fl in (
+            ("ranges", rbk._replace(write_begin=rank(5), write_end=rank(9),
+                                    write_mask=on, paint_src=src), yes, 0),
+            ("one_rank", rbk._replace(write_begin=rank(7), write_end=rank(7),
+                                      paint_src=src), yes, 0),
+            ("none_accepted", rbk, ~yes, 0),
+            ("below_floor", rbk, yes, 1 << 30)):
+        want = ck._paint_and_compact_res_plain(clone(hist.delta), ranks, acc,
+                                               77, floor_of(fl))
+        for _ in range(2):
+            assert_equal(f"step_compact.paint_{label}",
+                         ck._paint_and_compact_res(clone(hist.delta), ranks,
+                                                   acc, 77, floor_of(fl)),
+                         want)
+    want = ck._merge_delta_plain(hist.base, hist.delta, floor_of(1 << 30))
+    for _ in range(2):
+        assert_equal("step_compact.fold_below_floor", ck._merge_delta(
+            clone(hist.base), hist.delta, floor_of(1 << 30)), want)
+    n = 3 * K.K4_TILE + 5
+    gen = np.random.default_rng(3)
+    for run in (2, K.K4_TILE, K.K4_TILE + 3):
+        sk = torch.arange(n, dtype=torch.int32, device=dev)[:, None] // run
+        newv = torch.from_numpy(gen.integers(0, 3, n).astype(np.int32)).to(
+            dev)
+        for c_out in (5, n):
+            no = torch.zeros((), dtype=torch.bool, device=dev)
+            want = ck._dedup_compact_plain(sk, newv, c_out, no)
+            for _ in range(2):
+                assert_equal(f"step_compact.compact_run{run}",
+                             ck._dedup_compact(sk, newv, c_out, no), want)
+    m, w = rb.delta_keys.shape
+    n_keys = int(res.n_keys)
+    live = res.dict_keys[:n_keys]
+    equal = live[torch.linspace(0, n_keys - 1, min(m, n_keys),
+                                device=dev).long().unique()]
+    past = torch.zeros((m, w), dtype=torch.int32, device=dev)
+    past[:, 0] = ck.INT32_MAX - m + torch.arange(m, dtype=torch.int32,
+                                                  device=dev)
+    for label, rows in (("equal", equal), ("past", past)):
+        dk = torch.full((m, w), ck.INT32_MAX, dtype=torch.int32, device=dev)
+        dk[:rows.shape[0]] = rows
+        want = ck._dict_insert_plain(res.dict_keys, res.n_keys, dk)
+        for _ in range(2):
+            out, shift = K.dict_insert(res.dict_keys, dk)
+            assert_equal(f"dict_insert.{label}", (out, shift),
+                         (want[0], want[2]))
+
+
 def kernel_phase(stream, mode) -> dict:
     """Capture one mid-stream batch and hold every kernel launch against
     its plain version; returns per-kernel timings and bounds."""
@@ -539,6 +640,17 @@ def kernel_phase(stream, mode) -> dict:
         time_ms(k1, lambda: (clone(res),)),
         time_ms(k1_plain, lambda: (clone(res),), reps=3))
     bytes_k1 = k1_bytes(int(res.n_keys), hb.n_new, d1, w, c, cd)
+    k1_parts = {
+        "insert_ms": time_ms(lambda: K.dict_insert(res.dict_keys,
+                                                   rb.delta_keys)),
+        "rewrite_ms": time_ms(lambda a: K.rewrite_ranks(a, shift, False),
+                              lambda: ([res.hist.base.keys.clone(),
+                                        res.hist.delta.keys.clone()],))}
+    launch_counts = {
+        "insert": cuda_kernels(lambda: K.dict_insert(res.dict_keys,
+                                                     rb.delta_keys)),
+        "insert_rewrite": cuda_kernels(k1, lambda: (clone(res),))}
+    k1_k4_adversarial(res, rb)
 
     res1, floor = cap.res1, cap.floor
 
@@ -558,6 +670,36 @@ def kernel_phase(stream, mode) -> dict:
                  ck._maybe_merge_plain(clone(res1.hist), hb.demand, floor))
     fold_ms = (time_ms(fold, lambda: (clone(res1.hist),), reps=5),
                time_ms(fold_plain, lambda: (clone(res1.hist),), reps=2))
+    # The gated step: after this batch's step nothing has expired and the
+    # delta has room, so the fold is not needed (the state must not
+    # change); before it, a demand past the delta's room makes it needed.
+    gfold = {}
+    for label, h0, dem in (
+            ("not_needed", hist2, hb.demand),
+            ("needed", res1.hist, res1.hist.delta.keys.shape[0] + 1)):
+        need = bool(ck.fold_need_plain(h0, dem, floor))
+        if need != (label == "needed"):
+            fail(f"gated fold {label}: the decision's plain twin says {need}")
+        if bool(K.fold_need(h0.base.versions, h0.delta, floor, dem)) != need:
+            fail(f"gated fold {label}: sc_need disagrees with its twin")
+        want = ck._maybe_merge_plain(clone(h0), dem, floor)
+        for _ in range(2):
+            assert_equal(f"step_compact.gated_{label}",
+                         ck._maybe_merge(clone(h0), dem, floor), want)
+        gfold[label] = (
+            time_ms(lambda h, d=dem: ck._maybe_merge(h, d, floor),
+                    lambda h0=h0: (clone(h0),)),
+            time_ms(lambda h, d=dem: ck._maybe_merge_plain(h, d, floor),
+                    lambda h0=h0: (clone(h0),), reps=3))
+        launch_counts[f"gated_fold_{label}"] = cuda_kernels(
+            lambda h, d=dem: ck._maybe_merge(h, d, floor),
+            lambda h0=h0: (clone(h0),))
+    kept = clone(hist2)
+    gfold["in_place_ms"] = time_ms(
+        lambda: ck._maybe_merge(hist2, hb.demand, floor))
+    assert_equal("step_compact.gated_kept", hist2, kept)
+    launch_counts["forced_fold"] = cuda_kernels(fold,
+                                                lambda: (clone(res1.hist),))
 
     # K2: delta table + probe; the base table alone.
     def k2(hist):
@@ -642,8 +784,14 @@ def kernel_phase(stream, mode) -> dict:
         return ck._paint_and_compact_res_plain(delta, rb.ranks, accepted,
                                                cvr, floor)
 
-    assert_equal("step_compact.paint", k4(clone(hist2.delta)),
-                 k4_plain(clone(hist2.delta)))
+    for _ in range(2):
+        assert_equal("step_compact.paint", k4(clone(hist2.delta)),
+                     k4_plain(clone(hist2.delta)))
+    launch_counts["paint"] = cuda_kernels(k4, lambda: (clone(hist2.delta),))
+    print(json.dumps({"k1_k4_cuda_launches": launch_counts}))
+    if (launch_counts["paint"]["launches"] > 2
+            or launch_counts["gated_fold_not_needed"]["launches"] > 5):
+        fail(f"K4 launches: {launch_counts}")
     timings["step_compact"] = (
         time_ms(k4, lambda: (clone(hist2.delta),)),
         time_ms(k4_plain, lambda: (clone(hist2.delta),), reps=3))
@@ -666,6 +814,10 @@ def kernel_phase(stream, mode) -> dict:
     # accepted live write.
     levels = K.table_levels(c)
     fold_bound = bound(8 * c + 8 * cd + 8 * c + 4 * levels * c + 8 * cd)
+    # The gated step whose fold is not needed: the decision reads the base
+    # versions and the delta's count, and writes the flag; the gated
+    # launches read the flag alone.
+    gated_bound = bound(4 * c + 4 + 1)
     table_bound = bound(4 * c + 4 * levels * c)
     conf = verdicts == ck.V_CONFLICT
     loser_ops = 2.0 * float((ranks[2] & conf[:, None]).sum()) * float(
@@ -678,11 +830,20 @@ def kernel_phase(stream, mode) -> dict:
         print(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f} ms)")
     for label, (ms, plain), (lo, by) in (
             (f"step_compact fold (forced, C={c})", fold_ms, fold_bound),
+            ("step_compact gated fold step (need False)",
+             gfold["not_needed"], gated_bound),
+            ("step_compact gated fold step (need True)", gfold["needed"],
+             fold_bound),
             (f"history_probe base table (C={c})", table_ms, table_bound),
             ("accept losers (report chunk)", loser_ms, loser_bound)):
         print(f"kernel {label}: {ms:.4f} ms (plain {plain:.4f} ms, "
               f"bound {lo:.6f} ms by {by})")
-    return {"timings": timings, "bounds": bounds,
+    return {"timings": timings, "bounds": bounds, "k1_parts": k1_parts,
+            "launch_counts": launch_counts,
+            "fold": {"forced": (fold_ms, fold_bound),
+                     "gated": (gfold["not_needed"], gated_bound),
+                     "gated_needed": gfold["needed"],
+                     "gated_in_place_ms": gfold["in_place_ms"]},
             "accept_more": {"phase_clocks": k3_clocks, **k3_more},
             "table_more": {"table_launches": table_launches,
                            "base_table_ms": table_ms[0],
@@ -2662,7 +2823,7 @@ ARMS = {
     "a_history_batch": (
         {"history": "batch"}, "resolve_many", SEQ_SOURCES,
         {"hp_table": WINDOW_K, "hp_probe": WINDOW_K, "ac_accept": WINDOW_K,
-         "sc_paint": WINDOW_K}, ("sc_fold", "rb_build")),
+         "sc_paint": WINDOW_K}, ("sc_fold", "sc_fold_step", "rb_build")),
     "b_rmq_blocked": (
         {"rmq": "blocked"}, "resolve_many",
         (*SEQ_SOURCES, "rmq_blocked", "word_probe"),
@@ -2674,7 +2835,7 @@ ARMS = {
         (*SEQ_SOURCES, "rmq_blocked", "word_probe"),
         {"rb_build": WINDOW_K, "rb_probe": WINDOW_K,
          "wp_search": 2 * WINDOW_K, "sc_paint": WINDOW_K},
-        ("hp_probe", "sc_fold")),
+        ("hp_probe", "sc_fold", "sc_fold_step")),
     "c_unpacked": (
         {"packed": False}, "unpacked_many",
         ("history_probe", "accept", "word_probe", "word_compact",
@@ -3604,8 +3765,11 @@ def smoke(args, pool) -> int:
                                    "ycsb cuda")
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
+    entry_launches = dict(K.ENTRY_LAUNCHES)
     if cs.overflowed:
         fail("history overflowed on the YCSB-A stream")
+    if entry_launches.get("sc_fold_step", 0) <= 0:
+        fail("K4's gated fold step was not launched on the main path")
     for k in SEQ_SOURCES:
         if launches[k] <= 0:
             fail(f"kernel {k} was not launched on the main path")
@@ -3733,12 +3897,33 @@ def smoke(args, pool) -> int:
             "library_ms": None})
     rows[2].update(kp["accept_more"])
     rows[1].update(kp["table_more"])
-    # The window program's bound: K1 once plus k steps of K2, K3 and K4,
-    # each at the per-batch bound above; bound by what most of it is.
+    rows[0].update(kp["k1_parts"])
+    rows[3].update(gated_needed_ms=kp["fold"]["gated_needed"][0],
+                   gated_needed_plain_ms=kp["fold"]["gated_needed"][1])
+    # K4's fold rows: the gated step of every batch (the decision, the
+    # gated fold with its reset, K2's gated table; timed when the fold is
+    # not needed, as on most steps) and the forced fold of advance_hist.
+    for k, (ms, plain), (lo, by), n_l, where in (
+            ("step_compact_gated_fold", *kp["fold"]["gated"],
+             entry_launches.get("sc_fold_step", 0), "1290"),
+            ("step_compact_fold_forced", *kp["fold"]["forced"],
+             entry_launches.get("sc_fold", 0), "1404")):
+        rows.append({
+            "name": k, "route": "cuda",
+            "source": "foundationdb_tpu_torch/kernels/csrc/step_compact.cu",
+            "replaces": f"foundationdb_tpu/models/conflict_kernel.py:{where}",
+            "launches": n_l, "max_abs_err": MAX_ABS_ERR["step_compact"],
+            "ms": ms, "plain_ms": plain, "bound_ms": lo, "bound_by": by,
+            "library_ms": None})
+    rows[-2]["in_place_ms"] = kp["fold"]["gated_in_place_ms"]
+    # The window program's bound: K1 once plus k steps of K2, K3, K4's
+    # gated fold step and its paint, each at the per-batch bound above;
+    # bound by what most of it is.
     share = {"bytes": 0.0, "operations": 0.0}
     for r in rows:
-        share[r["bound_by"]] += r["bound_ms"] * (
-            1 if r["name"] == "dict_insert" else wp["k"])
+        if r["name"] != "step_compact_fold_forced":
+            share[r["bound_by"]] += r["bound_ms"] * (
+                1 if r["name"] == "dict_insert" else wp["k"])
     rows.append({
         "name": "resolve_many", "route": "cuda",
         "source": "foundationdb_tpu_torch/models/conflict_kernel.py",

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -28,7 +29,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "dict_insert": {
-        "di_insert": [_P, _I, _P, _I, _I, _P, _P, _P],
+        "di_insert": [_P, _I, _P, _I, _I, _P, _P, _P, _P],
         "di_rewrite": [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I, _P],
         "di_rebase": [_P, _I, _P, _I, _I, _P],
     },
@@ -45,11 +46,14 @@ _SIGNATURES = {
         "ac_losers": [_P] * 9 + [_I] * 3 + [_P] * 3,
     },
     "step_compact": {
-        "sc_paint": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                     _P, _P, _P, _P, _P, _P, _P, _P],
-        "sc_fold": [_P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                    _P, _P, _P, _P],
-        "sc_compact": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+        "sc_paint": [_P, _P, _I] + [_P] * 8 + [_I] * 3 + [_P] * 4,
+        "sc_fold": [_P, _P, _I] + [_P] * 5 + [_I] + [_P] * 3 + [_I]
+        + [_P] * 5,
+        "sc_fold_step": [_P, _P, _I] + [_P] * 5 + [_I] + [_P] * 4 + [_I]
+        + [_P] * 4,
+        "sc_compact": [_P, _P, _I, _I] + [_P] * 7,
+        "sc_need": [_P, _I, _P, _P, _I, _I, _P, _P, _P],
+        "sc_reset": [_P, _I, _I] + [_P] * 6,
     },
     "wave": {
         "wv_pred": [_P] * 7 + [_I] * 4 + [_P] * 2,
@@ -178,9 +182,10 @@ def dict_insert(dict_keys: torch.Tensor, delta_keys: torch.Tensor):
     _check(dict_keys, _i32, "dict_keys")
     _check(delta_keys, _i32, "delta_keys", (m, w))
     out = torch.empty_like(dict_keys)
-    shift = torch.empty(d1, dtype=_i32, device=dict_keys.device)
+    work = torch.empty(d1 + m, dtype=_i32, device=dict_keys.device)
+    shift, q = work[:d1], work[d1:]
     _call("dict_insert", "di_insert", dict_keys.device, _ptr(dict_keys), d1,
-          _ptr(delta_keys), m, w, _ptr(shift), _ptr(out))
+          _ptr(delta_keys), m, w, _ptr(shift), _ptr(out), _ptr(q))
     return out, shift
 
 
@@ -382,9 +387,40 @@ def _scratch(n: int, dev, count: int):
     return [torch.empty(n, dtype=_i32, device=dev) for _ in range(count)]
 
 
+#: Merged rows a K4 tile (step_compact.cu TILE) and output rows a K1 tile
+#: (dict_insert.cu KTILE).
+K4_TILE = 2048
+K1_TILE = 2048
+_WS_HEAD = 8  # step_compact.cu WS_WORDS
+_WORKSPACE = threading.local()
+
+
+def _workspace(dev, n: int, scratch: int = 0):
+    """K4's workspace for ``n`` merged rows: (the look-back state, int64:
+    a ticket, the decision's counters, two words a tile; zeroed when made
+    and left zeroed by every K4 call that runs to its end; the survivors'
+    scratch, int32 [``scratch``]). One per device, stream and thread, so
+    two K4 calls never share it out of stream order, and a call allocates
+    nothing once it has grown."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    cache = getattr(_WORKSPACE, "by_stream", None)
+    if cache is None:
+        cache = _WORKSPACE.by_stream = {}
+    words = _WS_HEAD + 2 * -(-n // K4_TILE)
+    ws, sc = cache.get(key, (None, None))
+    if ws is None or ws.numel() < words:
+        ws = torch.zeros(max(words, 1024), dtype=_i64, device=dev)
+    if sc is None or sc.numel() < scratch:
+        sc = torch.empty(max(scratch, 1 << 16), dtype=_i32, device=dev)
+    cache[key] = ws, sc
+    return ws, sc
+
+
 def paint(state, wb, we, write_mask, accepted, paint_src, cv: int,
           floor) -> None:
-    """Paint in place into ``state`` (a width-1 ConflictState)."""
+    """Paint in place into ``state`` (a width-1 ConflictState): two
+    launches."""
     c = _check_state(state, "state")
     b, q = wb.shape
     _check(wb, _i32, "write_begin")
@@ -394,33 +430,74 @@ def paint(state, wb, we, write_mask, accepted, paint_src, cv: int,
     _check(paint_src, _i32, "paint_src", (2 * b * q,))
     _check(floor, _i32, "floor", ())
     dev = wb.device
-    n = c + 2 * b * q
-    snew, mk, mv, t0, t1 = _scratch(2 * b * q, dev, 1) + _scratch(n, dev, 4)
-    bsum = torch.empty((n + 1023) // 1024, dtype=_i32, device=dev)
+    ws, scratch = _workspace(dev, c + 2 * b * q, 2 * c)
     _call("step_compact", "sc_paint", dev, _ptr(state.keys),
           _ptr(state.versions), c, _ptr(state.n_used), _ptr(state.overflow),
           _ptr(state.oldest), _ptr(wb), _ptr(we), _ptr(write_mask),
           _ptr(accepted), _ptr(paint_src), b, q, int(cv), _ptr(floor),
-          _ptr(snew), _ptr(mk), _ptr(mv), _ptr(t0), _ptr(t1), _ptr(bsum))
+          _ptr(scratch), _ptr(ws))
 
 
-def fold(base, delta, floor, need) -> None:
-    """Fold ``delta`` into ``base`` in place (skipped on the device when the
-    0-dim bool ``need`` is False; None means always)."""
+def fold(base, delta, floor, need, reset_delta: bool = False,
+         demand: int | None = None) -> None:
+    """Fold ``delta`` into ``base`` in place, skipped on the device when the
+    0-dim bool ``need`` is False (None: fold always). With ``demand`` (the
+    gated step, entry ``sc_fold_step``) ``need`` is an output: the
+    decision (``fold_need``'s kernel) writes it first, from the same call,
+    and the delta is reset. With ``reset_delta`` the delta is reset to its
+    min-key row at the floor (``_reset_delta``) in the fold's second
+    launch. Two launches, three with the decision."""
     c = _check_state(base, "base")
     cd = _check_state(delta, "delta")
     _check(floor, _i32, "floor", ())
     if need is not None:
         _check(need, _bool, "need", ())
     dev = base.keys.device
-    n = c + cd
-    mk, mv, t0, t1 = _scratch(n, dev, 4)
-    bsum = torch.empty((n + 1023) // 1024, dtype=_i32, device=dev)
-    _call("step_compact", "sc_fold", dev, _ptr(base.keys),
-          _ptr(base.versions), c, _ptr(base.n_used), _ptr(base.overflow),
-          _ptr(base.oldest), _ptr(delta.keys), _ptr(delta.versions), cd,
-          _ptr(delta.overflow), _ptr(floor), _ptr(need), _ptr(mk), _ptr(mv),
-          _ptr(t0), _ptr(t1), _ptr(bsum))
+    ws, scratch = _workspace(dev, c + cd, 2 * c)
+    args = (_ptr(base.keys), _ptr(base.versions), c, _ptr(base.n_used),
+            _ptr(base.overflow), _ptr(base.oldest), _ptr(delta.keys),
+            _ptr(delta.versions), cd, _ptr(delta.overflow),
+            _ptr(delta.n_used), _ptr(delta.oldest))
+    if demand is None:
+        _call("step_compact", "sc_fold", dev, *args, int(reset_delta),
+              _ptr(floor), _ptr(need), _ptr(scratch), _ptr(ws))
+    elif need is None or not reset_delta:
+        raise ValueError("the gated step writes need and resets the delta")
+    else:
+        _call("step_compact", "sc_fold_step", dev, *args, _ptr(floor),
+              int(demand), _ptr(need), _ptr(scratch), _ptr(ws))
+
+
+def fold_need(base_versions, delta, floor, demand: int) -> torch.Tensor:
+    """The gated fold's decision as a 0-dim bool on the card (one launch,
+    no host sync): ``delta.n_used + demand > Cd`` or at least max(C // 8,
+    1) of ``base_versions`` in (NEG_VERSION, floor]. Any key width."""
+    c = base_versions.shape[0]
+    _check(base_versions, _i32, "base.versions", (c,))
+    _check(delta.n_used, _i32, "delta.n_used", ())
+    _check(floor, _i32, "floor", ())
+    dev = base_versions.device
+    need = torch.empty((), dtype=_bool, device=dev)
+    _call("step_compact", "sc_need", dev, _ptr(base_versions), c, _ptr(floor),
+          _ptr(delta.n_used), int(demand), delta.keys.shape[0], _ptr(need),
+          _ptr(_workspace(dev, 0)[0]))
+    return need
+
+
+def reset_delta(delta, floor, need) -> None:
+    """``_reset_delta`` in place at any key width (gated on ``need``; None
+    means always): one launch. K4's fold fuses it; K13's fold needs it."""
+    cd, w = delta.keys.shape
+    _check(delta.keys, _i32, "delta.keys")
+    _check(delta.versions, _i32, "delta.versions", (cd,))
+    _check(delta.n_used, _i32, "delta.n_used", ())
+    _check(delta.oldest, _i32, "delta.oldest", ())
+    _check(floor, _i32, "floor", ())
+    if need is not None:
+        _check(need, _bool, "need", ())
+    _call("step_compact", "sc_reset", delta.keys.device, _ptr(delta.keys), cd,
+          w, _ptr(delta.versions), _ptr(delta.n_used), _ptr(delta.oldest),
+          _ptr(floor), _ptr(need))
 
 
 def compact(skeys, newv, c_out: int, prior_overflow):
@@ -437,11 +514,9 @@ def compact(skeys, newv, c_out: int, prior_overflow):
     ov = torch.empty(c_out, dtype=_i32, device=dev)
     n_used = torch.empty((), dtype=_i32, device=dev)
     overflow = torch.empty((), dtype=_bool, device=dev)
-    t0, t1 = _scratch(n, dev, 2)
-    bsum = torch.empty((n + 1023) // 1024, dtype=_i32, device=dev)
     _call("step_compact", "sc_compact", dev, _ptr(skeys), _ptr(newv), n, c_out,
           _ptr(prior_overflow), _ptr(ok), _ptr(ov), _ptr(n_used),
-          _ptr(overflow), _ptr(t0), _ptr(t1), _ptr(bsum))
+          _ptr(overflow), _ptr(_workspace(dev, n)[0]))
     return ok, ov, n_used, overflow
 
 

@@ -907,37 +907,40 @@ def _maybe_merge_plain(hist: HistState, demand: int, floor) -> HistState:
 
 
 def _fold_launch(base: ConflictState, delta: ConflictState, floor,
-                 need) -> None:
-    """The fold on the card: K4 for the rank-space (width-1) history, K13
-    for a non-resident engine's [C, W] word keys."""
+                 demand: int | None):
+    """The fold and the delta reset on the card; with ``demand`` gated on
+    the device's decision (returned: a 0-dim bool), else forced. K4 for
+    the rank-space (width-1) history: the decision, the fold and the reset
+    from one call; K13 for a non-resident engine's [C, W] word keys, with
+    K4's decision and reset launches around it."""
+    need = None
+    if demand is not None:
+        need = torch.empty((), dtype=torch.bool, device=base.keys.device)
     if base.keys.shape[1] == 1:
-        K.fold(base, delta, floor, need)
-    else:
-        K.word_fold(base, delta, floor, need)
+        K.fold(base, delta, floor, need, reset_delta=True, demand=demand)
+        return need
+    if demand is not None:
+        need = K.fold_need(base.versions, delta, floor, demand)
+    K.word_fold(base, delta, floor, need)
+    K.reset_delta(delta, floor, need)
+    return need
 
 
 def _maybe_merge(hist: HistState, demand: int, floor) -> HistState:
     """Fold the delta into the base when ``demand`` more boundaries would
     not fit, or when at least C/8 base segments have expired.
 
-    On the card the decision stays on the device: ``need`` is a 0-dim bool
-    that every fold, table and reset launch reads, exiting at once when it
-    is False. No host sync. ``demand`` is the host-known count 2·(live
-    write ranges)."""
+    On the card the decision stays on the device: K4's decision kernel
+    writes ``need`` (``fold_need_plain``'s value), a 0-dim bool that the
+    fold, reset and table launches read, exiting at once when it is
+    False. No host sync; five launches a step when nothing folds (K4,
+    width 1).
+    ``demand`` is the host-known count 2·(live write ranges)."""
     base, base_st, delta = hist
     if not _on_card(base.keys):
         return _maybe_merge_plain(hist, demand, floor)
-    cd = delta.keys.shape[0]
-    c = base.keys.shape[0]
-    reclaimable = ((base.versions <= floor)
-                   & (base.versions > NEG_VERSION)).sum()
-    need = (delta.n_used + demand > cd) | (reclaimable >= max(c // 8, 1))
-    _fold_launch(base, delta, floor, need)
+    need = _fold_launch(base, delta, floor, demand)
     K.build_table(base.versions, out=base_st, need=need)
-    delta.keys[1:].masked_fill_(need, INT32_MAX)
-    delta.versions.masked_fill_(need, NEG_VERSION)
-    delta.n_used.masked_fill_(need, 1)
-    delta.oldest.copy_(torch.where(need, floor, delta.oldest))
     return hist
 
 
@@ -952,10 +955,6 @@ def advance_hist(hist: HistState, commit_version, new_oldest) -> HistState:
                          _reset_delta(delta, floor))
     _fold_launch(base, delta, floor, None)
     K.build_table(base.versions, out=base_st)
-    delta.keys[1:].fill_(INT32_MAX)
-    delta.versions.fill_(NEG_VERSION)
-    delta.n_used.fill_(1)
-    delta.oldest.copy_(floor)
     return hist
 
 
@@ -1046,6 +1045,234 @@ def apply_delta(res: ResState, delta_keys, n_new: int | None = None):
         return res
     nd, nn, shift = _dict_insert(res.dict_keys, res.n_keys, delta_keys, n_new)
     return _rewrite_res_ranks(res, shift, False, nd, nn)
+
+
+# ---------------------------------------------------------------------------
+# The tile designs of K4 and K1, in plain Python (the kernels' twins)
+# ---------------------------------------------------------------------------
+
+#: Merged rows a K4 tile holds (256 threads x 8), output rows a K1 tile.
+K4_TILE = K.K4_TILE
+K1_TILE = K.K1_TILE
+
+
+def merge_path_split(a, b, diag: int) -> int:
+    """How many rows of ``a`` are among the first ``diag`` rows of the
+    stable merge of the sorted rows ``a`` and ``b`` (``a``'s rows before
+    equal rows of ``b``): the diagonal search by which a K4 tile finds
+    where its slices of the two inputs start. Rows are ints or tuples of
+    words (compared lexicographically)."""
+    lo, hi = max(0, diag - len(b)), min(diag, len(a))
+    while lo < hi:
+        mid = (lo + hi) // 2
+        if a[mid] <= b[diag - 1 - mid]:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _k4_value(mode: str, from_a: bool, i: int, ai: int, bi: int, a_val,
+              b_val):
+    """(coverage delta, version before the paint / GC) of merged row ``i``
+    of A or B, with ``ai`` A rows and ``bi`` B rows before it."""
+    if mode == "paint":  # A: the history, B: the new endpoints
+        if from_a:
+            return 0, a_val[i]
+        return b_val[i], a_val[max(ai - 1, 0)]
+    if mode == "fold":  # A: the base, B: the delta
+        if from_a:
+            return 0, max(a_val[i], b_val[max(bi - 1, 0)])
+        return 0, max(b_val[i], a_val[max(ai - 1, 0)])
+    return 0, a_val[i]  # compact: the values are given
+
+
+def k4_tiles_plain(a, a_val, b, b_val, mode: str, c_out: int, prior: bool,
+                   cv: int = 0, floor: int = 0, tile: int = K4_TILE):
+    """K4's tile algorithm over the stable merge of the sorted width-1 rows
+    ``a`` and ``b`` (Python lists): (keys, versions, n_used, overflow) of
+    the dedup + compaction to ``c_out`` rows, as ``_dedup_compact_plain``
+    gives them after ``_paint_tail`` (mode "paint": A the history, B the
+    new endpoints with coverage deltas ``b_val``), ``_merge_delta_plain``
+    ("fold": A the base, B the delta) or alone ("compact": A only).
+
+    Each tile of ``tile`` merged rows finds its slices by
+    ``merge_path_split`` and carries two sums across tiles (the kernel's
+    look-back): the coverage before it and the survivors before it. The
+    dedup needs nothing else from earlier tiles: the version of the row
+    before the tile's first run (the previous dedup survivor) is computed
+    from the inputs at that run's start, found by two lower-bound
+    searches, with the coverage there the tile's coverage minus the
+    deltas of the run's rows before the tile."""
+    from bisect import bisect_left
+
+    na, nb = len(a), len(b)
+    n = na + nb
+    k0 = min(a[:1] + b[:1])
+    gc = mode != "compact"
+
+    def newv(dc, v, key, cov):
+        if mode == "paint" and cov > 0:
+            v = cv
+        return NEG_VERSION if gc and (v <= floor or key == INT32_MAX) else v
+
+    out_k, out_v = [], []
+    cov_before = cnt_before = 0
+    for d0 in range(0, n, tile):
+        d1 = min(n, d0 + tile)
+        a0, a1 = merge_path_split(a, b, d0), merge_path_split(a, b, d1)
+        b0, b1 = d0 - a0, d1 - a1
+        keys, vals, ai, bi, cov = [], [], a0, b0, cov_before
+        while ai < a1 or bi < b1:
+            from_a = ai < a1 and (bi >= b1 or a[ai] <= b[bi])
+            dc, v = _k4_value(mode, from_a, ai if from_a else bi, ai, bi,
+                              a_val, b_val)
+            cov += dc
+            keys.append(a[ai] if from_a else b[bi])
+            vals.append(newv(dc, v, keys[-1], cov))
+            ai, bi = ai + from_a, bi + (not from_a)
+        nxt = ([a[a1]] if a1 < na else []) + ([b[b1]] if b1 < nb else [])
+        # The row before the tile's first run: its start s = la + lb.
+        fk = keys[0]
+        la, lb = bisect_left(a, fk), bisect_left(b, fk)
+        if la + lb == 0:
+            prev_first = NEG_VERSION - 1
+        else:
+            from_b = lb > 0 and (la == 0 or a[la - 1] <= b[lb - 1])
+            i = lb - 1 if from_b else la - 1
+            dc, v = _k4_value(mode, not from_b, i, la, lb, a_val, b_val)
+            run_cov = sum(b_val[lb:b0]) if mode == "paint" else 0
+            prev_first = newv(dc, v, (b if from_b else a)[i],
+                              cov_before - run_cov)
+        local, start = [], -1
+        for r, key in enumerate(keys):
+            if r > 0 and key != keys[r - 1]:
+                start = r
+            g = d0 + r
+            nk = keys[r + 1] if r + 1 < len(keys) else min(nxt, default=None)
+            keep1 = g == n - 1 or key != nk
+            prev = prev_first if start < 0 else vals[start - 1]
+            forced = (keep1 and key == k0) if k0 != INT32_MAX else g == n - 1
+            if forced or (keep1 and vals[r] != prev and key != INT32_MAX):
+                local.append(r)
+        for r in local:
+            if cnt_before < c_out:
+                out_k.append(keys[r])
+                out_v.append(vals[r])
+            cnt_before += 1
+        cov_before = cov
+    total = cnt_before
+    pad = c_out - len(out_k)
+    return (out_k + [INT32_MAX] * pad, out_v + [NEG_VERSION] * pad,
+            min(total, c_out), bool(prior) or total > c_out)
+
+
+def _k4_state(out, device, oldest) -> ConflictState:
+    keys, vers, n_used, overflow = out
+    return ConflictState(
+        keys=torch.tensor(keys, dtype=torch.int32, device=device)[:, None],
+        versions=torch.tensor(vers, dtype=torch.int32, device=device),
+        n_used=_i32(n_used, device),
+        oldest=oldest.to(device=device, dtype=torch.int32).clone(),
+        overflow=torch.tensor(overflow, device=device))
+
+
+def paint_tiles_plain(state: ConflictState, rbk: RankBatch, accepted,
+                      commit_version: int, new_oldest,
+                      tile: int = K4_TILE) -> ConflictState:
+    """K4's paint by its tile algorithm: ``_paint_and_compact_res_plain``'s
+    result. B is the new endpoints in ``paint_src`` order."""
+    b_, q = rbk.write_begin.shape
+    e2 = b_ * q
+    valid = (accepted[:, None] & rbk.write_mask
+             & (rbk.write_begin < rbk.write_end)).reshape(e2).to(torch.int32)
+    ranks = torch.cat([rbk.write_begin.reshape(e2),
+                       rbk.write_end.reshape(e2)])
+    delta = torch.cat([valid, -valid])
+    src = rbk.paint_src.long()
+    out = k4_tiles_plain(
+        state.keys[:, 0].tolist(), state.versions.tolist(),
+        ranks[src].tolist(), delta[src].tolist(), "paint",
+        state.keys.shape[0], bool(state.overflow), int(commit_version),
+        int(new_oldest), tile)
+    return _k4_state(out, state.keys.device, _i32(new_oldest, "cpu"))
+
+
+def fold_tiles_plain(base: ConflictState, delta: ConflictState, floor,
+                     tile: int = K4_TILE) -> ConflictState:
+    """K4's fold by its tile algorithm: ``_merge_delta_plain``'s result."""
+    out = k4_tiles_plain(
+        base.keys[:, 0].tolist(), base.versions.tolist(),
+        delta.keys[:, 0].tolist(), delta.versions.tolist(), "fold",
+        base.keys.shape[0], bool(base.overflow | delta.overflow),
+        floor=int(floor), tile=tile)
+    return _k4_state(out, base.keys.device, floor)
+
+
+def compact_tiles_plain(skeys, newv, c_out: int, prior_overflow,
+                        tile: int = K4_TILE):
+    """K4's compaction by its tile algorithm: ``_dedup_compact_plain``'s
+    result for width-1 rows."""
+    keys, vers, n_used, overflow = k4_tiles_plain(
+        skeys[:, 0].tolist(), newv.tolist(), [], [], "compact", c_out,
+        bool(prior_overflow), tile=tile)
+    dev = skeys.device
+    return (torch.tensor(keys, dtype=torch.int32, device=dev)[:, None],
+            torch.tensor(vers, dtype=torch.int32, device=dev),
+            _i32(n_used, dev), torch.tensor(overflow, device=dev))
+
+
+def fold_need_plain(hist: HistState, demand: int, floor) -> torch.Tensor:
+    """The gated fold's decision (0-dim bool), which K4's ``sc_need``
+    computes on the card: fold when ``demand`` more boundaries would not
+    fit in the delta, or when at least max(C // 8, 1) base segments have
+    expired (a version in (NEG_VERSION, floor])."""
+    base, delta = hist.base, hist.delta
+    c, cd = base.keys.shape[0], delta.keys.shape[0]
+    reclaimable = ((base.versions <= floor)
+                   & (base.versions > NEG_VERSION)).sum()
+    return (delta.n_used + demand > cd) | (reclaimable >= max(c // 8, 1))
+
+
+def dict_delta_positions_plain(dict_keys, delta_keys) -> torch.Tensor:
+    """K1's search by the delta: p[j] = the dictionary rows <= delta row
+    j. Delta row j lands at j + p[j], and dictionary row i moves by
+    shift[i] = #{j : p[j] <= i}."""
+    return searchsorted_words_fp(dict_keys, delta_keys, side="right").to(
+        torch.int32)
+
+
+def dict_insert_tiles_plain(dict_keys, delta_keys, tile: int = K1_TILE):
+    """K1's insert by its tile algorithm: (merged dictionary, shift) as
+    ``_dict_insert_plain`` gives them. Tiles cover the D + 1 + M merged
+    positions; a tile finds its delta rows by one search over j + p[j],
+    marks where they land, and an exclusive count of the marks gives each
+    dictionary row its source index and its shift. Positions past D + 1
+    write only their shifts."""
+    d1 = dict_keys.shape[0]
+    m = delta_keys.shape[0]
+    dev = dict_keys.device
+    q = (torch.arange(m, dtype=torch.int32, device=dev)
+         + dict_delta_positions_plain(dict_keys, delta_keys))
+    out = torch.empty_like(dict_keys)
+    shift = torch.empty(d1, dtype=torch.int32, device=dev)
+    for k0 in range(0, d1 + m, tile):
+        k1 = min(k0 + tile, d1 + m)
+        j0 = int(torch.searchsorted(q, k0))
+        j1 = int(torch.searchsorted(q, k1))
+        mark = torch.zeros(k1 - k0, dtype=torch.int32, device=dev)
+        mark[(q[j0:j1] - k0).long()] = 1
+        before = j0 + torch.cumsum(mark, 0, dtype=torch.int32) - mark
+        k = torch.arange(k0, k1, device=dev)
+        old = mark == 0
+        i = (k - before)[old].long()
+        shift[i] = before[old]
+        live = k < d1
+        rows = torch.where((mark == 1)[:, None],
+                           delta_keys[before.clamp(max=m - 1).long()],
+                           dict_keys[(k - before).clamp(0, d1 - 1).long()])
+        out[k[live]] = rows[live]
+    return out, shift
 
 
 def _dict_evict_plain(dict_keys, n_keys, evict_ranks):

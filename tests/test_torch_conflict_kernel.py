@@ -8,6 +8,8 @@ the port's plain version; every output — verdicts, masks, every state
 leaf, n_used, oldest, overflow — must be equal byte for byte.
 """
 
+import bisect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -317,3 +319,228 @@ def test_advance_rebase_remap(steps):
                                              remap)
         same_res(tck.apply_dict_remap(t_res(state), new_dict, new_n, remap),
                  want)
+
+
+# --- K4's and K1's tile designs (plain twins) against the JAX functions ---
+
+_jit_paint = jax.jit(jck._paint_and_compact_res)
+_jit_merge = jax.jit(jck._merge_delta)
+_jit_compact = jax.jit(jck._dedup_compact, static_argnums=2)
+_jit_maybe_merge = jax.jit(jck._maybe_merge)
+_jit_insert = jax.jit(jck._dict_insert)
+
+
+def _state_np(rng, c, live, lo_v, hi_v, space=None):
+    """A width-1 history of ``live`` boundaries (rank 0 first, sorted,
+    unique) in capacity ``c``: numpy (keys [c, 1], versions, n_used)."""
+    space = space or 4 * c
+    keys = np.full(c, I32MAX, np.int32)
+    keys[:live] = np.sort(rng.choice(np.arange(1, space), live, replace=False))
+    keys[0] = 0
+    vers = np.full(c, NEG, np.int32)
+    vers[:live] = rng.integers(lo_v, hi_v, live)
+    return keys[:, None], vers, np.int32(live)
+
+
+def _jstate(keys, vers, n_used, oldest=0, overflow=False):
+    return jck.ConflictState(jnp.asarray(keys), jnp.asarray(vers),
+                             jnp.int32(n_used), jnp.int32(oldest),
+                             jnp.bool_(overflow))
+
+
+def _paint_case(rng, kind, c, b, q):
+    """(state, RankBatch fields, accepted, cv, floor) of one adversarial
+    paint, numpy."""
+    live = {"overflow": c - 2, "full": c}.get(kind, c // 3)
+    keys, vers, n_used = _state_np(rng, c, live, 0, 60)
+    space = int(keys[n_used - 1, 0]) + 20
+    wb = rng.integers(0, space, (b, q)).astype(np.int32)
+    we = (wb + rng.integers(1, 6, (b, q))).astype(np.int32)
+    mask = rng.random((b, q)) < 0.8
+    acc = rng.random(b) < 0.7
+    floor = 10
+    if kind == "one_rank":  # every endpoint on one rank
+        wb[:] = 7
+        we[:] = 7
+        mask[:] = True
+    elif kind == "one_rank_ranges":  # begins on one rank, ends on another
+        wb[:] = 5
+        we[:] = 9
+    elif kind == "none_accepted":
+        acc[:] = False
+    elif kind == "below_floor":  # every row expires
+        floor = 1000
+    elif kind == "masked_inf":  # masked slots carry INT32_MAX ranks
+        wb[~mask] = I32MAX
+        we[~mask] = I32MAX
+    elif kind == "empty_ranges":
+        we[:] = wb
+    ends = np.concatenate([wb.reshape(-1), we.reshape(-1)])
+    src = np.argsort(ends, kind="stable").astype(np.int32)
+    rv = np.zeros(b, np.int32)
+    ranks = (np.zeros((b, 1), np.int32), np.zeros((b, 1), np.int32),
+             np.zeros((b, 1), bool), wb, we, mask, rv, np.ones(b, bool), src)
+    return (keys, vers, n_used), ranks, acc, 77, floor
+
+
+_PAINT_KINDS = ["random", "one_rank", "one_rank_ranges", "none_accepted",
+                "below_floor", "overflow", "full", "masked_inf",
+                "empty_ranges"]
+
+
+@pytest.mark.parametrize("tile", [1, 3, 8, 64, tck.K4_TILE])
+@pytest.mark.parametrize("kind", _PAINT_KINDS)
+def test_k4_paint_tiles_equal_jax(kind, tile):
+    """The paint's tile algorithm (merge-path split, coverage and survivor
+    carries, the run start's version from the inputs) equals JAX
+    ``_paint_and_compact_res`` (``_paint_tail`` + ``_dedup_compact``),
+    with runs longer than a tile and runs starting at tile edges."""
+    rng = np.random.default_rng(len(kind) + tile)
+    for c, b, q in ((24, 9, 2), (40, 20, 1)):
+        (keys, vers, n_used), ranks, acc, cv, floor = _paint_case(
+            rng, kind, c, b, q)
+        for prior in (False, True):
+            want = _jit_paint(_jstate(keys, vers, n_used, 3, prior),
+                              jck.RankBatch(*ranks), acc, np.int32(cv),
+                              np.int32(floor))
+            st = tck.ConflictState(T(keys), T(vers), T(n_used),
+                                   torch.tensor(3, dtype=torch.int32),
+                                   torch.tensor(prior))
+            got = tck.paint_tiles_plain(st, tck.RankBatch(
+                *(T(x) for x in ranks)), T(acc), cv,
+                torch.tensor(floor, dtype=torch.int32), tile)
+            same_state(got, want, f"{kind} c={c}")
+    if kind == "overflow":
+        assert bool(want.overflow)
+
+
+@pytest.mark.parametrize("tile", [1, 2, 5, 64, tck.K4_TILE])
+@pytest.mark.parametrize("floor", [0, 30, 1000])
+def test_k4_fold_tiles_equal_jax(tile, floor):
+    """The fold's tile algorithm equals JAX ``_merge_delta``: the +inf
+    tails make runs longer than any small tile; shared keys make runs
+    that start at every offset; a small base capacity overflows."""
+    rng = np.random.default_rng(tile + floor)
+    for c, cd, live_b, live_d in ((40, 16, 20, 10), (12, 16, 10, 12),
+                                  (33, 7, 33, 7)):
+        bk, bv, bn = _state_np(rng, c, live_b, 0, 60, space=50)
+        dk, dv, dn = _state_np(rng, cd, live_d, 0, 80, space=50)
+        for prior in (False, True):
+            want = _jit_merge(_jstate(bk, bv, bn, 1, prior),
+                              _jstate(dk, dv, dn, 2), np.int32(floor))
+            got = tck.fold_tiles_plain(
+                tck.ConflictState(T(bk), T(bv), T(bn), T(np.int32(1)),
+                                  torch.tensor(prior)),
+                tck.ConflictState(T(dk), T(dv), T(dn), T(np.int32(2)),
+                                  torch.tensor(False)),
+                torch.tensor(floor, dtype=torch.int32), tile)
+            same_state(got, want, f"fold c={c}")
+
+
+@pytest.mark.parametrize("tile", [1, 4, 7, tck.K4_TILE])
+@pytest.mark.parametrize("kind", ["runs", "all_inf", "one_key", "edge"])
+def test_k4_compact_tiles_equal_jax(kind, tile):
+    """The compaction's tile algorithm equals JAX ``_dedup_compact``:
+    runs of equal keys longer than a tile, all rows +inf (the forced last
+    row), one key throughout, and runs starting exactly at tile edges."""
+    rng = np.random.default_rng(tile)
+    n = 60
+    skeys = np.sort(rng.integers(0, 9, n)).astype(np.int32)
+    if kind == "all_inf":
+        skeys[:] = I32MAX
+    elif kind == "one_key":
+        skeys[:] = 4
+    elif kind == "edge":  # a new key at every multiple of the tile
+        skeys = (np.arange(n) // tile).astype(np.int32)
+    skeys[-6:] = I32MAX
+    if kind == "all_inf":
+        skeys[:] = I32MAX
+    newv = rng.integers(0, 3, n).astype(np.int32)
+    for c_out in (3, 64):
+        for prior in (False, True):
+            want = _jit_compact(skeys[:, None], newv, c_out, jnp.bool_(prior))
+            got = tck.compact_tiles_plain(T(skeys[:, None]), T(newv), c_out,
+                                          torch.tensor(prior), tile)
+            for g, w, name in zip(got, want, ("keys", "versions", "n_used",
+                                              "overflow")):
+                same(g, w, f"{kind} c_out={c_out} {name}")
+
+
+@pytest.mark.parametrize("offset", [-1, 0])
+def test_fold_need_at_the_reclaim_threshold(offset):
+    """The device decision's twin equals the branch JAX ``_maybe_merge``
+    takes with ``reclaimable`` at C // 8 - 1 and at C // 8, and with the
+    delta's demand just fitting and just not."""
+    rng = np.random.default_rng(5 + offset)
+    c, cd = 64, 16
+    bk, bv, bn = _state_np(rng, c, 40, 50, 60)
+    bv[1:1 + c // 8 + offset] = 20  # expired at floor 30
+    dk, dv, dn = _state_np(rng, cd, 6, 40, 60)
+    floor = np.int32(30)
+    for demand in (cd - 6, cd - 5):
+        jh = jck.HistState(_jstate(bk, bv, bn), jnp.asarray(
+            jck.sparse_table(jnp.asarray(bv))), _jstate(dk, dv, dn))
+        want = _jit_maybe_merge(jh, np.int32(demand), floor)
+        taken = not np.array_equal(want.delta.keys, dk)
+        th = t_hist(jh)
+        need = tck.fold_need_plain(th, demand, T(floor))
+        assert bool(need) == taken == (offset == 0 or demand > cd - 6)
+        same_state(tck._maybe_merge(th, demand, T(floor)).base, want.base)
+
+
+def _dict_case(rng, d, w, n_keys, m, kind):
+    """(dict [d + 1, w], n_keys, delta [M, w]) with m real delta rows."""
+    words = rng.integers(-3, 3, (n_keys + m, w)).astype(np.int32)
+    words = np.unique(words, axis=0)
+    rng.shuffle(words)
+    live = np.unique(words[:n_keys], axis=0)
+    dict_keys = np.full((d + 1, w), I32MAX, np.int32)
+    dict_keys[:len(live)] = live
+    pool = words[n_keys:n_keys + m]
+    if kind == "equal":  # delta rows equal to dictionary rows
+        pool = live[rng.integers(0, len(live), m)]
+    elif kind == "past":  # every delta row past every live row
+        pool = np.full((m, w), 5, np.int32) + np.arange(m)[:, None]
+    delta = np.unique(pool, axis=0)
+    m_cap = max(m, 1) + 3
+    delta_keys = np.full((m_cap, w), I32MAX, np.int32)
+    delta_keys[:len(delta)] = delta
+    return dict_keys, np.int32(len(live)), delta_keys
+
+
+@pytest.mark.parametrize("tile", [1, 3, 16, tck.K1_TILE])
+@pytest.mark.parametrize("w", [1, 3, 4])
+@pytest.mark.parametrize("kind", ["random", "equal", "past", "near_full"])
+def test_k1_insert_tiles_equal_jax(kind, w, tile):
+    """K1's tile algorithm (the delta-side search p, a tile's split over
+    j + p[j], marks and their exclusive count) equals JAX ``_dict_insert``,
+    shift table included, with delta rows equal to dictionary rows, past
+    every live row, and dictionaries so full that rows drop past D + 1."""
+    rng = np.random.default_rng(w * 7 + tile)
+    d = 40
+    for m in (1, 2, 13):
+        n_keys = d - 2 if kind == "near_full" else 20
+        dict_keys, n, delta_keys = _dict_case(rng, d, w, n_keys, m, kind)
+        want = _jit_insert(dict_keys, n, delta_keys)
+        out, shift = tck.dict_insert_tiles_plain(T(dict_keys), T(delta_keys),
+                                                 tile)
+        same(out, want[0], f"{kind} m={m} dict")
+        same(shift, want[2], f"{kind} m={m} shift")
+        rows = [tuple(r) for r in dict_keys.tolist()]
+        same(tck.dict_delta_positions_plain(T(dict_keys), T(delta_keys)),
+             np.array([bisect.bisect_right(rows, tuple(r))
+                       for r in delta_keys.tolist()], np.int32), "p")
+
+
+def test_merge_path_split_is_the_merge_order():
+    """Every diagonal's split equals the count of A rows whose merged
+    position (A before equal B) is below it, ties included."""
+    rng = np.random.default_rng(0)
+    for _ in range(20):
+        a = sorted(rng.integers(0, 6, int(rng.integers(0, 12))).tolist())
+        b = sorted(rng.integers(0, 6, int(rng.integers(0, 12))).tolist())
+        pos = [i + int(np.searchsorted(b, x, side="left"))
+               for i, x in enumerate(a)]
+        for diag in range(len(a) + len(b) + 1):
+            assert tck.merge_path_split(a, b, diag) == sum(p < diag
+                                                          for p in pos)

@@ -1585,3 +1585,240 @@ def test_read_plane_on_the_card_equals_the_host_arm(card):
         for v, written in sweeps:
             idx.sweep(v, written)
     assert fired["device"] == fired["1"] and fired["1"]
+
+
+# --- K4 (merge-path tiles, look-back, device decision) and K1 (delta-side
+# search) against their plain versions -------------------------------------
+
+T4 = ck.K4_TILE
+
+
+def rank_state(rng, c, keys, vers, dev, overflow=False):
+    """A width-1 history holding ``keys`` (sorted, unique, rank 0 first)
+    with ``vers``, +inf / NEG_VERSION past them, in capacity ``c``."""
+    k = np.full(c, ck.INT32_MAX, np.int32)
+    v = np.full(c, ck.NEG_VERSION, np.int32)
+    k[:len(keys)] = keys
+    v[:len(keys)] = vers
+    return ck.ConflictState(on(k[:, None], dev), on(v, dev),
+                            torch.tensor(len(keys), dtype=torch.int32,
+                                         device=dev),
+                            torch.tensor(3, dtype=torch.int32, device=dev),
+                            torch.tensor(overflow, device=dev))
+
+
+def paint_batch(rng, b, q, space, kind, dev):
+    wb = rng.integers(0, space, (b, q)).astype(np.int32)
+    we = (wb + rng.integers(1, 6, (b, q))).astype(np.int32)
+    mask = rng.random((b, q)) < 0.8
+    acc = rng.random(b) < 0.7
+    if kind == "one_rank":  # all 2BQ endpoints on one rank: one long run
+        wb[:] = space // 2
+        we[:] = space // 2
+    elif kind == "one_rank_ranges":  # begins on one rank, ends on another
+        wb[:] = space // 3
+        we[:] = space // 3 + 5
+        mask[:] = True
+    elif kind == "none_accepted":
+        acc[:] = False
+    elif kind == "masked_inf":
+        wb[~mask] = ck.INT32_MAX
+        we[~mask] = ck.INT32_MAX
+    src = np.argsort(np.concatenate([wb.reshape(-1), we.reshape(-1)]),
+                     kind="stable").astype(np.int32)
+    zero = np.zeros((b, 1), np.int32)
+    ranks = ck.RankBatch(on(zero, dev), on(zero, dev), on(zero > 0, dev),
+                         on(wb, dev), on(we, dev), on(mask, dev),
+                         on(np.zeros(b, np.int32), dev),
+                         on(np.ones(b, bool), dev), on(src, dev))
+    return ranks, on(acc, dev)
+
+
+def equal_twice(fn, want, what):
+    """The kernel's answer equals the plain one on two runs (any schedule
+    of the look-back gives the same bytes)."""
+    for run in range(2):
+        got = fn()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (what, run)
+
+
+@pytest.mark.parametrize("kind", ["random", "one_rank", "one_rank_ranges",
+                                  "none_accepted", "below_floor",
+                                  "overflow", "masked_inf"])
+@pytest.mark.parametrize("c,b,q", [(16386, 8192, 1), (5000, 3001, 2),
+                                   (300, 40, 1)])
+def test_paint_fold_adversarial(card, kind, c, b, q):
+    """K4's paint, fold and compaction against the plain versions: runs of
+    equal keys longer than a tile (all endpoints on one rank; the +inf
+    tails) and starting at tile edges (a base and delta of the same keys
+    pair up at even rows, one extra delta row shifts them), every row
+    below the floor, survivors past capacity, no accepted writes, C and
+    Cd not multiples of the tile."""
+    rng = np.random.default_rng(c + b + len(kind))
+    live = c - 4 if kind == "overflow" else c // 3
+    keys = np.concatenate([[0], np.sort(rng.choice(
+        np.arange(1, 4 * c), live - 1, replace=False))]).astype(np.int32)
+    vers = rng.integers(0, 60, live).astype(np.int32)
+    floor = torch.tensor(1000 if kind == "below_floor" else 10,
+                         dtype=torch.int32, device=card)
+    ranks, acc = paint_batch(rng, b, q, 4 * c, kind, card)
+    for prior in (False, True):
+        st = rank_state(rng, c, keys, vers, card, prior)
+        want = ck._paint_and_compact_res_plain(ck.snapshot_res(st), ranks,
+                                               acc, 77, floor)
+
+        def paint():
+            return ck._paint_and_compact_res(ck.snapshot_res(st), ranks, acc,
+                                             77, floor)
+
+        equal_twice(paint, want, f"paint {kind} prior={prior}")
+    if kind == "overflow":
+        assert bool(want.overflow)
+    # The fold: the same keys in base and delta (equal rows pair up at even
+    # merged rows), then one more delta key a third of the way in (pairs
+    # at odd rows past it).
+    free = np.setdiff1d(np.arange(1, 4 * c), keys)
+    for extra in (0, 1):
+        dkeys = np.union1d(keys, free[len(free) // 3:][:extra]).astype(
+            np.int32)
+        cap = c if kind != "overflow" else len(keys)
+        base = rank_state(rng, cap, keys, vers, card)
+        delta = rank_state(rng, len(dkeys) + 3, dkeys, rng.integers(
+            0, 90, len(dkeys)), card)
+        want = ck._merge_delta_plain(base, delta, floor)
+
+        def fold():
+            return ck._merge_delta(ck.snapshot_res(base), delta, floor)
+
+        equal_twice(fold, want, f"fold {kind} extra={extra}")
+    # The compaction alone with runs that start exactly at tile edges and
+    # runs longer than a tile.
+    n = 3 * T4 + 5
+    for run in (2, T4, T4 + 3, 1000):
+        sk = (np.arange(n) // run).astype(np.int32)
+        sk[-7:] = ck.INT32_MAX
+        newv = rng.integers(0, 3, n).astype(np.int32)
+        args = (on(sk[:, None], card), on(newv, card))
+        for c_out in (5, n):
+            prior = torch.tensor(False, device=card)
+            want = ck._dedup_compact_plain(*args, c_out, prior)
+            equal_twice(lambda: ck._dedup_compact(*args, c_out, prior), want,
+                        f"compact run={run} c_out={c_out}")
+
+
+@pytest.mark.parametrize("offset", [-1, 0])
+@pytest.mark.parametrize("c", [1 << 20, 5000])
+def test_gated_fold_decision_and_reset(card, c, offset):
+    """``_maybe_merge`` on the card (the decision launch, the gated fold
+    with the reset in its second launch, the gated table) equals
+    ``_maybe_merge_plain`` with ``reclaimable`` at C // 8 - 1 and C // 8,
+    and with the delta's demand just fitting and just not. When the fold
+    is not needed, no state array changes."""
+    rng = np.random.default_rng(c + offset)
+    live = c // 2
+    keys = np.concatenate([[0], np.sort(rng.choice(
+        np.arange(1, 4 * c), live - 1, replace=False))]).astype(np.int32)
+    vers = rng.integers(50, 90, live).astype(np.int32)
+    vers[1:1 + c // 8 + offset] = 20  # expired at floor 30
+    cd = 16386
+    dkeys = np.concatenate([[0], np.sort(rng.choice(
+        np.arange(1, 4 * c), 99, replace=False))]).astype(np.int32)
+    floor = torch.tensor(30, dtype=torch.int32, device=card)
+    for demand in (cd - 100, cd - 99):
+        base = rank_state(rng, c, keys, vers, card)
+        delta = rank_state(rng, cd, dkeys, rng.integers(40, 90, 100), card)
+        hist = ck.HistState(base, ck.build_table(base.versions), delta)
+        want = ck._maybe_merge_plain(ck.snapshot_res(hist), demand, floor)
+        need = ck.fold_need_plain(hist, demand, floor)
+        assert bool(need) == (offset == 0 or demand == cd - 99)
+        assert bool(ck.K.fold_need(base.versions, delta, floor,
+                                   demand)) == bool(need)
+        for run in range(2):
+            got = ck._maybe_merge(ck.snapshot_res(hist), demand, floor)
+            for g, w in zip(_hist_leaves(got), _hist_leaves(want)):
+                assert torch.equal(g, w), (demand, run)
+        if not bool(need):
+            for g, w in zip(_hist_leaves(got), _hist_leaves(hist)):
+                assert torch.equal(g, w)
+
+
+def _hist_leaves(h):
+    return [*h.base, h.base_st, *h.delta]
+
+
+@pytest.mark.parametrize("w", [1, 3, 4])
+@pytest.mark.parametrize("m", [1, 2, 1023, 49152])
+@pytest.mark.parametrize("kind", ["random", "equal", "past", "near_full"])
+def test_dict_insert_merge_path(card, w, m, kind):
+    """K1's insert (the delta-side search, merge-path tiles, W-word row
+    copies) against ``_dict_insert_plain``, shift table included: delta
+    rows equal to dictionary rows, past every live row, and n_keys near D
+    so rows drop past D + 1; M + 3 delta slots, +inf padded."""
+    rng = np.random.default_rng(w * 31 + m)
+    d = 1 << 16 if m < 49152 else 1 << 18
+    n_keys = d - m // 2 if kind == "near_full" else d // 3
+    span = 1 << 12 if w > 1 else 1 << 22
+    live = np.unique(rng.integers(-span, span, (2 * n_keys + 64, w)).astype(
+        np.int32), axis=0)[:n_keys]
+    dict_keys = np.full((d + 1, w), ck.INT32_MAX, np.int32)
+    dict_keys[:len(live)] = live
+    if kind == "equal":
+        pool = live[rng.integers(0, len(live), m)]
+    elif kind == "past":  # every delta row past every live row
+        pool = np.repeat(live[-1:], m, 0)
+        pool[:, -1] += 1 + np.arange(m, dtype=np.int32)
+    else:
+        pool = rng.integers(-span, span, (m, w)).astype(np.int32)
+    delta = np.unique(pool.astype(np.int32), axis=0)
+    delta_keys = np.full((m + 3, w), ck.INT32_MAX, np.int32)
+    delta_keys[:len(delta)] = delta
+    dk, dl = on(dict_keys, card), on(delta_keys, card)
+    n = torch.tensor(len(live), dtype=torch.int32, device=card)
+    want = ck._dict_insert_plain(dk, n, dl)
+    for run in range(2):
+        got = ck._dict_insert(dk, n, dl)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), (kind, run)
+
+
+def _cuda_kernels(fn, setup, reps=3) -> float:
+    """CUDA kernels one call of ``fn(*setup())`` launches (torch.profiler),
+    copies and fills of device memory apart."""
+    from torch.profiler import ProfilerActivity, profile
+
+    args = [setup() for _ in range(reps + 1)]
+    fn(*args[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for a in args[1:]:
+            fn(*a)
+        torch.cuda.synchronize()
+    n = sum(ev.count for ev in prof.key_averages()
+            if (getattr(ev, "device_time_total", None)
+                or getattr(ev, "cuda_time_total", 0))
+            and not ev.key.startswith(("Memcpy", "Memset")))
+    return n / reps
+
+
+def test_k4_launch_counts(card):
+    """At most two CUDA kernels a paint, at most five a gated fold step
+    whose fold is not needed (the decision, two gated fold launches, two
+    gated table launches)."""
+    rng = np.random.default_rng(2)
+    c, cd = 1 << 20, 16386
+    keys = np.concatenate([[0], np.sort(rng.choice(
+        np.arange(1, 4 * c), c // 4, replace=False))]).astype(np.int32)
+    base = rank_state(rng, c, keys, rng.integers(50, 90, len(keys)), card)
+    delta = rank_state(rng, cd, keys[:2000], rng.integers(50, 90, 2000),
+                       card)
+    hist = ck.HistState(base, ck.build_table(base.versions), delta)
+    ranks, acc = paint_batch(rng, 8192, 1, 4 * c, "random", card)
+    floor = torch.tensor(10, dtype=torch.int32, device=card)
+    paint = _cuda_kernels(
+        lambda d: ck._paint_and_compact_res(d, ranks, acc, 77, floor),
+        lambda: (ck.snapshot_res(delta),))
+    step = _cuda_kernels(lambda h: ck._maybe_merge(h, 100, floor),
+                         lambda: (hist,))
+    assert not bool(ck.fold_need_plain(hist, 100, floor))
+    assert paint <= 2 and step <= 5, (paint, step)

@@ -364,3 +364,28 @@ def test_accept_clock_names_match_the_c_counters():
     names = re.findall(r"AC_CLK_(\w+)", body)
     assert names[-1] == "N"
     assert [n.lower() for n in names[:-1]] == list(kernels.ACCEPT_CLOCKS)
+
+
+def test_k4_k1_tile_constants_match_the_kernels():
+    """The wrappers size K4's look-back workspace and the plain twins cut
+    their tiles by ``K4_TILE``/``K1_TILE`` and ``_WS_HEAD``: each equals
+    the constant its kernel source compiles with."""
+    import re
+
+    from foundationdb_tpu_torch import kernels
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+
+    csrc = ROOT / "foundationdb_tpu_torch" / "kernels" / "csrc"
+
+    def define(source, name):
+        text = (csrc / source).read_text()
+        return re.search(rf"#define {name} (.*?)(\s*//.*)?$", text,
+                         re.M).group(1)
+
+    assert eval(define("step_compact.cu", "TILE").replace("NT", define(
+        "step_compact.cu", "NT")).replace("NI", define(
+            "step_compact.cu", "NI"))) == kernels.K4_TILE == ck.K4_TILE
+    assert eval(define("dict_insert.cu", "KTILE").replace("KT", define(
+        "dict_insert.cu", "KT")).replace("KI", define(
+            "dict_insert.cu", "KI"))) == kernels.K1_TILE == ck.K1_TILE
+    assert int(define("step_compact.cu", "WS_WORDS")) == kernels._WS_HEAD
