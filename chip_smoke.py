@@ -231,7 +231,8 @@ REPLACES = {
     "word_probe": "foundationdb_tpu/models/conflict_kernel.py:1445",
     "word_compact": "foundationdb_tpu/models/conflict_kernel.py:1489",
     "packed_many": "foundationdb_tpu/models/conflict_kernel.py:1672",
-    "word_sort": "foundationdb_tpu/ops/lex.py:160",
+    "word_sort": "foundationdb_tpu/models/conflict_kernel.py:291",
+    "word_sort_paint": "foundationdb_tpu/ops/lex.py:160",
     "word_clip": "foundationdb_tpu/models/conflict_kernel.py:1028",
     "word_shard_probe": "foundationdb_tpu/parallel/sharded_resolver.py:115",
     "word_paint_sorted": "foundationdb_tpu/models/conflict_kernel.py:925",
@@ -2661,7 +2662,7 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
                                         view.write_mask, accepted)
         cross = K.word_search(hs.keys, keys)[1]
         snew, (sdelta, scross) = K.word_sort(keys, (delta, cross))
-        assert_equal("word_sort.sort", [snew, sdelta, scross],
+        assert_equal("word_sort_paint", [snew, sdelta, scross],
                      list(sort_keys_with_payload(keys, delta, cross)))
         got = clone(hs)
         K.word_paint_sorted(got, snew, sdelta, scross, cv0, floor[s])
@@ -2674,7 +2675,8 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
         if s == big:
             paint_in = dict(hs=hs, keys=keys, delta=delta, cross=cross,
                             snew=snew, sdelta=sdelta, scross=scross,
-                            soldv=soldv, floor=floor[s], view=view)
+                            soldv=soldv, floor=floor[s], view=view,
+                            n_used_after=int(got.n_used))
 
     def many(st):
         v, _, _, h = ck.sharded_resolve_many(st, bt, cvs, olds, lo, hi)
@@ -2721,6 +2723,23 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     torch_sort_ms = time_ms(lambda: sort_keys_with_payload(flat))
     paint_sort_ms = time_ms(lambda: K.word_sort(pi["keys"], (pi["delta"],
                                                              pi["cross"])))
+    paint_sort_plain_ms = time_ms(lambda: sort_keys_with_payload(
+        pi["keys"], pi["delta"], pi["cross"]), reps=3)
+    # K13's sorted paint works over the live rows only: the same shard cut
+    # to C = 2^18 (the same live rows, its own cross ranks) takes about the
+    # same time.
+    c18 = 1 << 18
+    h18 = ck.ConflictState(pi["hs"].keys[:c18].clone(),
+                           pi["hs"].versions[:c18].clone(), *pi["hs"][2:])
+    x18 = K.word_search(h18.keys, pi["keys"])[1]
+    s18, (d18, x18) = K.word_sort(pi["keys"], (pi["delta"], x18))
+    got18 = clone(h18)
+    K.word_paint_sorted(got18, s18, d18, x18, cv0, pi["floor"])
+    assert_equal("word_paint_sorted.c18", got18, ck._paint_tail(
+        h18, s18, d18, h18.versions[(x18 - 1).clamp(min=0).long()], x18, cv0,
+        pi["floor"]))
+    paint_c18_ms = time_ms(lambda h: K.word_paint_sorted(
+        h, s18, d18, x18, cv0, pi["floor"]), lambda: (clone(h18),))
     paint_ms = time_ms(lambda h: ck._paint_and_compact(
         h, pi["view"], accepted, cv0, pi["floor"]),
         lambda: (clone(pi["hs"]),))
@@ -2734,6 +2753,9 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
           f"{t['word_sort'][0]:.4f} ms; {flat.shape[1]} stable torch.sort "
           f"passes over them {torch_sort_ms:.4f} ms; one shard's paint sort "
           f"({pi['keys'].shape[0]} rows, 2 payloads) {paint_sort_ms:.4f} ms;"
+          f" K13's sorted paint at C = 2^18 {paint_c18_ms:.4f} ms and 2^20 "
+          f"{t['word_paint_sorted'][0]:.4f} ms ({pi['hs'].n_used.item()} "
+          f"live rows);"
           f" word_shard_probe: K16 alone {probe_only_ms:.4f} ms, K2's table "
           f"over S x C {table_ms:.4f} ms; one shard's whole unpacked paint "
           f"{paint_ms:.4f} ms")
@@ -2745,8 +2767,11 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     # copies written. K16: the shards' live keys and versions, the read
     # slots, read versions and txn mask read once, the [B, R] mask and
     # three [B] outputs written. K13's sorted paint (the timed shard): its
-    # live rows and the sorted new rows read, its [C, W] keys and [C]
-    # versions written. The window program: k x (K16 + K14 + K3 + K15 +
+    # live rows and the sorted new rows (keys, deltas, cross ranks) read,
+    # the live rows after the paint written and the rows it frees cleared
+    # (the whole-C count, every [C, W] row written, kept beside it). K14's
+    # paint sort: the rows and two payloads read and written once, n·log2(n)
+    # row compares. The window program: k x (K16 + K14 + K3 + K15 +
     # S paints, each K13's keys, K12's search, K14's sort and the sorted
     # paint).
     r, w = step.read_begin.shape[1], step.read_begin.shape[2]
@@ -2759,8 +2784,10 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     bytes_k15 = b * q * (8 * w + 1) + s_n * b * q * (8 * w + 1) + 8 * s_n * w
     bytes_k16 = (4 * (w + 1) * sum(n_used) + b * r * (8 * w + 1) + 5 * b
                  + b * r + 3 * b + 8 * s_n * w + 4)
-    bytes_paint = (4 * (w + 1) * n_used[big] + 4 * (w + 1) * c
-                   + n2 * (w + 2) * 4 + 4)
+    bytes_paint = (4 * (w + 1) * n_used[big] + n2 * (w + 2) * 4
+                   + 4 * (w + 1) * max(n_used[big], pi["n_used_after"]) + 4)
+    bytes_paint_whole_c = (4 * (w + 1) * n_used[big] + 4 * (w + 1) * c
+                           + n2 * (w + 2) * 4 + 4)
     bytes_sort = n2 * (w + 2) * 4 * 2
     ops_sort = float(n2 * math.ceil(math.log2(n2)) * w)
     idx = torch.nonzero(cand).flatten().double()
@@ -2783,14 +2810,16 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
                               resident=False)
     lap("e")
     print(json.dumps({"phase 3h seconds": seconds}))
-    k14_launches = launches["word_sort"]
     return {
         "window0_cuda": window0,
-        "word_sort": {"launches": k14_launches, "timing": t["word_sort"],
+        "word_sort": {"launches": entries["wso_ranks"],
+                      "timing": t["word_sort"],
                       "bound": bound(bytes_k14, ops_k14),
-                      "torch_sort_passes_ms": torch_sort_ms,
-                      "paint_sort_ms": paint_sort_ms,
-                      "paint_sort_bound_ms": bound(bytes_sort, ops_sort)[0]},
+                      "torch_sort_passes_ms": torch_sort_ms},
+        "word_sort_paint": {"launches": entries["wso_sort"],
+                            "timing": (paint_sort_ms, paint_sort_plain_ms),
+                            "bound": bound(bytes_sort, ops_sort),
+                            "rows": pi["keys"].shape[0]},
         "word_clip": {"launches": entries["wsh_clip"],
                       "timing": t["word_clip"], "bound": bound(bytes_k15)},
         "word_shard_probe": {"launches": entries["wsh_probe"],
@@ -2801,6 +2830,10 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
         "word_paint_sorted": {"launches": entries["wc_paint_sorted"],
                               "timing": t["word_paint_sorted"],
                               "bound": bound(bytes_paint),
+                              "whole_c_bound_ms": bound(
+                                  bytes_paint_whole_c)[0],
+                              "c18_ms": paint_c18_ms,
+                              "live_rows": n_used[big],
                               "whole_paint_ms": paint_ms},
         "nr_sharded_many": {"launches": launches["nr_sharded_many"],
                             "timing": t["nr_sharded_many"],
@@ -4003,12 +4036,15 @@ def smoke(args, pool) -> int:
             "max_abs_err": MAX_ABS_ERR[k], "ms": r["timing"][0],
             "plain_ms": r["timing"][1], "bound_ms": lo, "bound_by": by,
             "library_ms": None})
-    # K14 is timed by its rank launch on the unclipped endpoint rows (the
+    # K14 has two rows: its rank launch on the unclipped endpoint rows (the
     # sequential path's use), with W stable torch.sort passes over the
-    # same rows beside it (no one PyTorch call sorts W-word rows); K16 with
-    # the K2 table build it needs; K13's sorted paint on the fullest shard.
+    # same rows beside it (no one PyTorch call sorts W-word rows), and one
+    # shard's paint sort (2BQ rows, 2 payloads); K16 with the K2 table
+    # build it needs; K13's sorted paint on the fullest shard.
     for k, source in (
             ("word_sort", "foundationdb_tpu_torch/kernels/csrc/word_sort.cu"),
+            ("word_sort_paint",
+             "foundationdb_tpu_torch/kernels/csrc/word_sort.cu"),
             ("word_clip", "foundationdb_tpu_torch/kernels/csrc/word_shard.cu"),
             ("word_shard_probe",
              "foundationdb_tpu_torch/kernels/csrc/word_shard.cu"),
@@ -4024,14 +4060,13 @@ def smoke(args, pool) -> int:
             "max_abs_err": MAX_ABS_ERR[k], "ms": r["timing"][0],
             "plain_ms": r["timing"][1], "bound_ms": lo, "bound_by": by,
             "library_ms": None})
-    rows[-5].update(torch_sort_passes_ms=nrs["word_sort"][
-        "torch_sort_passes_ms"], paint_sort_ms=nrs["word_sort"][
-        "paint_sort_ms"], paint_sort_bound_ms=nrs["word_sort"][
-        "paint_sort_bound_ms"])
+    rows[-6].update(torch_sort_passes_ms=nrs["word_sort"][
+        "torch_sort_passes_ms"])
+    rows[-5].update(rows_sorted=nrs["word_sort_paint"]["rows"])
     rows[-3].update(probe_only_ms=nrs["word_shard_probe"]["probe_only_ms"],
                     table_ms=nrs["word_shard_probe"]["table_ms"])
-    rows[-2].update(whole_paint_ms=nrs["word_paint_sorted"][
-        "whole_paint_ms"])
+    rows[-2].update({k: nrs["word_paint_sorted"][k] for k in (
+        "whole_paint_ms", "whole_c_bound_ms", "c18_ms", "live_rows")})
     # K17 is timed by its build and query at N = 2^20 over the captured
     # step's slot bounds (the flat blocked arm's per-batch work); its
     # yardstick is one torch.cummax over the block rows, the prefix scan

@@ -1,4 +1,5 @@
-"""K1-K4 of one source tree against another's, on inputs captured once.
+"""K1-K4, K13's sorted paint and K14 of one source tree against another's,
+on inputs captured once.
 
     python3 foundationdb_tpu_torch/kernel_ab.py capture IN.pt
     python3 foundationdb_tpu_torch/kernel_ab.py time IN.pt [--tree DIR]
@@ -14,7 +15,11 @@ their bits, the words the block scan's demotion reads, the rows left
 for the settle after the first pass). For K1 and K4 it saves the
 batch's state before K1 with its dictionary delta, the history after K1,
 the floor, the fold's demand, the commit and oldest versions and the
-batch's acceptance (the paint's inputs).
+batch's acceptance (the paint's inputs). For K13 and K14 it saves the
+smoke's phase 3h capture: window 1 of the non-resident 4-shard engine
+(``ShardedConflictSet(resident=False)``) after window 0, with its state,
+bounds, commit and oldest versions, and for its first step the
+acceptance and the fullest shard's history, clipped batch and floor.
 
 ``time`` imports ``foundationdb_tpu_torch`` from ``DIR`` (default: the
 tree holding this file), holds that tree's K1-K4 against its own plain
@@ -25,8 +30,12 @@ state in place gets a fresh copy made outside the timed span) and, from
 the CUDA kernels one call launches. K1: the insert with its rank rewrite
 (``apply_delta``), the insert alone; K4: one paint, one gated fold step
 whose fold is not needed and one whose fold is, one forced fold
-(``advance_hist``). Run it on two trees in turns (A, B, B, A) in one call
-to compare them on one card. Needs a CUDA card; imports no JAX.
+(``advance_hist``). K14: the ranks of the step's endpoint rows, one
+shard's paint sort (2BQ rows, 2 payloads); K13: the sorted paint of that
+shard, at its capacity C = 2^20 and on a copy cut to C = 2^18 with the
+same live rows; one shard's whole unpacked paint; the window program (k
+= 8). Run it on two trees in turns (A, B, B, A) in one call to compare
+them on one card. Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -73,6 +82,7 @@ def capture(path: str) -> None:
         "dense_8192": _inputs(chip_smoke.dense_batch(8192, "cpu")),
         "dense_32768": _inputs(chip_smoke.dense_batch(32768, "cpu")),
         "stream_32768": _inputs(chip_smoke.big_seq_batch(stream, 32768)),
+        "nrs": _nrs_window(chip_smoke, stream, ycsb),
     })
     torch.save(out, path)
     counts = ck.accept_counts(*(out["smoke"][k] for k in (
@@ -104,6 +114,42 @@ def _a14_window(chip_smoke, stream, mode) -> dict:
             "cvs": [int(x) for x in prepared.cvs_rel],
             "olds": [int(x) for x in prepared.olds_rel],
             "n_new": int(hb.n_new), "demand": [int(x) for x in hb.demand]}
+
+
+def _nrs_window(chip_smoke, stream, mode) -> dict:
+    """Phase 3h's captured window (``chip_smoke.nr_sharded_phase`` (d)):
+    window 1 of the non-resident sharded engine after window 0, and its
+    first step's paint of the fullest shard."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+    from foundationdb_tpu_torch.models.conflict_set import upload_keys
+
+    k, b = chip_smoke.WINDOW_K, mode.batch
+    blob, ends, _ = chip_smoke.wire_stream(stream, mode, 128)
+    engine = {**chip_smoke.sharded_engine(stream, mode), "resident": False}
+    cs = bench.make_engine(mode, chip_smoke.CAP, "cuda", **engine)
+    cs.resolve_wire_window(*bench.window_wire(blob, ends, mode, k, 0), b)
+    prepared = cs.pack_wire_window(*bench.window_wire(blob, ends, mode, k,
+                                                      1), b)
+    bt = upload_keys(prepared.batch, cs.device)
+    state, lo, hi = cs.state, cs._lo_dev, cs._hi_dev
+    olds = [int(x) for x in prepared.olds_rel]
+    step = ck._step_batch(bt, 0)
+    floor = torch.maximum(state.oldest, torch.full_like(state.oldest,
+                                                        olds[0]))
+    too_old, _, _, cand = ck.word_shard_probe(state, step, lo, hi, floor[0])
+    accepted, _ = ck.accept(cand, too_old, step.txn_mask,
+                            ck.endpoint_ranks_live(step))
+    clip = ck.word_clip(step, lo, hi, False)
+    big = int(torch.argmax(state.n_used))
+    return {"state": state._asdict(), "batch": bt._asdict(), "lo": lo,
+            "hi": hi, "cvs": [int(x) for x in prepared.cvs_rel],
+            "olds": olds, "accepted": accepted,
+            "hs": ck._shard_hist(state, big)._asdict(),
+            "view": ck.clip_view(step, clip, big)._asdict(),
+            "floor": floor[big]}
 
 
 def _hist_dict(hist) -> dict:
@@ -299,6 +345,71 @@ def time_k1_k4(data, on, ck, K) -> dict:
     return out
 
 
+def time_k13_k14(data, on, ck, K) -> dict:
+    """K14's ranks and paint sort, K13's sorted paint (at C = 2^20 and cut
+    to 2^18), one shard's whole unpacked paint and the window program of
+    the imported tree on phase 3h's capture: each checked against its
+    plain version, then timed (wall and device)."""
+    import torch
+
+    from foundationdb_tpu_torch.ops.lex import sort_keys_with_payload
+
+    def clone(st):
+        return ck.ConflictState(*(x.clone() for x in st))
+
+    d = on(data["nrs"])
+    state = ck.ConflictState(**d["state"])
+    bt = ck.BatchTensors(**d["batch"])
+    step = ck._step_batch(bt, 0)
+    hs = ck.ConflictState(**d["hs"])
+    view = ck.BatchTensors(**d["view"])
+    acc, floor, cv = d["accepted"], d["floor"], d["cvs"][0]
+    _same("K14 ranks", ck.endpoint_ranks_live(step),
+          ck.endpoint_ranks_live_plain(step))
+    out = {"k14_ranks": _entry(lambda: ck.endpoint_ranks_live(step))}
+    keys, delta = K.word_paint_keys(view.write_begin, view.write_end,
+                                    view.write_mask, acc)
+    cross = K.word_search(hs.keys, keys)[1]
+    _same("K14 paint sort", K.word_sort(keys, (delta, cross)),
+          sort_keys_with_payload(keys, delta, cross))
+    out["k14_paint_sort"] = _entry(lambda: K.word_sort(keys, (delta, cross)))
+    out["k14_paint_sort"]["rows"] = keys.shape[0]
+    c18 = 1 << 18
+    if int(hs.n_used) >= c18:
+        raise SystemExit("kernel_ab: the captured shard fills 2^18 rows")
+    for label, h in (("k13_sorted_paint", hs),
+                     ("k13_sorted_paint_c18", ck.ConflictState(
+                         hs.keys[:c18].clone(), hs.versions[:c18].clone(),
+                         *hs[2:]))):
+        x = K.word_search(h.keys, keys)[1]
+        snew, (sd, sx) = K.word_sort(keys, (delta, x))
+        soldv = h.versions[(sx - 1).clamp(min=0).long()]
+        got = clone(h)
+        K.word_paint_sorted(got, snew, sd, sx, cv, floor)
+        _same(label, got, ck._paint_tail(h, snew, sd, soldv, sx, cv, floor))
+        out[label] = _entry(
+            lambda g, a=(snew, sd, sx): K.word_paint_sorted(g, *a, cv, floor),
+            lambda h=h: (clone(h),))
+        out[label].update(capacity=h.keys.shape[0], n_used=int(h.n_used),
+                          new_rows=snew.shape[0])
+    _same("unpacked paint", ck._paint_and_compact(clone(hs), view, acc, cv,
+                                                  floor),
+          ck._paint_and_compact_plain(hs, view, acc, cv, floor))
+    out["unpacked_paint"] = _entry(
+        lambda h: ck._paint_and_compact(h, view, acc, cv, floor),
+        lambda: (clone(hs),))
+    lo, hi, cvs, olds = d["lo"], d["hi"], d["cvs"], d["olds"]
+
+    def many(st, plain=False):
+        v, _, _, h = ck.sharded_resolve_many(st, bt, cvs, olds, lo, hi,
+                                             plain=plain)
+        return v, h
+
+    _same("window program", many(clone(state)), many(clone(state), True))
+    out["nr_sharded_window_program"] = _entry(many, lambda: (clone(state),))
+    return out
+
+
 def _forced_fold_plain(ck, hist, old):
     import torch
 
@@ -386,6 +497,8 @@ def time_tree(path: str, tree: str) -> None:
     }
     if "k1" in data:
         result.update(time_k1_k4(data, on, ck, K))
+    if "nrs" in data:
+        result.update(time_k13_k14(data, on, ck, K))
     print(json.dumps(result))
 
 

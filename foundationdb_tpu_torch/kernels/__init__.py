@@ -78,11 +78,11 @@ _SIGNATURES = {
                        _P],
         "wc_paint_keys": [_P] * 4 + [_I] * 3 + [_P] * 3,
         "wc_paint_sorted": [_P, _P, _I, _I] + [_P] * 6 + [_I] * 2
-        + [_P] * 7,
+        + [_P] * 4,
     },
     "word_sort": {
-        "wso_sort": [_P, _I, _I] + [_P] * 4 + [_I] + [_P] * 8,
-        "wso_ranks": [_P] * 4 + [_I] * 3 + [_P] * 12,
+        "wso_sort": [_P, _I, _I] + [_P] * 4 + [_I] + [_P] * 11,
+        "wso_ranks": [_P] * 4 + [_I] * 3 + [_P] * 13,
     },
     "word_shard": {
         "wsh_clip": [_P] * 6 + [_I] * 4 + [_P] * 2 + [_I] * 2 + [_P] * 7,
@@ -391,6 +391,25 @@ def _scratch(n: int, dev, count: int):
 #: (dict_insert.cu KTILE).
 K4_TILE = 2048
 K1_TILE = 2048
+#: Merged rows of K13's sorted-paint tile (word_compact.cu PT, one a
+#: thread).
+K13_TILE = 256
+
+
+def word_sort_tile(n: int, w: int) -> int:
+    """Rows of K14's sort tile for ``n`` rows of ``w`` words (word_sort.cu
+    ``tile_rows``): the smallest power of two from 1024 that cuts ``n``
+    into at most 24 tiles, within the largest (<= 2048) whose two head
+    arrays, indices and rows at an odd stride fit in 227 KB less 1 KB; 0
+    if not even 256 rows fit."""
+    cap = next((t for t in (2048, 1024, 512, 256)
+                if t * (20 + 4 * (w | 1)) <= 231424), 0)
+    t = min(cap, 1024)
+    while t < cap and -(-n // t) > 24:
+        t *= 2
+    return t
+
+
 _WS_HEAD = 8  # step_compact.cu WS_WORDS
 _WORKSPACE = threading.local()
 
@@ -952,7 +971,10 @@ def word_paint_sorted(state, snew, sdelta, scross, cv: int, floor) -> None:
     ConflictState): the sorted new rows ``snew`` [n2, W] with their
     coverage deltas and cross ranks into the state (K14's output) merged
     in, the commit version painted where coverage is positive, GC to the
-    0-dim ``floor``, compaction."""
+    0-dim ``floor``, compaction: two launches over the live rows
+    [0, ``n_used``) only, which relies on every row past ``n_used``
+    holding (+inf, NEG_VERSION), as every writer of a history leaves it.
+    K4's workspace holds the look-back state and the scratch."""
     c, w = _check_word_state(state, "state")
     n2 = snew.shape[0]
     _check(snew, _i32, "snew", (n2, w))
@@ -960,18 +982,37 @@ def word_paint_sorted(state, snew, sdelta, scross, cv: int, floor) -> None:
     _check(scross, _i32, "scross", (n2,))
     _check(floor, _i32, "floor", ())
     dev = snew.device
-    n = c + n2
-    mk = torch.empty((n, w), dtype=_i32, device=dev)
-    mv, t0, t1 = _scratch(n, dev, 3)
-    bsum = torch.empty((n + 1023) // 1024, dtype=_i32, device=dev)
+    # Look-back words for K13's tiles, and the survivors' scratch.
+    tiles = -(-(c + n2) // K13_TILE)
+    ws, scratch = _workspace(dev, tiles * K4_TILE, c * (w + 1))
     _call("word_compact", "wc_paint_sorted", dev, _ptr(state.keys),
           _ptr(state.versions), c, w, _ptr(state.n_used),
           _ptr(state.overflow), _ptr(state.oldest), _ptr(snew), _ptr(sdelta),
-          _ptr(scross), n2, int(cv), _ptr(floor), _ptr(mk), _ptr(mv),
-          _ptr(t0), _ptr(t1), _ptr(bsum))
+          _ptr(scross), n2, int(cv), _ptr(floor), _ptr(scratch), _ptr(ws))
 
 
 # ----------------------------------------------------------------- K14
+
+
+def _sort_scratch(n: int, w: int, dev):
+    """K14's scratch for n rows of w words, carved from K4's per-stream
+    workspace (a K14 call needs it only while it runs): the tiles' sorted
+    rows [n, w], their heads (int64 [n, 2]), original indices and slots
+    [n], and each tile's first differing word. The views are kept per
+    shape while the workspace's scratch stays the same, so a call's host
+    cost is two lookups."""
+    m = max(n, 1)
+    sizes = (4 * m, m * w, m, m, n // 256 + 1)
+    sc = _workspace(dev, 0, sum(sizes))[1]
+    views = getattr(_WORKSPACE, "sort_views", None)
+    if views is None or views[0] is not sc:
+        views = _WORKSPACE.sort_views = (sc, {})
+    got = views[1].get((n, w))
+    if got is None:
+        th, tk, ti, pos, tf = torch.split(sc[:sum(sizes)], sizes)
+        got = views[1][n, w] = (tk.view(m, w), th.view(_i64).view(m, 2), ti,
+                                pos, tf)
+    return got
 
 
 def word_sort(keys, payloads=()):
@@ -987,11 +1028,12 @@ def word_sort(keys, payloads=()):
     dev = keys.device
     out = torch.empty_like(keys)
     outs = [torch.empty(n, dtype=_i32, device=dev) for _ in payloads]
-    perm0, perm1 = _scratch(max(n, 1), dev, 2)
+    tk, th, ti, pos, tf = _sort_scratch(n, w, dev)
     ins = [_ptr(p) for p in payloads] + [None] * (4 - len(payloads))
     ptrs = [_ptr(o) for o in outs] + [None] * (4 - len(outs))
     _call("word_sort", "wso_sort", dev, _ptr(keys), n, w, *ins,
-          len(payloads), _ptr(out), *ptrs, _ptr(perm0), _ptr(perm1))
+          len(payloads), _ptr(out), *ptrs, _ptr(tk), _ptr(th), _ptr(ti),
+          _ptr(pos), _ptr(tf))
     return out, outs
 
 
@@ -1018,12 +1060,11 @@ def word_ranks(rb, re_, read_mask, wb, we, write_mask):
                           ranks[2 * nr + nq:].view(b, q))
     live = torch.empty(nr + nq, dtype=_bool, device=dev)
     rlive, wlive = live[:nr].view(b, r), live[nr:].view(b, q)
-    perm0, perm1 = _scratch(max(n, 1), dev, 2)
-    srt = torch.empty((max(n, 1), w), dtype=_i32, device=dev)
+    tk, th, ti, _, tf = _sort_scratch(n, w, dev)
     _call("word_sort", "wso_ranks", dev, _ptr(rb), _ptr(re_), _ptr(wb),
           _ptr(we), nr, nq, w, _ptr(read_mask), _ptr(write_mask), _ptr(orb),
           _ptr(ore), _ptr(owb), _ptr(owe), _ptr(rlive), _ptr(wlive),
-          _ptr(perm0), _ptr(perm1), _ptr(srt))
+          _ptr(tk), _ptr(th), _ptr(ti), _ptr(tf))
     return orb, ore, rlive, owb, owe, wlive
 
 

@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, in ``_build/`` beside this file.
-The library name carries a hash of its source, so an edited source is
-rebuilt and an unchanged one is reused. All missing libraries build at
+The library name carries a hash of its source and of the shared headers
+(``csrc/*.cuh``), so an edited source or header is rebuilt and an
+unchanged one is reused. All missing libraries build at
 once, one ``nvcc`` process each, started together.
 """
 
@@ -36,8 +37,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+    """The library of source ``name``, named by a hash of the source and
+    of every header beside it (an edited header rebuilds its users)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build_all(names=SOURCES) -> dict[str, Path]:

@@ -1,5 +1,6 @@
 // K13: step-function rewrites over W-word keys — the packed paint, the
-// base+delta fold and the dedup + compaction they share.
+// base+delta fold and the dedup + compaction they share, and the unpacked
+// paint (its new endpoint rows and its sorted paint).
 //
 // Replaces (foundationdb_tpu/models/conflict_kernel.py):
 //   _paint_and_compact_packed (:1489) -> _paint_tail (:925), as run by
@@ -15,35 +16,61 @@
 //
 // Bound on the H100: bytes. The fold reads the [C, W] base and [Cd, W]
 // delta and rewrites the base (C = 2^20, W = 4: ~20 MB of state, ~40 MB of
-// scratch through the merge and the two scans); a paint touches Cd + 2BQ
-// rows (~33 K at W words). The searches add dependent loads mostly in L2.
+// scratch through the merge and the two scans); a paint touches its live
+// rows and 2BQ new rows (~36 K at W words). The searches add dependent
+// loads mostly in L2.
 //
-// The unpacked flat programs (the sharded full-key engine, B3 with
-// resident=False, and the single flat B5 resolve) paint through two more
-// entries: wc_paint_keys writes the accepted writes' endpoint rows (a
-// rejected write parked on the +inf row, as the JAX _paint_and_compact
-// parks it, :893-900) and their coverage deltas; K12's search gives their
-// cross ranks, K14 (word_sort.cu) sorts the rows carrying deltas and cross
-// ranks; wc_paint_sorted is _paint_tail (:925) from those sorted rows,
-// over the same merge-scatter, scans and compaction as wc_paint.
-//
-// Design: K4 (step_compact.cu) at width W, one word row per thread. A
-// paint takes the host's paint order (``paint_src``: a stable argsort of
+// The packed paint, the fold and the compaction (wc_paint, wc_fold,
+// wc_compact) are K4's first design at width W, one word row per thread.
+// A paint takes the host's paint order (``paint_src``: a stable argsort of
 // the write endpoints' ranks, the permutation the JAX rank sort gives) and
 // K12's cross ranks into the delta (rs), and gathers each endpoint's key
 // back from the batch dictionary by its rank, so nothing is sorted on the
 // card. Rows are scattered to their merge slots (a new or delta row lands
 // at its index plus the count of history rows <= it, a history row at its
 // index plus the count of new rows < it: the JAX merge order), the
-// coverage and keep prefix sums are K4's device-wide scans, and the dedup
-// and forced minimum-key rule are K4's with W-word row compares. A
-// rejected write merges as a no-op endpoint (coverage delta 0) and is
-// compacted out, which leaves the same state as the JAX paint's parking of
-// it on the dictionary's +inf row. Every fold launch reads an optional
-// device flag and exits at once when it is false.
+// coverage and keep prefix sums are device-wide scans, and the dedup and
+// forced minimum-key rule use W-word row compares. A rejected write merges
+// as a no-op endpoint (coverage delta 0) and is compacted out, which
+// leaves the same state as the JAX paint's parking of it on the
+// dictionary's +inf row. Every fold launch reads an optional device flag
+// and exits at once when it is false.
+//
+// The unpacked paint: wc_paint_keys writes the accepted writes' endpoint
+// rows (a rejected write parked on the +inf row, as the JAX
+// _paint_and_compact parks it, :893-900) and their coverage deltas; K12's
+// search gives their cross ranks, K14 (word_sort.cu) sorts the rows
+// carrying deltas and cross ranks; wc_paint_sorted is _paint_tail (:925)
+// from those sorted rows, in K4's second design (step_compact.cu) at width
+// W and over the live rows only, two launches. Every row of a history at
+// or past n_used holds (+inf, NEG_VERSION) (every writer leaves it so), and
+// such rows change nothing in the merge but the forced row when every key
+// is +inf, which any +inf row then stands for; so the merge is of the
+// live rows [0, n_used) (read on the device) and the n2 new rows, and the
+// work is in proportion to n_used + n2, not C + n2. New row k sits at
+// merged position k + min(its cross rank, n_used) (history rows before
+// equal new rows, the JAX merge order), so a tile of 256 merged rows (one
+// a thread: small tiles spread over more SMs) finds its new rows by one
+// search over those positions, marks their slots, and fills the others
+// from the history in order; nothing merged is written to device memory.
+// Persistent blocks take tiles by ticket until the live merged length is
+// covered. Two sums cross tiles by a decoupled look-back: the coverage
+// before the tile and the survivors before it. The dedup needs, for the
+// tile's first run of equal keys, the version of the row before the run:
+// the run starts at the tile unless the row before the tile has its key,
+// and then one lower-bound search in each input finds its start; the
+// coverage there is the tile's less the deltas of the run's new rows
+// before the tile. The forced row is the last of the minimum key's run
+// (the last row when every key is +inf). Survivors land in a scratch
+// buffer; a second launch copies them back, writes (+inf, NEG_VERSION)
+// over [new n_used, old n_used) only, n_used, the sticky overflow and
+// oldest, and re-zeroes the look-back words and the ticket (K4's
+// workspace, step_compact.cu's layout).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "lookback.cuh"
 
 #define I32MAX 2147483647
 #define NEG_VERSION (-2147483647)
@@ -392,21 +419,6 @@ __global__ void k_paint_keys(const int* wb, const int* we, const bool* wmask,
   delta[k] = valid ? (is_begin ? 1 : -1) : 0;
 }
 
-// The SORTED new rows (K14's output: keys, deltas, cross ranks into the
-// history) to their merge slots, each with its segment's pre-paint
-// version.
-__global__ void k_sorted_new(const int* vers, const int* snew,
-                             const int* sdelta, const int* scross, int n2,
-                             int w, int* mk, int* md, int* mv) {
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n2) return;
-  int cross = scross[k];
-  int64_t pos = (int64_t)k + cross;
-  copy_row(mk + pos * w, row(snew, k, w), w);
-  md[pos] = sdelta[k];
-  mv[pos] = vers[cross > 0 ? cross - 1 : 0];
-}
-
 // keys [B*Q*2, w] and delta [B*Q*2] of the accepted writes wb/we [B, Q, w].
 extern "C" int wc_paint_keys(const int* wb, const int* we, const bool* wmask,
                              const bool* accepted, int B, int Q, int w,
@@ -418,25 +430,307 @@ extern "C" int wc_paint_keys(const int* wb, const int* we, const bool* wmask,
   return (int)cudaGetLastError();
 }
 
+
+// ------------------------------------------- the sorted paint: live tiles
+
+#define PT 256            // threads a paint tile
+#define STAGE 8           // loads in flight a thread
+#define SMEM_DYN 231424   // dynamic shared memory a tile may use (227 KB
+                          // less 1 KB for the static arrays)
+#define WS_TICKET 0       // workspace words (uint64), step_compact.cu's head
+#define WS_TOTAL 3
+#define WS_LIVE 4
+#define WS_NTILES 5
+#define WS_WORDS 8        // then ntiles coverage words, ntiles count words
+
+struct SortedPaint {
+  const int* hk;  // the history [c, w] and its versions (read only here)
+  const int* hv;
+  int c, w;
+  const int* n_used;
+  const int* nk;  // the sorted new rows [n2, w], their deltas, cross ranks
+  const int* nd;
+  const int* nx;
+  int n2;
+  int cv;
+  const int* floor_p;
+  int ntiles;  // tiles of c + n2 rows: the span of each look-back array
+  int* sk;     // the survivors' scratch [c, w], [c]
+  int* sv;
+  u64* ws;
+};
+
+// Merged position of new row k: k plus the live history rows before it.
+__device__ __forceinline__ int npos(const SortedPaint& p, int k, int nu) {
+  return k + min(p.nx[k], nu);
+}
+
+// Merged row a + b, given a history and b new rows before it.
+__device__ __forceinline__ const int* merged_row(const SortedPaint& p,
+                                                 int nu, int a, int b) {
+  return b < p.n2 && npos(p, b, nu) == a + b ? p.nk + (int64_t)b * p.w
+                                             : p.hk + (int64_t)a * p.w;
+}
+
+// Merged row a + b - 1, given a history and b new rows before row a + b.
+__device__ __forceinline__ const int* row_before(const SortedPaint& p,
+                                                 int nu, int a, int b) {
+  return b > 0 && min(p.nx[b - 1], nu) == a ? p.nk + (int64_t)(b - 1) * p.w
+                                            : p.hk + (int64_t)(a - 1) * p.w;
+}
+
+__device__ __forceinline__ int gcw(int v, bool inf, int fl) {
+  return (v <= fl || inf) ? NEG_VERSION : v;
+}
+
+// The merge of the history's live rows [0, n_used) with the n2 sorted new
+// rows, painted, GC'd, deduped and compacted by tiles of PT merged rows;
+// the survivors into the scratch. Persistent blocks take tiles by ticket
+// until the live merged length (read on the device) is covered.
+__global__ void __launch_bounds__(PT) k_sorted_tiles(SortedPaint p) {
+  extern __shared__ int sm[];
+  const int w = p.w, T = PT;
+  int* s_key = sm;           // [T, w] the tile's merged keys
+  int* s_val = sm + T * w;   // [T] the new rows' slots, then the versions
+  int* s_src = s_val + T;    // [T] each merged row's source
+  int* s_k0 = s_src + T;     // [w] merged row 0
+  int* s_next = s_k0 + w;    // [w] the row after the tile
+  __shared__ int s_scan[32];
+  __shared__ int s_m[16];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nu = min(max(*p.n_used, 1), p.c), n2 = p.n2, n = nu + n2;
+  const int nt = (n + T - 1) / T;
+  const int fl = *p.floor_p;
+  for (;;) {
+    if (tid == 0) s_m[0] = (int)atomicAdd(p.ws + WS_TICKET, 1ull);
+    __syncthreads();
+    const int t = s_m[0];
+    if (t >= nt) return;
+    if (t == 0 && tid == 0) {
+      p.ws[WS_LIVE] = (u64)nu;
+      p.ws[WS_NTILES] = (u64)nt;
+    }
+    const int d0 = t * T, d1 = min(n, d0 + T), len = d1 - d0;
+
+    // The new rows before each end of the tile (their positions increase).
+    if (warp < 2) {
+      const int diag = warp ? d1 : d0;
+      int b = warp_search(0, n2, [&](int k) { return npos(p, k, nu) < diag; });
+      if (lane == 0) s_m[1 + warp] = b;
+    }
+    __syncthreads();
+    const int b0 = s_m[1], b1 = s_m[2], a0 = d0 - b0;
+    const int lb = b1 - b0;
+    for (int j = tid; j < lb; j += PT) s_val[j] = npos(p, b0 + j, nu) - d0;
+    __syncthreads();
+
+    // Each thread's merged row r: its source (history row h, or new row ~k,
+    // into s_src), its coverage delta and its version before the paint.
+    const int r = tid;
+    int dc = 0, pre = NEG_VERSION;
+    if (r < len) {
+      int lo = 0, hi = lb;  // the tile's new rows before r
+      while (lo < hi) {
+        int mid = (lo + hi) >> 1;
+        if (s_val[mid] < r) lo = mid + 1; else hi = mid;
+      }
+      const int h = a0 + r - lo;  // history rows before merged row d0 + r
+      if (lo < lb && s_val[lo] == r) {
+        s_src[r] = ~(b0 + lo);
+        dc = p.nd[b0 + lo];
+        pre = p.hv[max(h - 1, 0)];
+      } else {
+        s_src[r] = h;
+        pre = p.hv[h];
+      }
+    }
+    __syncthreads();  // every slot read: s_val is free
+
+    // The keys, coalesced, STAGE loads in flight a thread.
+    for (int e0 = tid; e0 < len * w; e0 += PT * STAGE) {
+      int x[STAGE];
+#pragma unroll
+      for (int u = 0; u < STAGE; ++u) {
+        const int e = e0 + u * PT;
+        x[u] = 0;
+        if (e < len * w) {
+          const int i = e / w, q = s_src[i];
+          x[u] = (q >= 0 ? p.hk + (int64_t)q * w
+                         : p.nk + (int64_t)(~q) * w)[e - i * w];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < STAGE; ++u)
+        if (e0 + u * PT < len * w) s_key[e0 + u * PT] = x[u];
+    }
+    if (warp == 0) {
+      // Where the tile's first run of equal keys starts (the tile's start,
+      // unless merged row d0 - 1 has its key: then one search in each
+      // input), and the row before that run.
+      const int* fk = merged_row(p, nu, a0, b0);
+      int fa = a0, fb = b0;
+      if (d0 > 0 && cmp_row(row_before(p, nu, a0, b0), fk, w) == 0) {
+        fa = warp_search(0, nu, [&](int m) {
+          return cmp_row(p.hk + (int64_t)m * w, fk, w) < 0;
+        });
+        fb = warp_search(0, n2, [&](int m) {
+          return cmp_row(p.nk + (int64_t)m * w, fk, w) < 0;
+        });
+      }
+      if (lane == 0) {
+        s_m[3] = fa + fb;
+        s_m[4] = fb;
+        s_m[5] = p.hv[max(fa - 1, 0)];  // its version before the paint
+        s_m[6] = fa + fb > 0 && is_inf(row_before(p, nu, fa, fb), w);
+      }
+    } else if (warp == 1) {
+      const int* k0 = merged_row(p, nu, 0, 0);
+      for (int q = lane; q < w; q += 32) s_k0[q] = k0[q];
+      if (d1 < n) {
+        const int* after = merged_row(p, nu, d1 - b1, b1);
+        for (int q = lane; q < w; q += 32) s_next[q] = after[q];
+      }
+    }
+    __syncthreads();
+
+    // The coverage: the tile's, after the look-back; at the row before the
+    // first run, less the deltas of that run's rows before the tile.
+    const int fs = s_m[3], fb = s_m[4];
+    int part = 0;
+    for (int k = fb + tid; k < b0; k += PT) part += p.nd[k];
+    int run_cov, agg;
+    block_excl_sum(part, s_scan, &run_cov);
+    const int th = block_excl_sum(dc, s_scan, &agg);
+    if (warp == 0) {
+      int e = look_back(p.ws + WS_WORDS, t, agg);
+      if (lane == 0) s_m[7] = e;
+    }
+    __syncthreads();
+    const int cov_excl = s_m[7];
+    const int* key = s_key + r * w;
+    int v = NEG_VERSION;
+    if (r < len) {
+      v = gcw(cov_excl + th + dc > 0 ? p.cv : pre, is_inf(key, w), fl);
+      s_val[r] = v;
+    }
+    if (tid == 0)
+      s_m[8] = fs == 0 ? NEG_M1
+                       : gcw(cov_excl - run_cov > 0 ? p.cv : s_m[5],
+                             s_m[6], fl);
+    __syncthreads();
+
+    // Dedup: the last row of each run stays unless its version equals the
+    // previous run's last row's; the minimum key's last row is forced.
+    const bool k0_inf = is_inf(s_k0, w), has_next = d1 < n;
+    const int start = r > 0 && r < len && cmp_row(key, key - w, w) != 0
+                          ? r : -1;
+    const int st = max(block_excl_max(start, s_scan), start);
+    bool keep = false;
+    if (r < len) {
+      bool keep1 = r + 1 < len ? cmp_row(key, key + w, w) != 0
+                               : (!has_next || cmp_row(key, s_next, w) != 0);
+      int prev = st < 0 ? s_m[8] : s_val[st - 1];
+      bool forced = !k0_inf ? (keep1 && cmp_row(key, s_k0, w) == 0)
+                            : (d0 + r == n - 1);
+      keep = forced || (keep1 && v != prev && !is_inf(key, w));
+    }
+    int agg2;
+    const int idx = block_excl_sum(keep, s_scan, &agg2);
+    if (warp == 0) {
+      int e = look_back(p.ws + WS_WORDS + p.ntiles, t, agg2);
+      if (lane == 0) {
+        s_m[9] = e;
+        if (t == nt - 1) p.ws[WS_TOTAL] = (u64)(e + agg2);
+      }
+    }
+    __syncthreads();
+    if (keep && s_m[9] + idx < p.c) {
+      copy_row(p.sk + (int64_t)(s_m[9] + idx) * w, key, w);
+      p.sv[s_m[9] + idx] = v;
+    }
+    __syncthreads();  // before the next tile reuses shared memory
+  }
+}
+
+// The survivors back into the history, (+inf, NEG_VERSION) over [new
+// n_used, old n_used) (every row past the old n_used already holds it),
+// n_used, the sticky overflow and oldest; the look-back words and the
+// ticket re-zeroed for the next call.
+__global__ void k_sorted_finish(int* hk, int* hv, int c, int w, int* n_used,
+                                bool* overflow, int* oldest,
+                                const int* floor_p, const int* sk,
+                                const int* sv, u64* ws, int ntiles) {
+  const int total = (int)ws[WS_TOTAL];
+  const int nold = (int)ws[WS_LIVE], nt = (int)ws[WS_NTILES];
+  const int nnew = min(total, c);
+  const int span = max(max(nnew, nold), nt);
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < span;
+       j += gridDim.x * blockDim.x) {
+    if (j < nnew) {
+      copy_row(hk + (int64_t)j * w, sk + (int64_t)j * w, w);
+      hv[j] = sv[j];
+    } else if (j < nold) {
+      for (int q = 0; q < w; ++q) hk[(int64_t)j * w + q] = I32MAX;
+      hv[j] = NEG_VERSION;
+    }
+    if (j < nt) {
+      ws[WS_WORDS + j] = 0;
+      ws[WS_WORDS + ntiles + j] = 0;
+    }
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *n_used = nnew;
+    *overflow = *overflow || total > c;
+    *oldest = *floor_p;
+    ws[WS_TICKET] = 0;
+  }
+}
+
+// Per device: the SM count, and the tile kernel allowed SMEM_DYN bytes.
+static cudaError_t device_setup(int* sms) {
+  static int count[64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && count[dev]) {
+    *sms = count[dev];
+    return cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(k_sorted_tiles,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_DYN);
+  if (e == cudaSuccess && dev < 64) count[dev] = *sms;
+  return e;
+}
+
 // _paint_tail at width w from sorted new rows (snew [n2, w], sdelta,
-// scross [n2]): merge into the history (keys [c, w] / vers [c], in
-// place), paint, GC to the floor, compact. Scratch as wc_paint's.
+// scross [n2]: K14's output) into the history (keys [c, w] / vers [c], in
+// place), over its live rows only: two launches. Scratch: c (w + 1) ints;
+// ws the zeroed look-back state of 8 + 2 ceil((c + n2) / 256) words, left
+// zeroed.
 extern "C" int wc_paint_sorted(int* keys, int* vers, int c, int w,
                                int* n_used, bool* overflow, int* oldest,
                                const int* snew, const int* sdelta,
                                const int* scross, int n2, int cv,
-                               const int* floor_p, int* mk, int* mv, int* t0,
-                               int* t1, int* bsum, cudaStream_t s) {
-  const int T = 256;
-  int n = c + n2;
-  if (n2 > 0)
-    k_sorted_new<<<blocks(n2, T), T, 0, s>>>(vers, snew, sdelta, scross, n2,
-                                             w, mk, t0, mv);
-  k_paint_old<<<blocks(c, T), T, 0, s>>>(keys, vers, c, w, snew, n2, mk, t0,
-                                         mv);
-  scan(t0, t1, n, bsum, nullptr, s);
-  k_newv<<<blocks(n, T), T, 0, s>>>(mk, t1, mv, n, w, cv, floor_p);
-  compact(mk, mv, n, w, c, keys, vers, n_used, overflow, overflow, nullptr,
-          oldest, floor_p, t0, t1, bsum, nullptr, s);
+                               const int* floor_p, int* scratch, u64* ws,
+                               cudaStream_t s) {
+  if ((int64_t)PT * (w + 2) * 4 + 8 * w > SMEM_DYN || c < 1)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t e = device_setup(&sms);
+  if (e != cudaSuccess) return (int)e;
+  SortedPaint a = {keys, vers, c, w, n_used, snew, sdelta, scross, n2, cv,
+                   floor_p, blocks((int64_t)c + n2, PT), scratch,
+                   scratch + (int64_t)c * w, ws};
+  size_t smem = (size_t)PT * (w + 2) * 4 + 8 * w;
+  int grid = a.ntiles < 4 * sms ? a.ntiles : 4 * sms;
+  k_sorted_tiles<<<grid, PT, smem, s>>>(a);
+  int fgrid = blocks(c, 256) < 4 * sms ? blocks(c, 256) : 4 * sms;
+  k_sorted_finish<<<fgrid, 256, 0, s>>>(keys, vers, c, w, n_used, overflow,
+                                        oldest, floor_p, scratch,
+                                        scratch + (int64_t)c * w, ws,
+                                        a.ntiles);
   return (int)cudaGetLastError();
 }

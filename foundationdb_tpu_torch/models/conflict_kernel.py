@@ -2931,6 +2931,137 @@ def _paint_and_compact(state: ConflictState, batch: BatchTensors, accepted,
                                     new_oldest)
 
 
+#: Merged rows of K13's sorted-paint tile (one a thread).
+K13_TILE = K.K13_TILE
+
+
+def word_sort_tiles_plain(keys, tile: int | None = None):
+    """K14's merge by ranking, in plain torch: (perm, ranks) for the [N, W]
+    rows ``keys``. Each tile of ``tile`` rows (default: the kernel's,
+    ``kernels.word_sort_tile``) is sorted alone; a row's output slot is
+    its slot in its own sorted tile plus, for every other tile, that
+    tile's rows before it (<= for an earlier tile, < for a later one, so
+    equal rows keep their input order; the kernel counts them by merging
+    the two sorted tiles): ``perm[slot]`` is its input index, the stable
+    sort's permutation. ``ranks[i]`` is the count of rows strictly less
+    than row i, a lower bound in every sorted tile (``_endpoint_ranks``'
+    searchsorted left into the sorted rows)."""
+    n = keys.shape[0]
+    dev = keys.device
+    tile = tile or K.word_sort_tile(n, keys.shape[1])
+    starts = range(0, n, tile)
+    tiles = []
+    for t0 in starts:
+        local = torch.arange(t0, min(n, t0 + tile), dtype=torch.int32,
+                             device=dev)
+        tiles.append(sort_keys_with_payload(keys[t0:t0 + tile], local))
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
+    ranks = torch.zeros(n, dtype=torch.int32, device=dev)
+    for t, (sk, idx) in enumerate(tiles):
+        slot = torch.arange(sk.shape[0], dtype=torch.int32, device=dev)
+        rows = keys[starts[t]:starts[t] + tile]
+        for u, (uk, _) in enumerate(tiles):
+            ranks[starts[t]:starts[t] + tile] += searchsorted_words(
+                uk, rows, "left").to(torch.int32)
+            if u != t:
+                slot += searchsorted_words(
+                    uk, sk, "right" if u < t else "left").to(torch.int32)
+        perm[slot.long()] = idx
+    return perm, ranks
+
+
+def paint_sorted_tiles_plain(state: ConflictState, snew, sdelta, scross,
+                             commit_version: int, new_oldest,
+                             tile: int = K13_TILE) -> ConflictState:
+    """K13's sorted paint by its tile algorithm, over the history's live
+    rows [0, n_used) only: ``_paint_tail``'s result wherever every row past
+    ``n_used`` holds (+inf, NEG_VERSION). New row k sits at merged
+    position k + min(scross[k], n_used), so a tile finds its new rows by
+    one search over those positions and fills the rest from the history
+    in order. Two sums cross tiles (the kernel's look-back): the coverage
+    before a tile and the survivors before it. The version of the row
+    before a tile's first run of equal keys comes from the inputs at that
+    run's start (two lower-bound searches when the run began before the
+    tile), with the coverage there the tile's less the deltas of the
+    run's new rows before the tile. Rows [new n_used, old n_used) become
+    (+inf, NEG_VERSION); rows past the old n_used are not touched."""
+    from bisect import bisect_left
+
+    c, w = state.keys.shape
+    hk = [tuple(r) for r in state.keys.tolist()]
+    hv = state.versions.tolist()
+    nk = [tuple(r) for r in snew.tolist()]
+    nd, nx = sdelta.tolist(), scross.tolist()
+    n2 = len(nk)
+    nu = min(max(int(state.n_used), 1), c)
+    n = nu + n2
+    cv, fl = int(commit_version), int(new_oldest)
+    inf = (INT32_MAX,) * w
+    pos = [k + min(nx[k], nu) for k in range(n2)]
+
+    def row(a, b):  # merged row a + b, given a history and b new rows before
+        return nk[b] if b < n2 and pos[b] == a + b else hk[a]
+
+    def row_before(a, b):  # merged row a + b - 1
+        return nk[b - 1] if b > 0 and min(nx[b - 1], nu) == a else hk[a - 1]
+
+    def gc(v, key):
+        return NEG_VERSION if v <= fl or key == inf else v
+
+    k0 = row(0, 0)
+    out_k, out_v = [], []
+    cov_before = total = 0
+    for d0 in range(0, n, tile):
+        d1 = min(n, d0 + tile)
+        b0, b1 = bisect_left(pos, d0), bisect_left(pos, d1)
+        a0 = d0 - b0
+        keys, vals, cov, j = [], [], cov_before, b0
+        for r in range(d1 - d0):
+            h = a0 + r - (j - b0)  # history rows before merged row d0 + r
+            if j < b1 and pos[j] == d0 + r:
+                key, pre = nk[j], hv[max(h - 1, 0)]
+                cov += nd[j]
+                j += 1
+            else:
+                key, pre = hk[h], hv[h]
+            keys.append(key)
+            vals.append(gc(cv if cov > 0 else pre, key))
+        fa, fb = a0, b0
+        if d0 > 0 and row_before(a0, b0) == keys[0]:
+            fa = bisect_left(hk, keys[0], 0, nu)
+            fb = bisect_left(nk, keys[0])
+        prev_first = NEG_VERSION - 1
+        if fa + fb > 0:
+            run_cov = sum(nd[fb:b0])
+            prev_first = gc(cv if cov_before - run_cov > 0
+                            else hv[max(fa - 1, 0)], row_before(fa, fb))
+        nxt = row(d1 - b1, b1) if d1 < n else None
+        start = -1
+        for r, key in enumerate(keys):
+            if r > 0 and key != keys[r - 1]:
+                start = r
+            after = keys[r + 1] if r + 1 < len(keys) else nxt
+            keep1 = key != after
+            prev = prev_first if start < 0 else vals[start - 1]
+            forced = (keep1 and key == k0) if k0 != inf else d0 + r == n - 1
+            if forced or (keep1 and vals[r] != prev and key != inf):
+                if total < c:
+                    out_k.append(key)
+                    out_v.append(vals[r])
+                total += 1
+        cov_before = cov
+    dev = state.keys.device
+    keys_out, vers_out = state.keys.clone(), state.versions.clone()
+    m = len(out_k)
+    keys_out[:m] = torch.tensor(out_k, dtype=torch.int32, device=dev)
+    vers_out[:m] = torch.tensor(out_v, dtype=torch.int32, device=dev)
+    keys_out[m:nu] = INT32_MAX
+    vers_out[m:nu] = NEG_VERSION
+    return ConflictState(keys=keys_out, versions=vers_out, n_used=_i32(m, dev),
+                         oldest=_i32(new_oldest, dev).clone(),
+                         overflow=state.overflow | (total > c))
+
+
 def _accept_or_schedule(cand, too_old, txn_mask, ranks, wave: bool,
                         stats=None, plain: bool = False, verdicts_out=None,
                         levels_out=None):

@@ -1822,3 +1822,215 @@ def test_k4_launch_counts(card):
                          lambda: (hist,))
     assert not bool(ck.fold_need_plain(hist, 100, floor))
     assert paint <= 2 and step <= 5, (paint, step)
+
+
+# --- K14 (merge by ranking) and K13's sorted paint (live tiles) against
+# their plain versions -------------------------------------------------------
+
+
+def sort_rows_of(rng, n, w, kind):
+    if kind == "equal":
+        return np.tile(rng.integers(-9, 9, (1, w)).astype(np.int32), (n, 1))
+    if kind == "inf":
+        return np.full((n, w), ck.INT32_MAX, np.int32)
+    return key_rows(rng, n, w, kind)
+
+
+# N around one and two tiles of 1024 rows, and of the tiles that grow past
+# 24 of them (2048 rows from 24,577 at W <= 23).
+K14_EDGES = [0, 1, 1023, 1024, 1025, 2047, 2048, 2049, 24576, 24577, 36863,
+             36864, 36865, 49152, 49153, 57343]
+
+
+@pytest.mark.parametrize("w", [1, 4, 9, 24])
+@pytest.mark.parametrize("n", K14_EDGES)
+@pytest.mark.parametrize("kind", ["runs", "equal", "inf", "padded"])
+def test_word_sort_tile_edges(card, w, n, kind):
+    """K14's sort against the plain sort at N = 0, 1 and one below, at and
+    above one and two tiles (``kernels.word_sort_tile``), with four
+    payloads: keys and payloads bit for bit (equal rows keep their input
+    order)."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.ops.lex import sort_keys_with_payload
+
+    t = K.word_sort_tile(n, w)
+    assert t and n % t in (0, 1, t - 1) or n < 2
+    rng = np.random.default_rng(n * 31 + w)
+    keys = on(sort_rows_of(rng, n, w, kind), card)
+    pays = [torch.arange(n, dtype=torch.int32, device=card)] + [
+        on(rng.integers(-2**31, 2**31, n, dtype=np.int64).astype(np.int32),
+           card) for _ in range(3)]
+    got_k, got_p = K.word_sort(keys, pays)
+    want = sort_keys_with_payload(keys, *pays)
+    assert torch.equal(got_k, want[0])
+    for g, x in zip(got_p, want[1:]):
+        assert torch.equal(g, x)
+
+
+@pytest.mark.parametrize("w", [1, 4, 9, 24])
+@pytest.mark.parametrize("kind", ["runs", "equal", "inf", "random"])
+def test_word_ranks_tile_edges(card, w, kind):
+    """K14's ranks and liveness masks against the plain ones with N =
+    4B (R = Q = 1) below, at and above one and two tiles."""
+    for n in (4, 1020, 1024, 1028, 2048, 2052, 36860, 36864, 36868, 49152):
+        rng = np.random.default_rng(n + w)
+        b = n // 4
+        rows = on(sort_rows_of(rng, 4 * b, w, kind).reshape(4, b, 1, w),
+                  card)
+        masks = on(rng.random((2, b, 1)) < 0.8, card)
+        bt = ck.BatchTensors(rows[0], rows[1], masks[0], rows[2], rows[3],
+                             masks[1], torch.zeros(b, dtype=torch.int32,
+                                                   device=card),
+                             torch.ones(b, dtype=torch.bool, device=card))
+        got = ck.endpoint_ranks_live(bt)
+        want = ck.endpoint_ranks_live_plain(bt)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x), n
+
+
+def live_word_state(rng, c, live, w, dev, vmax=60, overflow=False):
+    """A [C, W] history of ``live`` sorted distinct rows (row 0 the minimum
+    key, first words from a small set so that compares reach later
+    words), random versions, (+inf, NEG_VERSION) past them."""
+    k = np.full((c, w), ck.INT32_MAX, np.int32)
+    v = np.full(c, ck.NEG_VERSION, np.int32)
+    k[0] = -2**31
+    rows = np.empty((0, w), np.int32)
+    while len(rows) < live - 1:
+        more = rng.integers(-2**31 + 1, 2**31 - 1, (2 * live, w),
+                            dtype=np.int64).astype(np.int32)
+        if w > 1:
+            more[:, 0] = rng.integers(-3, 3, 2 * live)
+        rows = np.unique(np.concatenate([rows, more]), axis=0)
+    rows = rows[:live - 1]
+    rows = rows[np.lexsort(rows.T[::-1])]
+    k[1:live] = rows
+    v[:live] = rng.integers(0, vmax, live)
+    return ck.ConflictState(on(k, dev), on(v, dev),
+                            torch.tensor(live, dtype=torch.int32, device=dev),
+                            torch.tensor(3, dtype=torch.int32, device=dev),
+                            torch.tensor(overflow, device=dev))
+
+
+def new_rows(rng, st, e2, kind):
+    """(keys [2·e2, W], deltas): endpoint rows, begins then ends, a
+    rejected or empty write parked on +inf with delta 0; ``hist``: every
+    endpoint a history key, ``run``: every endpoint on one key, ``inf``:
+    every write rejected."""
+    w = st.keys.shape[1]
+    live = int(st.n_used)
+    hist = st.keys[:live].cpu().numpy()
+    if kind in ("hist", "run"):
+        pick = rng.integers(0, live, (2, e2))
+        if kind == "run":
+            pick[:] = live // 2
+        ends = hist[pick]
+    else:
+        ends = rng.integers(-3, 3, (2, e2, w)).astype(np.int32)
+        ends[..., 1:] = hist[rng.integers(0, live, (2, e2)), 1:]
+    a, z = ends
+    swap = ck.lex_lt(torch.from_numpy(z), torch.from_numpy(a)).numpy()
+    a, z = np.where(swap[:, None], z, a), np.where(swap[:, None], a, z)
+    valid = ck.lex_lt(torch.from_numpy(a), torch.from_numpy(z)).numpy()
+    valid &= rng.random(e2) < 0.8
+    if kind == "inf":
+        valid[:] = False
+    keys = np.concatenate([a, z])
+    keys[np.concatenate([~valid, ~valid])] = ck.INT32_MAX
+    d = valid.astype(np.int32)
+    return keys, np.concatenate([d, -d])
+
+
+def k13_against_paint_tail(st, keys, delta, cv, floor, dev):
+    """K13's sorted paint (twice, on copies) against ``_paint_tail`` on
+    K14's sorted rows: the whole [C, W] state, n_used, overflow, oldest.
+    With no new rows, against the tile twin (``_paint_tail`` needs one)."""
+    from foundationdb_tpu_torch import kernels as K
+
+    keys, delta = on(keys, dev), on(delta, dev)
+    floor = torch.tensor(floor, dtype=torch.int32, device=dev)
+    if keys.shape[0]:
+        cross = K.word_search(st.keys, keys)[1]
+        snew, (sd, sx) = K.word_sort(keys, (delta, cross))
+        soldv = st.versions[(sx - 1).clamp(min=0).long()]
+        want = ck._paint_tail(st, snew, sd, soldv, sx, cv, floor)
+    else:
+        snew, sd, sx = keys, delta, delta.clone()
+        want = ck.paint_sorted_tiles_plain(
+            ck.ConflictState(*(x.cpu() for x in st)), snew.cpu(), sd.cpu(),
+            sx.cpu(), cv, floor.cpu())
+    for run in range(2):
+        got = ck.ConflictState(*(x.clone() for x in st))
+        K.word_paint_sorted(got, snew, sd, sx, cv, floor)
+        for f, g, x in zip(got._fields, got, want):
+            assert torch.equal(g.cpu(), x.cpu()), (f, run)
+    return want
+
+
+@pytest.mark.parametrize("case", ["n_used_1", "overflowed", "no_new",
+                                  "all_parked", "hist_keys", "long_run",
+                                  "expire_most", "random"])
+@pytest.mark.parametrize("w", [1, 4, 9])
+def test_word_paint_sorted_live_tiles(card, case, w):
+    """K13's sorted paint against ``_paint_tail``: a history of one row;
+    one whose every row is live (an overflowed shard: survivors past C);
+    no new rows; every new row parked on +inf; new rows equal to history
+    keys (runs across tile edges); a run of equal keys longer than a
+    tile; a floor that expires most rows; random rows."""
+    rng = np.random.default_rng(len(case) * 10 + w)
+    c, live, e2, fl = 5000, 2000, 1500, 10
+    if case == "n_used_1":
+        live = 1
+    elif case == "overflowed":
+        live = c
+    elif case == "no_new":
+        e2 = 0
+    elif case == "long_run":
+        e2 = 3000
+    elif case == "expire_most":
+        fl = 55
+    st = live_word_state(rng, c, live, w, card, overflow=case == "overflowed")
+    kind = {"all_parked": "inf", "hist_keys": "hist",
+            "long_run": "run"}.get(case, "random")
+    keys, delta = new_rows(rng, st, e2, kind)
+    want = k13_against_paint_tail(st, keys, delta, 77, fl, card)
+    if case == "overflowed":
+        assert bool(want.overflow)
+
+
+def test_word_paint_sorted_work_follows_live_rows(card):
+    """At equal live rows and new rows, K13's sorted paint gives the same
+    live state at C = 2^18 and 2^20 (and equals ``_paint_tail`` at both)."""
+    rng = np.random.default_rng(18)
+    st = live_word_state(rng, 1 << 20, 20000, 4, card)
+    keys, delta = new_rows(rng, st, 8192, "random")
+    big = k13_against_paint_tail(st, keys, delta, 77, 10, card)
+    small = ck.ConflictState(st.keys[:1 << 18].clone(),
+                             st.versions[:1 << 18].clone(), *st[2:])
+    got = k13_against_paint_tail(small, keys, delta, 77, 10, card)
+    n = int(big.n_used)
+    assert int(got.n_used) == n
+    assert torch.equal(got.keys[:n], big.keys[:n])
+    assert torch.equal(got.versions[:n], big.versions[:n])
+
+
+def test_k13_k14_launch_counts(card):
+    """At most three CUDA kernels a rank launch (N = 49,152, W = 4), a
+    paint sort (16,384 rows, 2 payloads) and a sorted paint (C = 2^20)."""
+    from foundationdb_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(3)
+    bt = key_batch(rng, 8192, 2, 1, 4, card, "random")
+    ranks = _cuda_kernels(lambda: ck.endpoint_ranks_live(bt), lambda: ())
+    keys = on(key_rows(rng, 16384, 4, "padded"), card)
+    pays = (torch.arange(16384, dtype=torch.int32, device=card),) * 2
+    sort = _cuda_kernels(lambda: K.word_sort(keys, pays), lambda: ())
+    st = live_word_state(rng, 1 << 20, 20000, 4, card)
+    k, d = new_rows(rng, st, 8192, "random")
+    k, d = on(k, card), on(d, card)
+    snew, (sd, sx) = K.word_sort(k, (d, K.word_search(st.keys, k)[1]))
+    floor = torch.tensor(10, dtype=torch.int32, device=card)
+    paint = _cuda_kernels(
+        lambda h: K.word_paint_sorted(h, snew, sd, sx, 77, floor),
+        lambda: (ck.ConflictState(*(x.clone() for x in st)),))
+    assert ranks <= 3 and sort <= 3 and paint <= 3, (ranks, sort, paint)
