@@ -18,9 +18,15 @@ Phases, each fatal on failure:
    (wave_pred, wave_level) on a batch captured from a wave engine on the
    same stream, whose levels must also equal the host replay
    (``core/wavemesh.level_wave_graph``) of the unpacked K5 matrix, run in
-   a worker process beside phases 3-4 and checked before step 5; each
-   output must equal the plain torch version's on the same card, bit for
-   bit.
+   a worker process beside phases 3-4 and checked before step 5; K12's
+   search and K5 on adversarial inputs (``k12_k5_adversarial``: live
+   prefixes of 0 and C rows, runs of equal rows, all-INT32_MAX queries,
+   sorted and unsorted queries around the tile sizes, W = 1, 4, 9, 24,
+   both history forms, plans forcing each of K12's branches and a span
+   one row over the shared budget; K5 on B not a multiple of 32, rows
+   with no live write, a wide R, every interval equal, live empty
+   intervals and few candidates); each output must equal the plain torch
+   version's on the same card, bit for bit.
 3. End to end: a 1M-txn YCSB-A stream (128 batches x 8192, scrambled
    Zipf-0.99 over 2^20 keys) through TorchConflictSet on cuda, with the
    Resolver's headroom fail-safe before each batch; K1-K4 must launch and
@@ -145,7 +151,10 @@ Phases, each fatal on failure:
    txns/s, p50/p99 and program ms printed. K17's build and query at
    N = 16,386 and 2^20 and its probe held against the plain versions
    (random, empty, one-block and out-of-range bounds), K14 at W = 1 with
-   payloads (``sort_ranks_with_payload``) too. (d) also speculating:
+   payloads (``sort_ranks_with_payload``) too, and K12 at W = 1 (the
+   flat blocked arm's rank search of the step's slot begin and end ranks)
+   against the plain search and ``torch.searchsorted`` left and right,
+   timed. (d) also speculating:
    check (c)'s adversary at depth 3 equals depth 1, and the dependency
    probe finds a clean younger window (repaired paint-only). (f) Wave
    twins on 16 batches: ``packed=False, wave_commit=True`` on the window
@@ -190,8 +199,9 @@ Phases, each fatal on failure:
    sharded window program, K11, K12, K13, the non-resident window
    program, K14, K15, K16, K13's sorted paint, the non-resident
    sharded window program, K17 and each design arm's window program,
-   K12's read-plane search, K17's two sharded probes and each sharded
-   arm's window program), then the card line, then the result line.
+   K12's read-plane search and its W = 1 rank search, K17's two sharded
+   probes and each sharded arm's window program), then the card line,
+   then the result line.
 
 Exits non-zero, printing no result, when no CUDA card is available or when
 run without the rest of the repository.
@@ -1138,6 +1148,121 @@ def wave_kernel_phase(stream, mode, pool) -> dict:
             "victims": victims, "replay": replay,
             "levels": got[1].cpu().numpy().tolist(), "index": cap.index,
             "tensors": (cand, p, too_old, tm)}
+
+
+def _search_case(rng, kind: str, w: int, c: int = 320, nq: int = 300):
+    """(keys [C, W] with rows past n all INT32_MAX, n, query rows) of one
+    adversarial kind (``k12_k5_adversarial``)."""
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+
+    n = {"n0": 0, "full": c}.get(kind, int(rng.integers(1, c)))
+    spread = 3 if kind in ("runs", "top") else 60
+    keys = np.full((c, w), ck.INT32_MAX, np.int32)
+    live = rng.integers(-spread, spread, (n, w)).astype(np.int32)
+    keys[:n] = live[np.lexsort(live.T[::-1])]
+    if kind == "top" and n > 2:
+        keys[n - 2:n] = ck.INT32_MAX  # +inf rows inside the live prefix
+    if kind == "tiles":
+        nq = int(rng.choice([3, 4, 5, 8, 9, 15, 16, 17, 127, 128, 129]))
+    q = rng.integers(-spread - 1, spread + 1, (nq, w)).astype(np.int32)
+    if n:
+        pick = rng.random(nq) < 0.4
+        q[pick] = keys[rng.integers(0, n, int(pick.sum()))]
+    q[rng.random(nq) < (0.3 if kind == "top" else 0.03)] = ck.INT32_MAX
+    if kind != "unsorted":
+        q = q[np.lexsort(q.T[::-1])]
+    return keys, n, q
+
+
+def k12_k5_adversarial() -> None:
+    """K12's search and K5 on the card against their plain versions on
+    adversarial inputs: K12 given live counts (n = 0, n = C, +inf rows
+    inside the live prefix), runs of equal rows, all-INT32_MAX queries,
+    sorted and unsorted queries, query counts around the tiles, W = 1, 4,
+    9, 24, the one- and two-history forms, at its own plan and at plans
+    that force each branch, and a tile whose span is one row over the
+    shared budget (one staged and one global block); every branch must
+    run. K5 on B not a multiple of 32, rows with no live write, R wide
+    enough to shrink its tile, every interval equal, live empty intervals
+    (begin = end) and few candidates."""
+    import torch
+
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+    from foundationdb_tpu_torch.ops.lex import searchsorted_words_2sided_fp
+
+    rng = np.random.default_rng(14)
+    seen = torch.zeros(3, dtype=torch.int32, device="cuda")
+
+    def check(label, keys, q, live, plan, keys1=None, live1=None):
+        hists = [keys] + ([] if keys1 is None else [keys1])
+        lives = [live, live1]
+        got = K.word_search(
+            *(torch.from_numpy(x).cuda() if x is not None else None
+              for x in (keys, q, keys1)),
+            *(None if x is None else torch.tensor(x, dtype=torch.int32,
+                                                  device="cuda")
+              for x in lives), seen, plan)
+        for h, rows in enumerate(hists):
+            want = searchsorted_words_2sided_fp(torch.from_numpy(rows),
+                                                torch.from_numpy(q))
+            assert_equal(f"word_probe.adversarial_{label}_{h}",
+                         [x.cpu() for x in got[2 * h:2 * h + 2]], list(want))
+
+    for w in (1, 4, 9, 24):
+        for kind in ("runs", "top", "n0", "full", "unsorted", "tiles"):
+            keys, n, q = _search_case(rng, kind, w)
+            for plan in (None, (16, 0), (128, 0), (16, 160 * w),
+                         (128, 200 * 1024)):
+                check(f"{kind}_w{w}", keys, q, n, plan)
+            keys2 = keys.copy()
+            keys2[n // 3:] = ck.INT32_MAX
+            for plan in (None, (64, 4096), (128, 1 << 16)):
+                check(f"{kind}_w{w}_two", keys, q, n, plan, keys2, n // 3)
+    w, budget = 4, 40
+    keys = np.stack([np.arange(320, dtype=np.int32)] * w, 1)
+    q = keys[np.concatenate([np.linspace(10, 10 + budget - 1, 16),
+                             np.linspace(100, 100 + budget, 16)]).astype(int)]
+    before = seen.clone()
+    # The shared bytes hold the tile's 16 rows, then the budget's rows.
+    check("over_budget", keys, q, None, (16, (16 + budget) * 4 * w))
+    if (seen - before).tolist() != [0, 1, 1]:
+        fail(f"K12: a span at and one row over the budget gave branches "
+             f"{(seen - before).tolist()}, want [0, 1, 1]")
+    if not bool((seen > 0).all()):
+        fail(f"K12's adversarial cases left a branch unused: {seen.tolist()}")
+    for kind in ("random", "b_not_32", "no_live_write", "wide", "dense",
+                 "empty_live", "noncand"):
+        b, r, qn, space = {"b_not_32": (161, 3, 2, 90),
+                           "wide": (700, 40, 1, 900),
+                           "dense": (130, 2, 2, 1)}.get(kind, (300, 2, 1, 200))
+        rb = rng.integers(0, space, (b, r)).astype(np.int32)
+        re_ = rb + rng.integers(0, 4, (b, r)).astype(np.int32)
+        wb = rng.integers(0, space, (b, qn)).astype(np.int32)
+        we = wb + rng.integers(0, 4, (b, qn)).astype(np.int32)
+        rl = (rng.random((b, r)) < 0.9) & (rb < re_)
+        wl = (rng.random((b, qn)) < 0.7) & (wb < we)
+        cand = rng.random(b) < 0.85
+        if kind == "no_live_write":
+            wl &= rng.random((b, qn)) < 0.4
+        elif kind == "dense":
+            rb[:], re_[:], wb[:], we[:] = 0, 5, 0, 5
+            rl[:], wl[:] = True, True
+        elif kind == "empty_live":
+            re_ = rb.copy()
+            rl = rng.random((b, r)) < 0.9
+        elif kind == "noncand":
+            cand = rng.random(b) < 0.05
+        ranks = tuple(torch.from_numpy(x).cuda()
+                      for x in (rb, re_, rl, wb, we, wl))
+        cand_t = torch.from_numpy(cand).cuda()
+        assert_equal(f"wave_pred.adversarial_{kind}",
+                     ck.wave_pred_matrix(cand_t, ranks),
+                     ck.wave_pred_matrix_plain(cand_t, ranks))
+    torch.cuda.synchronize()
+    print(f"k12_k5_adversarial: K12 blocks by branch "
+          f"{dict(zip(K.WP_BRANCHES, seen.tolist()))}, K5 on 7 kinds; all "
+          "equal their plain versions")
 
 
 def check_replay(wk: dict) -> None:
@@ -2379,7 +2504,9 @@ def nonresident_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
     hist = ck._maybe_merge(clone(state), hb.demand[0], floor)
     assert_equal("word_compact.maybe_merge", hist, ck._maybe_merge_plain(
         clone(state), hb.demand[0], floor))
-    s = ck.dict_history_search(hist.base.keys, pb.dict_keys, hist.delta.keys)
+    s = ck.dict_history_search(hist.base.keys, pb.dict_keys, hist.delta.keys,
+                               live_b=hist.base.n_used,
+                               live_d=hist.delta.n_used)
     assert_equal("word_probe.search", list(s), list(ck.dict_history_search(
         hist.base.keys, pb.dict_keys, hist.delta.keys, plain=True)))
     dst = K.build_table(hist.delta.versions)
@@ -2437,7 +2564,8 @@ def nonresident_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
 
     def k12():
         ls0, rs0, ls1, rs1 = K.word_search(hist.base.keys, pb.dict_keys,
-                                           hist.delta.keys)
+                                           hist.delta.keys, hist.base.n_used,
+                                           hist.delta.n_used)
         return K.word_probe(hist.base_st, ls0, rs0, dst, ls1, rs1,
                             pb.ranks.read_begin, pb.ranks.read_end,
                             pb.ranks.read_mask, pb.ranks.read_version,
@@ -2516,7 +2644,10 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     from foundationdb_tpu_torch import kernels as K
     from foundationdb_tpu_torch.models import conflict_kernel as ck
     from foundationdb_tpu_torch.models.conflict_set import upload_keys
-    from foundationdb_tpu_torch.ops.lex import sort_keys_with_payload
+    from foundationdb_tpu_torch.ops.lex import (
+        searchsorted_words,
+        sort_keys_with_payload,
+    )
 
     b = mode.batch
     s_n = SHARDS
@@ -2660,7 +2791,9 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
         hs = ck._shard_hist(state, s)
         keys, delta = K.word_paint_keys(view.write_begin, view.write_end,
                                         view.write_mask, accepted)
-        cross = K.word_search(hs.keys, keys)[1]
+        cross = K.word_search(hs.keys, keys, live0=hs.n_used)[1]
+        assert_equal("word_probe.paint_cross", cross, searchsorted_words(
+            hs.keys, keys, "right").to(torch.int32))
         snew, (sdelta, scross) = K.word_sort(keys, (delta, cross))
         assert_equal("word_sort_paint", [snew, sdelta, scross],
                      list(sort_keys_with_payload(keys, delta, cross)))
@@ -2731,7 +2864,7 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     c18 = 1 << 18
     h18 = ck.ConflictState(pi["hs"].keys[:c18].clone(),
                            pi["hs"].versions[:c18].clone(), *pi["hs"][2:])
-    x18 = K.word_search(h18.keys, pi["keys"])[1]
+    x18 = K.word_search(h18.keys, pi["keys"], live0=h18.n_used)[1]
     s18, (d18, x18) = K.word_sort(pi["keys"], (pi["delta"], x18))
     got18 = clone(h18)
     K.word_paint_sorted(got18, s18, d18, x18, cv0, pi["floor"])
@@ -3037,6 +3170,52 @@ def k17_checks(flat_state, rbk, delta_versions) -> dict:
     return t
 
 
+def k12_w1_row(flat_state, rbk) -> dict:
+    """K12 at W = 1 as the flat blocked resident arm runs it: the step's
+    slot begin ranks and end ranks searched into the [C, 1] rank keys
+    (``_rank_bounds``, two launches), held against the plain two-sided
+    search; its time, the plain version's and that of torch.searchsorted
+    left and right of both rank sets in the flattened keys (which it must
+    also equal); the bound: the ranks read and the four bounds written
+    once, and the rows any exact search must read."""
+    import torch
+
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+    from foundationdb_tpu_torch.ops.lex import searchsorted_words_2sided_fp
+
+    keys = flat_state.keys
+    flat = keys.reshape(-1)
+    qs = (rbk.read_begin, rbk.read_end)
+
+    def kernel():
+        return [ck._rank_bounds(keys, q)[:2] for q in qs]
+
+    def plain():
+        return [searchsorted_words_2sided_fp(keys, q.reshape(-1, 1))
+                for q in qs]
+
+    def library():
+        return [(torch.searchsorted(flat, q.reshape(-1), side="left"),
+                 torch.searchsorted(flat, q.reshape(-1), side="right"))
+                for q in qs]
+
+    got, want = kernel(), plain()
+    assert_equal("word_search_w1", got, want)
+    lib = library()
+    for g, x in zip(got, lib):
+        for a, b in zip(g, x):
+            if not torch.equal(a.long(), b):
+                fail("K12 at W = 1 differs from torch.searchsorted")
+    n = int(keys.shape[0])
+    nq = sum(q.numel() for q in qs)
+    needed = sum(search_rows_needed(*(x.cpu().numpy() for x in g), n)
+                 for g in got)
+    return {"ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=3),
+            "library_ms": time_ms(library),
+            "bound": bound(4 * (nq + 2 * nq + needed)), "queries": nq,
+            "rows_needed": needed}
+
+
 def design_phase(blob, ends, mode, n_batches: int, stream, seed: int,
                  card: str, seq_rec: dict, wave_out: dict) -> dict:
     """Phase 3i: the design arms on the window path, counted, with checks
@@ -3051,12 +3230,15 @@ def design_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     seconds = {}
     t0 = time.perf_counter()
     k17_launches = 0
+    w1_launches = 0  # K12 at W = 1 in the flat blocked arm
     programs = {}
     for name, (engine, program, sources, want, never) in ARMS.items():
         rec, _, _, _, launches, per_window = counted_run(
             blob, ends, mode, n_batches, wave=False, engine=engine,
             label=name, program=program, sources=sources)
         k17_launches += launches["rmq_blocked"]
+        if name == "b_rmq_blocked_history_batch":
+            w1_launches = sum(pw.get("wp_search", 0) for pw in per_window)
         for i, pw in enumerate(per_window):
             if (any(pw.get(e, 0) != n for e, n in want.items())
                     or any(pw.get(e, 0) for e in never)):
@@ -3103,6 +3285,13 @@ def design_phase(blob, ends, mode, n_batches: int, stream, seed: int,
           f"blocked probe with its build and K12's rank search "
           f"{k17['probe_ms']:.4f} ms, bound {k17['bound'][0]:.6f} ms")
     k17["launches"] = k17_launches
+    k17["w1"] = k12_w1_row(flat.hist, rbk)
+    k17["w1"]["launches"] = w1_launches
+    w1 = k17["w1"]
+    print(f"kernel word_search_w1 (C {flat.hist.keys.shape[0]}, "
+          f"{w1['queries']} slot ranks, begin and end): {w1['ms']:.4f} ms "
+          f"(plain {w1['plain_ms']:.4f} ms, torch.searchsorted left and "
+          f"right {w1['library_ms']:.4f} ms), bound {w1['bound'][0]:.6f} ms")
 
     # K14 at W = 1 with payloads (sort_ranks_with_payload): the paint
     # endpoints of the captured step's writes, their rank and index.
@@ -3234,26 +3423,15 @@ def read_stream(rng) -> list:
     return ops
 
 
-def search_rows_touched(left, right, n: int) -> int:
-    """Distinct mirror rows K12's two binary searches visit for these
-    answers (a row compares below the query exactly when its index is
-    below the answer, so the path follows from the answer alone; the
-    upper search starts at the lower bound)."""
+def search_rows_needed(left, right, n: int) -> int:
+    """Distinct rows any exact two-sided search must read to certify these
+    answers: each bound's row and the row before it (left - 1, left,
+    right - 1, right), those of the n rows that exist. A search that
+    reads fewer leaves some bound unproved."""
     import numpy as np
 
-    seen = []
-    for start, ans in ((np.zeros_like(left), left), (left, right)):
-        lo, hi = start.astype(np.int64), np.full(len(ans), n, np.int64)
-        for _ in range(max(1, int(n).bit_length()) + 1):
-            act = lo < hi
-            if not act.any():
-                break
-            mid = (lo + hi) >> 1
-            seen.append(mid[act])
-            go = mid < ans
-            lo = np.where(act & go, mid + 1, lo)
-            hi = np.where(act & ~go, mid, hi)
-    return len(np.unique(np.concatenate(seen))) if seen else 0
+    idx = np.concatenate([left - 1, left, right - 1, right]).astype(np.int64)
+    return len(np.unique(idx[(idx >= 0) & (idx < n)]))
 
 
 def read_plane_phase(seed: int, card: str) -> dict:
@@ -3471,14 +3649,14 @@ def read_plane_phase(seed: int, card: str) -> dict:
     torch.cuda.synchronize()
     left, right = (x.cpu().numpy() for x in kernel())
     k, w = q.shape
-    touched = search_rows_touched(left, right, mirror.shape[0])
+    needed = search_rows_needed(left, right, mirror.shape[0])
     t = {"ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=3),
-         "bound": bound(4 * (k * w + 2 * k + touched * w)),
-         "launches": launches, "queries": k, "rows_touched": touched}
+         "bound": bound(4 * (k * w + 2 * k + needed * w)),
+         "launches": launches, "queries": k, "rows_needed": needed}
     print(f"kernel word_search_reads (mirror {mirror.shape[0]} x {w}, {k} "
           f"query rows of one dispatch): {t['ms']:.4f} ms (plain "
-          f"{t['plain_ms']:.4f} ms), {touched} distinct mirror rows "
-          f"touched, bound {t['bound'][0]:.6f} ms")
+          f"{t['plain_ms']:.4f} ms), {needed} mirror rows any exact search "
+          f"reads, bound {t['bound'][0]:.6f} ms")
     lap("c")
     print(json.dumps({"phase 3j seconds": seconds}))
     return t
@@ -3789,6 +3967,7 @@ def smoke(args, pool) -> int:
     # 2. Per kernel.
     kp = kernel_phase(stream, ycsb)
     wk = wave_kernel_phase(stream, ycsb, pool)
+    k12_k5_adversarial()
     lap("2 kernels")
 
     # 3. End to end, counting launches of this run only.
@@ -4105,7 +4284,23 @@ def smoke(args, pool) -> int:
         "max_abs_err": MAX_ABS_ERR["word_search_reads"], "ms": rp["ms"],
         "plain_ms": rp["plain_ms"], "bound_ms": lo, "bound_by": by,
         "library_ms": None, "queries": rp["queries"],
-        "rows_touched": rp["rows_touched"]})
+        "rows_needed": rp["rows_needed"]})
+    # K12 at W = 1 (3i): the flat blocked arm's rank search of a step's
+    # slot begin and end ranks, beside torch.searchsorted left and right of
+    # the same ranks in the flattened rank keys.
+    w1 = k17["w1"]
+    lo, by = w1["bound"]
+    rows.append({
+        "name": "word_search_w1", "route": "cuda",
+        "source": "foundationdb_tpu_torch/kernels/csrc/word_probe.cu",
+        "replaces": "foundationdb_tpu/models/conflict_kernel.py:2129",
+        "launches": w1["launches"],
+        "max_abs_err": MAX_ABS_ERR["word_search_w1"], "ms": w1["ms"],
+        "plain_ms": w1["plain_ms"], "bound_ms": lo, "bound_by": by,
+        "library_ms": w1["library_ms"],
+        "library_call": "torch.searchsorted(keys, q, side=left and right), "
+                        "begin and end ranks",
+        "queries": w1["queries"], "rows_needed": w1["rows_needed"]})
     # K17's sharded probes (3k), each timed with its build over the S·C
     # versions, then each sharded arm's window program.
     for k, r in sa["probes"].items():

@@ -1,7 +1,7 @@
-"""K1-K4, K13's sorted paint and K14 of one source tree against another's,
-on inputs captured once.
+"""K1-K5, K12, K13's sorted paint and K14 of one source tree against
+another's, on inputs captured once.
 
-    python3 foundationdb_tpu_torch/kernel_ab.py capture IN.pt
+    python3 foundationdb_tpu_torch/kernel_ab.py capture IN.pt [--seed S]
     python3 foundationdb_tpu_torch/kernel_ab.py time IN.pt [--tree DIR]
 
 ``capture`` runs this tree's engine on the smoke's YCSB-A stream
@@ -19,7 +19,12 @@ batch's acceptance (the paint's inputs). For K13 and K14 it saves the
 smoke's phase 3h capture: window 1 of the non-resident 4-shard engine
 (``ShardedConflictSet(resident=False)``) after window 0, with its state,
 bounds, commit and oldest versions, and for its first step the
-acceptance and the fullest shard's history, clipped batch and floor.
+acceptance and the fullest shard's history, clipped batch and floor. For
+K12 and K5 it saves phase 3g's first step (the packed non-resident
+engine's history after its gated fold and the step's dictionary), the
+query rows of the first dispatch of phase 3j's read stream (``--seed``,
+the smoke's) over the 2^20-key mirror, and the smoke's wave batch
+(``capture_batch`` on a wave engine: candidates and live endpoint ranks).
 
 ``time`` imports ``foundationdb_tpu_torch`` from ``DIR`` (default: the
 tree holding this file), holds that tree's K1-K4 against its own plain
@@ -34,8 +39,11 @@ whose fold is not needed and one whose fold is, one forced fold
 shard's paint sort (2BQ rows, 2 payloads); K13: the sorted paint of that
 shard, at its capacity C = 2^20 and on a copy cut to C = 2^18 with the
 same live rows; one shard's whole unpacked paint; the window program (k
-= 8). Run it on two trees in turns (A, B, B, A) in one call to compare
-them on one card. Needs a CUDA card; imports no JAX.
+= 8). K12: the engine's search of base and delta, one dispatch's
+read-plane search, the cross-rank search of that shard's paint (each with
+the live counts where the tree's ``word_search`` takes them); K5 on the
+wave batch. Run it on two trees in turns (A, B, B, A) in one call to
+compare them on one card. Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -54,7 +62,7 @@ def _inputs(args) -> dict:
             "ranks": ranks}
 
 
-def capture(path: str) -> None:
+def capture(path: str, seed: int) -> None:
     import chip_smoke
     import torch
 
@@ -64,6 +72,7 @@ def capture(path: str) -> None:
     ycsb = MODES["ycsb"]
     stream = gen_workload(128 * ycsb.batch, chip_smoke.N_KEYS, 0, ycsb)
     cap = chip_smoke.capture_batch(stream, ycsb, wave=False)
+    wave = chip_smoke.capture_batch(stream, ycsb, wave=True)
     rbk, hist = cap.rb.ranks, cap.hist
     accepted, _ = ck.accept(cap.cand, cap.too_old, rbk.txn_mask, cap.ranks)
     res = cap.res
@@ -83,6 +92,9 @@ def capture(path: str) -> None:
         "dense_32768": _inputs(chip_smoke.dense_batch(32768, "cpu")),
         "stream_32768": _inputs(chip_smoke.big_seq_batch(stream, 32768)),
         "nrs": _nrs_window(chip_smoke, stream, ycsb),
+        "k12": {**_nr_step(chip_smoke, stream, ycsb),
+                "reads": _read_dispatch(chip_smoke, seed)},
+        "k5": {"cand": wave.cand, "ranks": wave.ranks},
     })
     torch.save(out, path)
     counts = ck.accept_counts(*(out["smoke"][k] for k in (
@@ -150,6 +162,51 @@ def _nrs_window(chip_smoke, stream, mode) -> dict:
             "hs": ck._shard_hist(state, big)._asdict(),
             "view": ck.clip_view(step, clip, big)._asdict(),
             "floor": floor[big]}
+
+
+def _nr_step(chip_smoke, stream, mode) -> dict:
+    """Phase 3g's captured step (``chip_smoke.nonresident_phase`` (e)):
+    the packed non-resident engine after window 0, its history after the
+    first step's gated fold, and that step's dictionary rows."""
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+    from foundationdb_tpu_torch.models.conflict_set import upload
+
+    k, b = chip_smoke.WINDOW_K, mode.batch
+    blob, ends, _ = chip_smoke.wire_stream(stream, mode, 128)
+    cs = bench.make_engine(mode, chip_smoke.CAP, "cuda", resident=False)
+    cs.resolve_wire_window(*bench.window_wire(blob, ends, mode, k, 0), b)
+    prepared = cs.pack_wire_window(*bench.window_wire(blob, ends, mode, k,
+                                                      1), b)
+    pb = ck._step_packed(upload(prepared.batch, cs.device, packed=True), 0)
+    floor, _ = ck.too_old_mask_packed(cs.state.delta, pb.ranks,
+                                      int(prepared.olds_rel[0]))
+    hist = ck._maybe_merge(cs.state, prepared.batch.demand[0], floor)
+    return {"hist": _hist_dict(hist), "dict_keys": pb.dict_keys}
+
+
+def _read_dispatch(chip_smoke, seed: int) -> dict:
+    """Phase 3j's mirror (the 2^20 read keys packed by the read set's
+    codec) and the query rows of its first dispatch: the point keys of the
+    first READ_CLIENTS ops of ``read_stream``, its generator advanced past
+    ``read_store``'s draws as the smoke's is."""
+    import random
+
+    import torch
+
+    from foundationdb_tpu_torch.core.keypack import KeyCodec
+
+    rng = random.Random(seed)
+    for _ in range(chip_smoke.READ_VERSIONS * 32):
+        rng.paretovariate(1.5)
+    stream = chip_smoke.read_stream(rng)
+    first = [k for op in stream[:chip_smoke.READ_CLIENTS]
+             if op[0] == "points" for k in op[1]]
+    codec = KeyCodec()
+    mirror = codec.pack([chip_smoke.read_key(i)
+                         for i in range(chip_smoke.READ_KEYS)])
+    return {"mirror": torch.from_numpy(mirror),
+            "queries": torch.from_numpy(codec.pack(first))}
 
 
 def _hist_dict(hist) -> dict:
@@ -410,6 +467,66 @@ def time_k13_k14(data, on, ck, K) -> dict:
     return out
 
 
+def _search(K, keys0, q, keys1=None, live0=None, live1=None):
+    """``K.word_search`` with the live counts where the tree's wrapper
+    takes them (a tree before them searches every row)."""
+    import inspect
+
+    if "live0" in inspect.signature(K.word_search).parameters:
+        return K.word_search(keys0, q, keys1, live0, live1)
+    return K.word_search(keys0, q, keys1)
+
+
+def time_k12_k5(data, on, ck, K) -> dict:
+    """K12's engine search (phase 3g's step), read-plane search (one
+    dispatch of phase 3j) and one shard's paint cross-rank search (phase
+    3h's capture), and K5 on the smoke's wave batch, of the imported tree:
+    each checked against its plain version, then timed (wall and
+    device)."""
+    from foundationdb_tpu_torch.ops.lex import searchsorted_words_2sided_fp
+
+    d = on(data["k12"])
+    base = ck.ConflictState(**d["hist"]["base"])
+    delta = ck.ConflictState(**d["hist"]["delta"])
+    dk = d["dict_keys"]
+
+    def engine():
+        return _search(K, base.keys, dk, delta.keys, base.n_used,
+                       delta.n_used)
+
+    _same("K12 engine search", engine(), ck.dict_history_search(
+        base.keys, dk, delta.keys, plain=True))
+    out = {"k12_engine_search": _entry(engine)}
+    out["k12_engine_search"].update(
+        rows=dk.shape[0], base_live=int(base.n_used),
+        delta_live=int(delta.n_used))
+    mirror, q = d["reads"]["mirror"], d["reads"]["queries"]
+    _same("K12 read-plane search", K.word_search(mirror, q)[:2],
+          searchsorted_words_2sided_fp(mirror, q))
+    out["k12_read_plane_search"] = _entry(lambda: K.word_search(mirror, q))
+    out["k12_read_plane_search"]["rows"] = q.shape[0]
+    n = on(data["nrs"])
+    hs, view = ck.ConflictState(**n["hs"]), ck.BatchTensors(**n["view"])
+    keys, _ = K.word_paint_keys(view.write_begin, view.write_end,
+                                view.write_mask, n["accepted"])
+
+    def cross():
+        return _search(K, hs.keys, keys, live0=hs.n_used)[1]
+
+    _same("K12 paint cross ranks", cross(),
+          searchsorted_words_2sided_fp(hs.keys, keys)[1])
+    out["k12_paint_cross_ranks"] = _entry(cross)
+    out["k12_paint_cross_ranks"].update(rows=keys.shape[0],
+                                        live=int(hs.n_used))
+    w = on(data["k5"])
+    cand, ranks = w["cand"], tuple(w["ranks"])
+    _same("K5", ck.wave_pred_matrix(cand, ranks),
+          ck.wave_pred_matrix_plain(cand, ranks))
+    out["k5_pred_matrix"] = _entry(lambda: ck.wave_pred_matrix(cand, ranks))
+    out["k5_pred_matrix"]["batch"] = cand.shape[0]
+    return out
+
+
 def _forced_fold_plain(ck, hist, old):
     import torch
 
@@ -499,6 +616,8 @@ def time_tree(path: str, tree: str) -> None:
         result.update(time_k1_k4(data, on, ck, K))
     if "nrs" in data:
         result.update(time_k13_k14(data, on, ck, K))
+    if "k12" in data:
+        result.update(time_k12_k5(data, on, ck, K))
     print(json.dumps(result))
 
 
@@ -507,12 +626,14 @@ def main() -> None:
     ap.add_argument("mode", choices=("capture", "time"))
     ap.add_argument("path")
     ap.add_argument("--tree", default=str(HERE))
+    ap.add_argument("--seed", type=int, default=0,
+                    help="capture: phase 3j's read stream seed")
     args = ap.parse_args()
     # Import the package (and chip_smoke) from the tree asked for, never
     # from this file's directory.
     sys.path[0] = str(Path(args.tree).resolve())
     if args.mode == "capture":
-        capture(args.path)
+        capture(args.path, args.seed)
     else:
         time_tree(args.path, args.tree)
 

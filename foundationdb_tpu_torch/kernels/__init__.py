@@ -65,7 +65,7 @@ _SIGNATURES = {
         "sh_exchange": [_P, _I, _I, _I, _P, _P, _P],
     },
     "word_probe": {
-        "wp_search": [_P, _I, _P, _I, _P, _I, _I, _P, _P, _P, _P, _P],
+        "wp_search": [_P, _I, _P, _P, _I, _P, _P] + [_I] * 4 + [_P] * 6,
         "wp_probe": [_P, _I, _P, _P, _P, _I, _P, _P] + [_P] * 6 + [_I] * 2
         + [_P] * 4,
     },
@@ -558,6 +558,21 @@ def _wave_scratch(bp: int) -> int:
     return bp * nw + 5 * bp + 3 * nw
 
 
+# wave.cu's K5: writer rows a block; shared bytes its tile may fill.
+PRED_ROWS = 256
+_PRED_SMEM = 48 * 1024
+
+
+def wave_pred_tile(r: int, q: int, nw: int) -> int:
+    """Words of K5's reader tile (wave.cu ``pred_tile``): up to 32, fewer
+    when 32 read intervals a word of ``r`` slots would pass 48 KB beside
+    the block's ``PRED_ROWS`` rows of ``q`` write intervals; at most the
+    ``nw`` words of a row."""
+    fixed = PRED_ROWS * 8 * q + 32 * 4
+    tw = (_PRED_SMEM - fixed) // (256 * r) if r > 0 else 32
+    return min(max(tw, 1), 32, nw)
+
+
 def wave_pred(cand, rb, re_, read_live, wb, we, write_live, out=None):
     """Packed predecessor rows int32 [BP, BP/32], BP = B rounded up to 32
     (bit i of row j: a read of txn i overlaps a write of txn j; candidate
@@ -800,10 +815,45 @@ def admission_count(words):
 # ----------------------------------------------------------------- K12
 
 
-def word_search(keys0, dict_keys, keys1=None):
+# word_probe.cu's search: 4 warps a block; blocks of one wave at full
+# occupancy (132 SMs x 16 blocks); the SM's shared memory.
+WP_THREADS = 128
+WP_WAVE_BLOCKS = 132 * 16
+_SM_SMEM, _BLOCK_SMEM = 233472, 232448
+#: Branches of K12's search, in the order of its block counts (WP_DIRECT,
+#: WP_STAGED, WP_GLOBAL in word_probe.cu).
+WP_BRANCHES = ("direct", "staged", "global")
+
+
+def word_search_plan(n1: int, c_sum: int, w: int) -> tuple[int, int]:
+    """(tile, shared bytes) of K12's search of ``n1`` query rows of ``w``
+    words into one or two histories of ``c_sum`` rows in all. A tile of 4
+    or 8 queries (one or two a warp) while the grid fits one wave of
+    4-warp blocks: each searched directly, no shared memory. Past that, a
+    tile of 128 (one query a thread of the block): room for its query rows
+    and the spans of an evenly spread sorted tile twice over (rows per
+    query: 2·c_sum / n1), within one wave's share of the SM's 228 KB."""
+    for tile in (4, 8):
+        if -(-n1 // tile) <= WP_WAVE_BLOCKS:
+            return tile, 0
+    tile = 128
+    per_sm = -(-(-(-n1 // tile)) // 132)  # blocks an SM holds at once
+    # Each block also holds 1 KB the card reserves and the static words.
+    cap = min(_BLOCK_SMEM, (_SM_SMEM // per_sm - 1024 - 128) // 128 * 128)
+    want = tile * (-(-2 * c_sum // n1) + 1) * w * 4
+    return tile, max(0, min(cap, want, c_sum * w * 4)) // 16 * 16
+
+
+def word_search(keys0, dict_keys, keys1=None, live0=None, live1=None,
+                stats=None, plan=None):
     """(ls0, rs0, ls1, rs1) int32 [N+1]: the left and right insertion
     points of every dictionary row ``dict_keys`` [N+1, W] in the sorted
-    [C, W] ``keys0`` and, when given, ``keys1`` (else None, None)."""
+    [C, W] ``keys0`` and, when given, ``keys1`` (else None, None).
+    ``live0``/``live1``: 0-dim int32 live row counts of ``keys0``/``keys1``
+    (their n_used), read on the device; rows at and past it must all be
+    INT32_MAX words. None: every row counts as live. ``stats`` (int32
+    [3]): adds the blocks of each branch (``WP_BRANCHES``). ``plan``:
+    (tile, shared bytes) in place of :func:`word_search_plan`'s."""
     n1, w = dict_keys.shape
     _check(dict_keys, _i32, "dict_keys")
     c0 = keys0.shape[0]
@@ -812,13 +862,25 @@ def word_search(keys0, dict_keys, keys1=None):
     if keys1 is not None:
         c1 = keys1.shape[0]
         _check(keys1, _i32, "keys1", (c1, w))
+    for name, live in (("live0", live0), ("live1", live1)):
+        if live is not None:
+            _check(live, _i32, name, ())
+    if live1 is not None and keys1 is None:
+        raise ValueError("live1 without keys1")
+    if stats is not None:
+        _check(stats, _i32, "stats", (len(WP_BRANCHES),))
     dev = dict_keys.device
     out = torch.empty((4 if keys1 is not None else 2, n1), dtype=_i32,
                       device=dev)
     ls0, rs0 = out[0], out[1]
     ls1, rs1 = (out[2], out[3]) if keys1 is not None else (None, None)
-    _call("word_probe", "wp_search", dev, _ptr(keys0), c0, _ptr(keys1), c1,
-          _ptr(dict_keys), n1, w, _ptr(ls0), _ptr(rs0), _ptr(ls1), _ptr(rs1))
+    tile, smem = plan or word_search_plan(n1, c0 + c1, w)
+    if tile not in (4, 8, 16, 32, 64, 128) or not 0 <= smem <= _BLOCK_SMEM:
+        raise ValueError(f"plan {(tile, smem)}: want a tile of 4..128 "
+                         "queries (a power of two) and <= 227 KB")
+    _call("word_probe", "wp_search", dev, _ptr(keys0), c0, _ptr(live0),
+          _ptr(keys1), c1, _ptr(live1), _ptr(dict_keys), n1, w, tile, smem,
+          _ptr(ls0), _ptr(rs0), _ptr(ls1), _ptr(rs1), _ptr(stats))
     return ls0, rs0, ls1, rs1
 
 

@@ -15,9 +15,23 @@
 // bits and padding rows are zero, as in the JAX function: the two-phase
 // protocol ships these rows to other shards. Bound on the H100: B^2 x R x Q
 // interval tests, two compares each (268 M operations at B = 8192, R = 2,
-// Q = 1), or the 8 MiB written. One thread per output word; the 32 lanes
-// of a warp are 32 consecutive writer rows of the same word, so the reader
-// ranks of that word are the same for the whole warp (broadcast loads).
+// Q = 1), or the 8 MiB written.
+// Design (K3's overlap layout, k_overlap in accept.cu, transposed to K5's
+// rows): one block of 16 warps takes 256 writer rows by a tile of TW words
+// (32·TW reader columns, TW <= 32 as shared memory allows). It stages the
+// tile's read intervals and the rows' write intervals in shared memory; a
+// dead slot, a reader that is not a candidate and a padding column are
+// staged empty (begin INT32_MAX, end INT32_MIN), so no test can set their
+// bit. A warp forms word w of row j: lane k tests reader 32w + k against
+// the row's write intervals and a __ballot_sync gives the word; lane l
+// keeps the word of the l-th step, so the warp writes TW consecutive words
+// of row j in one store (128 bytes at TW = 32). The block lists its rows
+// with a live write first (a warp's ballots); a row without one (half of
+// YCSB-A's) and a padding row store zeros without a test. A warp takes 8
+// listed rows at once, their write intervals in registers: one reader
+// load serves 8 tests and the 8 ballots of a word are independent (the
+// loop is bound by issue, not by latency). The diagonal is cleared by a
+// mask; a word with no live candidate reader is skipped without a test.
 //
 // K6 levels the candidates Kahn-style, in a fixed sequence of launches
 // with no host read between them (the window path allows no host sync; the
@@ -77,34 +91,128 @@
 #define FULL 0xffffffffu
 #define WV_THREADS 512  // K6's one block
 
-__global__ void k_pred(const bool* cand, const int* rb, const int* re,
-                       const bool* rlive, const int* wb, const int* we,
-                       const bool* wlive, int B, int R, int Q, int BP, int NW,
-                       unsigned* rows) {
-  int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (int64_t)BP * NW) return;
-  int w = (int)(t / BP);
-  int j = (int)(t % BP);
-  unsigned bits = 0;
-  if (j < B) {
-    for (int k = 0; k < 32; ++k) {
-      int i = w * 32 + k;
-      if (i >= B) break;
-      if (i == j || !cand[i]) continue;
-      bool hit = false;
-      for (int r = 0; r < R && !hit; ++r) {
-        int u = i * R + r;
-        if (!rlive[u]) continue;
-        int r0 = rb[u], r1 = re[u];
-        for (int q = 0; q < Q; ++q) {
-          int s = j * Q + q;
-          if (wlive[s] && wb[s] < r1 && r0 < we[s]) { hit = true; break; }
+#define PRED_WARPS 16
+#define PRED_ROWS 256  // writer rows a block
+#define EMPTY_BEGIN 2147483647
+#define EMPTY_END (-2147483647 - 1)
+
+#define PRED_RPW 8  // rows a warp forms at once
+
+// Shared memory: reads int2 [R][32·TW], writes int2 [PRED_ROWS][Q] and the
+// words' live reader masks unsigned [TW]; statically the block's rows
+// with a live write, then (from the end) those without, and their count.
+__global__ void __launch_bounds__(PRED_WARPS * 32)
+k_pred(const bool* cand, const int* rb, const int* re, const bool* rlive,
+       const int* wb, const int* we, const bool* wlive, int B, int R, int Q,
+       int BP, int NW, int TW, unsigned* rows) {
+  extern __shared__ int2 s_pred[];
+  __shared__ short s_order[PRED_ROWS];
+  __shared__ int s_nlive;
+  const int cols = 32 * TW;
+  int2* s_read = s_pred;
+  int2* s_write = s_read + (size_t)R * cols;
+  unsigned* s_any = (unsigned*)(s_write + (size_t)PRED_ROWS * Q);
+  const int w0 = blockIdx.x * TW;
+  const int tw = min(TW, NW - w0);
+  const int j0 = blockIdx.y * PRED_ROWS;
+  const int nrows = min(PRED_ROWS, BP - j0);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // Staging: every load of an item issued at once (a dead slot's values
+  // are read and dropped), four items in flight a thread.
+#pragma unroll 4
+  for (int t = tid; t < R * cols; t += PRED_WARPS * 32) {
+    const int r = t / cols, col = t - r * cols;
+    const int i = min(w0 * 32 + col, B - 1);
+    const size_t u = (size_t)i * R + r;
+    const bool live = (w0 * 32 + col < B) & cand[i] & rlive[u];
+    const int b = rb[u], e = re[u];
+    s_read[(size_t)r * cols + col] =
+        live ? make_int2(b, e) : make_int2(EMPTY_BEGIN, EMPTY_END);
+  }
+#pragma unroll 4
+  for (int t = tid; t < PRED_ROWS * Q; t += PRED_WARPS * 32) {
+    const int j = min(j0 + t / Q, B - 1);
+    const size_t s = (size_t)j * Q + t % Q;
+    const bool live = (j0 + t / Q < B) & wlive[s];
+    const int b = wb[s], e = we[s];
+    s_write[t] = live ? make_int2(b, e) : make_int2(EMPTY_BEGIN, EMPTY_END);
+  }
+  __syncthreads();
+  for (int w = warp; w < tw; w += PRED_WARPS) {
+    bool any = false;
+    for (int r = 0; r < R; ++r)
+      any |= s_read[(size_t)r * cols + w * 32 + lane].x != EMPTY_BEGIN;
+    const unsigned m = __ballot_sync(FULL, any);
+    if (lane == 0) s_any[w] = m;
+  }
+  if (warp == 0) {  // the rows with a live write first, in order
+    int nlive = 0, ndead = 0;
+    for (int c = 0; c < PRED_ROWS; c += 32) {
+      const int jj = c + lane;
+      bool live = false;
+      for (int q = 0; jj < nrows && q < Q; ++q)
+        live |= s_write[jj * Q + q].x != EMPTY_BEGIN;
+      const bool dead = !live && jj < nrows;
+      const unsigned lb = __ballot_sync(FULL, live);
+      const unsigned db = __ballot_sync(FULL, dead);
+      const unsigned below = (1u << lane) - 1u;
+      if (live) s_order[nlive + __popc(lb & below)] = (short)jj;
+      if (dead)
+        s_order[PRED_ROWS - 1 - ndead - __popc(db & below)] = (short)jj;
+      nlive += __popc(lb);
+      ndead += __popc(db);
+    }
+    if (lane == 0) s_nlive = nlive;
+  }
+  __syncthreads();
+  const int nlive = s_nlive;
+  // Rows without a live write: zeros, one store of TW words a row.
+  for (int x = PRED_ROWS - 1 - warp; x >= PRED_ROWS - (nrows - nlive);
+       x -= PRED_WARPS)
+    if (lane < tw) rows[(size_t)(j0 + s_order[x]) * NW + w0 + lane] = 0u;
+  // Rows with one, PRED_RPW at a time a warp: their write intervals in
+  // registers, one reader interval load serving every row, PRED_RPW
+  // independent ballots a word.
+  for (int c0 = warp * PRED_RPW; c0 < nlive; c0 += PRED_WARPS * PRED_RPW) {
+    int jr[PRED_RPW];
+    unsigned mine[PRED_RPW];
+#pragma unroll
+    for (int x = 0; x < PRED_RPW; ++x) {
+      jr[x] = c0 + x < nlive ? s_order[c0 + x] : -1;
+      mine[x] = 0;
+    }
+    for (int q = 0; q < Q; ++q) {
+      int2 wr[PRED_RPW];
+#pragma unroll
+      for (int x = 0; x < PRED_RPW; ++x)
+        wr[x] = jr[x] >= 0 ? s_write[jr[x] * Q + q]
+                           : make_int2(EMPTY_BEGIN, EMPTY_END);
+      for (int w = 0; w < tw; ++w) {
+        if (!s_any[w]) continue;
+        bool hit[PRED_RPW];
+#pragma unroll
+        for (int x = 0; x < PRED_RPW; ++x) hit[x] = false;
+        for (int r = 0; r < R; ++r) {
+          const int2 rd = s_read[(size_t)r * cols + w * 32 + lane];
+#pragma unroll
+          for (int x = 0; x < PRED_RPW; ++x)
+            hit[x] |= (wr[x].x < rd.y) & (rd.x < wr[x].y);
+        }
+#pragma unroll
+        for (int x = 0; x < PRED_RPW; ++x) {
+          const unsigned word = __ballot_sync(FULL, hit[x]);
+          if (lane == w) mine[x] |= word;
         }
       }
-      if (hit) bits |= 1u << k;
+    }
+#pragma unroll
+    for (int x = 0; x < PRED_RPW; ++x) {
+      if (jr[x] < 0 || lane >= tw) continue;
+      const int j = j0 + jr[x];
+      const unsigned diag = lane == (j >> 5) - w0 ? 1u << (j & 31) : 0u;
+      rows[(size_t)j * NW + w0 + lane] = mine[x] & ~diag;
     }
   }
-  rows[(int64_t)j * NW + w] = bits;
 }
 
 __device__ __forceinline__ bool bit_of(const unsigned* set, int j) {
@@ -602,15 +710,32 @@ __global__ void __launch_bounds__(WV_THREADS, 1) k_level(
 
 static inline int blocks(int64_t n, int t) { return (int)((n + t - 1) / t); }
 
+// Words of K5's reader tile: up to 32, fewer when R is so wide that 32·TW
+// read intervals would pass 48 KB of shared memory with the rows' writes.
+static int pred_tile(int R, int Q, int NW) {
+  const int fixed = PRED_ROWS * 8 * Q + 32 * 4;
+  int tw = R > 0 ? (48 * 1024 - fixed) / (256 * R) : 32;
+  tw = tw < 1 ? 1 : (tw > 32 ? 32 : tw);
+  return tw < NW ? tw : NW;
+}
+
 extern "C" int wv_pred(const bool* cand, const int* rb, const int* re,
                        const bool* rlive, const int* wb, const int* we,
                        const bool* wlive, int B, int R, int Q, int BP,
                        unsigned* rows, cudaStream_t s) {
   if (BP <= 0) return (int)cudaGetLastError();
-  int nw = BP / 32;
-  const int T = 256;
-  k_pred<<<blocks((int64_t)BP * nw, T), T, 0, s>>>(
-      cand, rb, re, rlive, wb, we, wlive, B, R, Q, BP, nw, rows);
+  const int nw = BP / 32;
+  const int tw = pred_tile(R, Q, nw);
+  const size_t smem = (size_t)8 * R * 32 * tw + (size_t)PRED_ROWS * 8 * Q +
+                      4 * 32;
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        k_pred, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  k_pred<<<dim3((nw + tw - 1) / tw, (BP + PRED_ROWS - 1) / PRED_ROWS),
+           PRED_WARPS * 32, smem, s>>>(cand, rb, re, rlive, wb, we, wlive, B,
+                                       R, Q, BP, nw, tw, rows);
   return (int)cudaGetLastError();
 }
 

@@ -617,6 +617,45 @@ def wave_pred_matrix_plain(base, ranks):
                                      *(_pad0(x, bp) for x in ranks))
 
 
+def wave_pred_tiles_plain(base, ranks, tw: int | None = None):
+    """K5 by its tiled ballot layout (wave.cu ``k_pred``), in plain torch:
+    blocks of ``kernels.PRED_ROWS`` writer rows by tiles of ``tw`` words
+    (default: the kernel's, ``kernels.wave_pred_tile``). A dead slot, a
+    reader that is not a candidate and a padding column are staged as the
+    empty interval (INT32_MAX, INT32_MIN), which no test can hit; a row
+    with no live write and a word with no live reader are zero without a
+    test; bit k of word w is lane k's test of reader 32w + k; the diagonal
+    is cleared by a mask. The JAX ``wave_pred_matrix``'s result."""
+    rb, re_, rlive, wb, we, wlive = ranks
+    b, r = rb.shape
+    q = wb.shape[1]
+    bp = (b + 31) // 32 * 32
+    nw = bp // 32
+    tw = tw or K.wave_pred_tile(r, q, nw)
+    empty_b, empty_e = INT32_MAX, -INT32_MAX - 1
+    live_r = _pad0(base[:, None] & rlive, bp)
+    rd_b = torch.where(live_r, _pad0(rb, bp), empty_b)
+    rd_e = torch.where(live_r, _pad0(re_, bp), empty_e)
+    live_w = _pad0(wlive, bp)
+    wr_b = torch.where(live_w, _pad0(wb, bp), empty_b)
+    wr_e = torch.where(live_w, _pad0(we, bp), empty_e)
+    rows = torch.zeros((bp, nw), dtype=torch.int32, device=base.device)
+    for w0 in range(0, nw, tw):
+        cols = slice(32 * w0, 32 * min(nw, w0 + tw))
+        word_live = live_r[cols].any(1).reshape(-1, 32).any(1)
+        for j0 in range(0, bp, K.PRED_ROWS):
+            jr = slice(j0, min(bp, j0 + K.PRED_ROWS))
+            hit = ((wr_b[jr, None, :, None] < rd_e[None, cols, None, :])
+                   & (rd_b[None, cols, None, :] < wr_e[jr, None, :, None]))
+            hit = (hit.flatten(2).any(2) & live_w[jr].any(1)[:, None]
+                   & word_live.repeat_interleave(32)[None, :])
+            rows[jr, w0:w0 + word_live.shape[0]] = pack_bits_u32(hit)
+    idx = torch.arange(bp, device=base.device)
+    diag = torch.zeros_like(rows)
+    diag[idx, idx >> 5] = to_int32_bits(torch.ones_like(idx) << (idx & 31))
+    return rows & ~diag
+
+
 def wave_pred_matrix(base, ranks):
     """K5: packed predecessor rows int32 [BP, BP/32], BP = ceil32(B): bit
     i of row j is set when a live read of txn i overlaps a live write of
@@ -2229,11 +2268,15 @@ def _step_packed(pb: PackedBatch, i: int) -> PackedBatch:
 
 
 def dict_history_search(keys_b, dict_keys, keys_d=None,
-                        plain: bool = False) -> DictSearch:
+                        plain: bool = False, live_b=None,
+                        live_d=None) -> DictSearch:
     """K12's search (the JAX ``_dict_history_search``, :1445, of the base
-    and the delta): one two-sided W-word search per dictionary row."""
+    and the delta): one two-sided W-word search per dictionary row. On
+    the card ``live_b``/``live_d`` (the levels' n_used) limit it to their
+    live rows; the plain version searches every row."""
     if _card(dict_keys, plain):
-        return DictSearch(*K.word_search(keys_b, dict_keys, keys_d))
+        return DictSearch(*K.word_search(keys_b, dict_keys, keys_d, live_b,
+                                         live_d))
     ls_b, rs_b = searchsorted_words_2sided_fp(keys_b, dict_keys)
     if keys_d is None:
         return DictSearch(ls_b, rs_b, None, None)
@@ -2336,7 +2379,8 @@ def _paint_and_compact_packed(state: ConflictState, dict_keys,
     the state the JAX paint leaves by parking it on the +inf row. In place
     on the card."""
     if rs is None:
-        rs = dict_history_search(state.keys, dict_keys, plain=plain).rs_b
+        rs = dict_history_search(state.keys, dict_keys, plain=plain,
+                                 live_b=state.n_used).rs_b
     if _card(state.keys, plain):
         K.word_paint(state, dict_keys, rs, rbk.write_begin, rbk.write_end,
                      rbk.write_mask, accepted, rbk.paint_src,
@@ -2352,10 +2396,12 @@ def _packed_levels(hist, dict_keys, plain: bool):
     of base and delta) or a flat [C, W] ConflictState."""
     if isinstance(hist, HistState):
         search = dict_history_search(hist.base.keys, dict_keys,
-                                     hist.delta.keys, plain)
+                                     hist.delta.keys, plain,
+                                     hist.base.n_used, hist.delta.n_used)
         return (search, hist.base_st, hist.delta.versions, hist.delta,
                 search.rs_d)
-    search = dict_history_search(hist.keys, dict_keys, plain=plain)
+    search = dict_history_search(hist.keys, dict_keys, plain=plain,
+                                 live_b=hist.n_used)
     return search, None, hist.versions, hist, search.rs_b
 
 
@@ -2695,10 +2741,14 @@ def word_history_probe_plain(hist, batch: BatchTensors, floor,
     return too_old, hist_mask, batch.txn_mask & ~too_old & ~hist_mask.any(1)
 
 
-def _word_bounds(keys0, rows, keys1=None):
-    """K12's search of the slots' endpoint rows [B, R, W] into ``keys0``
-    (and ``keys1``): (ls0, rs0, ls1, rs1) per slot."""
-    return K.word_search(keys0, rows.reshape(-1, rows.shape[-1]), keys1)
+def _word_bounds(level0, rows, level1=None):
+    """K12's search of the slots' endpoint rows [B, R, W] into the live
+    rows of history level ``level0`` (and ``level1``): (ls0, rs0, ls1,
+    rs1) per slot."""
+    return K.word_search(level0.keys, rows.reshape(-1, rows.shape[-1]),
+                         None if level1 is None else level1.keys,
+                         level0.n_used,
+                         None if level1 is None else level1.n_used)
 
 
 def word_history_probe(hist, batch: BatchTensors, floor, rmq: str = "sparse",
@@ -2719,14 +2769,13 @@ def word_history_probe(hist, batch: BatchTensors, floor, rmq: str = "sparse",
     if rmq == "blocked":
         table = K.blocked_build(level.versions)
         if not two:
-            _, rs, _, _ = _word_bounds(level.keys, batch.read_begin)
-            ls, _, _, _ = _word_bounds(level.keys, batch.read_end)
+            _, rs, _, _ = _word_bounds(level, batch.read_begin)
+            ls, _, _, _ = _word_bounds(level, batch.read_end)
             return K.blocked_probe(level.versions, table, rs, ls,
                                    batch.read_begin, batch.read_end, *tail)
         base = hist.base
-        _, rs_b, _, rs_d = _word_bounds(base.keys, batch.read_begin,
-                                        level.keys)
-        ls_b, _, ls_d, _ = _word_bounds(base.keys, batch.read_end, level.keys)
+        _, rs_b, _, rs_d = _word_bounds(base, batch.read_begin, level)
+        ls_b, _, ls_d, _ = _word_bounds(base, batch.read_end, level)
         return K.blocked_probe(level.versions, table, rs_d, ls_d,
                                batch.read_begin, batch.read_end, *tail,
                                base_st=hist.base_st, rs_b=rs_b, ls_b=ls_b)
@@ -2922,7 +2971,8 @@ def _paint_and_compact(state: ConflictState, batch: BatchTensors, accepted,
     if _card(state.keys, plain):
         keys, delta = K.word_paint_keys(batch.write_begin, batch.write_end,
                                         batch.write_mask, accepted)
-        _, cross, _, _ = K.word_search(state.keys, keys)
+        _, cross, _, _ = K.word_search(state.keys, keys,
+                                       live0=state.n_used)
         snew, (sdelta, scross) = K.word_sort(keys, (delta, cross))
         K.word_paint_sorted(state, snew, sdelta, scross, int(commit_version),
                             _i32(new_oldest, keys.device))
@@ -2968,6 +3018,144 @@ def word_sort_tiles_plain(keys, tile: int | None = None):
                     uk, sk, "right" if u < t else "left").to(torch.int32)
         perm[slot.long()] = idx
     return perm, ranks
+
+
+def _search_pivots(lo, m, g: int, win):
+    """[N, g] pivots of word_probe.cu's ``pivot`` (every row when m <= g;
+    a gallop window's end at the last; else g + 1 even parts) and which
+    lanes test one."""
+    k = torch.arange(g, dtype=torch.int64, device=lo.device)
+    lo, m, win = lo[:, None], m[:, None], win[:, None]
+    spread = torch.where(win, lo + (k + 1) * m // g - 1,
+                         lo + (k + 1) * m // (g + 1))
+    return torch.where(m <= g, lo + k, spread), k < m.clamp(max=g)
+
+
+def group_search_plain(keys, lo, hi, q, g: int, upper: bool, gallop: bool,
+                       active, span=None):
+    """word_probe.cu's ``group_search`` for every query row at once: the
+    first row of [lo, hi) of the sorted ``keys`` above ``q`` (``upper``) or
+    not below it, or hi, by (g+1)-ary steps of g pivots (with ``gallop``,
+    after windows of g, g(g+1), ... rows from lo). ``span`` ([N] lo, [N]
+    hi): every compared row must lie in it (the rows a block staged or the
+    live prefix), else this raises."""
+    lo, hi = lo.long().clone(), hi.long().clone()
+    n = lo.shape[0]
+    go = active & (lo < hi)
+    gal = torch.full_like(go, gallop)
+    length = torch.full_like(lo, g)
+    ar = torch.arange(n, device=lo.device)
+    while bool(go.any()):
+        win = gal & go
+        end = torch.where(win & (hi - lo > length), lo + length, hi)
+        m = end - lo
+        p, valid = _search_pivots(lo, m, g, win)
+        valid &= go[:, None]
+        if span is not None and bool((valid & ((p < span[0][:, None])
+                                               | (p >= span[1][:, None])))
+                                     .any()):
+            raise AssertionError("K12's search read a row outside its span")
+        rows = keys[p.clamp(0, max(keys.shape[0] - 1, 0))]
+        below = lex_lt(rows, q[:, None, :])
+        passed = valid & ((lex_lt(q[:, None, :], rows)) if upper else ~below)
+        f = torch.argmax(passed.int(), 1)
+        hit = go & passed.any(1)
+        whole = go & ~hit & (win | (m <= g))
+        part = go & ~hit & ~whole
+        prev = torch.where(f > 0, p[ar, (f - 1).clamp(min=0)] + 1, lo)
+        lo = torch.where(hit, prev, torch.where(
+            whole, end, torch.where(part, p[:, -1] + 1, lo)))
+        hi = torch.where(hit, p[ar, f], hi)
+        gal &= ~hit
+        length = torch.where(whole, torch.where(
+            length > 1 << 24, 1 << 30, length * (g + 1)), length)
+        go &= lo < hi
+    return lo.to(torch.int32)
+
+
+def word_search_tiles_plain(keys0, dict_keys, keys1=None, live0=None,
+                            live1=None, plan=None):
+    """K12's search by its block algorithm (word_probe.cu ``k_search``), in
+    plain torch: (ls0, rs0, ls1, rs1, branch counts int32 [3], one a block
+    and history). The tile and shared bytes come from
+    ``kernels.word_search_plan`` unless ``plan`` gives them. Only the live
+    prefix [0, n) of each history is read (n its live count, else C): a
+    query of all INT32_MAX words gets right bound C. A tile of at most two
+    queries a warp searches [0, n) directly; a larger one finds its
+    lexicographic minimum and maximum and their bounds in each history
+    (the span [L, R], at g = 32), and searches the span, "staged" when its
+    rows fit what the tile's own rows (staged first when they fit) and the
+    history before it left of the shared bytes (one thread a query: g =
+    1), else "global". Each query's group of g = 128 /
+    tile lanes finds its left bound, then gallops from it to its right
+    bound. Raises if a compare reads a row outside the rows its branch may
+    read."""
+    n1, w = dict_keys.shape
+    dev = dict_keys.device
+    hists = [(keys0, live0)] + ([(keys1, live1)] if keys1 is not None
+                                else [])
+    c_sum = sum(k.shape[0] for k, _ in hists)
+    tile, smem = plan or K.word_search_plan(n1, c_sum, w)
+    g = 32 * 4 // tile
+    stats = torch.zeros(3, dtype=torch.int32)
+    if n1 == 0:
+        empty = torch.zeros(0, dtype=torch.int32, device=dev)
+        return (empty, empty) + ((empty, empty) if keys1 is not None
+                                 else (None, None)) + (stats,)
+    nt = -(-n1 // tile)
+    tile_of = torch.arange(n1, device=dev) // tile
+    top = (dict_keys == INT32_MAX).all(1)
+    ones = torch.ones(n1, dtype=torch.bool, device=dev)
+    if tile > 8:  # each tile's lexicographic minimum and maximum
+        first = dict_keys[torch.arange(nt, device=dev) * tile]
+        pad = nt * tile - n1
+        x = torch.cat([dict_keys, first[-1:].expand(pad, w)])
+        mn = mx = x.reshape(nt, tile, w)
+        while mn.shape[1] > 1:
+            a, b = mn[:, 0::2], mn[:, 1::2]
+            mn = torch.where(lex_lt(b, a)[..., None], b, a)
+            a, b = mx[:, 0::2], mx[:, 1::2]
+            mx = torch.where(lex_lt(a, b)[..., None], b, a)
+        t_on = torch.ones(nt, dtype=torch.bool, device=dev)
+        q_bytes = tile * w * 4 if smem >= tile * w * 4 else 0  # tile rows
+        left_rows = torch.full((nt,), (smem - q_bytes) // (4 * w),
+                               dtype=torch.int64,
+                               device=dev)  # shared rows not yet staged
+    out = []
+    for keys, live in hists:
+        c = keys.shape[0]
+        n = c if live is None else min(max(int(live), 0), c)
+        lo = torch.zeros(n1, dtype=torch.int64, device=dev)
+        hi = torch.full_like(lo, n)
+        alone = torch.zeros(n1, dtype=torch.bool, device=dev)  # staged
+        if tile <= 8:
+            stats[K.WP_BRANCHES.index("direct")] += nt
+        else:
+            t_lo = torch.zeros(nt, dtype=torch.int64, device=dev)
+            t_hi = torch.full_like(t_lo, n)
+            span_l = group_search_plain(keys, t_lo, t_hi, mn[:, 0], 32, False,
+                                        False, t_on, (t_lo, t_hi)).long()
+            span_r = group_search_plain(keys, t_lo, t_hi, mx[:, 0], 32, True,
+                                        False, t_on, (t_lo, t_hi)).long()
+            staged = span_r - span_l <= left_rows
+            left_rows -= torch.where(staged, span_r - span_l, 0)
+            stats[K.WP_BRANCHES.index("staged")] += int(staged.sum())
+            stats[K.WP_BRANCHES.index("global")] += int((~staged).sum())
+            lo, hi = span_l[tile_of], span_r[tile_of]
+            alone = staged[tile_of]
+        left = torch.empty(n1, dtype=torch.int32, device=dev)
+        right = torch.empty_like(left)
+        for gq, sel in ((g, ~alone), (1, alone)):
+            if bool(sel.any()):
+                a, b, x = lo[sel], hi[sel], dict_keys[sel]
+                left[sel] = group_search_plain(keys, a, b, x, gq, False,
+                                               False, ones[sel], (a, b))
+                right[sel] = group_search_plain(keys, left[sel], b, x, gq,
+                                                True, True, ~top[sel], (a, b))
+        out += [left, torch.where(top, torch.full_like(right, c), right)]
+    if keys1 is None:
+        out += [None, None]
+    return (*out, stats)
 
 
 def paint_sorted_tiles_plain(state: ConflictState, snew, sdelta, scross,

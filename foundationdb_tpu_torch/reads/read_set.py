@@ -9,8 +9,9 @@ two-sided search that answers every point lookup and range boundary of the
 batch at once:
 
 - device arm on a CUDA device: K12's search (kernels/csrc/word_probe.cu
-  ``wp_search``, one thread per query row, the left and the right binary
-  search of the row in the mirror), one launch per search;
+  ``wp_search``: a dispatch's few hundred query rows get a warp each, 32
+  pivots a step, the right bound galloping from the left), one launch
+  per search, every mirror row live;
 - device arm with ``device="cpu"``: its plain twin,
   ``ops/lex.searchsorted_words_2sided_fp``;
 - host arm: numpy ``searchsorted`` over ``row_sort_keys``, as in JAX.

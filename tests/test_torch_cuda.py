@@ -2034,3 +2034,174 @@ def test_k13_k14_launch_counts(card):
         lambda h: K.word_paint_sorted(h, snew, sd, sx, 77, floor),
         lambda: (ck.ConflictState(*(x.clone() for x in st)),))
     assert ranks <= 3 and sort <= 3 and paint <= 3, (ranks, sort, paint)
+
+
+# ----------------- K12's block search (live prefix, branches) and K5's tiles
+
+
+def search_rows(rng, kind, w, c=320, nq=300):
+    """(keys [C, W] with rows past n all INT32_MAX, n, query rows): runs of
+    equal rows, all-INT32_MAX queries and live +inf rows, n = 0 and n = C,
+    sorted and unsorted queries, query counts around the tiles."""
+    n = {"n0": 0, "full": c}.get(kind, int(rng.integers(1, c)))
+    spread = 3 if kind in ("runs", "top") else 60
+    keys = np.full((c, w), ck.INT32_MAX, np.int32)
+    live = rng.integers(-spread, spread, (n, w)).astype(np.int32)
+    keys[:n] = live[np.lexsort(live.T[::-1])]
+    if kind == "top" and n > 2:
+        keys[n - 2:n] = ck.INT32_MAX  # +inf rows inside the live prefix
+    if kind == "tiles":
+        nq = int(rng.choice([3, 4, 5, 8, 9, 15, 16, 17, 127, 128, 129]))
+    q = rng.integers(-spread - 1, spread + 1, (nq, w)).astype(np.int32)
+    if n:
+        pick = rng.random(nq) < 0.4
+        q[pick] = keys[rng.integers(0, n, int(pick.sum()))]
+    q[rng.random(nq) < (0.3 if kind == "top" else 0.03)] = ck.INT32_MAX
+    if kind != "unsorted":
+        q = q[np.lexsort(q.T[::-1])]
+    return keys, n, q
+
+
+def _k12_equal(card, keys, q, live, plan, keys1=None, live1=None):
+    """K12 on the card against the plain two-sided search over all rows,
+    and its block counts by branch against ``word_search_tiles_plain``."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.ops.lex import searchsorted_words_2sided_fp
+
+    stats = torch.zeros(3, dtype=torch.int32, device=card)
+    got = K.word_search(on(keys, card), on(q, card),
+                        None if keys1 is None else on(keys1, card),
+                        None if live is None else live.to(card),
+                        None if live1 is None else live1.to(card), stats,
+                        plan)
+    hists = [keys] + ([] if keys1 is None else [keys1])
+    for h, keys_h in enumerate(hists):
+        want = searchsorted_words_2sided_fp(torch.from_numpy(keys_h),
+                                            torch.from_numpy(q))
+        for g, x in zip(got[2 * h:2 * h + 2], want):
+            assert torch.equal(g.cpu(), x.to(torch.int32)), (h, plan)
+    twin = ck.word_search_tiles_plain(
+        torch.from_numpy(keys), torch.from_numpy(q),
+        None if keys1 is None else torch.from_numpy(keys1), live, live1,
+        plan)
+    assert torch.equal(stats.cpu(), twin[4]), (stats, twin[4], plan)
+    return stats.cpu()
+
+
+@pytest.mark.parametrize("w", [1, 4, 9, 24])
+@pytest.mark.parametrize("kind", ["runs", "top", "n0", "full", "unsorted",
+                                  "tiles"])
+def test_k12_search_live_prefix_and_branches(card, kind, w):
+    """K12 given a live count, at its own plan and at plans that force each
+    branch (direct, staged, global; a span just over the budget), and in
+    the two-history form with a shorter second live prefix: the answers
+    equal the plain search over all C rows, the branch counts equal the
+    block algorithm's twin."""
+    rng = np.random.default_rng(len(kind) * 31 + w)
+    keys, n, q = search_rows(rng, kind, w)
+    live = torch.tensor(n, dtype=torch.int32)
+    seen = torch.zeros(3, dtype=torch.int32)
+    for plan in (None, (16, 0), (128, 0), (16, 160 * w), (32, 200 * 1024)):
+        seen += _k12_equal(card, keys, q, live, plan)
+    assert seen[0] > 0 and seen[1] + seen[2] > 0, seen
+    keys2 = keys.copy()
+    keys2[n // 3:] = ck.INT32_MAX
+    for plan in (None, (64, 4096)):
+        _k12_equal(card, keys, q, live, plan, keys2,
+                   torch.tensor(n // 3, dtype=torch.int32))
+
+
+def test_k12_span_just_over_the_shared_budget(card):
+    """Two tiles of 16 sorted rows whose spans are the budget's rows and
+    one more: one staged block, one global block, equal answers."""
+    w, budget = 4, 40
+    keys = np.stack([np.arange(320, dtype=np.int32)] * w, 1)
+    q = keys[np.concatenate([np.linspace(10, 10 + budget - 1, 16),
+                             np.linspace(100, 100 + budget, 16)]).astype(int)]
+    # The shared bytes hold the tile's 16 rows, then the budget's rows.
+    stats = _k12_equal(card, keys, q, None, (16, (16 + budget) * 4 * w))
+    assert stats.tolist() == [0, 1, 1]
+
+
+def test_k12_search_at_the_main_path_shapes(card):
+    """K12 at the shapes of its callers, one CUDA kernel a call: the
+    engine's sorted dictionary (49,153 rows, W = 4) into a 2^20-row base
+    and a 16,386-row delta with live counts (staged blocks), a paint's
+    16,384 unsorted rows into 2^20 (direct), the read plane's 341 rows of
+    W = 9 into a full mirror, 20,000 unsorted rows (global blocks)."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.ops.lex import searchsorted_words_2sided_fp
+
+    rng = np.random.default_rng(14)
+    base = live_word_state(rng, 1 << 20, 700_000, 4, card)
+    delta = live_word_state(rng, 16386, 5000, 4, card)
+    rows = torch.cat([base.keys[: 700_000], delta.keys[:5000]])
+    pick = torch.from_numpy(rng.integers(0, rows.shape[0], 49152)).to(card)
+    dict_keys = torch.cat([rows[pick], torch.full((1, 4), ck.INT32_MAX,
+                                                  dtype=torch.int32,
+                                                  device=card)])
+    order = np.lexsort(dict_keys.cpu().numpy().T[::-1])
+    dict_keys = dict_keys[torch.from_numpy(order).to(card)].contiguous()
+    mirror = live_word_state(rng, 300_000, 300_000, 9, card).keys
+    cases = [
+        ("engine", base, dict_keys, delta, "staged"),
+        ("paint", base, dict_keys[torch.randperm(49153, device=card)
+                                  [:16384]].contiguous(), None, "direct"),
+        ("unsorted", base, dict_keys[torch.randperm(49153, device=card)
+                                     [:20000]].contiguous(), None, "global"),
+        ("reads", None, mirror[torch.from_numpy(rng.integers(
+            0, 300_000, 341)).to(card)].contiguous(), None, "direct")]
+    for label, h0, q, h1, branch in cases:
+        keys0 = mirror if h0 is None else h0.keys
+        args = (keys0, q, None if h1 is None else h1.keys,
+                None if h0 is None else h0.n_used,
+                None if h1 is None else h1.n_used)
+        stats = torch.zeros(3, dtype=torch.int32, device=card)
+        got = K.word_search(*args, stats=stats)
+        for hist, out in ((keys0, got[:2]), (None if h1 is None
+                                             else h1.keys, got[2:])):
+            if hist is None:
+                continue
+            for g, x in zip(out, searchsorted_words_2sided_fp(hist, q)):
+                assert torch.equal(g, x.to(torch.int32)), label
+        counts = dict(zip(K.WP_BRANCHES, stats.tolist()))
+        assert counts[branch] == max(counts.values()), (label, counts)
+        assert _cuda_kernels(lambda: K.word_search(*args), lambda: ()) == 1
+
+
+@pytest.mark.parametrize("kind", ["random", "b_not_32", "no_live_write",
+                                  "wide", "dense", "empty_live", "noncand",
+                                  "big"])
+def test_k5_tiles_adversarial(card, kind):
+    """K5 against its plain version and its tile twin on B not a multiple
+    of 32, rows with no live write, R wide enough to shrink the tile,
+    every interval equal, live empty intervals, few candidates and the
+    smoke's B = 8192; one CUDA kernel a call."""
+    from foundationdb_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(len(kind))
+    b, r, q, space = {"b_not_32": (161, 3, 2, 90), "wide": (700, 40, 1, 900),
+                      "dense": (130, 2, 2, 1), "big": (8192, 2, 1, 9000)
+                      }.get(kind, (300, 2, 1, 200))
+    cand, ranks = wave_inputs(rng, b, r, q, space, "cpu")
+    ranks = list(ranks)
+    if kind == "no_live_write":
+        ranks[5] &= torch.from_numpy(rng.random((b, q)) < 0.4)
+    elif kind == "dense":
+        ranks = [torch.zeros((b, r), dtype=torch.int32),
+                 torch.full((b, r), 5, dtype=torch.int32),
+                 torch.ones((b, r), dtype=torch.bool),
+                 torch.zeros((b, q), dtype=torch.int32),
+                 torch.full((b, q), 5, dtype=torch.int32),
+                 torch.ones((b, q), dtype=torch.bool)]
+    elif kind == "empty_live":
+        ranks[1] = ranks[0].clone()
+        ranks[2] = torch.from_numpy(rng.random((b, r)) < 0.9)
+    elif kind == "noncand":
+        cand = torch.from_numpy(rng.random(b) < 0.05)
+    want = ck.wave_pred_matrix_plain(cand, tuple(ranks))
+    if kind != "big":
+        assert torch.equal(ck.wave_pred_tiles_plain(cand, tuple(ranks)), want)
+    cc, rc = cand.to(card), tuple(x.to(card) for x in ranks)
+    assert torch.equal(ck.wave_pred_matrix(cc, rc).cpu(), want)
+    assert _cuda_kernels(lambda: K.wave_pred(cc, *rc), lambda: ()) == 1

@@ -16,9 +16,22 @@ engine's), ``_redistribute_history`` and a reshard, ``rebase`` and
 tile algorithm, live rows only) is held equal to ``_paint_tail`` on random
 and adversarial states, and to the JAX ``_paint_tail``;
 ``word_sort_tiles_plain`` (K14's merge by ranking) to ``lax.sort`` and the
-JAX ``_endpoint_ranks``. Exact tolerance throughout (integers).
+JAX ``_endpoint_ranks``.
+
+K12's search (``word_probe.cu`` ``wp_search``) reads only a history's live
+rows when its caller passes n_used: the packed engine's base and delta
+(two-level and flat, and the speculation scratch), the unpacked engines'
+levels and each shard of the non-resident sharded engine. The invariant is
+checked on every one of those states, and ``word_search_tiles_plain`` (the
+kernel's block algorithm: the direct, staged and global branches, the
+group search and the gallop) is held to the JAX
+``searchsorted_words_2sided_fp`` over all C rows. Exact tolerance
+throughout (integers).
 """
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,6 +46,7 @@ from foundationdb_tpu_torch.ops.lex import (
     searchsorted_words,
     sort_keys_with_payload,
 )
+from foundationdb_tpu_torch.models.conflict_set import upload
 from foundationdb_tpu_torch.parallel import sharded_resolver as tsr
 from tests.test_conflict_oracle import rand_txn
 from tests.test_torch_conflict_kernel import T, same
@@ -70,13 +84,16 @@ def txns(rng, cv, n=20):
 
 
 @pytest.mark.parametrize("engine", ["sharded", "flat", "two_level",
-                                    "overflow"])
+                                    "overflow", "packed_two_level",
+                                    "packed_flat", "packed_overflow"])
 def test_every_writer_leaves_rows_past_n_used_empty(engine):
     """``init_state``, then the plain ``_paint_tail`` of every batch (each
     shard's, the flat history's, the two-level engine's delta, a history
     that overflows its capacity), the plain width-W fold (the two-level
     engine, a small delta), ``_redistribute_history`` through a reshard,
-    and ``rebase`` through a version jump."""
+    and ``rebase`` through a version jump; the same for the packed
+    non-resident engine (K13's packed paint, two-level with its fold, flat,
+    and overflowing)."""
     rng = np.random.default_rng(len(engine))
     kw = dict(KW, batch_size=24)
     if engine == "sharded":
@@ -85,11 +102,13 @@ def test_every_writer_leaves_rows_past_n_used_empty(engine):
                                     splits=[b"\x40", b"\xa0"], **kw)
     else:
         kw.pop("resident")
-        if engine == "overflow":
-            kw["capacity"] = 6
-        history = "window" if engine == "two_level" else "batch"
-        cs = TorchConflictSet(device="cpu", packed=False, history=history,
-                              delta_capacity=48, **kw)
+        if engine.endswith("overflow"):
+            kw["capacity"] = 3 if engine.startswith("packed") else 6
+        history = "window" if engine.endswith("two_level") else "batch"
+        design = ({"resident": False} if engine.startswith("packed")
+                  else {"packed": False})
+        cs = TorchConflictSet(device="cpu", history=history,
+                              delta_capacity=48, **design, **kw)
     assert_live_prefix(cs.state, "init")
     cv = 100
     for i in range(10):
@@ -99,15 +118,38 @@ def test_every_writer_leaves_rows_past_n_used_empty(engine):
         if engine == "sharded" and i == 4:
             cs.reshard([b"\x10", b"\xe0"])
             assert_live_prefix(cs.state, "reshard")
-    if engine == "overflow":
+    if engine.endswith("overflow"):
         assert cs.overflowed
-    if engine == "two_level":
+    if engine.endswith("two_level"):
         st = cs.state
         hist = st.hist if hasattr(st, "hist") else st
         floor = torch.tensor(cv - 50, dtype=torch.int32)
         base = tck._merge_delta_plain(hist.base, hist.delta, floor)
         assert_live_prefix(base, "fold")
         assert_live_prefix(tck._reset_delta(hist.delta, floor), "reset")
+
+
+def test_spec_scratch_leaves_rows_past_n_used_empty():
+    """The speculation scratch (``init_state`` and the packed paint at
+    INT32_MAX - 1 of a window's rejected writes, ``spec_mark_rejected``),
+    which K12's dependency probe searches by its n_used."""
+    rng = np.random.default_rng(9)
+    kw = dict(KW, batch_size=24)
+    kw.pop("resident")
+    cs = TorchConflictSet(device="cpu", resident=False, **kw)
+    cs.base_version = 900
+    pbs = [upload(cs._pack_dict(cs._pack(txns(rng, 1000 + 10 * i))[0]),
+                  torch.device("cpu"), packed=True) for i in range(2)]
+    window = tck.PackedBatch(
+        torch.stack([pb.dict_keys for pb in pbs]),
+        tck.RankBatch(*(torch.stack(x) for x in zip(*[pb.ranks
+                                                       for pb in pbs]))))
+    rejected = T(rng.random((2, pbs[0].ranks.txn_mask.shape[0])) < 0.6)
+    for cap in (8, 200):
+        scratch = tck.init_state(cap, cs.codec.width, cs.codec.min_key, "cpu")
+        assert_live_prefix(scratch, "scratch init")
+        scratch = tck.spec_mark_rejected(scratch, window, rejected)
+        assert_live_prefix(scratch, f"scratch {cap}")
 
 
 def test_redistribute_and_rebase_leave_rows_past_n_used_empty():
@@ -303,3 +345,128 @@ def test_k13_k14_tile_constants_match_the_kernels():
             assert kernels.word_sort_tile(n, w) == t, (n, w)
     assert define("word_compact.cu", "PT") == kernels.K13_TILE
     assert define("word_compact.cu", "WS_WORDS") == kernels._WS_HEAD
+
+
+# ------------------------------------------------------ K12's block search
+
+
+SEARCH_C, SEARCH_Q = 320, 300  # one JAX compile per W
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_search2():
+    return jax.jit(jlex.searchsorted_words_2sided_fp)
+
+
+def jax_search2(keys, q):
+    """The JAX two-sided search of ``q`` (padded to SEARCH_Q rows with
+    +inf, the answers cut back) in ``keys`` [SEARCH_C, W]."""
+    pad = np.full((SEARCH_Q - len(q), q.shape[1]), I32MAX, np.int32)
+    out = _jax_search2()(jnp.asarray(keys), jnp.asarray(np.concatenate(
+        [q, pad])))
+    return [np.asarray(x)[: len(q)] for x in out]
+
+
+def search_case(rng, kind, w):
+    """(keys [C, W] with rows past n all INT32_MAX, n, query rows): runs of
+    equal rows, all-INT32_MAX queries and live +inf rows, n = 0 and n = C,
+    sorted and unsorted queries, query counts around the tiles."""
+    c = SEARCH_C
+    n = {"n0": 0, "full": c}.get(kind, int(rng.integers(1, c)))
+    spread = 3 if kind in ("runs", "top") else 60
+    keys = np.full((c, w), I32MAX, np.int32)
+    live = rng.integers(-spread, spread, (n, w)).astype(np.int32)
+    keys[:n] = live[np.lexsort(live.T[::-1])]
+    if kind == "top" and n > 2:
+        keys[n - 2:n] = I32MAX  # +inf rows inside the live prefix
+    nq = {"tiles": int(rng.choice([3, 4, 5, 8, 9, 15, 16, 17, 127, 128,
+                                   129]))}.get(kind, SEARCH_Q)
+    q = rng.integers(-spread - 1, spread + 1, (nq, w)).astype(np.int32)
+    if n:
+        pick = rng.random(nq) < 0.4
+        q[pick] = keys[rng.integers(0, n, int(pick.sum()))]
+    q[rng.random(nq) < (0.3 if kind == "top" else 0.03)] = I32MAX
+    if kind != "unsorted":
+        q = q[np.lexsort(q.T[::-1])]
+    return keys, n, q
+
+
+@pytest.mark.parametrize("w", [1, 4, 9, 24])
+@pytest.mark.parametrize("kind", ["runs", "top", "n0", "full", "unsorted",
+                                  "tiles"])
+def test_word_search_tiles_equal_jax(kind, w):
+    """``word_search_tiles_plain`` over the live rows only, with the
+    kernel's plan and with plans that force each branch (tiles of 16 and
+    128 queries with no shared memory, room for 40 rows, room for all),
+    and in the two-history form (the second with a shorter live prefix),
+    against the JAX two-sided search over all C rows."""
+    rng = np.random.default_rng(len(kind) * 31 + w)
+    keys, n, q = search_case(rng, kind, w)
+    want = jax_search2(keys, q)
+    kt, qt, live = T(keys), T(q), torch.tensor(n, dtype=torch.int32)
+    seen = torch.zeros(3, dtype=torch.int32)
+    for plan in (None, (16, 0), (128, 0), (16, 160 * w), (32, 1 << 20)):
+        got = tck.word_search_tiles_plain(kt, qt, live0=live, plan=plan)
+        same(got[0], want[0], (kind, w, plan, "left"))
+        same(got[1], want[1], (kind, w, plan, "right"))
+        seen += got[4]
+    assert seen[0] > 0 and seen[1] + seen[2] > 0, seen
+    n2 = n // 3
+    keys2 = keys.copy()
+    keys2[n2:] = I32MAX
+    want2 = jax_search2(keys2, q)
+    got = tck.word_search_tiles_plain(kt, qt, T(keys2), live,
+                                      torch.tensor(n2, dtype=torch.int32))
+    for g, x in zip(got[:4], want + want2):
+        same(g, x, (kind, w, "two histories"))
+
+
+def test_word_search_span_just_over_the_shared_budget():
+    """Tiles of 16 distinct sorted rows whose spans are the budget's rows
+    and one row more: the first is staged, the second searched in global
+    memory, with equal answers (and equal to the JAX search)."""
+    w, budget = 4, 40
+    keys = np.stack([np.arange(SEARCH_C, dtype=np.int32)] * w, 1)
+    q = keys[np.concatenate([np.linspace(10, 10 + budget - 1, 16),
+                             np.linspace(100, 100 + budget, 16)]).astype(int)]
+    # The shared bytes hold the tile's 16 rows, then the budget's rows.
+    plan = (16, (16 + budget) * 4 * w)
+    got = tck.word_search_tiles_plain(T(keys), T(q), plan=plan)
+    want = jax_search2(keys, q)
+    same(got[0], want[0])
+    same(got[1], want[1])
+    assert got[4].tolist() == [0, 1, 1]
+
+
+def test_word_search_plan_and_constants_match_the_kernel():
+    """``kernels.WP_THREADS``, the branch order and K5's ``PRED_ROWS`` are
+    the kernels' defines; the plan's direct tiles (4, 8) fill one wave of
+    blocks with no shared memory, and past them a tile of 128 has room, at
+    the engine's shapes, for an even sorted tile's spans 1.5 times over."""
+    import re
+    from pathlib import Path
+
+    from foundationdb_tpu_torch import kernels
+
+    csrc = Path(kernels.__file__).resolve().parent / "csrc"
+    wp = (csrc / "word_probe.cu").read_text()
+    wv = (csrc / "wave.cu").read_text()
+    assert int(re.search(r"#define WP_THREADS (\d+)", wp).group(1)) == \
+        kernels.WP_THREADS
+    enum = re.search(r"enum \{ (WP_\w+), (WP_\w+), (WP_\w+) \}", wp)
+    assert [x[3:].lower() for x in enum.groups()] == list(
+        kernels.WP_BRANCHES)
+    assert int(re.search(r"#define PRED_ROWS (\d+)", wv).group(1)) == \
+        kernels.PRED_ROWS
+    cd = 16386
+    for n1, c, w, tile in ((341, 1 << 20, 9, 4), (16384, 1 << 20, 4, 8),
+                           (16897, 1 << 20, 4, 128),
+                           (49153, (1 << 20) + cd, 4, 128),
+                           (1 << 20, 1 << 20, 1, 128)):
+        t, smem = kernels.word_search_plan(n1, c, w)
+        assert t == tile, (n1, t)
+        assert (smem == 0) == (t <= 8)
+        assert smem <= 232448 and smem % 16 == 0
+        if n1 == 49153:  # the engine's dictionary: an even tile's spans
+            assert smem // (4 * w) >= 3 * t * c // n1 // 2  # fit 1.5 times
+

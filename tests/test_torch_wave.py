@@ -84,6 +84,44 @@ def test_pred_matrix_equals_jax(b, r, q, space):
         assert dense[~base].any()  # non-candidate rows keep their bits
 
 
+@pytest.mark.parametrize("kind", ["random", "b_not_32", "no_live_write",
+                                  "wide", "dense", "empty_live", "noncand"])
+def test_pred_tiles_equal_jax(kind):
+    """``wave_pred_tiles_plain`` (K5's block layout: 128 writer rows by a
+    tile of words, dead slots, non-candidates and padding staged empty,
+    rows with no live write and words with no live reader skipped, the
+    diagonal masked) at the kernel's tile and at tiles of 1 and 3 words,
+    against JAX ``wave_pred_matrix``: B not a multiple of 32, rows with no
+    live write, R wide enough to shrink the tile, every interval equal,
+    live empty intervals (begin = end) and few candidates."""
+    rng = np.random.default_rng(len(kind))
+    b, r, q, space = {"b_not_32": (161, 3, 2, 90), "wide": (700, 40, 1, 900),
+                      "dense": (130, 2, 2, 1)}.get(kind, (300, 2, 1, 200))
+    ranks = list(random_ranks(rng, b, r, q, space))
+    base = rng.random(b) < 0.8
+    if kind == "no_live_write":
+        ranks[5][rng.random(b) < 0.6] = False
+    elif kind == "dense":
+        ranks = [np.zeros((b, r), np.int32), np.full((b, r), 5, np.int32),
+                 np.ones((b, r), bool), np.zeros((b, q), np.int32),
+                 np.full((b, q), 5, np.int32), np.ones((b, q), bool)]
+    elif kind == "empty_live":
+        ranks[1] = ranks[0].copy()  # begin = end, live: the formula decides
+        ranks[2] = rng.random((b, r)) < 0.9
+    elif kind == "noncand":
+        base = rng.random(b) < 0.05
+    jr = tuple(jnp.asarray(x) for x in ranks)
+    want = np.asarray(jax.jit(jck.wave_pred_matrix)(jnp.asarray(base), jr))
+    tr = tuple(torch.from_numpy(x) for x in ranks)
+    for tw in (None, 1, 3):
+        got = tck.wave_pred_tiles_plain(torch.from_numpy(base), tr, tw)
+        assert u32(got).tobytes() == want.tobytes(), (kind, tw)
+    if kind == "wide":
+        from foundationdb_tpu_torch import kernels
+
+        assert kernels.wave_pred_tile(r, q, want.shape[1]) < want.shape[1]
+
+
 # ---------------------------------------------------------------------------
 # K6: the leveling
 # ---------------------------------------------------------------------------
