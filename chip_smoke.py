@@ -91,10 +91,12 @@ Phases, each fatal on failure:
    launches once per batch and 0 < occupied tiles <= total tiles. (d) One
    captured step launch by launch (K9 with and without the reads, through
    its checked entry and as the window program launches it, into buffers
-   allocated and checked once a window; K8 with its K2 table, K5 per
-   shard, K10) and one captured sharded window
-   program equal their plain versions bit for bit, every state leaf
-   included. (e) Window 0 on the CPU (a worker process beside phase 4,
+   allocated and checked once a window; K8 over the shards' live rows,
+   also against the plain twin of its algorithm and at full shards,
+   n_used = C, with its live table's and probe's device times and the
+   table's bytes printed; K5 per shard, K10) and one captured sharded
+   window program equal their plain versions bit for bit, every state
+   leaf included. (e) Window 0 on the CPU (a worker process beside phase 4,
    checked after it) equals the card's in verdicts and every state leaf.
 3f. Admission phase: (a) the first 32 batches of the stream on the
    object path through a resident cuda engine with a device-backend
@@ -123,14 +125,15 @@ Phases, each fatal on failure:
 3h. Non-resident sharded phase (``ShardedConflictSet(n_shards=4,
    resident=False)``: full-key batches, four flat [2^20, 4] shard
    histories): (a) the stream of 3b through the same runner: 3b's hash,
-   no overflow, per window K2's table, K16, K15, K14's ranks and K3 k
-   times and the unpacked paint (K13's keys, K12's search, K14's sort,
-   K13's sorted paint) 4k times, never K1, K4, K8 or K12's probe;
+   no overflow, per window K16, K15, K14's ranks and K3 k times and the
+   unpacked paint (K13's keys, K12's search, K14's sort, K13's sorted
+   paint) 4k times, never K1, K2, K4, K8 or K12's probe;
    ``shard_occupancy`` printed. (b) The same stream starting on uniform
    splits, resharded to the density splits at its middle: the same
    hash. (c) A 4-shard non-resident wave engine over 16 batches equals
    3c's verdicts and levels. (d) One captured step launch by launch (K16
-   with its K2 table, K15 with and without the reads, K14's ranks, its
+   over the shards' live rows as K8 in 3e(d), K15 with and without the
+   reads, K14's ranks, its
    sort of one shard's paint rows, K13's sorted paint, each shard's whole
    paint) and one captured window program equal their plain versions bit
    for bit, every state leaf included. (e) Window 0 on the CPU (a worker
@@ -253,6 +256,10 @@ REPLACES = {
 # K1-K4, the wave paths K1, K2, K4 and K5/K6 (wave.cu), never K3.
 SEQ_SOURCES = ("dict_insert", "history_probe", "accept", "step_compact")
 WAVE_SOURCES = ("dict_insert", "history_probe", "step_compact", "wave")
+# Phase 3e: the sharded engine's (its "shard" source added by counted_run;
+# no K2: K8 builds its own table over the shards' live rows).
+SHARD_SEQ = ("dict_insert", "accept", "step_compact")
+SHARD_WAVE = ("dict_insert", "step_compact", "wave")
 WINDOW_K, WINDOW_DEPTH = 8, 4  # window phase: batches per window, in flight
 CAP = 1 << 20
 # Tiered phase: a keyspace whose touched set outgrows the hot tier H while
@@ -280,12 +287,12 @@ ADM_TIER_BATCHES, ADM_TIER_WINDOW = 24, 8
 NR_SEQ = ("history_probe", "accept", "word_probe", "word_compact")
 NR_WAVE = ("history_probe", "wave", "word_probe", "word_compact")
 # Phase 3h: the kernel sources the non-resident sharded window path
-# launches (K2 for its table, K12 for the paint's search; K1, K4, K8 and
-# K12's probe never).
-NRS_SEQ = ("history_probe", "accept", "word_probe", "word_compact",
-           "word_sort", "word_shard")
-NRS_WAVE = ("history_probe", "wave", "shard", "word_probe", "word_compact",
-            "word_sort", "word_shard")
+# launches (K12 for the paint's search; K1, K2, K4, K8 and K12's probe
+# never: K16 builds its own table over the shards' live rows).
+NRS_SEQ = ("accept", "word_probe", "word_compact", "word_sort",
+           "word_shard")
+NRS_WAVE = ("wave", "shard", "word_probe", "word_compact", "word_sort",
+            "word_shard")
 
 
 def fail(msg: str) -> None:
@@ -374,29 +381,152 @@ def time_ms(fn, setup=None, reps: int = 10) -> float:
 
 
 def cuda_kernels(fn, setup=None, reps: int = 5) -> dict:
-    """CUDA kernels one call of ``fn`` launches and their device ms, from
-    ``torch.profiler`` (copies and fills of device memory apart); a call
-    that rewrites its state gets a copy made by ``setup`` before the
-    profiled span."""
+    """CUDA kernels one call of ``fn`` launches and their device ms (in all,
+    and by kernel name), from ``torch.profiler`` (copies and fills of device
+    memory apart); a call that rewrites its state gets a copy made by
+    ``setup`` before the profiled span. A profile that saw no device time
+    is taken again, up to three times (then its zeros stand)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    args = [setup() if setup else () for _ in range(reps + 1)]
-    fn(*args[0])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for a in args[1:]:
-            fn(*a)
+    for _ in range(3):  # the profiler has been seen to miss every kernel
+        args = [setup() if setup else () for _ in range(reps + 1)]
+        fn(*args[0])
         torch.cuda.synchronize()
-    launches = device_us = 0.0
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", None)
-        if us is None:
-            us = ev.cuda_time_total
-        if us and not ev.key.startswith(("Memcpy", "Memset")):
-            launches += ev.count
-            device_us += us
-    return {"launches": launches / reps, "device_ms": device_us / 1e3 / reps}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for a in args[1:]:
+                fn(*a)
+            torch.cuda.synchronize()
+        launches = device_us = 0.0
+        by_name = {}
+        for ev in prof.key_averages():
+            us = getattr(ev, "device_time_total", None)
+            if us is None:
+                us = ev.cuda_time_total
+            if us and not ev.key.startswith(("Memcpy", "Memset")):
+                launches += ev.count
+                device_us += us
+                by_name[ev.key] = us / 1e3 / reps
+        if device_us:
+            break
+    return {"launches": launches / reps, "device_ms": device_us / 1e3 / reps,
+            "kernels": by_name}
+
+
+# What K8's and K16's rows in the kernels line add (live_probe_report).
+LIVE_PROBE_KEYS = ("table_ms", "probe_only_ms", "device_ms", "cuda_kernels",
+                   "kernels_counted", "live_rows", "full_shard_ms",
+                   "full_shard_device_ms")
+
+
+def live_probe_report(fn, s: int, c: int, n_used: list) -> dict:
+    """K8's or K16's call ``fn`` on the card: the device ms of its live
+    table's build (``lp_build``) and of its probe (``lp_probe``), the CUDA
+    kernels a call launches (by the profiler, and as ``lp_run`` counts its
+    launches), the shards' live rows, the int32 words the live table of
+    ``s`` shards of capacity ``c`` takes, and the bytes of the workspace
+    scratch that holds it, read after the call."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+
+    prof = cuda_kernels(fn)
+    counted = K.LIVE_PROBE_KERNELS["last"]
+    held = K._workspace(torch.device("cuda"), 0)[1].numel() * 4
+
+    def device(part):  # None: the profiler saw no kernel (not measured)
+        if not prof["device_ms"]:
+            return None
+        return sum(ms for name, ms in prof["kernels"].items() if part in name)
+
+    return {"table_ms": device("lp_build"), "probe_only_ms": device(
+        "lp_probe"), "device_ms": device(""),
+        "cuda_kernels": prof["launches"] if prof["device_ms"] else None,
+        "kernels_counted": counted, "live_rows": n_used,
+        "table_words": K.live_table_words(s, c), "workspace_bytes": held}
+
+
+def check_live_probe(name: str, r: dict) -> None:
+    """K8's or K16's call launches its live table's build and its probe,
+    two CUDA kernels (the parent design launched four and a memset), as
+    ``lp_run`` counts them at their launches and, where it saw them, as
+    the profiler does; and the workspace holds the live table."""
+    seen = r["cuda_kernels"]
+    if r["kernels_counted"] != 2 or (seen is not None and seen > 2):
+        fail(f"{name}: {r['kernels_counted']} CUDA kernels a call counted "
+             f"at launch (profiler: {seen}), want 2")
+    if r["workspace_bytes"] < 4 * r["table_words"]:
+        fail(f"{name}: workspace {r['workspace_bytes']} bytes, the live "
+             f"table needs {4 * r['table_words']}")
+
+
+def print_live_probe(name: str, r: dict, c: int) -> None:
+    """One line of K8's or K16's ``live_probe_report`` and full-shard
+    times (device numbers the profiler did not see: "not measured")."""
+    def ms(x):
+        return "not measured" if x is None else f"{x:.4f}"
+
+    print(f"kernel {name}: live rows {r['live_rows']} of C = {c}; device "
+          f"ms: live table {ms(r['table_ms'])}, probe "
+          f"{ms(r['probe_only_ms'])} ({r['kernels_counted']} CUDA kernels "
+          f"a call counted at launch, {r['cuda_kernels']} by the profiler);"
+          f" the live table {4 * r['table_words']} bytes (live_table_words),"
+          f" held in a workspace scratch of {r['workspace_bytes']} bytes "
+          f"read after the call; full shards (n_used = C) "
+          f"{ms(r['full_shard_ms'])} ms ({ms(r['full_shard_device_ms'])} ms "
+          f"of device)")
+
+
+def full_shards(s: int, c: int, w: int, b: int, r: int, seed: int):
+    """Every one of ``s`` shards full (n_used = c) and a batch of ``b``
+    txns of ``r`` reads over them, on the card: (hist, read_begin,
+    read_end, read_mask, read_version, txn_mask, lo, hi). ``w`` = 0: rank
+    histories [S, C, 1] (K8; shard d's keys 2c·d + 2i, reads [B, R]);
+    else [S, C, W] word rows (K16; shard d's rows (d, 2i, 0, ...) from lo
+    = (d, INT32_MIN, ...), reads [B, R, W]). Most reads cover 1-3 keys,
+    one in 64 up to a whole shard (the live table's top); versions and
+    read versions in [0, 1000)."""
+    import torch
+
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(lo_, hi_, shape):
+        return torch.randint(lo_, hi_, shape, generator=g, device=dev,
+                             dtype=torch.int32)
+
+    i = torch.arange(c, dtype=torch.int32, device=dev)
+    span = torch.where(rand(0, 64, (b, r)) == 0, rand(1, 2 * c, (b, r)),
+                       rand(1, 6, (b, r)))
+    if w == 0:
+        lo = torch.arange(s, dtype=torch.int32, device=dev) * 2 * c
+        keys = (lo[:, None] + 2 * i[None, :])[..., None].contiguous()
+        hi = torch.cat([lo[1:], torch.full((1,), ck.INT32_MAX,
+                                           dtype=torch.int32, device=dev)])
+        rb = rand(0, 2 * c * s, (b, r))
+        re_ = rb + span
+    else:
+        lo = torch.full((s, w), -2**31, dtype=torch.int32, device=dev)
+        lo[:, 0] = torch.arange(s, dtype=torch.int32, device=dev)
+        hi = torch.cat([lo[1:], torch.full((1, w), ck.INT32_MAX,
+                                           dtype=torch.int32, device=dev)])
+        keys = torch.zeros((s, c, w), dtype=torch.int32, device=dev)
+        keys[:, :, 0] = torch.arange(s, dtype=torch.int32, device=dev)[:,
+                                                                         None]
+        keys[:, :, 1] = 2 * i
+        rb = torch.zeros((b, r, w), dtype=torch.int32, device=dev)
+        rb[..., 0] = rand(0, s, (b, r))
+        rb[..., 1] = rand(0, 2 * c, (b, r))
+        re_ = rb.clone()
+        re_[..., 1] += span
+    hist = ck.ConflictState(
+        keys, rand(0, 1000, (s, c)), torch.full((s,), c, dtype=torch.int32,
+                                                device=dev),
+        torch.zeros(s, dtype=torch.int32, device=dev),
+        torch.zeros(s, dtype=torch.bool, device=dev))
+    return (hist, rb, re_, rand(0, 8, (b, r)) != 0, rand(0, 1000, (b,)),
+            torch.ones(b, dtype=torch.bool, device=dev), lo, hi)
 
 
 def make_engine(mode, device, wave: bool = False):
@@ -1938,7 +2068,6 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     import torch
 
     from foundationdb_tpu_torch import bench
-    from foundationdb_tpu_torch import kernels as K
     from foundationdb_tpu_torch.models import conflict_kernel as ck
     from foundationdb_tpu_torch.models.conflict_set import _RepackPlan, upload
 
@@ -1955,17 +2084,18 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
 
     engine = sharded_engine(stream, mode)
     # (a) The window path, counted: per window K8 and K3 k times, K4's
-    # paint S·k times, K1's insert at most once.
+    # paint S·k times, K1's insert at most once, K2's table never (K8
+    # builds its own over the shards' live rows).
     rec, _, _, cs, launches, per_window = counted_run(
         blob, ends, mode, n_batches, wave=False, engine=engine,
-        label="sharded", program="sharded_many")
+        label="sharded", program="sharded_many", sources=SHARD_SEQ)
     for i, pw in enumerate(per_window):
         want = {"sh_probe": WINDOW_K, "sh_clip": WINDOW_K,
                 "ac_accept": WINDOW_K, "sc_paint": SHARDS * WINDOW_K}
         if (any(pw.get(e, 0) != n for e, n in want.items())
-                or pw.get("di_insert", 0) > 1):
+                or pw.get("di_insert", 0) > 1 or pw.get("hp_table", 0)):
             fail(f"sharded window {i}: launches {pw} (want {want}, K1 "
-                 "insert <= 1)")
+                 "insert <= 1, no K2 table)")
     if rec["verdicts_sha256"] != seq_rec["verdicts_sha256"]:
         fail("sharded window path and the single engine's (phase 3b) "
              "verdicts differ")
@@ -1981,7 +2111,7 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
             "host_syncs_per_window", "host_pack_ms_per_window",
             "pack_gate_wait_s", "dict_stats")},
         "launches_per_window": {**{k: launches[k] / n_windows
-                                   for k in (*SEQ_SOURCES, "shard")},
+                                   for k in (*SHARD_SEQ, "shard")},
                                 **{e: n / n_windows
                                    for e, n in entries.items()}},
         "single_engine_sha_equal": True, "card": card}))
@@ -2013,7 +2143,7 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     wb, we = blob[: int(ends[n_wave * b])], ends[: n_wave * b + 1]
     wrec, wv, wl, _, _, wpw = counted_run(
         wb, we, mode, n_wave, wave=True, engine=engine, label="sharded wave",
-        program="sharded_many")
+        program="sharded_many", sources=SHARD_WAVE)
     if not (np.array_equal(wv, wave_out["verdicts"][:2])
             and np.array_equal(wl, wave_out["levels"][:2])):
         fail("sharded wave engine: verdicts or levels differ from the "
@@ -2021,7 +2151,8 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     for i, pw in enumerate(wpw):
         if (pw.get("sh_exchange", 0) != WINDOW_K
                 or pw.get("wv_pred", 0) != SHARDS * WINDOW_K
-                or pw.get("wv_level", 0) != WINDOW_K or pw.get("ac_accept")):
+                or pw.get("wv_level", 0) != WINDOW_K or pw.get("ac_accept")
+                or pw.get("hp_table", 0)):
             fail(f"sharded wave window {i}: launches {pw}")
     xs = wrec["exchange_stats"]
     if not 0 < xs["tiles_occupied"] <= xs["tiles_total"]:
@@ -2073,6 +2204,18 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
                      want)
     assert_equal("shard_probe", ck.shard_probe(h, rbk, lo, hi, floor[0]),
                  ck.shard_probe_plain(h, rbk, lo, hi, floor[0]))
+    assert_equal("shard_probe.live_twin",
+                 ck.shard_probe(h, rbk, lo, hi, floor[0]),
+                 ck.shard_probe_live_plain(h, rbk, lo, hi, floor[0]))
+    # K8 at full shards (n_used = C, ranges up to a whole shard) against
+    # its plain version: every search and the live table's top at scale.
+    fh, frb, fre, fm, frv, ftm, flo, fhi = full_shards(
+        SHARDS, h.keys.shape[1], 0, b, rbk.read_begin.shape[1], seed)
+    frbk = rbk._replace(read_begin=frb, read_end=fre, read_mask=fm,
+                        read_version=frv, txn_mask=ftm)
+    assert_equal("shard_probe.full", ck.shard_probe(fh, frbk, flo, fhi,
+                                                    floor[0]),
+                 ck.shard_probe_plain(fh, frbk, flo, fhi, floor[0]))
     too_old, _, cand = ck.shard_probe(h, rbk, lo, hi, floor[0])
     clip_w = ck.shard_clip(rbk, lo, hi, True)
     ps = ck.shard_pred_matrices(cand, clip_w)
@@ -2093,16 +2236,16 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     assert_equal("sharded_many", many(clone(state)), many_plain(clone(state)))
     torch.cuda.synchronize()
 
-    table = K.build_table(h.versions.reshape(-1))
     pairs = torch.stack([rbk.write_begin, rbk.write_end])
     lo4, hi4 = lo[:, None, None, None], hi[:, None, None, None]
+    f0 = floor[0]  # shard 0's floor (0-dim), made once outside the timing
     t = {
         "shard_clip": (time_ms(lambda: wclips[False].step(rbk)),
                        time_ms(lambda: ck.shard_clip_plain(rbk, lo, hi,
                                                            False))),
         "shard_probe": (
-            time_ms(lambda: ck.shard_probe(h, rbk, lo, hi, floor[0])),
-            time_ms(lambda: ck.shard_probe_plain(h, rbk, lo, hi, floor[0]),
+            time_ms(lambda: ck.shard_probe(h, rbk, lo, hi, f0)),
+            time_ms(lambda: ck.shard_probe_plain(h, rbk, lo, hi, f0),
                     reps=3)),
         "wave_exchange": (time_ms(lambda: ck.wave_exchange(ps)),
                           time_ms(lambda: ck.wave_exchange_plain(ps))),
@@ -2111,14 +2254,18 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     }
     clamp_ms = time_ms(lambda: torch.clamp(pairs[None], lo4, hi4))
     entry_ms = time_ms(lambda: ck.shard_clip(rbk, lo, hi, False))
-    probe_only_ms = time_ms(lambda: K.shard_probe(
-        h.keys, table, rbk.read_begin, rbk.read_end, rbk.read_mask,
-        rbk.read_version, rbk.txn_mask, lo, hi, floor[0]))
-    table_ms = time_ms(lambda: K.build_table(h.versions.reshape(-1)))
+    c = h.keys.shape[1]
+    n_used = [int(x) for x in h.n_used.cpu()]
+    k8 = live_probe_report(lambda: ck.shard_probe(h, rbk, lo, hi, f0),
+                           SHARDS, c, n_used)
+    k8["full_shard_ms"] = time_ms(lambda: ck.shard_probe(fh, frbk, flo, fhi,
+                                                         f0))
+    k8["full_shard_device_ms"] = cuda_kernels(lambda: ck.shard_probe(
+        fh, frbk, flo, fhi, f0))["device_ms"] or None
     for name, (ms, plain) in t.items():
         print(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f} ms)")
-    print(f"kernel shard_probe: K8 alone {probe_only_ms:.4f} ms, K2's table "
-          f"over S x C {table_ms:.4f} ms")
+    check_live_probe("shard_probe", k8)
+    print_live_probe("shard_probe", k8, c)
     print(f"kernel shard_clip: the window program's launch "
           f"{t['shard_clip'][0]:.4f} ms, the checked entry (allocating) "
           f"{entry_ms:.4f} ms, torch.clamp over the stacked write ranks "
@@ -2133,8 +2280,6 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     # read, its [C] arrays written, the clipped writes read).
     r = rbk.read_begin.shape[1]
     q = rbk.write_begin.shape[1]
-    n_used = [int(x) for x in h.n_used.cpu()]
-    c = h.keys.shape[1]
     d1, w = state.dict_keys.shape
     bp, nw = ps.shape[1], ps.shape[2]
     bytes_k9 = b * q * 9 + SHARDS * b * q * 9 + 8 * SHARDS
@@ -2164,9 +2309,7 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
         "window0_cuda": window0,
         "shard_probe": {"launches": entries["sh_probe"],
                         "timing": t["shard_probe"],
-                        "bound": bound(bytes_k8),
-                        "probe_only_ms": probe_only_ms,
-                        "table_ms": table_ms},
+                        "bound": bound(bytes_k8), **k8},
         "shard_clip": {"launches": entries["sh_clip"],
                        "timing": t["shard_clip"], "bound": bound(bytes_k9),
                        "library_ms": clamp_ms, "entry_ms": entry_ms},
@@ -2667,12 +2810,12 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
         blob, ends, mode, n_batches, wave=False, engine=engine,
         label="non-resident sharded", program="nr_sharded_many",
         sources=NRS_SEQ)
-    want = {"hp_table": WINDOW_K, "wsh_probe": WINDOW_K,
+    want = {"wsh_probe": WINDOW_K,
             "wsh_clip": WINDOW_K, "wso_ranks": WINDOW_K,
             "ac_accept": WINDOW_K, **{e: s_n * WINDOW_K for e in (
                 "wc_paint_keys", "wp_search", "wso_sort", "wc_paint_sorted")}}
     never = ("di_insert", "sc_paint", "sh_probe", "wp_probe", "wc_paint",
-             "hp_probe")
+             "hp_probe", "hp_table")
     for i, pw in enumerate(per_window):
         if (any(pw.get(e, 0) != n for e, n in want.items())
                 or any(pw.get(e, 0) for e in never)):
@@ -2770,6 +2913,20 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     assert_equal("word_shard_probe",
                  ck.word_shard_probe(state, step, lo, hi, floor[0]),
                  ck.word_shard_probe_plain(state, step, lo, hi, floor[0]))
+    assert_equal("word_shard_probe.live_twin",
+                 ck.word_shard_probe(state, step, lo, hi, floor[0]),
+                 ck.word_shard_probe_live_plain(state, step, lo, hi,
+                                                floor[0]))
+    # K16 at full shards (n_used = C, ranges up to a whole shard) against
+    # its plain version.
+    fh, frb, fre, fm, frv, ftm, flo, fhi = full_shards(
+        s_n, state.keys.shape[1], state.keys.shape[2], b,
+        step.read_begin.shape[1], seed)
+    fstep = step._replace(read_begin=frb, read_end=fre, read_mask=fm,
+                          read_version=frv, txn_mask=ftm)
+    assert_equal("word_shard_probe.full",
+                 ck.word_shard_probe(fh, fstep, flo, fhi, floor[0]),
+                 ck.word_shard_probe_plain(fh, fstep, flo, fhi, floor[0]))
     for reads in (False, True):
         assert_equal("word_clip",
                      [x for x in ck.word_clip(step, lo, hi, reads)
@@ -2829,7 +2986,7 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
                       step.read_end.reshape(-1, step.read_end.shape[-1]),
                       step.write_begin.reshape(-1, step.write_begin.shape[-1]),
                       step.write_end.reshape(-1, step.write_end.shape[-1])])
-    table = K.build_table(state.versions.reshape(-1))
+    f0 = floor[0]  # shard 0's floor (0-dim), made once outside the timing
     t = {
         "word_sort": (time_ms(lambda: ck.endpoint_ranks_live(step)),
                       time_ms(lambda: ck.endpoint_ranks_live_plain(step),
@@ -2838,10 +2995,9 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
                       time_ms(lambda: ck.word_clip_plain(step, lo, hi,
                                                          False), reps=3)),
         "word_shard_probe": (
-            time_ms(lambda: ck.word_shard_probe(state, step, lo, hi,
-                                                floor[0])),
+            time_ms(lambda: ck.word_shard_probe(state, step, lo, hi, f0)),
             time_ms(lambda: ck.word_shard_probe_plain(state, step, lo, hi,
-                                                      floor[0]), reps=2)),
+                                                      f0), reps=2)),
         "word_paint_sorted": (
             time_ms(lambda h: K.word_paint_sorted(
                 h, pi["snew"], pi["sdelta"], pi["scross"], cv0, pi["floor"]),
@@ -2876,10 +3032,12 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     paint_ms = time_ms(lambda h: ck._paint_and_compact(
         h, pi["view"], accepted, cv0, pi["floor"]),
         lambda: (clone(pi["hs"]),))
-    probe_only_ms = time_ms(lambda: K.word_shard_probe(
-        state.keys, table, step.read_begin, step.read_end, step.read_mask,
-        step.read_version, step.txn_mask, lo, hi, floor[0]))
-    table_ms = time_ms(lambda: K.build_table(state.versions.reshape(-1)))
+    k16 = live_probe_report(lambda: ck.word_shard_probe(
+        state, step, lo, hi, f0), s_n, state.keys.shape[1], n_used)
+    k16["full_shard_ms"] = time_ms(lambda: ck.word_shard_probe(
+        fh, fstep, flo, fhi, f0))
+    k16["full_shard_device_ms"] = cuda_kernels(lambda: ck.word_shard_probe(
+        fh, fstep, flo, fhi, f0))["device_ms"] or None
     for name, (ms, plain) in t.items():
         print(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f} ms)")
     print(f"kernel word_sort: {flat.shape[0]} rows ranked in "
@@ -2889,9 +3047,9 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
           f" K13's sorted paint at C = 2^18 {paint_c18_ms:.4f} ms and 2^20 "
           f"{t['word_paint_sorted'][0]:.4f} ms ({pi['hs'].n_used.item()} "
           f"live rows);"
-          f" word_shard_probe: K16 alone {probe_only_ms:.4f} ms, K2's table "
-          f"over S x C {table_ms:.4f} ms; one shard's whole unpacked paint "
-          f"{paint_ms:.4f} ms")
+          f" one shard's whole unpacked paint {paint_ms:.4f} ms")
+    check_live_probe("word_shard_probe", k16)
+    print_live_probe("word_shard_probe", k16, state.keys.shape[1])
 
     # Bounds at the capture's shapes. K14 (the ranks): the endpoint rows
     # and masks read once, the ranks and live masks written; its operations
@@ -2957,9 +3115,7 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
                       "timing": t["word_clip"], "bound": bound(bytes_k15)},
         "word_shard_probe": {"launches": entries["wsh_probe"],
                              "timing": t["word_shard_probe"],
-                             "bound": bound(bytes_k16),
-                             "probe_only_ms": probe_only_ms,
-                             "table_ms": table_ms},
+                             "bound": bound(bytes_k16), **k16},
         "word_paint_sorted": {"launches": entries["wc_paint_sorted"],
                               "timing": t["word_paint_sorted"],
                               "bound": bound(bytes_paint),
@@ -3013,12 +3169,12 @@ ARMS = {
         ("di_insert", "sc_paint", "wp_probe", "wc_paint", "hp_probe")),
     "c_unpacked_history_batch": (
         {"packed": False, "history": "batch"}, "unpacked_many",
-        ("history_probe", "accept", "word_probe", "word_compact",
-         "word_sort", "word_shard"),
-        {"hp_table": WINDOW_K, "wsh_probe": WINDOW_K,
+        ("accept", "word_probe", "word_compact", "word_sort", "word_shard"),
+        {"wsh_probe": WINDOW_K,
          "wso_ranks": WINDOW_K, "ac_accept": WINDOW_K,
          "wc_paint_sorted": WINDOW_K},
-        ("di_insert", "sc_paint", "wp_probe", "wc_paint", "wc_fold")),
+        ("di_insert", "sc_paint", "wp_probe", "wc_paint", "wc_fold",
+         "hp_table")),
     "d_nonresident_history_batch": (
         {"resident": False, "history": "batch"}, "packed_many", NR_SEQ,
         {"wp_search": WINDOW_K, "hp_table": WINDOW_K, "wp_probe": WINDOW_K,
@@ -3684,11 +3840,11 @@ SHARD_ARMS = {
          "wc_paint", "hp_probe")),
     "sharded_unpacked": (
         {"packed": False}, "nr_sharded_many", NRS_SEQ,
-        {"hp_table": (1, 0), "wsh_probe": (1, 0), "wsh_clip": (1, 0),
+        {"wsh_probe": (1, 0), "wsh_clip": (1, 0),
          "wso_ranks": (1, 0), "ac_accept": (1, 0),
          **{e: (0, 1) for e in _NRS_PAINT}},
         ("di_insert", "sc_paint", "sh_probe", "wp_probe", "wc_paint",
-         "hp_probe", "rb_build", "rb_shard_probe")),
+         "hp_probe", "hp_table", "rb_build", "rb_shard_probe")),
 }
 SHARD_ARM_REPLACES = {
     "sharded_blocked": "foundationdb_tpu/parallel/sharded_resolver.py:249",
@@ -4169,7 +4325,9 @@ def smoke(args, pool) -> int:
     rows[-2].update(partial_library_ms=td["dict_evict"]["partial_library_ms"],
                     partial_library_call="dict_keys[keep_mask]: the "
                                          "compaction only")
-    # K8 is timed with the K2 table build it needs (the shard_probe call);
+    # K8 is timed with the live table it builds (the shard_probe call; the
+    # row also carries its build's and probe's device ms, its CUDA kernels
+    # a call, the live rows, the table's bytes and its full-shard times);
     # K9's yardstick is one torch.clamp over the stacked write ranks with
     # per-shard bound tensors (no masks).
     for k, source in (
@@ -4186,8 +4344,7 @@ def smoke(args, pool) -> int:
             "max_abs_err": MAX_ABS_ERR[k], "ms": r["timing"][0],
             "plain_ms": r["timing"][1], "bound_ms": lo, "bound_by": by,
             "library_ms": r.get("library_ms")})
-    rows[-4].update(probe_only_ms=sh["shard_probe"]["probe_only_ms"],
-                    table_ms=sh["shard_probe"]["table_ms"])
+    rows[-4].update({k: sh["shard_probe"][k] for k in LIVE_PROBE_KEYS})
     rows[-3].update(checked_entry_ms=sh["shard_clip"]["entry_ms"])
     # K11 is timed by its set launch (the per-batch feed), with
     # ``index_fill_`` on bool banks (the same sets, 32x the bytes) as its
@@ -4218,8 +4375,9 @@ def smoke(args, pool) -> int:
     # K14 has two rows: its rank launch on the unclipped endpoint rows (the
     # sequential path's use), with W stable torch.sort passes over the
     # same rows beside it (no one PyTorch call sorts W-word rows), and one
-    # shard's paint sort (2BQ rows, 2 payloads); K16 with the K2 table
-    # build it needs; K13's sorted paint on the fullest shard.
+    # shard's paint sort (2BQ rows, 2 payloads); K16 with the live table it
+    # builds (the keys K8's row has); K13's sorted paint on the fullest
+    # shard.
     for k, source in (
             ("word_sort", "foundationdb_tpu_torch/kernels/csrc/word_sort.cu"),
             ("word_sort_paint",
@@ -4242,8 +4400,8 @@ def smoke(args, pool) -> int:
     rows[-6].update(torch_sort_passes_ms=nrs["word_sort"][
         "torch_sort_passes_ms"])
     rows[-5].update(rows_sorted=nrs["word_sort_paint"]["rows"])
-    rows[-3].update(probe_only_ms=nrs["word_shard_probe"]["probe_only_ms"],
-                    table_ms=nrs["word_shard_probe"]["table_ms"])
+    rows[-3].update({k: nrs["word_shard_probe"][k]
+                     for k in LIVE_PROBE_KEYS})
     rows[-2].update({k: nrs["word_paint_sorted"][k] for k in (
         "whole_paint_ms", "whole_c_bound_ms", "c18_ms", "live_rows")})
     # K17 is timed by its build and query at N = 2^20 over the captured

@@ -292,8 +292,8 @@ def profile_window(blob, txn_ends, mode: ModeConfig, capacity: int,
     program timed alone on a copy of the same state. The replayed
     phases must give the window program's verdicts (and levels). A wave
     engine's acceptance is K5 and K6 in place of K3; a sharded engine's
-    step is K9, K2's table, K8, then K3 (or K5 per shard, K10 and K6) and
-    K4 per shard. A flat history (``history="batch"``) has no fold and
+    step is K9, K8 (its live table and probe), then K3 (or K5 per shard,
+    K10 and K6) and K4 per shard. A flat history (``history="batch"``) has no fold and
     its K2 probe builds the table over all C versions; ``rmq="blocked"``
     times K17's build (``k17_build``) and its probe with K12's rank search
     (``k17_probe``) in place of K2's. ``engine`` holds further
@@ -397,7 +397,7 @@ def profile_window(blob, txn_ends, mode: ModeConfig, capacity: int,
     out["phase_sum_ms"] = sum(
         out[f"{p}_ms"] for p in ("k1_insert", "k1_rewrite", "k4_fold",
                                  "k2_probe", "k17_build", "k17_probe",
-                                 "k9_clip", "k2_table",
+                                 "k9_clip",
                                  "k8_probe", "k3_accept", "k5_pred",
                                  "k10_exchange", "k6_level", "k4_paint")
         if f"{p}_ms" in out)
@@ -412,11 +412,10 @@ def _replay_sharded_step(timed, hist, res, rbk, cv: int, old: int,
         (), old, dtype=torch.int32, device=hist.oldest.device))
     clip = timed("k9_clip", ck.shard_clip, rbk, res.shard_lo, res.shard_hi,
                  wave)
-    table = timed("k2_table", K.build_table, hist.versions.reshape(-1))
     too_old, _, cand = timed(
-        "k8_probe", K.shard_probe, hist.keys, table, rbk.read_begin,
-        rbk.read_end, rbk.read_mask, rbk.read_version, rbk.txn_mask,
-        res.shard_lo, res.shard_hi, floor[0])
+        "k8_probe", K.shard_probe, hist.keys, hist.versions, hist.n_used,
+        rbk.read_begin, rbk.read_end, rbk.read_mask, rbk.read_version,
+        rbk.txn_mask, res.shard_lo, res.shard_hi, floor[0])
     if wave:
         ps = timed("k5_pred", ck.shard_pred_matrices, cand, clip)
         p, _ = timed("k10_exchange", ck.wave_exchange, ps)

@@ -1,5 +1,5 @@
-"""K1-K5, K12, K13's sorted paint and K14 of one source tree against
-another's, on inputs captured once.
+"""K1-K5, K8, K12, K13's sorted paint, K14 and K16 of one source tree
+against another's, on inputs captured once.
 
     python3 foundationdb_tpu_torch/kernel_ab.py capture IN.pt [--seed S]
     python3 foundationdb_tpu_torch/kernel_ab.py time IN.pt [--tree DIR]
@@ -25,6 +25,10 @@ engine's history after its gated fold and the step's dictionary), the
 query rows of the first dispatch of phase 3j's read stream (``--seed``,
 the smoke's) over the 2^20-key mirror, and the smoke's wave batch
 (``capture_batch`` on a wave engine: candidates and live endpoint ranks).
+For K8 it saves phase 3e's captured step (the resident 4-shard engine's
+history after K1, its first step's rank batch, the shard bounds and the
+floor), and for K8 and K16 the same shapes over full shards
+(``chip_smoke.full_shards``: every n_used = C = 2^20).
 
 ``time`` imports ``foundationdb_tpu_torch`` from ``DIR`` (default: the
 tree holding this file), holds that tree's K1-K4 against its own plain
@@ -42,7 +46,9 @@ same live rows; one shard's whole unpacked paint; the window program (k
 = 8). K12: the engine's search of base and delta, one dispatch's
 read-plane search, the cross-rank search of that shard's paint (each with
 the live counts where the tree's ``word_search`` takes them); K5 on the
-wave batch. Run it on two trees in turns (A, B, B, A) in one call to
+wave batch. K8 and K16 (with the table each tree builds for them: K2's
+over all S·C rows, or the live table) at the captured steps and at full
+shards. Run it on two trees in turns (A, B, B, A) in one call to
 compare them on one card. Needs a CUDA card; imports no JAX.
 """
 
@@ -95,6 +101,7 @@ def capture(path: str, seed: int) -> None:
         "k12": {**_nr_step(chip_smoke, stream, ycsb),
                 "reads": _read_dispatch(chip_smoke, seed)},
         "k5": {"cand": wave.cand, "ranks": wave.ranks},
+        **_k8_k16_inputs(chip_smoke, stream, ycsb),
     })
     torch.save(out, path)
     counts = ck.accept_counts(*(out["smoke"][k] for k in (
@@ -164,6 +171,65 @@ def _nrs_window(chip_smoke, stream, mode) -> dict:
             "floor": floor[big]}
 
 
+def _k8_k16_inputs(chip_smoke, stream, mode) -> dict:
+    """K8's input at phase 3e's captured step (``chip_smoke.sharded_phase``
+    (d): the first window after window 0 that brings a dictionary delta,
+    after K1, its first step), that window's program input (the state
+    before K1, its batch, versions and delta count), and K8's and K16's
+    inputs at full shards (every shard's n_used = C,
+    ``chip_smoke.full_shards``) with the captured steps' shapes; K16's
+    captured step and window are phase 3h's (``nrs``)."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+    from foundationdb_tpu_torch.models.conflict_set import _RepackPlan, upload
+
+    k, b = chip_smoke.WINDOW_K, mode.batch
+    blob, ends, n = chip_smoke.wire_stream(stream, mode, 128)
+    cs = bench.make_engine(mode, chip_smoke.CAP, "cuda",
+                           **chip_smoke.sharded_engine(stream, mode))
+    cs.resolve_wire_window(*bench.window_wire(blob, ends, mode, k, 0), b)
+    for wi in range(1, n // k):
+        prepared = cs.pack_wire_window(
+            *bench.window_wire(blob, ends, mode, k, wi), b)
+        hb = prepared.batch
+        if not isinstance(hb, _RepackPlan) and hb.n_new:
+            break
+        cs.dispatch_window(prepared)()
+    rb = upload(hb, cs.device)
+    res1 = ck.apply_delta(chip_smoke.clone(cs.state), rb.delta_keys,
+                          hb.n_new)
+    rbk = ck._step(rb.ranks, 0)
+    h = res1.hist
+    floor = torch.maximum(h.oldest, torch.full_like(
+        h.oldest, int(prepared.olds_rel[0])))[0]
+    s, c = h.keys.shape[0], h.keys.shape[1]
+    r = rbk.read_begin.shape[1]
+    fh, frb, fre, fm, frv, ftm, flo, fhi = chip_smoke.full_shards(
+        s, c, 0, b, r, 0)
+    res = cs.state
+    out = {"k8": {"hist": h._asdict(), "rbk": rbk._asdict(),
+                  "lo": res1.shard_lo, "hi": res1.shard_hi, "floor": floor},
+           "k8_window": {
+               "res": {**res._asdict(), "hist": res.hist._asdict()},
+               "delta_keys": rb.delta_keys, "ranks": rb.ranks._asdict(),
+               "cvs": [int(x) for x in prepared.cvs_rel],
+               "olds": [int(x) for x in prepared.olds_rel],
+               "n_new": int(hb.n_new)},
+           "k8_full": {"hist": fh._asdict(), "rbk": rbk._replace(
+               read_begin=frb, read_end=fre, read_mask=fm,
+               read_version=frv, txn_mask=ftm)._asdict(), "lo": flo,
+               "hi": fhi, "floor": floor}}
+    fh, frb, fre, fm, frv, ftm, flo, fhi = chip_smoke.full_shards(
+        s, c, 4, b, r, 0)
+    out["k16_full"] = {"hist": fh._asdict(), "reads": {
+        "read_begin": frb, "read_end": fre, "read_mask": fm,
+        "read_version": frv, "txn_mask": ftm}, "lo": flo, "hi": fhi,
+        "floor": floor}
+    return out
+
+
 def _nr_step(chip_smoke, stream, mode) -> dict:
     """Phase 3g's captured step (``chip_smoke.nonresident_phase`` (e)):
     the packed non-resident engine after window 0, its history after the
@@ -218,6 +284,13 @@ def _res_dict(res) -> dict:
     return {"dict_keys": res.dict_keys, "n_keys": res.n_keys,
             "hist": _hist_dict(res.hist), "shard_lo": res.shard_lo,
             "shard_hi": res.shard_hi}
+
+
+def _clone(tree):
+    """A copy of a state (a named tuple of tensors and named tuples)."""
+    if hasattr(tree, "clone"):
+        return tree.clone()
+    return type(tree)(*(_clone(x) for x in tree))
 
 
 def _to_cpu(tree):
@@ -527,6 +600,58 @@ def time_k12_k5(data, on, ck, K) -> dict:
     return out
 
 
+def time_k8_k16(data, on, ck, K) -> dict:
+    """K8 (the sharded probe, with whatever table the imported tree builds
+    for it) at phase 3e's captured step and at full shards, 3e's window
+    program (k = 8), and K16 at phase 3h's captured step and at full
+    shards: each checked against its plain version, then timed (wall and
+    device), with the shards' live rows."""
+    import torch
+
+    out = {}
+    for label in ("k8", "k8_full"):
+        d = on(data[label])
+        h, rbk = ck.ConflictState(**d["hist"]), ck.RankBatch(**d["rbk"])
+        args = (h, rbk, d["lo"], d["hi"], d["floor"])
+        _same(label, ck.shard_probe(*args), ck.shard_probe_plain(*args))
+        out[f"{label}_probe"] = _entry(lambda a=args: ck.shard_probe(*a))
+        out[f"{label}_probe"].update(live=h.n_used.tolist(),
+                                     capacity=h.keys.shape[1])
+    w = on(data["k8_window"])
+    wres = ck.ResState(**{**w["res"],
+                          "hist": ck.ConflictState(**w["res"]["hist"])})
+    wrb = ck.ResidentBatch(w["delta_keys"], ck.RankBatch(**w["ranks"]))
+
+    def window(r, plain=False):
+        if plain:
+            return ck.sharded_resolve_res_many_plain(r, wrb, w["cvs"],
+                                                     w["olds"])[::3]
+        return ck.sharded_resolve_res_many(r, wrb, w["cvs"], w["olds"],
+                                           w["n_new"])[::3]
+
+    _same("sharded window program", window(_clone(wres)),
+          window(_clone(wres), True))
+    out["sharded_window_program"] = _entry(window, lambda: (_clone(wres),))
+    n = on(data["nrs"])
+    state = ck.ConflictState(**n["state"])
+    step = ck._step_batch(ck.BatchTensors(**n["batch"]), 0)
+    floor = torch.maximum(state.oldest, torch.full_like(
+        state.oldest, n["olds"][0]))[0]
+    d = on(data["k16_full"])
+    fh = ck.ConflictState(**d["hist"])
+    for label, args in (
+            ("k16", (state, step, n["lo"], n["hi"], floor)),
+            ("k16_full", (fh, step._replace(**d["reads"]), d["lo"], d["hi"],
+                          d["floor"]))):
+        _same(label, ck.word_shard_probe(*args),
+              ck.word_shard_probe_plain(*args))
+        out[f"{label}_probe"] = _entry(
+            lambda a=args: ck.word_shard_probe(*a))
+        out[f"{label}_probe"].update(live=args[0].n_used.tolist(),
+                                     capacity=args[0].keys.shape[1])
+    return out
+
+
 def _forced_fold_plain(ck, hist, old):
     import torch
 
@@ -618,6 +743,8 @@ def time_tree(path: str, tree: str) -> None:
         result.update(time_k13_k14(data, on, ck, K))
     if "k12" in data:
         result.update(time_k12_k5(data, on, ck, K))
+    if "k8" in data:
+        result.update(time_k8_k16(data, on, ck, K))
     print(json.dumps(result))
 
 

@@ -61,7 +61,7 @@ _SIGNATURES = {
     },
     "shard": {
         "sh_clip": [_P] * 6 + [_I] * 3 + [_P] * 2 + [_I] * 2 + [_P] * 7,
-        "sh_probe": [_P, _I, _P, _I] + [_P] * 8 + [_I] * 2 + [_P] * 5,
+        "sh_probe": [_P, _I, _P, _P, _I] + [_P] * 8 + [_I] * 2 + [_P] * 7,
         "sh_exchange": [_P, _I, _I, _I, _P, _P, _P],
     },
     "word_probe": {
@@ -86,7 +86,8 @@ _SIGNATURES = {
     },
     "word_shard": {
         "wsh_clip": [_P] * 6 + [_I] * 4 + [_P] * 2 + [_I] * 2 + [_P] * 7,
-        "wsh_probe": [_P, _I, _I, _P, _I] + [_P] * 8 + [_I] * 2 + [_P] * 5,
+        "wsh_probe": [_P, _I, _I, _P, _P, _I] + [_P] * 9 + [_I] * 2
+        + [_P] * 8,
     },
     "rmq_blocked": {
         "rb_build": [_P, _I, _I, _P, _P, _P, _P],
@@ -436,6 +437,43 @@ def _workspace(dev, n: int, scratch: int = 0):
     return ws, sc
 
 
+#: K8's and K16's live table (live_probe.cuh): levels 1..LIVE_LEVELS of
+#: each shard's windowed max, and a sparse table over blocks of
+#: LIVE_BLOCK rows; fences a shard (LP_MAX_FENCES, LP_FENCE_WORDS).
+LIVE_LEVELS = 8
+LIVE_BLOCK = 1 << LIVE_LEVELS
+LIVE_MAX_FENCES, LIVE_FENCE_WORDS = 1024, 8192
+#: CUDA kernels launched by the last K8 or K16 call, as live_probe.cuh
+#: ``lp_run`` counts them (a build and a probe; the probe alone when K16
+#: is given K2's table).
+LIVE_PROBE_KERNELS = {"last": 0}
+
+
+def live_table_words(s: int, c: int) -> int:
+    """int32 words of the live table of ``s`` shards of capacity ``c``:
+    LIVE_LEVELS rows of S·C, and the top's levels over ceil(C /
+    LIVE_BLOCK) blocks a shard (live_probe.cuh ``lp_nb``,
+    ``lp_top_levels``)."""
+    nb = max(1, -(-c // LIVE_BLOCK))
+    return LIVE_LEVELS * s * c + nb.bit_length() * s * nb
+
+
+def live_fences(s: int, w: int) -> int:
+    """Fences a shard of K8's and K16's probe (live_probe.cuh
+    ``lp_fences``): 0 means each search starts over [0, n)."""
+    return min(LIVE_FENCE_WORDS // (s * w), LIVE_MAX_FENCES)
+
+
+def _live_workspace(dev, s: int, c: int):
+    """Device addresses of (the live table, int32 [>= live_table_words(s,
+    c)]: K4's workspace scratch, dead once the probe after the build on the
+    same stream has run; the build's tickets, int32 [>= s]: K4's look-back
+    words, zero between calls, which the build's last blocks leave
+    zeroed)."""
+    ws, sc = _workspace(dev, K4_TILE * -(-s // 4), live_table_words(s, c))
+    return sc.data_ptr(), ws.data_ptr() + 8 * _WS_HEAD
+
+
 def paint(state, wb, we, write_mask, accepted, paint_src, cv: int,
           floor) -> None:
     """Paint in place into ``state`` (a width-1 ConflictState): two
@@ -711,16 +749,21 @@ def shard_clip(rb, re_, read_mask, wb, we, write_mask, lo, hi, reads: bool):
     return out
 
 
-def shard_probe(keys, table, read_begin, read_end, read_mask, read_version,
-                txn_mask, lo, hi, floor):
+def shard_probe(keys, versions, n_used, read_begin, read_end, read_mask,
+                read_version, txn_mask, lo, hi, floor):
     """K8: (too_old bool [B], hist_conflict bool [B], cand bool [B]) over
-    the S flat shard histories ``keys`` [S, C, 1] with ``table`` the
-    sparse table [L, S*C] of their versions; ``floor`` (0-dim) is the
-    too-old floor."""
+    the S flat shard histories ``keys`` [S, C, 1] / ``versions`` [S, C],
+    each read only over its live rows [0, n_used[s]) (``n_used`` int32
+    [S], read on the device; every row past it must be (+inf,
+    NEG_VERSION)); ``floor`` (0-dim) is the too-old floor. Builds the
+    live table (live_probe.cuh) into the stream's workspace, then probes:
+    two CUDA kernels (counted into ``LIVE_PROBE_KERNELS["last"]``). The
+    three outputs are rows of one [3, B] allocation."""
     s, c = keys.shape[0], keys.shape[1]
     b, r = read_begin.shape
     _check(keys, _i32, "keys", (s, c, 1))
-    _check(table, _i32, "table", (table_levels(s * c), s * c))
+    _check(versions, _i32, "versions", (s, c))
+    _check(n_used, _i32, "n_used", (s,))
     _check(read_begin, _i32, "read_begin")
     _check(read_end, _i32, "read_end", (b, r))
     _check(read_mask, _bool, "read_mask", (b, r))
@@ -730,15 +773,17 @@ def shard_probe(keys, table, read_begin, read_end, read_mask, read_version,
     _check(hi, _i32, "shard_hi", (s,))
     _check(floor, _i32, "floor", ())
     dev = keys.device
-    words = torch.empty((b + 31) // 32, dtype=_i32, device=dev)
-    too_old, hist, cand = (torch.empty(b, dtype=_bool, device=dev)
-                           for _ in range(3))
-    _call("shard", "sh_probe", dev, _ptr(keys), c, _ptr(table), s,
-          _ptr(read_begin), _ptr(read_end), _ptr(read_mask),
+    ws, tickets = _live_workspace(dev, s, c)
+    out = torch.empty((3, b), dtype=_bool, device=dev)
+    p = out.data_ptr()
+    launched = ctypes.c_int(0)
+    _call("shard", "sh_probe", dev, _ptr(keys), c, _ptr(versions),
+          _ptr(n_used), s, _ptr(read_begin), _ptr(read_end), _ptr(read_mask),
           _ptr(read_version), _ptr(txn_mask), _ptr(lo), _ptr(hi),
-          _ptr(floor), b, r, _ptr(words), _ptr(too_old), _ptr(hist),
-          _ptr(cand))
-    return too_old, hist, cand
+          _ptr(floor), b, r, ws, tickets, p, p + b, p + 2 * b,
+          ctypes.addressof(launched))
+    LIVE_PROBE_KERNELS["last"] = launched.value
+    return out.unbind(0)
 
 
 def wave_exchange(ps, stats=None):
@@ -1167,18 +1212,26 @@ def word_clip(rb, re_, read_mask, wb, we, write_mask, lo, hi, reads: bool):
     return owb, owe, owm, orb, ore, orm
 
 
-def word_shard_probe(keys, table, read_begin, read_end, read_mask,
-                     read_version, txn_mask, lo, hi, floor):
+def word_shard_probe(keys, versions, n_used, read_begin, read_end,
+                     read_mask, read_version, txn_mask, lo, hi, floor,
+                     table=None):
     """K16: (too_old bool [B], hist_mask bool [B, R], hist_conflict bool
     [B], cand bool [B]) over the S flat [C, W] shard histories ``keys``
-    [S, C, W], ``table`` the sparse table [L, S*C] of their versions; each
-    read slot is clipped to the shard's [lo[s], hi[s]) (``lo``/``hi``
-    [S, W], or both None for no clip); ``hist_mask`` ORs a slot's conflict
-    over the shards; ``floor`` (0-dim) is the too-old floor."""
+    [S, C, W] / ``versions`` [S, C], each read only over its live rows [0,
+    n_used[s]) (``n_used`` int32 [S], read on the device; every row past
+    it must be (+inf, NEG_VERSION)); each read slot is clipped to the
+    shard's [lo[s], hi[s]) (``lo``/``hi`` [S, W], or both None for no
+    clip); ``hist_mask`` ORs a slot's conflict over the shards; ``floor``
+    (0-dim) is the too-old floor. The range max comes from ``table``, K2's
+    sparse table [L, S*C] of the versions, when given (nothing is built),
+    else from the live table built into the stream's workspace."""
     s, c, w = keys.shape
     b, r, _ = read_begin.shape
     _check(keys, _i32, "keys", (s, c, w))
-    _check(table, _i32, "table", (table_levels(s * c), s * c))
+    _check(versions, _i32, "versions", (s, c))
+    _check(n_used, _i32, "n_used", (s,))
+    if table is not None:
+        _check(table, _i32, "table", (table_levels(s * c), s * c))
     _check(read_begin, _i32, "read_begin", (b, r, w))
     _check(read_end, _i32, "read_end", (b, r, w))
     _check(read_mask, _bool, "read_mask", (b, r))
@@ -1191,14 +1244,19 @@ def word_shard_probe(keys, table, read_begin, read_end, read_mask,
         _check(hi, _i32, "shard_hi", (s, w))
     _check(floor, _i32, "floor", ())
     dev = keys.device
+    live = table is None
+    ws, tickets = _live_workspace(dev, s, c) if live else (None, None)
     hist_mask = torch.empty((b, r), dtype=_bool, device=dev)
-    too_old, hist, cand = (torch.empty(b, dtype=_bool, device=dev)
-                           for _ in range(3))
-    _call("word_shard", "wsh_probe", dev, _ptr(keys), c, w, _ptr(table), s,
-          _ptr(read_begin), _ptr(read_end), _ptr(read_mask),
-          _ptr(read_version), _ptr(txn_mask), _ptr(lo), _ptr(hi),
-          _ptr(floor), b, r, _ptr(hist_mask), _ptr(too_old), _ptr(hist),
-          _ptr(cand))
+    out = torch.empty((3, b), dtype=_bool, device=dev)
+    p = out.data_ptr()
+    launched = ctypes.c_int(0)
+    _call("word_shard", "wsh_probe", dev, _ptr(keys), c, w, _ptr(versions),
+          _ptr(n_used), s, _ptr(table), _ptr(read_begin), _ptr(read_end),
+          _ptr(read_mask), _ptr(read_version), _ptr(txn_mask), _ptr(lo),
+          _ptr(hi), _ptr(floor), b, r, ws, tickets, _ptr(hist_mask), p,
+          p + b, p + 2 * b, ctypes.addressof(launched))
+    LIVE_PROBE_KERNELS["last"] = launched.value
+    too_old, hist, cand = out.unbind(0)
     return too_old, hist_mask, hist, cand
 
 

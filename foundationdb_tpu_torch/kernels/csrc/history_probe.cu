@@ -30,7 +30,7 @@
 // launch takes levels 1..12 from the values (row 0 is copied on the way),
 // the next ones up to 10 levels each at a stride of 2^12 or more: two
 // launches for N up to 2^22 (the per-batch delta table, the base table of
-// C = 2^20, the S·C table of four shards), where the recurrence took one
+// C = 2^20), where the recurrence took one
 // launch per level. Every block of a gated build (the demand-driven fold
 // decides on the device whether the base table must be rebuilt) reads the
 // flag and exits.

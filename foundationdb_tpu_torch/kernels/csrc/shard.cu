@@ -22,17 +22,13 @@
 // wrapper, so the window program checks shapes once a window and clips
 // into buffers it allocates once a window (kernels.shard_clip_into).
 //
-// K8 is one launch over every (read slot, shard) pair (grid.y = S): the
-// slot's range clamped to the shard, two binary searches in the shard's
-// flat history keys [C], a range max from the sparse table that K2 builds
-// over the S histories' versions as one [S x C] array (a query never
-// leaves its shard's segment, so one table serves every shard), and an
-// atomicOr of the conflict bit into one packed word per 32 transactions:
-// the mesh's all_gather / psum becomes an OR in device memory. A second
-// launch, one thread per transaction, folds the too-old test and writes
-// too_old, the OR-ed conflict bit and the acceptance candidates, so K3
-// and K6 take them as they take K2's. Bound: dependent loads of the
-// searches (about 2 log2 C steps per live slot and shard) over a few MB.
+// K8 reads only each shard's live rows: live_probe.cuh (shared with K16)
+// builds a range-max structure over them in one launch and searches and
+// ORs the shards' conflict bits in a second, which also folds the too-old
+// test and writes too_old, the OR-ed conflict bit and the acceptance
+// candidates, so K3 and K6 take them as they take K2's. Bound: dependent
+// loads of the searches (a few steps into L2 past the shared fences) and
+// LP_LV writes a live row for the table.
 //
 // K10 ORs the S packed predecessor matrices [S, BP, BP/32] into one and
 // counts each shard's occupied 32x32-bit tiles (32 rows x 1 word). A block
@@ -47,42 +43,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define NEG_VERSION (-2147483647)
+#include "live_probe.cuh"
+
 #define FULL 0xffffffffu
-
-__device__ __forceinline__ int lower_bound(const int* a, int n, int q) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (a[mid] < q) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-__device__ __forceinline__ int upper_bound(const int* a, int n, int q) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    if (a[mid] <= q) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
 
 __device__ __forceinline__ int clamp(int v, int lo, int hi) {
   v = v > lo ? v : lo;
   return v < hi ? v : hi;
-}
-
-// max(values[lo:hi]) from the sparse table st [L, n]; empty -> NEG_VERSION.
-__device__ __forceinline__ int range_max(const int* st, int64_t n, int64_t lo,
-                                         int64_t hi) {
-  int64_t len = hi - lo;
-  if (len <= 0) return NEG_VERSION;
-  int lvl = 63 - __clzll(len);
-  int64_t b = hi - ((int64_t)1 << lvl);
-  int x = st[lvl * n + lo];
-  int y = st[lvl * n + b];
-  return x > y ? x : y;
 }
 
 static inline int blocks(int64_t n, int t) { return (int)((n + t - 1) / t); }
@@ -166,64 +133,37 @@ extern "C" int sh_clip(const int* rb, const int* re, const bool* rm,
 
 // ------------------------------------------------------------------ K8
 
-__global__ void k_probe_shards(const int* keys, int C, const int* st,
-                               int64_t N, const int* rb, const int* re,
-                               const bool* rm, const int* rv, const int* lo,
-                               const int* hi, int B, int R, unsigned* words) {
-  int64_t slot = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= (int64_t)B * R || !rm[slot]) return;
-  int s = blockIdx.y;
-  int l = lo[s], h = hi[s];
-  int qb = clamp(rb[slot], l, h), qe = clamp(re[slot], l, h);
-  if (qb >= qe) return;  // outside the shard: the clipped mask is false
-  const int* k = keys + (int64_t)s * C;
-  int a = upper_bound(k, C, qb) - 1;
-  if (a < 0) a = 0;
-  int z = lower_bound(k, C, qe);
-  int64_t base = (int64_t)s * C;
-  int b = (int)(slot / R);
-  if (range_max(st, N, base + a, base + z) > rv[b])
-    atomicOr(&words[b >> 5], 1u << (b & 31));
-}
-
-__global__ void k_probe_finish(const unsigned* words, const int* rb,
-                               const int* re, const bool* rm, const int* rv,
-                               const bool* tm, const int* floor_p, int B,
-                               int R, bool* too_old, bool* hist, bool* cand) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  bool has_reads = false;
-  for (int r = 0; r < R; ++r) {
-    int64_t i = (int64_t)b * R + r;
-    has_reads |= rm[i] && rb[i] < re[i];
-  }
-  bool t = tm[b];
-  bool to = t && has_reads && rv[b] < *floor_p;
-  bool h = (words[b >> 5] >> (b & 31)) & 1u;
-  too_old[b] = to;
-  hist[b] = h;
-  cand[b] = t && !to && !h;
-}
-
-// keys [S, C], st [L, S*C]; words [ceil(B/32)] scratch.
-extern "C" int sh_probe(const int* keys, int C, const int* st, int S,
-                        const int* rb, const int* re, const bool* rm,
-                        const int* rv, const bool* tm, const int* lo,
-                        const int* hi, const int* floor_p, int B, int R,
-                        unsigned* words, bool* too_old, bool* hist,
-                        bool* cand, cudaStream_t s) {
-  const int T = 128;
-  if (B <= 0) return (int)cudaGetLastError();
-  cudaError_t e = cudaMemsetAsync(words, 0, sizeof(unsigned) * ((B + 31) / 32),
-                                  s);
-  if (e != cudaSuccess) return (int)e;
-  if (R > 0 && S > 0)
-    k_probe_shards<<<dim3(blocks((int64_t)B * R, T), S), T, 0, s>>>(
-        keys, C, st, (int64_t)S * C, rb, re, rm, rv, lo, hi, B, R, words);
-  k_probe_finish<<<blocks(B, T), T, 0, s>>>(words, rb, re, rm, rv, tm,
-                                            floor_p, B, R, too_old, hist,
-                                            cand);
-  return (int)cudaGetLastError();
+// keys [S, C, 1], versions [S, C], n_used [S] (live rows, read on the
+// device); reads [B, R]; lo/hi [S]; ws the live table (lp_run), tickets
+// [S] zeroed: two CUDA kernels, counted into *launched.
+extern "C" int sh_probe(const int* keys, int C, const int* versions,
+                        const int* n_used, int S, const int* rb,
+                        const int* re, const bool* rm, const int* rv,
+                        const bool* tm, const int* lo, const int* hi,
+                        const int* floor_p, int B, int R, int* ws,
+                        int* tickets, bool* too_old, bool* hist, bool* cand,
+                        int* launched, cudaStream_t s) {
+  LpArgs a{};
+  a.keys = keys;
+  a.vals = versions;
+  a.n_used = n_used;
+  a.rb = rb;
+  a.re = re;
+  a.rm = rm;
+  a.rv = rv;
+  a.tm = tm;
+  a.lo = lo;
+  a.hi = hi;
+  a.floor_p = floor_p;
+  a.too_old = too_old;
+  a.hist = hist;
+  a.cand = cand;
+  a.S = S;
+  a.C = C;
+  a.w = 1;
+  a.B = B;
+  a.R = R;
+  return lp_run(a, ws, tickets, launched, s);
 }
 
 // ----------------------------------------------------------------- K10

@@ -21,57 +21,27 @@
 // end after the clamp, all as signed W-word compares (the key bias makes
 // that the byte order).
 //
-// K16 is one launch over every (read slot, shard) pair (grid.y = S): the
-// slot's rows clamped to the shard in registers, a W-word upper-bound
-// search of the begin and a lower-bound search of the end in the shard's
-// [C, W] keys (about 2 log2 C steps, each a W-word compare whose upper
-// levels stay in L2), a range max from the sparse table that K2 builds
-// over the S shards' versions as one [S x C] array (a query never leaves
-// its shard's segment, so one table answers every shard), and a store of
-// true into the slot's byte of the [B, R] mask: the mesh's OR becomes
-// stores of one value into device memory. A second launch, one thread per
-// transaction, folds the too-old test on the UNCLIPPED reads (every shard
-// judges too-old on the whole batch) and writes too_old, the OR-ed
-// conflict bit and the acceptance candidates. Bound: the dependent loads
-// of the searches; the bytes (the read rows, a few MB of history touched)
-// are small. The flat design rebuilds the table every batch, as the JAX
-// program does (:236-240): at S x C = 2^22 that is K2's larger cost.
+// K16 is K8's design (live_probe.cuh) at W words: each shard's live rows
+// only, a range-max structure over them built in one launch, then one
+// launch that clamps each read slot to each shard in registers, ends the
+// W-word upper-bound search of the begin and lower-bound search of the
+// end past the shared fences (four words of a row loaded at once), takes
+// the range max, writes the slot's byte of the [B, R] mask (its OR over
+// the shards) and folds the too-old test on the UNCLIPPED reads (every
+// shard judges too-old on the whole batch), the OR-ed conflict bit and
+// the acceptance candidates. Given K2's table over the rows (the
+// two-level engine's base keeps one), it reads that and builds nothing.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#define NEG_VERSION (-2147483647)
+#include "live_probe.cuh"
 
 // a < b over w signed words.
 __device__ __forceinline__ bool lex_lt(const int* a, const int* b, int w) {
   for (int j = 0; j < w; ++j)
     if (a[j] != b[j]) return a[j] < b[j];
   return false;
-}
-
-// First index of the sorted [n, w] rows a with row > q (upper) or >= q.
-__device__ __forceinline__ int search(const int* a, int n, const int* q,
-                                      int w, bool upper) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    const int* r = a + (int64_t)mid * w;
-    bool before = upper ? !lex_lt(q, r, w) : lex_lt(r, q, w);
-    if (before) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// max(values[lo:hi]) from the sparse table st [L, n]; empty -> NEG_VERSION.
-__device__ __forceinline__ int range_max(const int* st, int64_t n, int64_t lo,
-                                         int64_t hi) {
-  int64_t len = hi - lo;
-  if (len <= 0) return NEG_VERSION;
-  int lvl = 63 - __clzll(len);
-  int64_t b = hi - ((int64_t)1 << lvl);
-  int x = st[lvl * n + lo];
-  int y = st[lvl * n + b];
-  return x > y ? x : y;
 }
 
 static inline int blocks(int64_t n, int t) { return (int)((n + t - 1) / t); }
@@ -133,72 +103,41 @@ extern "C" int wsh_clip(const int* rb, const int* re, const bool* rm,
 
 // ----------------------------------------------------------------- K16
 
-__global__ void k_wprobe(const int* keys, int C, int w, const int* st,
-                         int64_t N, const int* rb, const int* re,
-                         const bool* rm, const int* rv, const int* lo,
-                         const int* hi, int B, int R, bool* hist_mask) {
-  int64_t slot = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (slot >= (int64_t)B * R || !rm[slot]) return;
-  int s = blockIdx.y;
-  const int* qb = rb + slot * w;
-  const int* qe = re + slot * w;
-  if (lo) {
-    const int* l = lo + (int64_t)s * w;
-    const int* h = hi + (int64_t)s * w;
-    if (lex_lt(qb, l, w)) qb = l;
-    if (!lex_lt(qe, h, w)) qe = h;
-  }
-  if (!lex_lt(qb, qe, w)) return;  // empty in this shard
-  const int* k = keys + (int64_t)s * C * w;
-  int a = search(k, C, qb, w, true) - 1;
-  if (a < 0) a = 0;
-  int z = search(k, C, qe, w, false);
-  int64_t base = (int64_t)s * C;
-  if (range_max(st, N, base + a, base + z) > rv[slot / R])
-    hist_mask[slot] = true;
-}
-
-__global__ void k_wprobe_finish(const bool* hist_mask, const int* rb,
-                                const int* re, const bool* rm, const int* rv,
-                                const bool* tm, const int* floor_p, int B,
-                                int R, int w, bool* too_old, bool* hist,
-                                bool* cand) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  bool has_reads = false, h = false;
-  for (int r = 0; r < R; ++r) {
-    int64_t i = (int64_t)b * R + r;
-    has_reads |= rm[i] && lex_lt(rb + i * w, re + i * w, w);
-    h |= hist_mask[i];
-  }
-  bool t = tm[b];
-  bool to = t && has_reads && rv[b] < *floor_p;
-  too_old[b] = to;
-  hist[b] = h;
-  cand[b] = t && !to && !h;
-}
-
-// keys [S, C, w], st [L, S*C]; reads [B, R, w]; lo/hi [S, w] or both null
-// (no clip: the single flat engine). hist_mask [B, R] is the OR over the
-// shards of each slot's conflict.
-extern "C" int wsh_probe(const int* keys, int C, int w, const int* st, int S,
+// keys [S, C, w], versions [S, C], n_used [S] (live rows, read on the
+// device); reads [B, R, w]; lo/hi [S, w] or both null (no clip: the single
+// flat engine); st K2's table [L, S*C] (no build) or null (the live table
+// in ws, tickets [S] zeroed). hist_mask [B, R] is the OR over the shards
+// of each slot's conflict. Two CUDA kernels, or the probe alone given st,
+// counted into *launched.
+extern "C" int wsh_probe(const int* keys, int C, int w, const int* versions,
+                         const int* n_used, int S, const int* st,
                          const int* rb, const int* re, const bool* rm,
                          const int* rv, const bool* tm, const int* lo,
                          const int* hi, const int* floor_p, int B, int R,
-                         bool* hist_mask, bool* too_old, bool* hist,
-                         bool* cand, cudaStream_t s) {
-  const int T = 128;
-  if (B <= 0) return (int)cudaGetLastError();
-  if (R > 0) {
-    cudaError_t e = cudaMemsetAsync(hist_mask, 0, (size_t)B * R, s);
-    if (e != cudaSuccess) return (int)e;
-    if (S > 0)
-      k_wprobe<<<dim3(blocks((int64_t)B * R, T), S), T, 0, s>>>(
-          keys, C, w, st, (int64_t)S * C, rb, re, rm, rv, lo, hi, B, R,
-          hist_mask);
-  }
-  k_wprobe_finish<<<blocks(B, T), T, 0, s>>>(hist_mask, rb, re, rm, rv, tm,
-                                             floor_p, B, R, w, too_old, hist,
-                                             cand);
-  return (int)cudaGetLastError();
+                         int* ws, int* tickets, bool* hist_mask,
+                         bool* too_old, bool* hist, bool* cand,
+                         int* launched, cudaStream_t s) {
+  LpArgs a{};
+  a.keys = keys;
+  a.vals = versions;
+  a.n_used = n_used;
+  a.st = st;
+  a.rb = rb;
+  a.re = re;
+  a.rm = rm;
+  a.rv = rv;
+  a.tm = tm;
+  a.lo = lo;
+  a.hi = hi;
+  a.floor_p = floor_p;
+  a.hist_mask = hist_mask;
+  a.too_old = too_old;
+  a.hist = hist;
+  a.cand = cand;
+  a.S = S;
+  a.C = C;
+  a.w = w;
+  a.B = B;
+  a.R = R;
+  return lp_run(a, ws, tickets, launched, s);
 }

@@ -19,8 +19,9 @@ launches the hand-written kernel (kernels/csrc/*.cu) and never falls back:
 - K4 ``step_compact.cu``: paint, base+delta fold, dedup and compaction;
 - K5, K6 ``wave.cu``: the wave predecessor matrix and the wave leveling;
 - K8, K9, K10 ``shard.cu``: the sharded engine's probe with the
-  cross-shard OR, its per-shard clip, and its wave exchange (the OR of
-  the shards' predecessor matrices and their occupied tiles).
+  cross-shard OR (over each shard's live rows, ``live_probe.cuh``), its
+  per-shard clip, and its wave exchange (the OR of the shards'
+  predecessor matrices and their occupied tiles).
 
 The window program ``resolve_many_res`` (the JAX ``lax.scan`` of
 ``resolve_many_res``) has no kernel source of its own: on the card it is
@@ -33,7 +34,8 @@ then per step the gated K4 fold and a K4 paint with a host-forced accept
 mask; its rollback target is ``snapshot_res``, a deep copy of the state.
 The sharded engine (section B3: S keyspace shards on one card, each with
 a flat history) runs ``sharded_resolve_res_many``: K1 once, then per step
-K9, K2's table and K8, K3 (or K5 per shard, K10 and K6) and K4 per shard.
+K9, K8 (its live table and probe), K3 (or K5 per shard, K10 and K6) and K4
+per shard.
 
 The packed non-resident engine (section B4: ``resident=False``) keeps a
 two-level history of full [C, W] word keys and gets, with every batch, a
@@ -51,15 +53,16 @@ younger window's dictionaries against it (K12).
 The unpacked flat programs (section B5 flat: a batch of full [B, ., W] key
 rows, one flat [C, W] history whose sparse table is rebuilt every batch)
 and the non-resident sharded engine that runs them (section B3 with
-``resident=False``: S flat histories stacked on a leading axis) sort on
+``resident=False``: S flat histories stacked on a leading axis; K16 reads
+only their live rows and builds its own range-max table over them) sort on
 the card: K14 ``word_sort.cu`` is a stable sort of W-word rows carrying
 payload columns, with a rank tail that gives ``endpoint_ranks_live``;
 K15 and K16 ``word_shard.cu`` clip a full-key batch to every shard and
 probe the clipped reads of every shard with the cross-shard OR; the paint
 is K13's ``wc_paint_keys``, K12's search, K14's sort and K13's
 ``wc_paint_sorted``. Its window program ``sharded_resolve_many`` is, per
-step, K2's table and K16, K15, K14 and K3 (or per shard K14 and K5, then
-K10 and K6), and the paint of each shard.
+step, K16, K15, K14 and K3 (or per shard K14 and K5, then K10 and K6),
+and the paint of each shard.
 
 Under ``rmq="blocked"`` (the JAX FDB_TPU_RMQ knob) each per-batch table is
 K17's blocked structure (kernels/csrc/rmq_blocked.cu) in place of K2's
@@ -90,6 +93,7 @@ from foundationdb_tpu_torch.ops.bitset import (
     unpack_bits_u32,
 )
 from foundationdb_tpu_torch.ops.lex import (
+    lex_le,
     lex_lt,
     lex_max,
     lex_min,
@@ -1786,7 +1790,7 @@ def wave_apply_res(res: ResState, rbk: RankBatch, cand, p, commit_version,
 # history (a ConflictState whose leaves are [S, C, 1], [S, C] and [S]) of
 # its keyspace slice [shard_lo[s], shard_hi[s]) of ranks. A step clips the
 # batch to every shard (K9), probes every shard's history and ORs the
-# shards' conflict bits (K2's table over the S histories, then K8: the JAX
+# shards' conflict bits (K8, over each shard's live rows: the JAX
 # all_gather or psum across the mesh becomes an OR on the card), accepts
 # on the UNCLIPPED batch (K3) or, on a wave engine, builds each shard's
 # predecessor rows from its clipped ranges (K5), ORs them and counts their
@@ -1966,10 +1970,10 @@ def shard_probe_plain(hist: ConflictState, rbk: RankBatch, lo, hi, floor,
 
 def shard_probe(hist: ConflictState, rbk: RankBatch, lo, hi, floor,
                 rmq: str = "sparse"):
-    """(too_old, hist_conflict, cand) over every shard. On the card: K2's
-    sparse table over the S histories' versions as one [S·C] array (a
-    query never leaves its shard's segment, so one table answers them
-    all), then K8, one launch over every (shard, read slot) that ORs the
+    """(too_old, hist_conflict, cand) over every shard. On the card: K8 over
+    each shard's live rows [0, n_used[s]) (the rows past it are (+inf,
+    NEG_VERSION)): its range-max table over them, then one launch, a
+    thread a read slot walking the shards it overlaps, that ORs the
     shards' conflict bits and writes too_old and the candidates. Blocked:
     K17's build over the same [S·C] array and K17's sharded probe (K16's
     launch at W = 1 with the blocked range max at the shard's offset);
@@ -1983,10 +1987,9 @@ def shard_probe(hist: ConflictState, rbk: RankBatch, lo, hi, floor,
             hi[:, None], floor)
         return too_old, hit, cand
     if _on_card(hist.keys):
-        table = K.build_table(hist.versions.reshape(-1))
-        return K.shard_probe(hist.keys, table, rbk.read_begin, rbk.read_end,
-                             rbk.read_mask, rbk.read_version, rbk.txn_mask,
-                             lo, hi, floor)
+        return K.shard_probe(hist.keys, hist.versions, hist.n_used,
+                             rbk.read_begin, rbk.read_end, rbk.read_mask,
+                             rbk.read_version, rbk.txn_mask, lo, hi, floor)
     return shard_probe_plain(hist, rbk, lo, hi, floor, rmq)
 
 
@@ -2092,7 +2095,7 @@ def _sharded_step(hist: ConflictState, lo, hi, rbk: RankBatch,
                   xstats_out=None, rmq: str = "sparse",
                   wclip: WindowClip | None = None):
     """One step of the JAX ``_res_shard_step`` on every shard. On the card:
-    K9, K2's table and K8 (blocked: K17's build and sharded probe), then K3
+    K9 and K8 (blocked: K17's build and sharded probe), then K3
     once on the unclipped batch, or K5 per shard, K10 and K6 on the
     clipped ranges, then K4 once per shard. The
     verdicts, levels and exchange stats go into the given buffers.
@@ -2151,7 +2154,7 @@ def sharded_resolve_res_many(res: ResState, rb: ResidentBatch,
     shard. Returns (verdicts int8 [k, B], levels int32 [k, B] or None,
     exchange stats int32 [k, 2] or None, new ResState); the verdicts and
     levels are written into ``out``, the stats into ``xstats``, when given.
-    On the card: K1 once, then per step K9, K2's table, K8 (blocked: K17's
+    On the card: K1 once, then per step K9, K8 (blocked: K17's
     build and sharded probe), K3 (or K5 per shard, K10, K6) and K4 per
     shard. No host sync inside the window."""
     k, b = rb.ranks.txn_mask.shape
@@ -2611,8 +2614,8 @@ def spec_dep_window(scratch: ConflictState, pb: PackedBatch,
 # the non-resident sharded engine that runs them on S keyspace shards
 # (``_sharded_resolve``, sharded_resolver.py:107-166), the shards a
 # leading [S] axis of one state on one card and the mesh's OR an OR over
-# that axis. On the card: K2's table over the S·C versions and K16
-# (word_shard.cu) probe the clipped reads of every shard; K14
+# that axis. On the card: K16 (word_shard.cu) probes the clipped reads of
+# every shard over its live rows; K14
 # (word_sort.cu) ranks the batch's endpoint rows by sorting them on the
 # card, for K3 (or, per shard on the clipped rows, for K5, then K10 and
 # K6); K15 (word_shard.cu) clips the writes to every shard; each shard's
@@ -2755,9 +2758,10 @@ def word_history_probe(hist, batch: BatchTensors, floor, rmq: str = "sparse",
                        plain: bool = False):
     """(too_old [B], hist_mask [B, R], cand [B]): the unpacked engine's
     probe of a flat [C, W] history or a two-level one of full key rows.
-    On the card, sparse: a flat history's K2 table and K16 unclipped; a
-    two-level one's K16 over the base with its prebuilt table and K16 over
-    the delta with K2's table, their masks OR-ed. Blocked: K17's build
+    On the card, sparse: K16 unclipped over a flat history's live rows
+    (with its live table); a two-level one's K16 over the base's live rows
+    with its prebuilt K2 table and K16 over the delta's with its live
+    table, their masks OR-ed. Blocked: K17's build
     over the per-batch level, K12's search of the slots' begin and end
     rows, and K17's probe (with the base's sparse table when there is
     one)."""
@@ -2780,14 +2784,16 @@ def word_history_probe(hist, batch: BatchTensors, floor, rmq: str = "sparse",
                                batch.read_begin, batch.read_end, *tail,
                                base_st=hist.base_st, rs_b=rs_b, ls_b=ls_b)
     rows = (batch.read_begin, batch.read_end)
-    probe = K.word_shard_probe(level.keys[None], K.build_table(level.versions),
-                               *rows, *tail[:3], None, None, floor)
+    probe = K.word_shard_probe(level.keys[None], level.versions[None],
+                               level.n_used.reshape(1), *rows, *tail[:3],
+                               None, None, floor)
     if not two:
         too_old, hist_mask, _, cand = probe
         return too_old, hist_mask, cand
+    base = hist.base
     too_old, mask_b, _, cand = K.word_shard_probe(
-        hist.base.keys[None], hist.base_st, *rows, *tail[:3], None, None,
-        floor)
+        base.keys[None], base.versions[None], base.n_used.reshape(1), *rows,
+        *tail[:3], None, None, floor, table=hist.base_st)
     _, mask_d, hist_d, _ = probe
     return too_old, mask_b | mask_d, cand & ~hist_d
 
@@ -2877,10 +2883,10 @@ def word_shard_probe_plain(hist: ConflictState, batch: BatchTensors, lo, hi,
 def word_shard_probe(hist: ConflictState, batch: BatchTensors, lo, hi,
                      floor, plain: bool = False, rmq: str = "sparse"):
     """(too_old, hist_mask, hist_conflict, cand) over every shard. On the
-    card: K2's sparse table over the S histories' versions as one [S·C]
-    array (a query never leaves its shard's segment), then K16, one launch
-    over every (shard, read slot) that ORs the shards' conflict bits.
-    Blocked: K17's build over the same array and K17's sharded probe (K16's
+    card: K16 over each shard's live rows [0, n_used[s]) (the rows past it
+    are (+inf, NEG_VERSION)): its range-max table over them, then one
+    launch, a thread a read slot walking the shards it overlaps, that ORs
+    the shards' conflict bits. Blocked: K17's build over the same array and K17's sharded probe (K16's
     launch with the blocked range max)."""
     if _card(hist.keys, plain) and rmq == "blocked":
         values = hist.versions.reshape(-1)
@@ -2889,12 +2895,173 @@ def word_shard_probe(hist: ConflictState, batch: BatchTensors, lo, hi,
             batch.read_end, batch.read_mask, batch.read_version,
             batch.txn_mask, lo, hi, floor)
     if _card(hist.keys, plain):
-        table = K.build_table(hist.versions.reshape(-1))
         return K.word_shard_probe(
-            hist.keys, table, batch.read_begin, batch.read_end,
-            batch.read_mask, batch.read_version, batch.txn_mask, lo, hi,
-            floor)
+            hist.keys, hist.versions, hist.n_used, batch.read_begin,
+            batch.read_end, batch.read_mask, batch.read_version,
+            batch.txn_mask, lo, hi, floor)
     return word_shard_probe_plain(hist, batch, lo, hi, floor, rmq)
+
+
+# ---------------------------------------------------------------------------
+# K8/K16's live-prefix algorithm, step for step (plain)
+# ---------------------------------------------------------------------------
+
+
+def _log2_floor(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2 x) of positive int32 values (exact: float64 holds them)."""
+    return x.double().log2().floor().to(x.dtype)
+
+
+def live_table_plain(values: torch.Tensor, levels: int = K.LIVE_LEVELS):
+    """K8/K16's range-max table over one shard's live ``values`` [n]
+    (live_probe.cuh ``lp_build``): (rows [levels + 1, n], row l the
+    windowed max max(v[i : min(i + 2^l, n)]), row 0 the values; top [T,
+    nb], the sparse table over the maxima of the nb blocks of 2^levels
+    rows, its row 0 those maxima)."""
+    n = values.shape[0]
+    rows = [values]
+    for lvl in range(1, levels + 1):
+        prev, d = rows[-1], 1 << (lvl - 1)
+        nxt = prev.clone()
+        if n > d:
+            nxt[:n - d] = torch.maximum(prev[:n - d], prev[d:])
+        rows.append(nxt)
+    top = [rows[levels][::1 << levels]]
+    nb = top[0].shape[0]
+    while (1 << len(top)) <= nb:
+        prev, d = top[-1], 1 << (len(top) - 1)
+        nxt = prev.clone()
+        nxt[:nb - d] = torch.maximum(prev[:nb - d], prev[d:])
+        top.append(nxt)
+    return torch.stack(rows), torch.stack(top)
+
+
+def live_range_max_plain(rows: torch.Tensor, top: torch.Tensor, a, z,
+                         levels: int = K.LIVE_LEVELS) -> torch.Tensor:
+    """max(v[a:z]) per query from :func:`live_table_plain`'s table
+    (live_probe.cuh ``lp_max``), 0 <= a <= z <= n; NEG_VERSION when empty:
+    one row its value, fewer than 2^(levels+1) rows two entries of their
+    level, longer ranges their two ends at level ``levels`` and the whole
+    blocks between them from the top."""
+    length = z - a
+    out = torch.full_like(a, NEG_VERSION)
+    n = rows.shape[1]
+    if n == 0:
+        return out
+    blk = 1 << levels
+
+    def at(table, lvl, i):
+        return table[lvl.long(), i.clamp(0, table.shape[1] - 1).long()]
+
+    lvl = _log2_floor(length.clamp(min=1))
+    short = torch.maximum(at(rows, lvl.clamp(max=levels), a),
+                          at(rows, lvl.clamp(max=levels), z - (1 << lvl)))
+    out = torch.where(length >= 1, short, out)
+    long_ = length >= 2 * blk
+    if bool(long_.any()):
+        ends = torch.maximum(at(rows, torch.full_like(a, levels), a),
+                             at(rows, torch.full_like(a, levels), z - blk))
+        ja, jz = (a + blk - 1) >> levels, z >> levels
+        tl = _log2_floor((jz - ja).clamp(min=1))
+        mid = torch.maximum(at(top, tl, ja), at(top, tl, jz - (1 << tl)))
+        out = torch.where(long_, torch.maximum(ends, mid), out)
+    return out
+
+
+def _search_steps_plain(rows, q, lo, hi, upper: bool) -> torch.Tensor:
+    """The probe's binary search of sorted [n, W] ``rows`` for every query
+    row of ``q`` [M, W] within [lo, hi) (live_probe.cuh ``lp_step``): the
+    first index whose row is above q (``upper``) or not below it, or hi."""
+    lo, hi = lo.clone(), hi.clone()
+    while True:
+        active = lo < hi
+        if not bool(active.any()):
+            return lo
+        mid = (lo + hi) >> 1
+        a = rows[mid.clamp(0, rows.shape[0] - 1).long()]
+        before = lex_le(a, q) if upper else lex_lt(a, q)
+        lo = torch.where(active & before, mid + 1, lo)
+        hi = torch.where(active & ~before, mid, hi)
+
+
+def live_probe_plain(keys, versions, n_used, read_begin, read_end, read_mask,
+                     read_version, txn_mask, lo, hi, floor,
+                     fences: int | None = None,
+                     levels: int = K.LIVE_LEVELS):
+    """Plain twin of K8's and K16's live-prefix probe (live_probe.cuh),
+    step for step: (too_old [B], hist_mask [B, R], hist_conflict [B], cand
+    [B]) over the S histories ``keys`` [S, C, W] / ``versions`` [S, C],
+    each read over its rows [0, n_used[s]) only. A read slot is clipped to
+    each shard ([max(begin, lo[s]), min(end, hi[s])), W-word rows; no clip
+    when ``lo`` is None); its begin's upper bound and its end's lower bound
+    are found by ``fences`` evenly spaced live rows (default: the kernel's,
+    ``kernels.live_fences``; 0: none) and a binary search between them;
+    the range [upper - 1 clamped at 0, lower) takes its max from
+    :func:`live_table_plain`'s table (``levels``: the kernel's
+    LIVE_LEVELS). The too-old test is on the unclipped reads at ``floor``
+    (0-dim)."""
+    s_n, c, w = keys.shape
+    b, r = read_mask.shape
+    dev = keys.device
+    f = K.live_fences(s_n, w) if fences is None else fences
+    qb0, qe0 = read_begin.reshape(-1, w), read_end.reshape(-1, w)
+    live = read_mask.reshape(-1) & lex_lt(qb0, qe0)
+    rv = read_version.repeat_interleave(r)
+    hist_mask = torch.zeros(b * r, dtype=torch.bool, device=dev)
+    zero = torch.zeros(b * r, dtype=torch.int32, device=dev)
+    for s in range(s_n):
+        n = min(max(int(n_used[s]), 0), c)
+        qb, qe, ok = qb0, qe0, live
+        if lo is not None:
+            qb, qe = lex_max(qb0, lo[s]), lex_min(qe0, hi[s])
+            ok = live & lex_lt(qb, qe)
+        rows = keys[s, :n]
+        sp = -(-n // f) if f and n else 0
+        fence = rows[::sp] if sp else rows[:0]
+
+        def bound(q, upper):
+            if fence.shape[0] == 0:
+                return _search_steps_plain(rows, q, zero, zero + n, upper)
+            k = _search_steps_plain(fence, q, zero, zero + fence.shape[0],
+                                    upper)
+            lo_ = torch.where(k == 0, zero, (k - 1) * sp + 1)
+            hi_ = torch.where(k == 0, zero, torch.clamp(k * sp, max=n))
+            return _search_steps_plain(rows, q, lo_, hi_, upper)
+
+        a = (bound(qb, True) - 1).clamp(min=0)
+        z = bound(qe, False)
+        table, top = live_table_plain(versions[s, :n], levels)
+        newest = live_range_max_plain(table, top, a, z, levels)
+        hist_mask |= ok & (newest > rv)
+    hist_mask = hist_mask.reshape(b, r)
+    has_reads = live.reshape(b, r).any(1)
+    too_old = txn_mask & has_reads & (read_version < floor)
+    hist_conflict = hist_mask.any(1)
+    return too_old, hist_mask, hist_conflict, \
+        txn_mask & ~too_old & ~hist_conflict
+
+
+def shard_probe_live_plain(hist: ConflictState, rbk: RankBatch, lo, hi,
+                           floor, fences: int | None = None,
+                           levels: int = K.LIVE_LEVELS):
+    """K8's algorithm, plain (:func:`live_probe_plain` at W = 1 over the
+    rank histories [S, C, 1]): (too_old, hist_conflict, cand)."""
+    too_old, _, hit, cand = live_probe_plain(
+        hist.keys, hist.versions, hist.n_used, rbk.read_begin[..., None],
+        rbk.read_end[..., None], rbk.read_mask, rbk.read_version,
+        rbk.txn_mask, lo[:, None], hi[:, None], floor, fences, levels)
+    return too_old, hit, cand
+
+
+def word_shard_probe_live_plain(hist: ConflictState, batch: BatchTensors, lo,
+                                hi, floor, fences: int | None = None,
+                                levels: int = K.LIVE_LEVELS):
+    """K16's algorithm, plain (:func:`live_probe_plain` over [S, C, W]
+    histories): (too_old, hist_mask, hist_conflict, cand)."""
+    return live_probe_plain(hist.keys, hist.versions, hist.n_used,
+                            batch.read_begin, batch.read_end, batch.read_mask,
+                            batch.read_version, batch.txn_mask, lo, hi, floor,
+                            fences, levels)
 
 
 def _endpoint_ranks(batch: BatchTensors):
@@ -3404,8 +3571,8 @@ def sharded_resolve(hist: ConflictState, batch: BatchTensors,
                     rmq: str = "sparse"):
     """One step of the JAX ``_sharded_resolve`` (:107-166) on every shard
     of ``hist`` ([S, C, W]; bounds ``lo``/``hi`` [S, W]). On the card:
-    K2's table and K16 (blocked: K17's build and sharded probe), K15, then K14's ranks and K3 on the unclipped
-    batch, or per shard K14's ranks of the clipped batch and K5, then K10
+    K16 (blocked: K17's build and sharded probe), K15, then K14's ranks
+    and K3 on the unclipped batch, or per shard K14's ranks of the clipped batch and K5, then K10
     and K6 (the port of ``_wave_exchange_and_level``, :169-185); then the
     unpacked paint per shard. The verdicts, levels and exchange stats go
     into the given buffers. Returns (verdicts, levels or None, exchange

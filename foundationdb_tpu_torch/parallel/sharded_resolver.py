@@ -19,7 +19,7 @@ key rows (the host pack is the wire pack alone) and each shard holds a
 flat [C, W] word-key history that starts with one boundary at its lower
 bound (``models/conflict_kernel.py``, section B5 flat and B3
 non-resident). A step probes every shard's clipped reads with the
-cross-shard OR (K2's table and K16), ranks the batch's endpoints by
+cross-shard OR (K16, over each shard's live rows), ranks the batch's endpoints by
 sorting them on the card (K14) for K3, or on a wave engine ranks each
 shard's clipped endpoints for K5 before K10 and K6, clips the writes to
 every shard (K15) and paints each shard (K13, K12, K14). The shard bounds

@@ -681,24 +681,189 @@ def sharded_history(s, capacity, dev, seed=0):
                             for x in cs.state))
 
 
-@pytest.mark.parametrize("b,s,empty", [(30, 1, False), (33, 4, False),
-                                       (64, 4, True), (1000, 3, True)])
-def test_shard_probe(card, b, s, empty):
-    """K8 (with K2's table over the S histories) against its plain
-    version: odd B (the psum branch), S = 1, an empty shard (lo == hi:
-    every clipped read is empty), and reads ending at the last shard's
-    INT32_MAX bound."""
-    res = sharded_history(s, 64, card, seed=b)
-    rng = np.random.default_rng(b)
-    n_keys = int(res.n_keys)
-    rbk = rank_batch(rng, b, 2, 1, n_keys, card)
-    lo, hi = res.shard_lo.clone(), res.shard_hi.clone()
-    if empty:
+# Live-prefix states shared with tests/test_torch_live_probe.py (which
+# holds the plain twin of K8's and K16's algorithm to JAX on them).
+I32MAX, I32MIN = ck.INT32_MAX, -(2**31)
+
+
+def live_counts(rng, kind: str, s: int, c: int) -> list[int]:
+    """Live rows of each of ``s`` shards of capacity ``c``: one and full
+    in turns ("edge"), full but for one shard of one row ("big"), else
+    random."""
+    if kind == "edge":
+        return [1 if d % 2 == 0 else c for d in range(s)]
+    if kind == "big":
+        return [1 if d == 1 else c for d in range(s)]
+    return [int(x) for x in rng.integers(1, c + 1, s)]
+
+
+def rank_shards(rng, counts, c, span):
+    """[S, C, 1] rank histories: shard d holds counts[d] sorted distinct
+    ranks in [lo[d], lo[d] + span) from lo[d], +inf past them (numpy:
+    keys, versions, lo, hi)."""
+    s = len(counts)
+    keys = np.full((s, c, 1), I32MAX, np.int32)
+    vers = np.full((s, c), ck.NEG_VERSION, np.int32)
+    lo = (np.arange(s) * span).astype(np.int32)
+    hi = np.append(lo[1:], I32MAX).astype(np.int32)
+    for d, n in enumerate(counts):
+        body = rng.choice(np.arange(lo[d] + 1, lo[d] + span), n - 1,
+                          replace=False)
+        keys[d, :n, 0] = np.concatenate([[lo[d]], np.sort(body)])
+        vers[d, :n] = rng.integers(-5, 60, n)
+    return keys, vers, lo, hi
+
+
+def rank_reads(rng, b, r, lo, hi, top, width=8):
+    """[B, R] read ranks (numpy: begin, end, mask): ranges of up to
+    ``width`` ranks in [-3, top), and adversarial rows: all INT32_MAX,
+    every shard whole, the last shard whole, to +inf, begin = end, below
+    every shard."""
+    rb = rng.integers(-3, top, (b, r)).astype(np.int32)
+    re_ = (rb + rng.integers(0, width, (b, r))).astype(np.int32)
+    mask = rng.random((b, r)) < 0.85
+    rb[0], re_[0] = I32MAX, I32MAX
+    rb[1, 0], re_[1, 0] = 0, I32MAX
+    rb[2, 0], re_[2, 0] = lo[-1], hi[-1]
+    re_[3, 0] = I32MAX
+    re_[4] = rb[4]
+    rb[5], re_[5] = -10, -5
+    mask[:6] = True
+    return rb, re_, mask
+
+
+def word_shards(rng, counts, c, w, k=2):
+    """[S, C, W] histories (numpy: keys, versions, lo, hi): shard d's rows
+    have word 0 in [10d, 10d + 10) and the others in [-k, k], sorted and
+    distinct from lo[d] = (10d, INT32_MIN, ...); hi[d] = lo[d + 1], the
+    last all INT32_MAX."""
+    s = len(counts)
+    keys = np.full((s, c, w), I32MAX, np.int32)
+    vers = np.full((s, c), ck.NEG_VERSION, np.int32)
+    lo = np.full((s, w), I32MIN, np.int32)
+    lo[:, 0] = 10 * np.arange(s)
+    hi = np.concatenate([lo[1:], np.full((1, w), I32MAX, np.int32)])
+    tail = np.stack(np.meshgrid(*[np.arange(-k, k + 1)] * (w - 1),
+                                indexing="ij"), -1).reshape(-1, w - 1)
+    for d, n in enumerate(counts):
+        word0 = np.repeat(10 * d + np.arange(10), len(tail))
+        pool = np.column_stack([word0, np.tile(tail, (10, 1))])
+        rows = pool[rng.choice(len(pool), n - 1, replace=False)]
+        rows = np.concatenate([lo[d:d + 1], rows]).astype(np.int32)
+        keys[d, :n] = rows[np.lexsort(rows.T[::-1])]
+        vers[d, :n] = rng.integers(-5, 60, n)
+    return keys, vers, lo, hi
+
+
+def word_reads(rng, b, r, w, s, lo, hi, k=3):
+    """[B, R, W] read rows (numpy: begin, end, mask) around the shards of
+    :func:`word_shards`, and the adversarial rows of :func:`rank_reads`."""
+    rb = rng.integers(-k, k + 1, (b, r, w)).astype(np.int32)
+    rb[..., 0] = rng.integers(-3, 10 * s + 3, (b, r))
+    re_ = rng.integers(-k, k + 1, (b, r, w)).astype(np.int32)
+    re_[..., 0] = rb[..., 0] + rng.integers(0, 3, (b, r))
+    mask = rng.random((b, r)) < 0.85
+    rb[0], re_[0] = I32MAX, I32MAX
+    rb[1, 0], re_[1, 0] = I32MIN, I32MAX
+    rb[2, 0], re_[2, 0] = lo[-1], hi[-1]
+    re_[3, 0] = I32MAX
+    re_[4] = rb[4]
+    rb[5], re_[5] = -100, -90
+    mask[:6] = True
+    return rb, re_, mask
+
+
+def live_rank_case(s, b, kind, dev, c=64):
+    """(hist, RankBatch, lo, hi) of a live-prefix K8 case on ``dev``."""
+    rng = np.random.default_rng(s * b + c)
+    span = 3 * c
+    keys, vers, lo, hi = rank_shards(rng, live_counts(rng, kind, s, c), c,
+                                     span)
+    if kind == "edge":
+        hi[1] = lo[1]  # an empty shard: every read clips to nothing there
+    rb, re_, mask = rank_reads(rng, b, 3, lo, hi, s * span + 5,
+                               width=c if kind == "big" else 8)
+    n_used = (keys[..., 0] != I32MAX).sum(1).astype(np.int32)
+    hist = ck.ConflictState(on(keys, dev), on(vers, dev), on(n_used, dev),
+                            on(np.full(s, 4, np.int32), dev),
+                            on(np.zeros(s, bool), dev))
+    rbk = ck.RankBatch(on(rb, dev), on(re_, dev), on(mask, dev), on(rb, dev),
+                       on(re_, dev), on(np.zeros_like(mask), dev),
+                       on(rng.integers(0, 60, b).astype(np.int32), dev),
+                       on(rng.random(b) < 0.9, dev),
+                       on(np.zeros(2 * b * 3, np.int32), dev))
+    return hist, rbk, on(lo, dev), on(hi, dev)
+
+
+def live_word_case(s, b, kind, dev, c=64, w=3):
+    """(hist, BatchTensors, lo, hi) of a live-prefix K16 case on ``dev``;
+    lo and hi None for "flat" (S = 1, no bounds)."""
+    rng = np.random.default_rng(s * b + c + w)
+    k = 4 if kind == "big" else 2
+    keys, vers, lo, hi = word_shards(rng, live_counts(rng, kind, s, c), c, w,
+                                     k)
+    if kind == "edge":
         hi[1] = lo[1]
+    rb, re_, mask = word_reads(rng, b, 3, w, s, lo, hi, k + 1)
+    n_used = (keys[..., 0] != I32MAX).sum(1).astype(np.int32)
+    hist = ck.ConflictState(on(keys, dev), on(vers, dev), on(n_used, dev),
+                            on(np.full(s, 4, np.int32), dev),
+                            on(np.zeros(s, bool), dev))
+    bt = ck.BatchTensors(on(rb, dev), on(re_, dev), on(mask, dev),
+                         on(rb, dev), on(re_, dev),
+                         on(np.zeros_like(mask), dev),
+                         on(rng.integers(0, 60, b).astype(np.int32), dev),
+                         on(rng.random(b) < 0.9, dev))
+    if kind == "flat":
+        return hist, bt, None, None
+    return hist, bt, on(lo, dev), on(hi, dev)
+
+
+def _one_probe_launch(entry: str) -> None:
+    """One entry call, two CUDA kernels as ``lp_run`` counts them at their
+    launches (the live table's build and the probe), and no K2 table."""
+    from foundationdb_tpu_torch import kernels as K
+
+    e = K.ENTRY_LAUNCHES
+    assert e.get(entry) == 1 and "hp_table" not in e, e
+    assert K.LIVE_PROBE_KERNELS["last"] == 2, K.LIVE_PROBE_KERNELS
+
+
+@pytest.mark.parametrize("b,s,empty,state", [
+    (30, 1, False, "stream"), (33, 4, False, "stream"),
+    (64, 4, True, "stream"), (1000, 3, True, "stream"),
+    (30, 4, False, "random"), (64, 4, False, "edge"), (33, 1, False, "random"),
+    (70, 4, False, "big")])
+def test_shard_probe(card, b, s, empty, state):
+    """K8 over the shards' live rows against its plain version and the
+    plain twin of its algorithm: odd B, S = 1, an empty shard (lo == hi:
+    every clipped read is empty), reads ending at the last shard's
+    INT32_MAX bound; on live-prefix states, shards of 1 and C live rows,
+    reads of INT32_MAX, spanning a shard or all of them, clipped empty,
+    and ("big") full shards of C = 5000 rows with ranges past 512 rows (the
+    top of the live table, two build tiles)."""
+    from foundationdb_tpu_torch import kernels as K
+
+    if state == "stream":
+        res = sharded_history(s, 64, card, seed=b)
+        rng = np.random.default_rng(b)
+        hist = res.hist
+        rbk = rank_batch(rng, b, 2, 1, int(res.n_keys), card)
+        lo, hi = res.shard_lo.clone(), res.shard_hi.clone()
+        if empty:
+            hi[1] = lo[1]
+    else:
+        hist, rbk, lo, hi = live_rank_case(s, b, state, card,
+                                           5000 if state == "big" else 64)
     floor = torch.tensor(3, dtype=torch.int32, device=card)
-    got = ck.shard_probe(res.hist, rbk, lo, hi, floor)
-    want = ck.shard_probe_plain(res.hist, rbk, lo, hi, floor)
+    K.reset_launches()
+    got = ck.shard_probe(hist, rbk, lo, hi, floor)
+    _one_probe_launch("sh_probe")
+    want = ck.shard_probe_plain(hist, rbk, lo, hi, floor)
     for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(ck.shard_probe_live_plain(hist, rbk, lo, hi, floor),
+                    want):
         assert torch.equal(g, w)
     assert bool(want[1].any())
 
@@ -1124,21 +1289,49 @@ def nr_sharded(s, capacity, dev, seed=0, batch=None):
     return cs, ck.ConflictState(*(x.to(dev) for x in cs.state))
 
 
-@pytest.mark.parametrize("b,s,clip", [(30, 1, False), (36, 4, True),
-                                      (63, 3, True), (1000, 1, False)])
-def test_word_shard_probe(card, b, s, clip):
-    """K16 (with K2's table over the S histories) against its plain
-    version, clipped to the shards or (S = 1) unclipped; odd B."""
-    cs, hist = nr_sharded(s, 64, card, seed=b, batch=b)
-    rng = np.random.default_rng(b)
-    bt, _ = cs._pack([rand_txn(rng, 120) for _ in range(b)])
-    big = ck.BatchTensors(*(on(x, card) for x in bt))
-    lo = on(cs._lo, card) if clip else None
-    hi = on(cs._hi, card) if clip else None
-    floor = torch.tensor(103, dtype=torch.int32, device=card)
-    got = ck.word_shard_probe(hist, big, lo, hi, floor)
+@pytest.mark.parametrize("b,s,clip,state", [
+    (30, 1, False, "stream"), (36, 4, True, "stream"),
+    (63, 3, True, "stream"), (1000, 1, False, "stream"),
+    (30, 3, True, "random"), (64, 3, True, "edge"), (33, 1, False, "flat"),
+    (70, 3, True, "big"), (40, 1, False, "k2_table")])
+def test_word_shard_probe(card, b, s, clip, state):
+    """K16 over the shards' live rows against its plain version and the
+    plain twin of its algorithm, clipped to the shards or (S = 1)
+    unclipped; odd B; on live-prefix states, shards of 1 and C live rows,
+    reads of all INT32_MAX words, spanning a shard or all of them, clipped
+    empty, ("big") full shards of C = 5000 rows of W = 4 with ranges past
+    512 rows, and ("k2_table") K2's prebuilt table in place of the live
+    one (the two-level engine's base)."""
+    from foundationdb_tpu_torch import kernels as K
+
+    if state == "stream":
+        cs, hist = nr_sharded(s, 64, card, seed=b, batch=b)
+        rng = np.random.default_rng(b)
+        bt, _ = cs._pack([rand_txn(rng, 120) for _ in range(b)])
+        big = ck.BatchTensors(*(on(x, card) for x in bt))
+        lo = on(cs._lo, card) if clip else None
+        hi = on(cs._hi, card) if clip else None
+    else:
+        kind = "flat" if state == "k2_table" else state
+        hist, big, lo, hi = live_word_case(
+            s, b, kind, card, *((5000, 4) if state == "big" else (64, 3)))
+    floor = torch.tensor(103 if state == "stream" else 3, dtype=torch.int32,
+                         device=card)
+    K.reset_launches()
+    if state == "k2_table":
+        got = K.word_shard_probe(
+            hist.keys, hist.versions, hist.n_used, big.read_begin,
+            big.read_end, big.read_mask, big.read_version, big.txn_mask, lo,
+            hi, floor, table=K.build_table(hist.versions.reshape(-1)))
+        assert K.LIVE_PROBE_KERNELS["last"] == 1
+    else:
+        got = ck.word_shard_probe(hist, big, lo, hi, floor)
+        _one_probe_launch("wsh_probe")
     want = ck.word_shard_probe_plain(hist, big, lo, hi, floor)
     for g, x in zip(got, want):
+        assert torch.equal(g, x)
+    for g, x in zip(ck.word_shard_probe_live_plain(hist, big, lo, hi, floor),
+                    want):
         assert torch.equal(g, x)
 
 

@@ -52,6 +52,7 @@ from tests.test_conflict_oracle import rand_txn
 from tests.test_torch_conflict_kernel import T, same
 from tests.test_torch_conflict_set import port_txn
 from tests.test_torch_nr_sharded import KW, jax_snapshot
+from tests.test_torch_sharded import jax_snapshot as res_jax_snapshot
 
 torch.set_num_threads(1)
 
@@ -64,8 +65,8 @@ def assert_live_prefix(state, what: str) -> None:
     sharded) holds (+inf, NEG_VERSION) at and past its n_used, and 1 <=
     n_used <= C."""
     leaves = convert.state_leaves(state)
-    levels = [k[:-4] for k in leaves
-              if k.endswith("keys") and not k.endswith("dict_keys")]
+    levels = [k[:-4] for k in leaves if k.endswith("keys")
+              and not k.endswith(("dict_keys", "n_keys"))]
     assert levels, what
     for p in levels:
         keys = np.asarray(leaves[p + "keys"])
@@ -85,7 +86,8 @@ def txns(rng, cv, n=20):
 
 @pytest.mark.parametrize("engine", ["sharded", "flat", "two_level",
                                     "overflow", "packed_two_level",
-                                    "packed_flat", "packed_overflow"])
+                                    "packed_flat", "packed_overflow",
+                                    "resident_sharded"])
 def test_every_writer_leaves_rows_past_n_used_empty(engine):
     """``init_state``, then the plain ``_paint_tail`` of every batch (each
     shard's, the flat history's, the two-level engine's delta, a history
@@ -93,10 +95,17 @@ def test_every_writer_leaves_rows_past_n_used_empty(engine):
     engine, a small delta), ``_redistribute_history`` through a reshard,
     and ``rebase`` through a version jump; the same for the packed
     non-resident engine (K13's packed paint, two-level with its fold, flat,
-    and overflowing)."""
+    and overflowing). The resident sharded engine's rank histories [S, C,
+    1], which K8 reads by their n_used: ``init_res``, K4's plain paint and
+    compaction of every shard, K1's rank shift rewrite of every batch that
+    inserts keys (the INT32_MAX tail stays INT32_MAX), full repacks (a
+    small dictionary), a reshard, the rebase, and ``convert`` from a JAX
+    resident sharded engine."""
     rng = np.random.default_rng(len(engine))
     kw = dict(KW, batch_size=24)
-    if engine == "sharded":
+    if engine.endswith("sharded"):
+        if engine == "resident_sharded":
+            kw.update(resident=True, dict_capacity=256)
         cs = tsr.ShardedConflictSet(n_shards=3, device="cpu",
                                     auto_reshard=False,
                                     splits=[b"\x40", b"\xa0"], **kw)
@@ -115,11 +124,22 @@ def test_every_writer_leaves_rows_past_n_used_empty(engine):
         cv += 10 if i != 7 else (1 << 30) + 7
         cs.resolve(txns(rng, cv), cv, cv - 50)
         assert_live_prefix(cs.state, f"batch {i}")
-        if engine == "sharded" and i == 4:
+        if engine.endswith("sharded") and i == 4:
             cs.reshard([b"\x10", b"\xe0"])
             assert_live_prefix(cs.state, "reshard")
     if engine.endswith("overflow"):
         assert cs.overflowed
+    if engine == "resident_sharded":
+        assert cs.dict_stats["full_repacks"] > 0, cs.dict_stats
+        jcs = jsr.ShardedConflictSet(n_shards=3, auto_reshard=False,
+                                     splits=[b"\x40", b"\xa0"], **kw)
+        for i in range(4):
+            cv = 100 + 10 * i
+            jcs.resolve([rand_txn(rng, read_version=cv - 5, alphabet=256,
+                                  max_len=4) for _ in range(14)], cv, cv - 80)
+        port = convert.engine_from_snapshot(res_jax_snapshot(jcs),
+                                            device="cpu")
+        assert_live_prefix(port.state, "convert")
     if engine.endswith("two_level"):
         st = cs.state
         hist = st.hist if hasattr(st, "hist") else st
