@@ -143,17 +143,24 @@ Phases, each fatal on failure:
    the stream of 3b through the same runner on (a) ``history="batch"``
    (the flat [2^20, 1] rank history, K2's table over all its versions
    every batch, no fold), (b) ``rmq="blocked"`` on the default engine
-   (K17 at the delta's 16,386 rows, K12's rank searches, K17's probe;
-   never K2's probe) and on (a) (K17 at 2^20), (c) ``packed=False`` (the
+   (K17's one-launch build over the delta's live rows, K12's rank
+   searches, K17's probe; never K2's probe) and on (a) (K17 at 2^20,
+   never K2), (c) ``packed=False`` (the
    unpacked window-history engine: K14's ranks, two K16 probes, the
    unpacked paint, K13's width-4 fold) and ``packed=False,
    history="batch"``, (d) ``resident=False, history="batch"`` (the packed
    flat arm) and (e) ``accept="seq"``: each 3b's hash, no overflow, its
    kernel entries k times per window and never the replaced ones, one
    captured window program equal to its plain version bit for bit, its
-   txns/s, p50/p99 and program ms printed. K17's build and query at
-   N = 16,386 and 2^20 and its probe held against the plain versions
-   (random, empty, one-block and out-of-range bounds), K14 at W = 1 with
+   txns/s, p50/p99 and program ms printed. K17's full build and query at
+   N = 16,386 and 2^20 held against ``block_table`` / ``range_max_blocked``
+   (random, empty, one-block and out-of-range bounds); its live build and
+   queries over the flat arm's history and the two-level arm's delta
+   against the plain twin (``block_table_live``) and the full-array
+   ``range_max_blocked`` (queries past n_used, ending at C, empty); its
+   probe, flat and two-level, and the flat step (live build + probe)
+   against their plain versions, the step timed beside the parent
+   design's build over all rows + query; K14 at W = 1 with
    payloads (``sort_ranks_with_payload``) too, and K12 at W = 1 (the
    flat blocked arm's rank search of the step's slot begin and end ranks)
    against the plain search and ``torch.searchsorted`` left and right,
@@ -187,11 +194,13 @@ Phases, each fatal on failure:
    ``ShardedConflictSet(rmq="blocked")``, ``(resident=False,
    rmq="blocked")`` and ``(packed=False)``: each 3b's hash, no overflow,
    its kernel entries k (or S·k) times per window and never the replaced
-   ones (a blocked arm: K17's build and sharded probe once a step, K2
-   only for K17's top table, never K8 or K16), one captured window
-   program equal to its plain version bit for bit with every state leaf,
-   K17's sharded probe at the captured step equal to its plain version
-   and to the sparse arm's answer, txns/s, p50/p99 and program ms
+   ones (a blocked arm: K17's sharded probe once a step, never its
+   separate build, K2, K8 or K16), one captured window program equal to
+   its plain version bit for bit with every state leaf, K17's sharded
+   probe at the captured step and at full shards (n_used = C) equal to
+   its plain version, to its algorithm's plain twin and (captured) to the
+   sparse arm's answer, two CUDA kernels a call counted at launch (at
+   most two by the profiler), txns/s, p50/p99 and program ms
    printed; and a 16-batch ``packed=False, wave_commit=True`` sharded
    twin equal to 3c's verdicts and levels.
 4. Cross-check: the first 16 batches again on the CPU (plain versions),
@@ -1314,7 +1323,8 @@ def k12_k5_adversarial() -> None:
     shared budget (one staged and one global block); every branch must
     run. K5 on B not a multiple of 32, rows with no live write, R wide
     enough to shrink its tile, every interval equal, live empty intervals
-    (begin = end) and few candidates."""
+    (begin = end) and few candidates. Each K12 and K5 call launches one
+    CUDA kernel, as its entry counts it at the launch."""
     import torch
 
     from foundationdb_tpu_torch import kernels as K
@@ -1333,6 +1343,9 @@ def k12_k5_adversarial() -> None:
             *(None if x is None else torch.tensor(x, dtype=torch.int32,
                                                   device="cuda")
               for x in lives), seen, plan)
+        if K.WORD_SEARCH_KERNELS["last"] != 1:
+            fail(f"K12 {label}: {K.WORD_SEARCH_KERNELS['last']} CUDA "
+                 "kernels counted at launch, want 1")
         for h, rows in enumerate(hists):
             want = searchsorted_words_2sided_fp(torch.from_numpy(rows),
                                                 torch.from_numpy(q))
@@ -1389,10 +1402,14 @@ def k12_k5_adversarial() -> None:
         assert_equal(f"wave_pred.adversarial_{kind}",
                      ck.wave_pred_matrix(cand_t, ranks),
                      ck.wave_pred_matrix_plain(cand_t, ranks))
+        if K.WAVE_PRED_KERNELS["last"] != 1:
+            fail(f"K5 {kind}: {K.WAVE_PRED_KERNELS['last']} CUDA kernels "
+                 "counted at launch, want 1")
     torch.cuda.synchronize()
     print(f"k12_k5_adversarial: K12 blocks by branch "
           f"{dict(zip(K.WP_BRANCHES, seen.tolist()))}, K5 on 7 kinds; all "
-          "equal their plain versions")
+          "equal their plain versions, one CUDA kernel a call each (counted "
+          "at launch)")
 
 
 def check_replay(wk: dict) -> None:
@@ -2654,9 +2671,10 @@ def nonresident_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
         hist.base.keys, pb.dict_keys, hist.delta.keys, plain=True)))
     dst = K.build_table(hist.delta.versions)
     probe = ck.packed_probe(pb.ranks, floor, s, hist.base_st,
-                            hist.delta.versions)
+                            hist.delta.versions, hist.delta.n_used)
     assert_equal("word_probe.probe", probe, ck.packed_probe(
-        pb.ranks, floor, s, hist.base_st, hist.delta.versions, plain=True))
+        pb.ranks, floor, s, hist.base_st, hist.delta.versions,
+        hist.delta.n_used, plain=True))
     too_old, _, cand = probe
     ranks = ck.endpoint_ranks_live_packed(pb.ranks)
     accepted, _ = ck.accept(cand, too_old, pb.ranks.txn_mask, ranks)
@@ -2718,7 +2736,8 @@ def nonresident_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
         sp = ck.dict_history_search(hist.base.keys, pb.dict_keys,
                                     hist.delta.keys, plain=True)
         return ck.packed_probe(pb.ranks, floor, sp, hist.base_st,
-                               hist.delta.versions, plain=True)
+                               hist.delta.versions, hist.delta.n_used,
+                               plain=True)
 
     t = {
         "word_probe": (time_ms(k12), time_ms(k12_plain, reps=3)),
@@ -3154,10 +3173,11 @@ ARMS = {
          "sc_paint": WINDOW_K}, ("hp_probe",)),
     "b_rmq_blocked_history_batch": (
         {"rmq": "blocked", "history": "batch"}, "resolve_many",
-        (*SEQ_SOURCES, "rmq_blocked", "word_probe"),
+        ("dict_insert", "accept", "step_compact", "rmq_blocked",
+         "word_probe"),
         {"rb_build": WINDOW_K, "rb_probe": WINDOW_K,
          "wp_search": 2 * WINDOW_K, "sc_paint": WINDOW_K},
-        ("hp_probe", "sc_fold", "sc_fold_step")),
+        ("hp_probe", "hp_table", "sc_fold", "sc_fold_step")),
     "c_unpacked": (
         {"packed": False}, "unpacked_many",
         ("history_probe", "accept", "word_probe", "word_compact",
@@ -3251,15 +3271,82 @@ def program_bound(state, rb, k: int, b: int) -> tuple[float, str]:
     return bound(batch + k * (live + b))
 
 
-def k17_checks(flat_state, rbk, delta_versions) -> dict:
-    """K17's build and query at N = Cd and N = 2^20 bit for bit against
-    ``block_table`` / ``range_max_blocked`` (random bounds with empty,
-    one-block and out-of-range queries, and the captured step's slot
-    bounds at 2^20), the resident blocked probe against its plain
-    version; then the row's timings at 2^20: build plus query of the
-    slots' bounds, their plain versions, one ``torch.cummax`` over the
-    [NB, 256] block rows (the prefix scan alone: no one call computes
-    the structure), and the least bytes those inputs need."""
+def k17_step_plain(v, n_used, rs, ls, rbk, floor):
+    """The flat blocked arm's probe of a step from its K12 bounds, plain:
+    (too_old [B], hist_mask [B, R], cand [B]) with each slot's newest
+    write the blocked range max over the live rows of ``v``
+    (``range_max_blocked_live_plain``)."""
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+
+    b, r = rbk.read_mask.shape
+    newest = ck.range_max_blocked_live_plain(
+        v, int(n_used), (rs - 1).clamp(min=0), ls).reshape(b, r)
+    live = rbk.read_mask & (rbk.read_begin < rbk.read_end)
+    hist_mask = live & (newest > rbk.read_version[:, None])
+    too_old = rbk.txn_mask & live.any(1) & (rbk.read_version < floor)
+    return too_old, hist_mask, rbk.txn_mask & ~too_old & ~hist_mask.any(1)
+
+
+def k17_live_checks(label: str, level, rng) -> None:
+    """K17's live build over ``level``'s rows [0, n_used) (one kernel)
+    bit for bit against the plain twin (``block_table_live``: its live
+    blocks and the top's levels over them), and its live queries (random,
+    at or past n_used, ending at C, empty, whole prefixes) against the
+    twin and against the full-array ``range_max_blocked``."""
+    import torch
+
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+    from foundationdb_tpu_torch.ops.rmq import (
+        block_table,
+        block_table_live,
+        range_max_blocked,
+        range_max_blocked_live,
+    )
+
+    neg = ck.NEG_VERSION
+    v, n_used = level.versions, level.n_used
+    c, n = v.shape[0], int(n_used)
+    K.reset_launches()
+    table = K.blocked_build(v, n_used)
+    if dict(K.ENTRY_LAUNCHES) != {"rb_build": 1}:
+        fail(f"rmq_blocked.live_{label}: launches {K.ENTRY_LAUNCHES}")
+    twin = block_table_live(v, n, neg)
+    nb = -(-n // 256)
+    assert_equal(f"rmq_blocked.live_build_{label}",
+                 [table[0][:nb], table[1][:nb],
+                  table[2][:K.table_levels(nb), :nb]],
+                 [twin.prefix, twin.suffix, twin.top])
+    nq = 1 << 16
+    lo = rng.integers(0, c + 1, nq)
+    hi = np.minimum(lo + rng.integers(-2, 1 << 12, nq), c)
+    lo[:1024] = rng.integers(min(n, c), c + 1, 1024)
+    hi[1024:2048] = c
+    hi[2048:3072] = lo[2048:3072]
+    lo[3072:4096] = 0
+    lo_t, hi_t = (torch.from_numpy(x.astype(np.int32)).cuda()
+                  for x in (lo, hi))
+    got = K.blocked_query(v, table, lo_t, hi_t, n_used)
+    assert_equal(f"rmq_blocked.live_query_{label}", got,
+                 range_max_blocked_live(twin, lo_t, hi_t, n, neg))
+    assert_equal(f"rmq_blocked.live_query_full_{label}", got,
+                 range_max_blocked(block_table(v, neg), lo_t, hi_t, neg))
+
+
+def k17_checks(flat_state, rbk, res_hist, res_rbk) -> dict:
+    """K17 at phase 3i's captured steps. The full build (no n_used) and
+    query at N = Cd and N = 2^20 bit for bit against ``block_table`` /
+    ``range_max_blocked`` (random bounds with empty, one-block and
+    out-of-range queries); the live build and queries over the flat
+    arm's history (C = 2^20, its n_used) and the resident two-level arm's
+    delta (``k17_live_checks``); the resident blocked probe, flat and
+    two-level, against its plain version; the flat step (live build +
+    probe of the step's K12 bounds) against ``k17_step_plain``. Then the
+    row's timings at 2^20: that flat step, as the arm runs it per step;
+    beside it the parent design's figure (the full build + query of the
+    slots' bounds), the plain version, one ``torch.cummax`` over the live
+    [NB, 256] block rows (the prefix scan alone: no one call computes the
+    structure) and the least bytes the step's inputs need."""
     import torch
 
     from foundationdb_tpu_torch import kernels as K
@@ -3268,7 +3355,8 @@ def k17_checks(flat_state, rbk, delta_versions) -> dict:
 
     neg = ck.NEG_VERSION
     rng = np.random.default_rng(17)
-    for label, v in (("cd", delta_versions), ("c", flat_state.versions)):
+    delta = res_hist.delta
+    for label, v in (("cd", delta.versions), ("c", flat_state.versions)):
         n = v.shape[0]
         table = K.blocked_build(v)
         want = block_table(v, neg)
@@ -3285,44 +3373,63 @@ def k17_checks(flat_state, rbk, delta_versions) -> dict:
         assert_equal(f"rmq_blocked.query_{label}",
                      K.blocked_query(v, table, lo_t, hi_t),
                      range_max_blocked(want, lo_t, hi_t, neg))
-    _, rs, _, _ = ck._rank_bounds(flat_state.keys, rbk.read_begin)
-    ls, _, _, _ = ck._rank_bounds(flat_state.keys, rbk.read_end)
-    lo_s, hi_s = (rs - 1).clamp(min=0), ls
-    v = flat_state.versions
+    k17_live_checks("delta", delta, rng)
+    k17_live_checks("flat", flat_state, rng)
     floor = flat_state.oldest
     assert_equal("rmq_blocked.probe_c",
                  ck.history_probe(flat_state, rbk, floor, "blocked"),
                  ck.history_probe_plain(flat_state, rbk, floor, "blocked"))
+    assert_equal("rmq_blocked.probe_two_level",
+                 ck.history_probe(res_hist, res_rbk, delta.oldest, "blocked"),
+                 ck.history_probe_plain(res_hist, res_rbk, delta.oldest,
+                                        "blocked"))
+    _, rs, _, _ = ck._rank_bounds(flat_state.keys, rbk.read_begin)
+    ls, _, _, _ = ck._rank_bounds(flat_state.keys, rbk.read_end)
+    lo_s, hi_s = (rs - 1).clamp(min=0), ls
+    v, n_used = flat_state.versions, flat_state.n_used
+    tail = (rbk.read_mask, rbk.read_version, rbk.txn_mask, floor)
     torch.cuda.synchronize()
 
     def kernel():
-        return K.blocked_query(v, K.blocked_build(v), lo_s, hi_s)
+        return K.blocked_probe(v, K.blocked_build(v, n_used), rs, ls,
+                               rbk.read_begin, rbk.read_end, *tail,
+                               n_used=n_used)
 
     def plain():
-        return range_max_blocked(block_table(v, neg), lo_s, hi_s, neg)
+        return k17_step_plain(v, n_used, rs, ls, rbk, floor)
 
-    assert_equal("rmq_blocked.slots_c", kernel(), plain())
-    n = v.shape[0]
+    def build_query():  # the parent design's figure
+        return K.blocked_query(v, K.blocked_build(v), lo_s, hi_s)
+
+    assert_equal("rmq_blocked.step_c", kernel(), plain())
+    assert_equal("rmq_blocked.slots_c", build_query(), range_max_blocked(
+        block_table(v, neg), lo_s, hi_s, neg))
+    n = int(n_used)
     nb = -(-n // 256)
-    rows = torch.cat([v, v.new_full((nb * 256 - n,), neg)]).view(nb, 256)
+    rows = torch.cat([v[:n], v.new_full((nb * 256 - n,), neg)]).view(nb, 256)
+    prof = cuda_kernels(kernel)
     t = {"ms": time_ms(kernel), "plain_ms": time_ms(plain, reps=3),
          "library_ms": time_ms(lambda: torch.cummax(rows, 1)),
-         "build_ms": time_ms(lambda: K.blocked_build(v)),
+         "build_query_ms": time_ms(build_query),
+         "live_build_ms": time_ms(lambda: K.blocked_build(v, n_used)),
          "probe_ms": time_ms(lambda: ck.history_probe(flat_state, rbk, floor,
-                                                      "blocked"))}
-    # Bytes: the versions read once, prefix, suffix, maxima and the top
-    # table written once; per query its bounds read, the words this data
-    # needs (the block's values for a one-block query, else two scan
-    # words and two top-table words) and its answer written.
-    lo_h, hi_h = lo_s.cpu().numpy(), hi_s.cpu().numpy()
-    live = hi_h > lo_h
+                                                      "blocked")),
+         "device_ms": prof["device_ms"] or None,
+         "cuda_kernels": prof["launches"] if prof["device_ms"] else None}
+    # Bytes: the live versions read once, their prefix, suffix and top
+    # written once; per slot its two bounds, two ranks and mask read, the
+    # words this data needs (the block's rows for a one-block range, else
+    # two scan words and two top words) and its mask bit written; per
+    # transaction its read version and mask read, two outputs written.
+    lo_h, hi_h = lo_s.cpu().numpy(), np.minimum(hi_s.cpu().numpy(), n)
+    live = (hi_h > lo_h) & rbk.read_mask.reshape(-1).cpu().numpy()
     one = live & (lo_h // 256 == (hi_h - 1) // 256)
     words = int((hi_h - lo_h)[one].sum()) + 4 * int((live & ~one).sum())
-    levels = K.table_levels(nb)
-    nbytes = 4 * (n + 2 * nb * 256 + nb + levels * nb) + 4 * (
-        3 * len(lo_h) + words)
+    b = rbk.read_mask.shape[0]
+    nbytes = (4 * (n + 2 * nb * 256 + K.table_levels(nb) * nb)
+              + 18 * len(lo_h) + 4 * words + 7 * b)
     t["bound"] = bound(nbytes)
-    t["n"], t["queries"] = n, len(lo_h)
+    t["n"], t["live"], t["queries"] = v.shape[0], n, len(lo_h)
     return t
 
 
@@ -3431,15 +3538,25 @@ def design_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     # the default resident blocked arm's delta (N = Cd).
     _, _, flat, _, rb, _ = arm_program(
         blob, ends, mode, {"rmq": "blocked", "history": "batch"})
-    _, _, res, _, _, _ = arm_program(blob, ends, mode, {"rmq": "blocked"})
+    _, _, res, rhb, rrb, _ = arm_program(blob, ends, mode,
+                                         {"rmq": "blocked"})
     rbk = ck._step(rb.ranks, 0)
-    k17 = k17_checks(flat.hist, rbk, res.hist.delta.versions)
-    print(f"kernel rmq_blocked (N {k17['n']}, {k17['queries']} slot "
-          f"queries): build+query {k17['ms']:.4f} ms (plain "
-          f"{k17['plain_ms']:.4f} ms, torch.cummax of the block rows "
-          f"{k17['library_ms']:.4f} ms), build {k17['build_ms']:.4f} ms, "
-          f"blocked probe with its build and K12's rank search "
-          f"{k17['probe_ms']:.4f} ms, bound {k17['bound'][0]:.6f} ms")
+    res1 = ck.apply_delta(clone(res), rrb.delta_keys, rhb.n_new)
+    k17 = k17_checks(flat.hist, rbk, res1.hist, ck._step(rrb.ranks, 0))
+
+    def ms(x):
+        return "not measured" if x is None else f"{x:.4f}"
+
+    print(f"kernel rmq_blocked (C {k17['n']}, {k17['live']} live rows, "
+          f"{k17['queries']} slot queries): the flat step (live build + "
+          f"probe) {k17['ms']:.4f} ms ({ms(k17['device_ms'])} ms of device,"
+          f" {k17['cuda_kernels']} CUDA kernels by the profiler; plain "
+          f"{k17['plain_ms']:.4f} ms, torch.cummax of the live block rows "
+          f"{k17['library_ms']:.4f} ms), live build {k17['live_build_ms']:.4f}"
+          f" ms, the parent design's build over all rows + query "
+          f"{k17['build_query_ms']:.4f} ms, blocked probe with its build "
+          f"and K12's rank search {k17['probe_ms']:.4f} ms, bound "
+          f"{k17['bound'][0]:.6f} ms")
     k17["launches"] = k17_launches
     k17["w1"] = k12_w1_row(flat.hist, rbk)
     k17["w1"]["launches"] = w1_launches
@@ -3820,24 +3937,25 @@ def read_plane_phase(seed: int, card: str) -> dict:
 
 # Phase 3k: the sharded engines' design arms (name: (engine arguments,
 # window program, kernel sources, entry launches per window as multiples
-# of (k, S·k), entries never launched)). A blocked arm's K2 builds only
-# K17's top table (hp_table once a step), never a table over S·C rows.
+# of (k, S·k), entries never launched)). A blocked arm launches K17's
+# sharded probe (its live build and its probe in one entry) once a step:
+# no separate build, no K2 table.
 _NRS_PAINT = ("wc_paint_keys", "wp_search", "wso_sort", "wc_paint_sorted")
 SHARD_ARMS = {
     "sharded_blocked": (
         {"rmq": "blocked"}, "sharded_many",
-        (*SEQ_SOURCES, "rmq_blocked"),
-        {"rb_build": (1, 0), "rb_shard_probe": (1, 0), "hp_table": (1, 0),
-         "sh_clip": (1, 0), "ac_accept": (1, 0), "sc_paint": (0, 1)},
-        ("sh_probe", "wsh_probe", "hp_probe", "wp_probe")),
+        (*SHARD_SEQ, "rmq_blocked"),
+        {"rb_shard_probe": (1, 0), "sh_clip": (1, 0), "ac_accept": (1, 0),
+         "sc_paint": (0, 1)},
+        ("sh_probe", "wsh_probe", "hp_probe", "wp_probe", "rb_build",
+         "hp_table")),
     "nr_sharded_blocked": (
         {"resident": False, "rmq": "blocked"}, "nr_sharded_many",
         (*NRS_SEQ, "rmq_blocked"),
-        {"rb_build": (1, 0), "rb_shard_probe": (1, 0), "hp_table": (1, 0),
-         "wsh_clip": (1, 0), "wso_ranks": (1, 0), "ac_accept": (1, 0),
-         **{e: (0, 1) for e in _NRS_PAINT}},
+        {"rb_shard_probe": (1, 0), "wsh_clip": (1, 0), "wso_ranks": (1, 0),
+         "ac_accept": (1, 0), **{e: (0, 1) for e in _NRS_PAINT}},
         ("wsh_probe", "sh_probe", "di_insert", "sc_paint", "wp_probe",
-         "wc_paint", "hp_probe")),
+         "wc_paint", "hp_probe", "rb_build", "hp_table")),
     "sharded_unpacked": (
         {"packed": False}, "nr_sharded_many", NRS_SEQ,
         {"wsh_probe": (1, 0), "wsh_clip": (1, 0),
@@ -3926,6 +4044,115 @@ def sharded_probe_bytes(hist, step) -> int:
             + 8 * s * w + 4)
 
 
+def blocked_shard_twin(resident: bool, h, step, lo, hi, floor):
+    """The plain twin of K17's sharded probe's algorithm (live_probe.cuh's
+    searches over each shard's live rows, the blocked structure over
+    them): ``shard_probe_live_plain`` or ``word_shard_probe_live_plain``
+    with ``rmq="blocked"``."""
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+
+    if resident:
+        return ck.shard_probe_live_plain(h, step, lo, hi, floor,
+                                         rmq="blocked")
+    return ck.word_shard_probe_live_plain(h, step, lo, hi, floor,
+                                          rmq="blocked")
+
+
+def blocked_probe_report(fn, h) -> dict:
+    """K17's sharded call ``fn`` on the card: the device ms of its build
+    (``k_build``) and of its probe (``lp_probe``) by the profiler, the
+    CUDA kernels a call launches (by the profiler, and as
+    ``rb_shard_probe`` counts its launches), the shards' live rows, the
+    int32 words of the structure (``blocked_words``) and the bytes of the
+    workspace scratch that holds it, read after the call."""
+    import torch
+    from foundationdb_tpu_torch import kernels as K
+
+    prof = cuda_kernels(fn)
+    counted = K.BLOCKED_PROBE_KERNELS["last"]
+    held = K._workspace(torch.device("cuda"), 0)[1].numel() * 4
+
+    def device(part):  # None: the profiler saw no kernel (not measured)
+        if not prof["device_ms"]:
+            return None
+        return sum(ms for name, ms in prof["kernels"].items() if part in name)
+
+    s, c = h.keys.shape[0], h.keys.shape[1]
+    return {"build_ms": device("k_build"), "probe_only_ms": device(
+        "lp_probe"), "device_ms": device(""),
+        "cuda_kernels": prof["launches"] if prof["device_ms"] else None,
+        "kernels_counted": counted, "live_rows": h.n_used.tolist(),
+        "table_words": K.blocked_words(s, c), "workspace_bytes": held}
+
+
+def blocked_full_shards(resident: bool, h, step, floor) -> dict:
+    """K17's sharded probe at full shards (every n_used = C, from
+    ``full_shards`` at the captured step's shapes) against its plain
+    version and its algorithm's twin: its card ms and device ms."""
+    import torch
+
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+
+    s, c, w = h.keys.shape
+    b, r = step.read_mask.shape
+    fh, rb, re_, m, rv, tm, lo, hi = full_shards(s, c, 0 if resident else w,
+                                                 b, r, 0)
+    if resident:
+        fb = step._replace(read_begin=rb, read_end=re_, read_mask=m,
+                           read_version=rv, txn_mask=tm)
+
+        def fn():
+            return ck.shard_probe(fh, fb, lo, hi, floor, "blocked")
+
+        plain = ck.shard_probe_plain(fh, fb, lo, hi, floor, "blocked")
+    else:
+        fb = step._replace(read_begin=rb, read_end=re_, read_mask=m,
+                           read_version=rv, txn_mask=tm)
+
+        def fn():
+            return ck.word_shard_probe(fh, fb, lo, hi, floor, rmq="blocked")
+
+        plain = ck.word_shard_probe_plain(fh, fb, lo, hi, floor, "blocked")
+    assert_equal("rmq_blocked.full_shards", fn(), plain)
+    assert_equal("rmq_blocked.full_shards_twin", fn(),
+                 blocked_shard_twin(resident, fh, fb, lo, hi, floor))
+    torch.cuda.synchronize()
+    prof = cuda_kernels(fn)
+    return {"full_shard_ms": time_ms(fn),
+            "full_shard_device_ms": prof["device_ms"] or None}
+
+
+def check_blocked_probe(name: str, r: dict) -> None:
+    """K17's sharded call launches its build and its probe, two CUDA
+    kernels, as ``rb_shard_probe`` counts them at their launches and,
+    where it saw them, as the profiler does; and the workspace holds the
+    structure."""
+    seen = r["cuda_kernels"]
+    if r["kernels_counted"] != 2 or (seen is not None and seen > 2):
+        fail(f"{name}: {r['kernels_counted']} CUDA kernels a call counted "
+             f"at launch (profiler: {seen}), want 2")
+    if r["workspace_bytes"] < 4 * r["table_words"]:
+        fail(f"{name}: workspace {r['workspace_bytes']} bytes, the blocked "
+             f"structure needs {4 * r['table_words']}")
+
+
+def print_blocked_probe(name: str, r: dict, h) -> None:
+    def ms(x):
+        return "not measured" if x is None else f"{x:.4f}"
+
+    print(f"kernel {name} (S = {h.keys.shape[0]}, C = {h.keys.shape[1]}, W "
+          f"= {h.keys.shape[-1]}; live rows {r['live_rows']}): build + probe"
+          f" {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms; the sparse "
+          f"arm's {r['sparse_ms']:.4f} ms); device ms: build "
+          f"{ms(r['build_ms'])}, probe {ms(r['probe_only_ms'])} "
+          f"({r['kernels_counted']} CUDA kernels a call counted at launch, "
+          f"{r['cuda_kernels']} by the profiler); the structure "
+          f"{4 * r['table_words']} bytes in a workspace scratch of "
+          f"{r['workspace_bytes']} bytes; full shards (n_used = C) "
+          f"{r['full_shard_ms']:.4f} ms ({ms(r['full_shard_device_ms'])} ms "
+          f"of device); bound {r['bound'][0]:.6f} ms")
+
+
 def sharded_arms_phase(blob, ends, mode, n_batches: int, stream, card: str,
                        seq_rec: dict, wave_out: dict) -> dict:
     """Phase 3k: each sharded design arm on the window path, counted, with
@@ -3934,7 +4161,6 @@ def sharded_arms_phase(blob, ends, mode, n_batches: int, stream, card: str,
     Returns the rows' measurements."""
     import torch
 
-    from foundationdb_tpu_torch import kernels as K
     from foundationdb_tpu_torch.models import conflict_kernel as ck
 
     n_windows = n_batches // WINDOW_K
@@ -4006,22 +4232,22 @@ def sharded_arms_phase(blob, ends, mode, n_batches: int, stream, card: str,
                      else "rmq_blocked_word_shard")
             assert_equal(label, k17(), k17_plain())
             assert_equal(f"{label}.sparse", k17(), k17("sparse"))
+            assert_equal(f"{label}.live_twin", k17(),
+                         blocked_shard_twin(arm_cs.resident, h, step, lo,
+                                            hi, floor))
             torch.cuda.synchronize()
             probes[label] = {
                 "launches": entries["rb_shard_probe"],
                 "ms": time_ms(k17), "plain_ms": time_ms(k17_plain, reps=2),
                 "sparse_ms": time_ms(lambda: k17("sparse")),
-                "build_ms": time_ms(lambda: K.blocked_build(
-                    h.versions.reshape(-1))),
                 "bound": bound(sharded_probe_bytes(h, step)),
                 "replaces": "foundationdb_tpu/models/conflict_kernel.py:"
-                            + ("2143" if arm_cs.resident else "237")}
+                            + ("2143" if arm_cs.resident else "237"),
+                **blocked_probe_report(k17, h),
+                **blocked_full_shards(arm_cs.resident, h, step, floor)}
             p = probes[label]
-            print(f"kernel {label} (S x C = {h.versions.numel()}, W = "
-                  f"{h.keys.shape[-1]}): build + probe {p['ms']:.4f} ms "
-                  f"(plain {p['plain_ms']:.4f} ms; the sparse arm's table + "
-                  f"probe {p['sparse_ms']:.4f} ms), build {p['build_ms']:.4f}"
-                  f" ms, bound {p['bound'][0]:.6f} ms")
+            check_blocked_probe(label, p)
+            print_blocked_probe(label, p, h)
         seconds[name] = time.perf_counter() - t0
         t0 = time.perf_counter()
 
@@ -4404,10 +4630,11 @@ def smoke(args, pool) -> int:
                      for k in LIVE_PROBE_KEYS})
     rows[-2].update({k: nrs["word_paint_sorted"][k] for k in (
         "whole_paint_ms", "whole_c_bound_ms", "c18_ms", "live_rows")})
-    # K17 is timed by its build and query at N = 2^20 over the captured
-    # step's slot bounds (the flat blocked arm's per-batch work); its
-    # yardstick is one torch.cummax over the block rows, the prefix scan
-    # alone (no one PyTorch call computes the structure or its queries).
+    # K17 is timed by the flat blocked arm's per-step work at C = 2^20: its
+    # live build and its probe of the captured step's slot bounds, beside
+    # the parent design's build over all rows + query; its yardstick is
+    # one torch.cummax over the live block rows, the prefix scan alone (no
+    # one PyTorch call computes the structure or its queries).
     lo, by = k17["bound"]
     rows.append({
         "name": "rmq_blocked", "route": "cuda",
@@ -4416,8 +4643,10 @@ def smoke(args, pool) -> int:
         "max_abs_err": MAX_ABS_ERR["rmq_blocked"], "ms": k17["ms"],
         "plain_ms": k17["plain_ms"], "bound_ms": lo, "bound_by": by,
         "library_ms": k17["library_ms"],
-        "library_call": "torch.cummax(block rows, 1): the prefix scan only",
-        "build_ms": k17["build_ms"], "probe_ms": k17["probe_ms"]})
+        "library_call": "torch.cummax(live block rows, 1): the prefix scan "
+                        "only",
+        **{k: k17[k] for k in ("device_ms", "cuda_kernels", "live_build_ms",
+                               "build_query_ms", "probe_ms", "live")}})
     # Each design arm's window program (k = WINDOW_K), as the window
     # programs above: a launch sequence with no source of its own.
     for arm, r in k17["programs"].items():
@@ -4459,8 +4688,8 @@ def smoke(args, pool) -> int:
         "library_call": "torch.searchsorted(keys, q, side=left and right), "
                         "begin and end ranks",
         "queries": w1["queries"], "rows_needed": w1["rows_needed"]})
-    # K17's sharded probes (3k), each timed with its build over the S·C
-    # versions, then each sharded arm's window program.
+    # K17's sharded probes (3k), each timed with its build over the
+    # shards' live rows, then each sharded arm's window program.
     for k, r in sa["probes"].items():
         lo, by = r["bound"]
         rows.append({
@@ -4469,8 +4698,11 @@ def smoke(args, pool) -> int:
             "replaces": r["replaces"], "launches": r["launches"],
             "max_abs_err": MAX_ABS_ERR[k], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": lo, "bound_by": by,
-            "library_ms": None, "build_ms": r["build_ms"],
-            "sparse_arm_ms": r["sparse_ms"]})
+            "library_ms": None, "sparse_arm_ms": r["sparse_ms"],
+            **{x: r[x] for x in (
+                "build_ms", "probe_only_ms", "device_ms", "cuda_kernels",
+                "kernels_counted", "live_rows", "full_shard_ms",
+                "full_shard_device_ms")}})
     for arm, r in sa["programs"].items():
         lo, by = r["bound"]
         rows.append({

@@ -368,7 +368,8 @@ def profile_window(blob, txn_ends, mode: ModeConfig, capacity: int,
                          int(hb.demand[i]), floor)
             level = hist.delta
         if cs.rmq == "blocked":
-            table = timed("k17_build", K.blocked_build, level.versions)
+            table = timed("k17_build", K.blocked_build, level.versions,
+                          level.n_used)
             too_old, _, cand = timed("k17_probe", ck.history_probe, hist,
                                      rbk, floor, "blocked", table=table)
         else:

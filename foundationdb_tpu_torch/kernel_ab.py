@@ -1,5 +1,5 @@
-"""K1-K5, K8, K12, K13's sorted paint, K14 and K16 of one source tree
-against another's, on inputs captured once.
+"""K1-K5, K8, K11, K12, K13's sorted paint, K14, K16 and K17 of one source
+tree against another's, on inputs captured once.
 
     python3 foundationdb_tpu_torch/kernel_ab.py capture IN.pt [--seed S]
     python3 foundationdb_tpu_torch/kernel_ab.py time IN.pt [--tree DIR]
@@ -28,7 +28,12 @@ the smoke's) over the 2^20-key mirror, and the smoke's wave batch
 For K8 it saves phase 3e's captured step (the resident 4-shard engine's
 history after K1, its first step's rank batch, the shard bounds and the
 floor), and for K8 and K16 the same shapes over full shards
-(``chip_smoke.full_shards``: every n_used = C = 2^20).
+(``chip_smoke.full_shards``: every n_used = C = 2^20). For K17 it saves
+phase 3i's flat blocked arm's captured step (``chip_smoke.arm_program``
+with ``rmq="blocked", history="batch"``: the flat [2^20, 1] history and
+its first step's rank batch); K17's sharded probes run on K8's and K16's
+captures. For K11 it saves 4 banks of 2^20 bits with 3,132 random slots
+set (a record's m·k, the smoke's) and another 3,132 slots to set.
 
 ``time`` imports ``foundationdb_tpu_torch`` from ``DIR`` (default: the
 tree holding this file), holds that tree's K1-K4 against its own plain
@@ -48,8 +53,12 @@ read-plane search, the cross-rank search of that shard's paint (each with
 the live counts where the tree's ``word_search`` takes them); K5 on the
 wave batch. K8 and K16 (with the table each tree builds for them: K2's
 over all S·C rows, or the live table) at the captured steps and at full
-shards. Run it on two trees in turns (A, B, B, A) in one call to
-compare them on one card. Needs a CUDA card; imports no JAX.
+shards. K17 (``rmq="blocked"``): the flat blocked step (its build, K12's
+two rank searches and its probe) and the blocked sharded probes at 3e's
+and 3h's captured steps and at full shards. K11: its set (the filter's
+call) and ``index_fill_`` of the same slots on bool banks, in turns.
+Run it on two trees in turns (A, B, B, A) in one call to compare them on
+one card. Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -102,6 +111,8 @@ def capture(path: str, seed: int) -> None:
                 "reads": _read_dispatch(chip_smoke, seed)},
         "k5": {"cand": wave.cand, "ranks": wave.ranks},
         **_k8_k16_inputs(chip_smoke, stream, ycsb),
+        "k17_flat": _k17_flat(chip_smoke, stream, ycsb),
+        "k11": _k11_inputs(seed),
     })
     torch.save(out, path)
     counts = ck.accept_counts(*(out["smoke"][k] for k in (
@@ -228,6 +239,35 @@ def _k8_k16_inputs(chip_smoke, stream, mode) -> dict:
         "read_version": frv, "txn_mask": ftm}, "lo": flo, "hi": fhi,
         "floor": floor}
     return out
+
+
+def _k17_flat(chip_smoke, stream, mode) -> dict:
+    """Phase 3i's flat blocked arm (``rmq="blocked", history="batch"``):
+    its captured window's state and first step (``chip_smoke.arm_program``)."""
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+
+    blob, ends, _ = chip_smoke.wire_stream(stream, mode, 128)
+    _, _, state, _, rb, _ = chip_smoke.arm_program(
+        blob, ends, mode, {"rmq": "blocked", "history": "batch"})
+    return {"hist": state.hist._asdict(),
+            "rbk": ck._step(rb.ranks, 0)._asdict()}
+
+
+def _k11_inputs(seed: int) -> dict:
+    """4 packed banks of 2^20 bits with 3,132 random slots set in each, and
+    3,132 more slots (int64) to set into bank 1: a record's m·k at the
+    smoke's phase 3f geometry."""
+    import torch
+
+    from foundationdb_tpu_torch.admission import filter as af
+
+    g = torch.Generator().manual_seed(seed)
+    nbits = 1 << 20
+    bits = torch.zeros((4, nbits), dtype=torch.bool)
+    for b in range(4):
+        bits[b, torch.randint(0, nbits, (3132,), generator=g)] = True
+    return {"words": af.pack_banks(bits), "nbits": nbits, "bank": 1,
+            "idx": torch.randint(0, nbits, (3132,), generator=g)}
 
 
 def _nr_step(chip_smoke, stream, mode) -> dict:
@@ -652,6 +692,73 @@ def time_k8_k16(data, on, ck, K) -> dict:
     return out
 
 
+def time_k17_k11(data, on, ck, K) -> dict:
+    """K17 under ``rmq="blocked"`` of the imported tree: the flat blocked
+    step (``history_probe``: its build, K12's rank searches and its probe)
+    on phase 3i's capture, and the blocked sharded probes on K8's and
+    K16's captures (3e's and 3h's steps, full shards), each checked
+    against its plain version, then timed (wall and device); K11's set
+    against ``index_fill_`` of the same slots on bool banks, alternating."""
+    import torch
+
+    from foundationdb_tpu_torch.admission import filter as af
+
+    out = {}
+    d = on(data["k17_flat"])
+    h, rbk = ck.ConflictState(**d["hist"]), ck.RankBatch(**d["rbk"])
+    args = (h, rbk, h.oldest, "blocked")
+    _same("K17 flat step", ck.history_probe(*args),
+          ck.history_probe_plain(*args))
+    out["k17_flat_step"] = _entry(lambda: ck.history_probe(*args))
+    out["k17_flat_step"].update(live=int(h.n_used), capacity=h.keys.shape[0])
+    for label in ("k8", "k8_full"):
+        d = on(data[label])
+        h, rbk = ck.ConflictState(**d["hist"]), ck.RankBatch(**d["rbk"])
+        args = (h, rbk, d["lo"], d["hi"], d["floor"], "blocked")
+        _same(f"K17 {label}", ck.shard_probe(*args),
+              ck.shard_probe_plain(*args))
+        key = "k17_shard" + label[2:]
+        out[key] = _entry(lambda a=args: ck.shard_probe(*a))
+        out[key].update(live=h.n_used.tolist(), capacity=h.keys.shape[1])
+    n = on(data["nrs"])
+    state = ck.ConflictState(**n["state"])
+    step = ck._step_batch(ck.BatchTensors(**n["batch"]), 0)
+    floor = torch.maximum(state.oldest, torch.full_like(
+        state.oldest, n["olds"][0]))[0]
+    d = on(data["k16_full"])
+    fh = ck.ConflictState(**d["hist"])
+    for key, args in (
+            ("k17_word_shard", (state, step, n["lo"], n["hi"], floor)),
+            ("k17_word_shard_full", (fh, step._replace(**d["reads"]),
+                                     d["lo"], d["hi"], d["floor"]))):
+        _same(key, ck.word_shard_probe(*args, rmq="blocked"),
+              ck.word_shard_probe_plain(*args, "blocked"))
+        out[key] = _entry(lambda a=args: ck.word_shard_probe(
+            *a, rmq="blocked"))
+        out[key].update(live=args[0].n_used.tolist(),
+                        capacity=args[0].keys.shape[1])
+    d = on(data["k11"])
+    words, nbits, bank, idx = d["words"], d["nbits"], d["bank"], d["idx"]
+    bits = af.unpack_banks(words, nbits)
+    want = bits.clone()
+    af.banks_set_plain(want, bank, idx)
+    runs = {"k11_set": lambda w: K.admission_set(w, bank, idx, nbits),
+            "k11_index_fill": lambda x: x[bank].index_fill_(0, idx, True)}
+    for key, fn in runs.items():
+        base = bits if key == "k11_index_fill" else words
+        got = base.clone()
+        fn(got)
+        got = got if key == "k11_index_fill" else af.unpack_banks(got, nbits)
+        if not torch.equal(got, want):
+            raise SystemExit(f"kernel_ab: {key} differs from the plain set")
+    for turn in range(2):  # K11, index_fill_, in turns, twice
+        for key, fn in runs.items():
+            base = bits if key == "k11_index_fill" else words
+            out[f"{key}_{turn}"] = _entry(fn, lambda b=base: (b.clone(),))
+    out["k11_slots"] = idx.shape[0]
+    return out
+
+
 def _forced_fold_plain(ck, hist, old):
     import torch
 
@@ -745,6 +852,8 @@ def time_tree(path: str, tree: str) -> None:
         result.update(time_k12_k5(data, on, ck, K))
     if "k8" in data:
         result.update(time_k8_k16(data, on, ck, K))
+    if "k17_flat" in data:
+        result.update(time_k17_k11(data, on, ck, K))
     print(json.dumps(result))
 
 

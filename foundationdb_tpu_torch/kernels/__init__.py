@@ -56,7 +56,7 @@ _SIGNATURES = {
         "sc_reset": [_P, _I, _I] + [_P] * 6,
     },
     "wave": {
-        "wv_pred": [_P] * 7 + [_I] * 4 + [_P] * 2,
+        "wv_pred": [_P] * 7 + [_I] * 4 + [_P] * 3,
         "wv_level": [_P] * 4 + [_I] * 2 + [_P] * 7,
     },
     "shard": {
@@ -65,7 +65,7 @@ _SIGNATURES = {
         "sh_exchange": [_P, _I, _I, _I, _P, _P, _P],
     },
     "word_probe": {
-        "wp_search": [_P, _I, _P, _P, _I, _P, _P] + [_I] * 4 + [_P] * 6,
+        "wp_search": [_P, _I, _P, _P, _I, _P, _P] + [_I] * 4 + [_P] * 7,
         "wp_probe": [_P, _I, _P, _P, _P, _I, _P, _P] + [_P] * 6 + [_I] * 2
         + [_P] * 4,
     },
@@ -90,13 +90,13 @@ _SIGNATURES = {
         + [_P] * 8,
     },
     "rmq_blocked": {
-        "rb_build": [_P, _I, _I, _P, _P, _P, _P],
-        "rb_query": [_P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P],
-        "rb_probe": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _I, _I, _P, _P,
+        "rb_build": [_P, _P, _I, _I, _P, _P, _P, _P, _P],
+        "rb_query": [_P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P],
+        "rb_probe": [_P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _P, _P,
                      _P, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _P, _P, _P,
                      _P],
-        "rb_shard_probe": [_P, _I, _I, _P, _I, _P, _P, _P, _I, _I, _I]
-        + [_P] * 8 + [_I] * 2 + [_P] * 5,
+        "rb_shard_probe": [_P, _I, _I, _P, _P, _I] + [_P] * 8 + [_I] * 2
+        + [_P] * 8,
     },
     "admission": {
         "ad_set": [_P, _I, _I, _P, _I, _P],
@@ -611,6 +611,11 @@ def wave_pred_tile(r: int, q: int, nw: int) -> int:
     return min(max(tw, 1), 32, nw)
 
 
+#: CUDA kernels launched by the last K5 call, as ``wv_pred`` counts them
+#: at its launch (one).
+WAVE_PRED_KERNELS = {"last": 0}
+
+
 def wave_pred(cand, rb, re_, read_live, wb, we, write_live, out=None):
     """Packed predecessor rows int32 [BP, BP/32], BP = B rounded up to 32
     (bit i of row j: a read of txn i overlaps a write of txn j; candidate
@@ -622,9 +627,11 @@ def wave_pred(cand, rb, re_, read_live, wb, we, write_live, out=None):
     if rows is None:
         rows = torch.empty((bp, bp // 32), dtype=_i32, device=cand.device)
     _check(rows, _i32, "rows", (bp, bp // 32))
+    launched = ctypes.c_int(0)
     _call("wave", "wv_pred", cand.device, _ptr(cand), _ptr(rb), _ptr(re_),
           _ptr(read_live), _ptr(wb), _ptr(we), _ptr(write_live), b, r, q, bp,
-          _ptr(rows))
+          _ptr(rows), ctypes.addressof(launched))
+    WAVE_PRED_KERNELS["last"] = launched.value
     return rows
 
 
@@ -889,6 +896,11 @@ def word_search_plan(n1: int, c_sum: int, w: int) -> tuple[int, int]:
     return tile, max(0, min(cap, want, c_sum * w * 4)) // 16 * 16
 
 
+#: CUDA kernels launched by the last K12 search, as ``wp_search`` counts
+#: them at its launch (one).
+WORD_SEARCH_KERNELS = {"last": 0}
+
+
 def word_search(keys0, dict_keys, keys1=None, live0=None, live1=None,
                 stats=None, plan=None):
     """(ls0, rs0, ls1, rs1) int32 [N+1]: the left and right insertion
@@ -923,9 +935,12 @@ def word_search(keys0, dict_keys, keys1=None, live0=None, live1=None,
     if tile not in (4, 8, 16, 32, 64, 128) or not 0 <= smem <= _BLOCK_SMEM:
         raise ValueError(f"plan {(tile, smem)}: want a tile of 4..128 "
                          "queries (a power of two) and <= 227 KB")
+    launched = ctypes.c_int(0)
     _call("word_probe", "wp_search", dev, _ptr(keys0), c0, _ptr(live0),
           _ptr(keys1), c1, _ptr(live1), _ptr(dict_keys), n1, w, tile, smem,
-          _ptr(ls0), _ptr(rs0), _ptr(ls1), _ptr(rs1), _ptr(stats))
+          _ptr(ls0), _ptr(rs0), _ptr(ls1), _ptr(rs1), _ptr(stats),
+          ctypes.addressof(launched))
+    WORD_SEARCH_KERNELS["last"] = launched.value
     return ls0, rs0, ls1, rs1
 
 
@@ -1263,26 +1278,74 @@ def word_shard_probe(keys, versions, n_used, read_begin, read_end,
 # ----------------------------------------------------------------- K17
 
 
-def blocked_build(values):
-    """(prefix int32 [NB, 256], suffix int32 [NB, 256], top int32 [L, NB]):
-    the blocked structure over ``values`` [N] (K17's build, then K2's
-    sparse-table build in place over the block maxima)."""
+#: CUDA kernels launched by the last K17 sharded probe, as
+#: ``rb_shard_probe`` counts them at their launches (its build and its
+#: probe).
+BLOCKED_PROBE_KERNELS = {"last": 0}
+
+
+def blocked_words(s: int, c: int) -> int:
+    """int32 words of K17's structure over ``s`` histories of ``c`` rows
+    (rmq_blocked.cu): prefix and suffix [S, NB·256] and the top
+    [table_levels(NB), S, NB], NB = ceil(C / 256)."""
+    nb = max(1, -(-c // RMQ_BLOCK))
+    return 2 * s * nb * RMQ_BLOCK + table_levels(nb) * s * nb
+
+
+def _blocked_views(buf: torch.Tensor, nb: int):
+    """(prefix [NB, 256], suffix [NB, 256], top [table_levels(NB), NB]):
+    one history's structure carved from ``buf``."""
+    m = nb * RMQ_BLOCK
+    return (buf[:m].view(nb, RMQ_BLOCK), buf[m:2 * m].view(nb, RMQ_BLOCK),
+            buf[2 * m:2 * m + table_levels(nb) * nb].view(-1, nb))
+
+
+def _blocked_scratch(dev, s: int, c: int):
+    """(K4's workspace scratch, int32 [>= blocked_words(s, c)]: the
+    structure, dead once the next call on this stream that uses the
+    workspace runs; the build's tickets, int32 [>= s]: K4's look-back
+    words, zero between calls, which the build's last blocks leave
+    zeroed)."""
+    ws, sc = _workspace(dev, K4_TILE * -(-s // 4), blocked_words(s, c))
+    return sc, ws.data_ptr() + 8 * _WS_HEAD
+
+
+def blocked_build(values, n_used=None):
+    """(prefix int32 [NB, 256], suffix int32 [NB, 256], top int32 [L, NB],
+    L = table_levels(NB)): the blocked structure over ``values`` [N], in
+    one CUDA kernel (its last block builds the top over the block maxima).
+    Without ``n_used``: over every row, in new tensors, JAX's
+    ``block_table`` bit for bit. With ``n_used`` (0-dim int32, read on the
+    device; every row at or past it must be NEG_VERSION): over the live
+    rows [0, n_used) only, in K4's workspace scratch (valid until the next
+    call on this stream that uses the workspace); the entries of blocks
+    past the live rows and the top's levels past those of the live blocks
+    are left unwritten."""
     n = values.shape[0]
     _check(values, _i32, "values", (n,))
     if n == 0:
         raise ValueError("blocked_build needs n >= 1")
-    nb = -(-n // RMQ_BLOCK)
     dev = values.device
-    prefix = torch.empty((nb, RMQ_BLOCK), dtype=_i32, device=dev)
-    suffix = torch.empty((nb, RMQ_BLOCK), dtype=_i32, device=dev)
-    top = torch.empty((table_levels(nb), nb), dtype=_i32, device=dev)
-    _call("rmq_blocked", "rb_build", dev, _ptr(values), n, nb, _ptr(prefix),
-          _ptr(suffix), _ptr(top))
-    build_table(top[0], out=top)
-    return prefix, suffix, top
+    nb = -(-n // RMQ_BLOCK)
+    if n_used is None:
+        tickets = _workspace(dev, K4_TILE)[0].data_ptr() + 8 * _WS_HEAD
+        table = _blocked_views(torch.empty(blocked_words(1, n), dtype=_i32,
+                                           device=dev), nb)
+    else:
+        _check(n_used, _i32, "n_used", ())
+        sc, tickets = _blocked_scratch(dev, 1, n)
+        views = getattr(_WORKSPACE, "blocked_views", None)
+        if views is None or views[0] is not sc:
+            views = _WORKSPACE.blocked_views = (sc, {})
+        table = views[1].get(nb)
+        if table is None:
+            table = views[1][nb] = _blocked_views(sc, nb)
+    _call("rmq_blocked", "rb_build", dev, _ptr(values), _ptr(n_used), 1, n,
+          _ptr(table[0]), _ptr(table[1]), _ptr(table[2]), tickets)
+    return table
 
 
-def _check_blocked(values, table):
+def _check_blocked(values, table, n_used):
     n = values.shape[0]
     prefix, suffix, top = table
     nb = -(-n // RMQ_BLOCK)
@@ -1290,38 +1353,45 @@ def _check_blocked(values, table):
     _check(prefix, _i32, "prefix", (nb, RMQ_BLOCK))
     _check(suffix, _i32, "suffix", (nb, RMQ_BLOCK))
     _check(top, _i32, "top", (table_levels(nb), nb))
+    if n_used is not None:
+        _check(n_used, _i32, "n_used", ())
     return n, nb
 
 
-def blocked_query(values, table, lo, hi):
+def blocked_query(values, table, lo, hi, n_used=None):
     """int32 [Nq]: max(values[lo:hi]) per query over the blocked structure
-    ``table`` (blocked_build's), empty -> NEG_VERSION, out-of-range
-    indices clamped as the JAX range_max_blocked clamps them."""
-    n, nb = _check_blocked(values, table)
+    ``table`` (blocked_build's), empty -> NEG_VERSION. Without ``n_used``
+    out-of-range indices are clamped as the JAX range_max_blocked clamps
+    them; with it (the structure over the live rows) the query is
+    [max(lo, 0), min(hi, n_used))."""
+    n, nb = _check_blocked(values, table, n_used)
     nq = lo.shape[0]
     _check(lo, _i32, "lo", (nq,))
     _check(hi, _i32, "hi", (nq,))
     prefix, suffix, top = table
     out = torch.empty(nq, dtype=_i32, device=values.device)
     _call("rmq_blocked", "rb_query", values.device, _ptr(values), n,
-          _ptr(prefix), _ptr(suffix), _ptr(top), nb, top.shape[0], _ptr(lo),
-          _ptr(hi), nq, _ptr(out))
+          _ptr(n_used), _ptr(prefix), _ptr(suffix), _ptr(top), nb,
+          top.shape[0], _ptr(lo), _ptr(hi), nq, _ptr(out))
     return out
 
 
 def blocked_probe(values, table, rs_d, ls_d, rows_b, rows_e, read_mask,
-                  read_version, txn_mask, floor, base_st=None, rs_b=None,
-                  ls_b=None, idx_b=None, idx_e=None):
+                  read_version, txn_mask, floor, *, n_used, base_st=None,
+                  rs_b=None, ls_b=None, idx_b=None, idx_e=None):
     """(too_old bool [B], hist_mask bool [B, R], cand bool [B]): the history
     probe whose newest write per read slot is the blocked range max over
-    ``values`` (``table`` blocked_build's) at [max(rs_d - 1, 0), ls_d),
-    and, with ``base_st`` (a base's sparse table [L, C]), also the base's
-    at [max(rs_b - 1, 0), ls_b). The bounds arrays are indexed by the slot
-    (a search of the slots' own endpoints) or, with ``idx_b``/``idx_e``
-    (the slots' dictionary ranks, int32 [B, R]), by its rank. A slot is
-    live when its mask is set and ``rows_b`` < ``rows_e`` ([B, R, W]
-    endpoint rows, or [B, R] ranks)."""
-    n, nb = _check_blocked(values, table)
+    ``values`` (``table`` blocked_build's over its live rows) at
+    [max(rs_d - 1, 0), ls_d), the end clamped to ``n_used`` (0-dim int32,
+    the level's live rows, read on the device), and, with ``base_st`` (a base's sparse table [L, C]), also the
+    base's at [max(rs_b - 1, 0), ls_b). The bounds arrays are indexed by
+    the slot (a search of the slots' own endpoints) or, with
+    ``idx_b``/``idx_e`` (the slots' dictionary ranks, int32 [B, R]), by
+    its rank. A slot is live when its mask is set and ``rows_b`` <
+    ``rows_e`` ([B, R, W] endpoint rows, or [B, R] ranks). One CUDA
+    kernel: a transaction's slots on adjacent lanes."""
+    n, nb = _check_blocked(values, table, n_used)
+    _check(n_used, _i32, "n_used", ())
     b, r = read_mask.shape
     w = 1 if rows_b.dim() == 2 else rows_b.shape[2]
     _check(rows_b, _i32, "rows_b", tuple(rows_b.shape))
@@ -1351,34 +1421,37 @@ def blocked_probe(values, table, rs_d, ls_d, rows_b, rows_e, read_mask,
         _check(ls_b, _i32, "ls_b", (m,))
     prefix, suffix, top = table
     dev = read_mask.device
-    too_old = torch.empty(b, dtype=_bool, device=dev)
-    cand = torch.empty(b, dtype=_bool, device=dev)
-    hist_mask = torch.empty((b, r), dtype=_bool, device=dev)
+    out = torch.empty(b * (r + 2), dtype=_bool, device=dev)
+    hist_mask, too_old, cand = out[:b * r].view(b, r), out[b * r:b * r + b], \
+        out[b * r + b:]
     _call("rmq_blocked", "rb_probe", dev, _ptr(base_st), cb, lb, _ptr(rs_b),
-          _ptr(ls_b), _ptr(values), n, _ptr(prefix), _ptr(suffix), _ptr(top),
-          nb, top.shape[0], _ptr(rs_d), _ptr(ls_d), _ptr(idx_b), _ptr(idx_e),
-          _ptr(rows_b), _ptr(rows_e), w, _ptr(read_mask), _ptr(read_version),
-          _ptr(txn_mask), _ptr(floor), b, r, _ptr(hist_mask), _ptr(too_old),
-          _ptr(cand))
+          _ptr(ls_b), _ptr(values), n, _ptr(n_used), _ptr(prefix),
+          _ptr(suffix), _ptr(top), nb, _ptr(rs_d), _ptr(ls_d), _ptr(idx_b),
+          _ptr(idx_e), _ptr(rows_b), _ptr(rows_e), w, _ptr(read_mask),
+          _ptr(read_version), _ptr(txn_mask), _ptr(floor), b, r,
+          _ptr(hist_mask), _ptr(too_old), _ptr(cand))
     return too_old, hist_mask, cand
 
 
-def blocked_shard_probe(keys, values, table, read_begin, read_end, read_mask,
-                        read_version, txn_mask, lo, hi, floor):
+def blocked_shard_probe(keys, versions, n_used, read_begin, read_end,
+                        read_mask, read_version, txn_mask, lo, hi, floor):
     """(too_old bool [B], hist_mask bool [B, R], hist_conflict bool [B],
-    cand bool [B]): K16's sharded probe with K17's range max. ``keys``
-    [S, C, W] are the S flat shard histories, ``values`` [S*C] their
-    versions as one array and ``table`` blocked_build's structure over it;
-    the read rows ``read_begin``/``read_end`` [B, R, W] are clipped to each
-    shard's [lo[s], hi[s]) (``lo``/``hi`` [S, W], or both None for no
-    clip); ``hist_mask`` ORs a slot's conflict over the shards; ``floor``
-    (0-dim) is the too-old floor. Ranks are rows of W = 1."""
+    cand bool [B]): K8's and K16's sharded probe (live_probe.cuh) with
+    K17's range max, over the S flat shard histories ``keys`` [S, C, W] /
+    ``versions`` [S, C], each read only over its live rows [0,
+    n_used[s]) (``n_used`` int32 [S], read on the device; every row past
+    it must be (+inf, NEG_VERSION)). Each read slot of ``read_begin`` /
+    ``read_end`` [B, R, W] is clipped to each shard's [lo[s], hi[s])
+    (``lo``/``hi`` [S, W], or both None for no clip); ``hist_mask`` ORs a
+    slot's conflict over the shards; ``floor`` (0-dim) is the too-old
+    floor. Ranks are rows of W = 1. Builds the blocked structure over the
+    live rows into the stream's workspace, then probes: two CUDA kernels
+    (counted into ``BLOCKED_PROBE_KERNELS["last"]``)."""
     s, c, w = keys.shape
     b, r, _ = read_begin.shape
-    n, nb = _check_blocked(values, table)
-    if n != s * c:
-        raise ValueError(f"values: expected {s * c} versions, got {n}")
     _check(keys, _i32, "keys", (s, c, w))
+    _check(versions, _i32, "versions", (s, c))
+    _check(n_used, _i32, "n_used", (s,))
     _check(read_begin, _i32, "read_begin", (b, r, w))
     _check(read_end, _i32, "read_end", (b, r, w))
     _check(read_mask, _bool, "read_mask", (b, r))
@@ -1390,15 +1463,16 @@ def blocked_shard_probe(keys, values, table, read_begin, read_end, read_mask,
         _check(lo, _i32, "shard_lo", (s, w))
         _check(hi, _i32, "shard_hi", (s, w))
     _check(floor, _i32, "floor", ())
-    prefix, suffix, top = table
     dev = keys.device
-    hist_mask = torch.empty((b, r), dtype=_bool, device=dev)
-    too_old, hist, cand = (torch.empty(b, dtype=_bool, device=dev)
-                           for _ in range(3))
+    ws, tickets = _blocked_scratch(dev, s, c)
+    out = torch.empty(b * (r + 3), dtype=_bool, device=dev)
+    p = out.data_ptr() + b * r
+    launched = ctypes.c_int(0)
     _call("rmq_blocked", "rb_shard_probe", dev, _ptr(keys), c, w,
-          _ptr(values), n, _ptr(prefix), _ptr(suffix), _ptr(top), nb,
-          top.shape[0], s, _ptr(read_begin), _ptr(read_end), _ptr(read_mask),
-          _ptr(read_version), _ptr(txn_mask), _ptr(lo), _ptr(hi),
-          _ptr(floor), b, r, _ptr(hist_mask), _ptr(too_old), _ptr(hist),
-          _ptr(cand))
-    return too_old, hist_mask, hist, cand
+          _ptr(versions), _ptr(n_used), s, _ptr(read_begin), _ptr(read_end),
+          _ptr(read_mask), _ptr(read_version), _ptr(txn_mask), _ptr(lo),
+          _ptr(hi), _ptr(floor), b, r, ws.data_ptr(), tickets,
+          out.data_ptr(), p, p + b, p + 2 * b, ctypes.addressof(launched))
+    BLOCKED_PROBE_KERNELS["last"] = launched.value
+    too_old, hist, cand = out[b * r:].view(3, b).unbind(0)
+    return too_old, out[:b * r].view(b, r), hist, cand

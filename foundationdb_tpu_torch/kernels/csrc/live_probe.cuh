@@ -24,6 +24,10 @@
 // that block) builds the shard's top from level LP_LV. The work is
 // LP_LV writes a live row, not K2's ~23 over all S·C rows.
 //
+// The probe takes its range max from a policy (a template argument of
+// lp_probe): the live table above or K2's table (LpTableMax), or K17's
+// blocked structure over the same live rows (rmq_blocked.cu's RbMax).
+//
 // Search (lp_probe): one thread a read slot, the R slots of a transaction
 // on adjacent lanes (a group of P lanes, the power of two >= R up to 32).
 // A block first stages, for every shard, F evenly spaced live rows
@@ -201,13 +205,24 @@ __device__ __forceinline__ int lp_max_k2(const int* st, int64_t N,
 
 // ---------------------------------------------------------------- probe
 
+// The probe's row widths: WK = 1 (ranks), 4 (four-word rows at 16-byte
+// addresses, each row one vector load) or 0 (any w).
+//
 // -1, 0 or 1 as row a is below, equal to or above row q (w signed words;
 // four of each row loaded before any compare).
-template <bool W1>
+template <int WK>
 __device__ __forceinline__ int lp_cmp(const int* a, const int* q, int w) {
-  if constexpr (W1) {
+  if constexpr (WK == 1) {
     const int x = *a, y = *q;
     return x < y ? -1 : (x > y ? 1 : 0);
+  } else if constexpr (WK == 4) {
+    const int4 x = *reinterpret_cast<const int4*>(a);
+    const int4 y = *reinterpret_cast<const int4*>(q);
+    if (x.x != y.x) return x.x < y.x ? -1 : 1;
+    if (x.y != y.y) return x.y < y.y ? -1 : 1;
+    if (x.z != y.z) return x.z < y.z ? -1 : 1;
+    if (x.w != y.w) return x.w < y.w ? -1 : 1;
+    return 0;
   } else {
     for (int j = 0; j < w; j += 4) {
       int x[4], y[4];
@@ -225,20 +240,20 @@ __device__ __forceinline__ int lp_cmp(const int* a, const int* q, int w) {
 }
 
 // Does row a come before the answer: a <= q (upper) or a < q (lower)?
-template <bool W1>
+template <int WK>
 __device__ __forceinline__ bool lp_before(const int* a, const int* q, int w,
                                           bool upper) {
-  const int c = lp_cmp<W1>(a, q, w);
+  const int c = lp_cmp<WK>(a, q, w);
   return upper ? c <= 0 : c < 0;
 }
 
 // One step of a binary search of [lo, hi) in rows (w words a row).
-template <bool W1>
+template <int WK>
 __device__ __forceinline__ void lp_step(const int* rows, int w, const int* q,
                                         bool upper, int& lo, int& hi) {
   if (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (lp_before<W1>(rows + (int64_t)mid * w, q, w, upper)) lo = mid + 1;
+    if (lp_before<WK>(rows + (int64_t)mid * w, q, w, upper)) lo = mid + 1;
     else hi = mid;
   }
 }
@@ -247,15 +262,15 @@ __device__ __forceinline__ void lp_step(const int* rows, int w, const int* q,
 // row of n) for the upper bound of qb and the lower bound of qe, the two
 // searches interleaved: x in ((k - 1) sp, min(k sp, n)] for k the fences
 // before it (x = 0 when k = 0); [0, n) without fences.
-template <bool W1>
+template <int WK>
 __device__ __forceinline__ void lp_fence(const int* f, int nf, int sp, int n,
                                          int w, const int* qb, const int* qe,
                                          int& l0, int& h0, int& l1,
                                          int& h1) {
   int a0 = 0, b0 = nf, a1 = 0, b1 = nf;
   while (a0 < b0 || a1 < b1) {
-    lp_step<W1>(f, w, qb, true, a0, b0);
-    lp_step<W1>(f, w, qe, false, a1, b1);
+    lp_step<WK>(f, w, qb, true, a0, b0);
+    lp_step<WK>(f, w, qe, false, a1, b1);
   }
   if (nf == 0) {
     l0 = l1 = 0;
@@ -290,9 +305,7 @@ struct LpArgs {
   const int* keys;  // [S, C, w]
   const int* vals;  // [S, C]
   const int* n_used;  // [S]
-  const int* lv;
-  const int* top;
-  const int* st;  // K2's table [L, S*C] in place of lv/top, or null
+  const int* st;  // K2's table [L, S*C] in place of the live table, or null
   const int *rb, *re;  // [B, R, w]
   const bool* rm;
   const int* rv;
@@ -307,7 +320,7 @@ struct LpArgs {
 // The first shard after s whose clip of [qb0, qe0) ([max(begin, lo),
 // min(end, hi)), or the range itself without bounds) is not empty, with
 // the clipped bounds in qb, qe; S if none.
-template <bool W1>
+template <int WK>
 __device__ __forceinline__ int lp_next(const LpArgs& g, int s,
                                        const int* qb0, const int* qe0,
                                        const int*& qb, const int*& qe) {
@@ -318,15 +331,29 @@ __device__ __forceinline__ int lp_next(const LpArgs& g, int s,
     if (!g.lo) return s;
     const int* l = g.lo + (int64_t)s * w;
     const int* u = g.hi + (int64_t)s * w;
-    if (lp_cmp<W1>(qb, l, w) < 0) qb = l;
-    if (lp_cmp<W1>(u, qe, w) < 0) qe = u;
-    if (lp_cmp<W1>(qb, qe, w) < 0) return s;
+    if (lp_cmp<WK>(qb, l, w) < 0) qb = l;
+    if (lp_cmp<WK>(u, qe, w) < 0) qe = u;
+    if (lp_cmp<WK>(qb, qe, w) < 0) return s;
   }
   return s;
 }
 
-template <bool W1>
-__global__ void __launch_bounds__(LP_THREADS) lp_probe(LpArgs g) {
+// The range max of lp_run's probe: max(v[a:z]) of shard s over the live
+// table (lp_build's, in lv and top) or over K2's table st when given.
+struct LpTableMax {
+  const int *vals, *lv, *top, *st;
+  int S, C;
+  __device__ __forceinline__ int operator()(int s, int a, int z) const {
+    return st ? lp_max_k2(st, (int64_t)S * C, (int64_t)s * C + a,
+                          (int64_t)s * C + z)
+              : lp_max(vals, lv, top, S, C, s, a, z);
+  }
+};
+
+// mx(s, a, z): max(v[a:z]) of shard s, 0 <= a <= z <= n_used[s].
+template <int WK, class Max>
+__global__ void __launch_bounds__(LP_THREADS) lp_probe(LpArgs g, Max mx) {
+  constexpr bool W1 = WK == 1;
   extern __shared__ __align__(16) int fence[];  // [S, F, w]
   const int S = g.S, C = g.C, w = g.w, F = g.F;
   if (F > 0) {
@@ -359,31 +386,27 @@ __global__ void __launch_bounds__(LP_THREADS) lp_probe(LpArgs g) {
     const int64_t slot = (int64_t)b * g.R + r;
     const int* qb0 = g.rb + slot * w;
     const int* qe0 = g.re + slot * w;
-    const bool live = g.rm[slot] && lp_cmp<W1>(qb0, qe0, w) < 0;
+    const bool live = g.rm[slot] && lp_cmp<WK>(qb0, qe0, w) < 0;
     has_reads |= live;
     bool h = false;
     // Each lane walks the shards its slot overlaps (one for a point read):
     // the lanes of a warp search their own shards together, not one shard
     // after another.
     const int *qb, *qe;
-    int s = live ? lp_next<W1>(g, -1, qb0, qe0, qb, qe) : S;
+    int s = live ? lp_next<WK>(g, -1, qb0, qe0, qb, qe) : S;
     while (s < S) {
       const int n = lp_live(g.n_used, s, C);
       const int sp = n > 0 ? (n + F - 1) / max(F, 1) : 0;
       const int nf = F > 0 && n > 0 ? (n + sp - 1) / sp : 0;
       const int* rows = g.keys + (int64_t)s * C * w;
       int l0, h0, l1, h1;
-      lp_fence<W1>(fence + s * F * w, nf, sp, n, w, qb, qe, l0, h0, l1, h1);
+      lp_fence<WK>(fence + s * F * w, nf, sp, n, w, qb, qe, l0, h0, l1, h1);
       while (l0 < h0 || l1 < h1) {
-        lp_step<W1>(rows, w, qb, true, l0, h0);
-        lp_step<W1>(rows, w, qe, false, l1, h1);
+        lp_step<WK>(rows, w, qb, true, l0, h0);
+        lp_step<WK>(rows, w, qe, false, l1, h1);
       }
-      const int a = max(l0 - 1, 0);
-      const int m = g.st ? lp_max_k2(g.st, (int64_t)S * C,
-                                     (int64_t)s * C + a, (int64_t)s * C + l1)
-                         : lp_max(g.vals, g.lv, g.top, S, C, s, a, l1);
-      h = m > v;
-      s = h ? S : lp_next<W1>(g, s, qb0, qe0, qb, qe);
+      h = mx(s, max(l0 - 1, 0), l1) > v;
+      s = h ? S : lp_next<WK>(g, s, qb0, qe0, qb, qe);
     }
     if (g.hist_mask) g.hist_mask[slot] = h;
     any |= h;
@@ -401,6 +424,29 @@ __global__ void __launch_bounds__(LP_THREADS) lp_probe(LpArgs g) {
   }
 }
 
+// The probe on stream st_ with the range max mx: one CUDA kernel.
+template <class Max>
+static inline int lp_probe_launch(LpArgs a, Max mx, cudaStream_t st_) {
+  int p = 1;
+  while (p < a.R && p < 32) p *= 2;
+  a.P = p;
+  a.F = a.S > 0 && a.w > 0 ? lp_fences(a.S, a.w) : 0;
+  const size_t smem = (size_t)a.S * a.F * a.w * sizeof(int);
+  const int64_t threads = (int64_t)a.B * p;
+  const int grid = (int)((threads + LP_THREADS - 1) / LP_THREADS);
+  // Four-word rows take the vector path when every row array is at a
+  // 16-byte address (the staged fences always are).
+  const bool a16 = ((uintptr_t)a.keys | (uintptr_t)a.rb | (uintptr_t)a.re |
+                    (uintptr_t)a.lo | (uintptr_t)a.hi) % 16 == 0;
+  if (a.w == 1)
+    lp_probe<1, Max><<<grid, LP_THREADS, smem, st_>>>(a, mx);
+  else if (a.w == 4 && a16)
+    lp_probe<4, Max><<<grid, LP_THREADS, smem, st_>>>(a, mx);
+  else
+    lp_probe<0, Max><<<grid, LP_THREADS, smem, st_>>>(a, mx);
+  return (int)cudaGetLastError();
+}
+
 // The build (unless a K2 table a.st is given) and the probe on stream st_;
 // ws holds lv then top (kernels.live_table_words). The kernels launched
 // are counted into *launched when given.
@@ -409,9 +455,10 @@ static inline int lp_run(LpArgs a, int* ws, int* tickets, int* launched,
   int count = 0;
   if (launched) *launched = 0;
   if (a.B <= 0) return (int)cudaGetLastError();
+  LpTableMax mx{a.vals, nullptr, nullptr, a.st, a.S, a.C};
   if (!a.st && a.S > 0 && a.C > 0) {
-    a.lv = ws;
-    a.top = ws + (int64_t)LP_LV * a.S * a.C;
+    mx.lv = ws;
+    mx.top = ws + (int64_t)LP_LV * a.S * a.C;
     int gx = (a.C + LP_OWN - 1) / LP_OWN, cap = LP_BUILD_GRID / a.S;
     gx = min(gx, max(cap, 1));
     lp_build<<<dim3(gx, a.S), LP_BUILD_THREADS, 0, st_>>>(
@@ -419,18 +466,8 @@ static inline int lp_run(LpArgs a, int* ws, int* tickets, int* launched,
         tickets);
     ++count;
   }
-  int p = 1;
-  while (p < a.R && p < 32) p *= 2;
-  a.P = p;
-  a.F = a.S > 0 && a.w > 0 ? lp_fences(a.S, a.w) : 0;
-  const size_t smem = (size_t)a.S * a.F * a.w * sizeof(int);
-  const int64_t threads = (int64_t)a.B * p;
-  const int grid = (int)((threads + LP_THREADS - 1) / LP_THREADS);
-  if (a.w == 1)
-    lp_probe<true><<<grid, LP_THREADS, smem, st_>>>(a);
-  else
-    lp_probe<false><<<grid, LP_THREADS, smem, st_>>>(a);
+  const int rc = lp_probe_launch(a, mx, st_);
   ++count;
   if (launched) *launched = count;
-  return (int)cudaGetLastError();
+  return rc;
 }

@@ -719,10 +719,13 @@ static int pred_tile(int R, int Q, int NW) {
   return tw < NW ? tw : NW;
 }
 
+// The CUDA kernels launched (one, or none for BP = 0) are counted into
+// *launched when given.
 extern "C" int wv_pred(const bool* cand, const int* rb, const int* re,
                        const bool* rlive, const int* wb, const int* we,
                        const bool* wlive, int B, int R, int Q, int BP,
-                       unsigned* rows, cudaStream_t s) {
+                       unsigned* rows, int* launched, cudaStream_t s) {
+  if (launched) *launched = 0;
   if (BP <= 0) return (int)cudaGetLastError();
   const int nw = BP / 32;
   const int tw = pred_tile(R, Q, nw);
@@ -736,6 +739,7 @@ extern "C" int wv_pred(const bool* cand, const int* rb, const int* re,
   k_pred<<<dim3((nw + tw - 1) / tw, (BP + PRED_ROWS - 1) / PRED_ROWS),
            PRED_WARPS * 32, smem, s>>>(cand, rb, re, rlive, wb, we, wlive, B,
                                        R, Q, BP, nw, tw, rows);
+  if (launched) *launched = 1;
   return (int)cudaGetLastError();
 }
 

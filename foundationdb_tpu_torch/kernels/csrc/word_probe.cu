@@ -403,12 +403,14 @@ static inline int blocks(int64_t n, int t) { return (int)((n + t - 1) / t); }
 // (ls, rs) of every dictionary row in keys0 and, when keys1 is given, in
 // keys1. live0/live1: 0-dim live row counts or null (every row live).
 // tile, smem: the wrapper's plan (kernels.word_search_plan). stats: int32
-// [3] block counts by branch, or null.
+// [3] block counts by branch, or null. The CUDA kernels launched (one, or
+// none for no rows) are counted into *launched when given.
 extern "C" int wp_search(const int* keys0, int c0, const int* live0,
                          const int* keys1, int c1, const int* live1,
                          const int* dict, int n1, int w, int tile, int smem,
                          int* ls0, int* rs0, int* ls1, int* rs1, int* stats,
-                         cudaStream_t s) {
+                         int* launched, cudaStream_t s) {
+  if (launched) *launched = 0;
   if (n1 <= 0) return (int)cudaGetLastError();
   if (tile < WP_WARPS || tile > 32 * WP_WARPS || (tile & (tile - 1)) ||
       w <= 0)
@@ -421,6 +423,7 @@ extern "C" int wp_search(const int* keys0, int c0, const int* live0,
   k_search<<<blocks(n1, tile), WP_THREADS, smem, s>>>(
       keys0, c0, live0, keys1, c1, live1, dict, n1, w, tile, smem, ls0, rs0,
       ls1, rs1, stats);
+  if (launched) *launched = 1;
   return (int)cudaGetLastError();
 }
 

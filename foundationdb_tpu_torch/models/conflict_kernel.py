@@ -66,10 +66,13 @@ and the paint of each shard.
 
 Under ``rmq="blocked"`` (the JAX FDB_TPU_RMQ knob) each per-batch table is
 K17's blocked structure (kernels/csrc/rmq_blocked.cu) in place of K2's
-sparse table; on a sharded engine, resident or not, K17 builds it once
-over the S shards' versions as one [S·C] array and its sharded probe
-(``rb_shard_probe``: K16's launch with the blocked range max at the
-shard's offset) replaces K8 or K16.
+sparse table, built in one launch over the level's live rows [0, n_used)
+only, and its probe clamps each range to them (the rows past n_used are
+(+inf, NEG_VERSION), so the answers are JAX's over all rows); on a
+sharded engine, resident or not, K17's sharded probe (``rb_shard_probe``:
+the build over every shard's live rows, then K8's and K16's probe of
+live_probe.cuh with the blocked range max, two launches) replaces K8 or
+K16.
 
 JAX donates the state argument of every entry point. Here each function
 that takes a state CONSUMES it: on the card the history arrays are updated
@@ -104,8 +107,10 @@ from foundationdb_tpu_torch.ops.lex import (
 )
 from foundationdb_tpu_torch.ops.rmq import (
     block_table,
+    block_table_live,
     range_max,
     range_max_blocked,
+    range_max_blocked_live,
     sparse_table,
 )
 
@@ -276,6 +281,16 @@ def _rank_probe(keys: torch.Tensor, q: torch.Tensor, side: str):
     return searchsorted_words(keys, q[..., None], side=side)
 
 
+def range_max_blocked_live_plain(values: torch.Tensor, n_used, lo, hi):
+    """K17's live build and query of one history level, plain: the
+    blocked structure over ``values[:n_used]`` and max(values[max(lo,
+    0):min(hi, n_used)]) per query (what ``rb_probe`` takes from a level
+    given its n_used)."""
+    n = int(n_used)
+    return range_max_blocked_live(block_table_live(values, n, NEG_VERSION),
+                                  lo, hi, n, NEG_VERSION)
+
+
 def range_max_rmq(values: torch.Tensor, lo, hi, rmq: str = "sparse"):
     """max(values[lo:hi]) per query through a table built here, sparse or
     blocked (plain versions; the JAX per-batch table of either design)."""
@@ -335,11 +350,12 @@ def history_probe(hist, rbk: RankBatch, floor, rmq: str = "sparse",
     [C, 1] history. On the card, sparse: K2's table over the delta (over
     the whole flat history), then one K2 probe launch that writes the slot
     mask, too_old and the acceptance candidates. Blocked: K17's build over
-    the delta (the flat history), K12's search of the slots' begin and end
-    ranks into the base and the delta, and K17's probe, which takes the
-    base's range max from its prebuilt sparse table (``table``, K17's
-    build of that level, when the caller has made it). ``floor`` is the
-    0-dim int32 too-old floor."""
+    the live rows of the delta (the flat history), K12's search of the
+    slots' begin and end ranks into the base and the delta, and K17's
+    probe, which takes the base's range max from its prebuilt sparse table
+    and the level's over its live rows (``table``, K17's build of that
+    level, when the caller has made it). ``floor`` is the 0-dim int32
+    too-old floor."""
     if not _on_card(rbk.read_begin):
         return history_probe_plain(hist, rbk, floor, rmq)
     tail = (rbk.read_mask, rbk.read_version, rbk.txn_mask, floor)
@@ -349,17 +365,19 @@ def history_probe(hist, rbk: RankBatch, floor, rmq: str = "sparse",
         base, base_st, level = None, None, hist
     if rmq == "blocked":
         if table is None:
-            table = K.blocked_build(level.versions)
+            table = K.blocked_build(level.versions, level.n_used)
         if base is None:
             _, rs, _, _ = _rank_bounds(level.keys, rbk.read_begin)
             ls, _, _, _ = _rank_bounds(level.keys, rbk.read_end)
             return K.blocked_probe(level.versions, table, rs, ls,
-                                   rbk.read_begin, rbk.read_end, *tail)
+                                   rbk.read_begin, rbk.read_end, *tail,
+                                   n_used=level.n_used)
         _, rs_b, _, rs_d = _rank_bounds(base.keys, rbk.read_begin, level.keys)
         ls_b, _, ls_d, _ = _rank_bounds(base.keys, rbk.read_end, level.keys)
         return K.blocked_probe(level.versions, table, rs_d, ls_d,
                                rbk.read_begin, rbk.read_end, *tail,
-                               base_st=base_st, rs_b=rs_b, ls_b=ls_b)
+                               base_st=base_st, rs_b=rs_b, ls_b=ls_b,
+                               n_used=level.n_used)
     st = K.build_table(level.versions)
     if base is None:
         return K.history_probe(level.keys, st, None, None, rbk.read_begin,
@@ -1975,13 +1993,11 @@ def shard_probe(hist: ConflictState, rbk: RankBatch, lo, hi, floor,
     NEG_VERSION)): its range-max table over them, then one launch, a
     thread a read slot walking the shards it overlaps, that ORs the
     shards' conflict bits and writes too_old and the candidates. Blocked:
-    K17's build over the same [S·C] array and K17's sharded probe (K16's
-    launch at W = 1 with the blocked range max at the shard's offset);
-    K2 builds only the top table over the block maxima."""
+    K17's sharded probe: the blocked structure over the same live rows
+    and K8's probe with the blocked range max, two launches."""
     if _on_card(hist.keys) and rmq == "blocked":
-        values = hist.versions.reshape(-1)
         too_old, _, hit, cand = K.blocked_shard_probe(
-            hist.keys, values, K.blocked_build(values),
+            hist.keys, hist.versions, hist.n_used,
             rbk.read_begin[..., None], rbk.read_end[..., None],
             rbk.read_mask, rbk.read_version, rbk.txn_mask, lo[:, None],
             hi[:, None], floor)
@@ -2315,15 +2331,16 @@ def _history_conflict_ranges_hist_packed(base_st, delta_versions,
 
 
 def packed_probe(rbk: RankBatch, floor, search: DictSearch, base_st,
-                 delta_versions=None, plain: bool = False,
+                 delta_versions, n_used, plain: bool = False,
                  rmq: str = "sparse"):
     """(too_old [B], hist_mask [B, R], cand [B]) with ``floor`` the 0-dim
     too-old floor; the levels as ``_history_conflict_ranges_hist_packed``
-    takes them. On the card, sparse: K2's table over the per-batch level
-    (the delta, or the flat history), then K12's probe launch. Blocked:
-    K17's build over that level and K17's probe, which gathers the slots'
-    bounds by rank from K12's search and takes the base's range max from
-    its prebuilt sparse table."""
+    takes them, ``n_used`` the 0-dim live count of the per-batch level
+    (None with ``delta_versions``). On the card, sparse: K2's table over
+    the per-batch level (the delta, or the flat history), then K12's probe
+    launch. Blocked: K17's build over that level's live rows and K17's
+    probe, which gathers the slots' bounds by rank from K12's search and
+    takes the base's range max from its prebuilt sparse table."""
     if _card(rbk.read_begin, plain):
         tail = (rbk.read_mask, rbk.read_version, rbk.txn_mask, floor)
         flat = base_st is None
@@ -2331,11 +2348,11 @@ def packed_probe(rbk: RankBatch, floor, search: DictSearch, base_st,
             ls, rs = ((search.ls_b, search.rs_b) if flat
                       else (search.ls_d, search.rs_d))
             return K.blocked_probe(
-                delta_versions, K.blocked_build(delta_versions), rs, ls,
-                rbk.read_begin, rbk.read_end, *tail,
+                delta_versions, K.blocked_build(delta_versions, n_used), rs,
+                ls, rbk.read_begin, rbk.read_end, *tail,
                 base_st=base_st, rs_b=None if flat else search.rs_b,
                 ls_b=None if flat else search.ls_b,
-                idx_b=rbk.read_begin, idx_e=rbk.read_end)
+                idx_b=rbk.read_begin, idx_e=rbk.read_end, n_used=n_used)
         st = None if delta_versions is None else K.build_table(delta_versions)
         if flat:
             base_st, st = st, None
@@ -2425,7 +2442,8 @@ def _resolve_core_packed(hist, pb: PackedBatch, commit_version: int,
     search, base_st, versions, level, rs = _packed_levels(hist, pb.dict_keys,
                                                           plain)
     too_old, hist_mask, cand = packed_probe(rbk, floor, search, base_st,
-                                            versions, plain, rmq)
+                                            versions, level.n_used, plain,
+                                            rmq)
     ranks = endpoint_ranks_live_packed(rbk)
     levels = None
     if not plain:
@@ -2548,11 +2566,11 @@ def wave_edges_hist_packed(hist, pb: PackedBatch, new_oldest,
     pred int32 [BP, BP/32]); the probe runs against base and delta
     unmerged (it is merge-invariant) and nothing is painted."""
     rbk = pb.ranks
-    search, base_st, versions, _, _ = _packed_levels(hist, pb.dict_keys,
-                                                     False)
+    search, base_st, versions, level, _ = _packed_levels(hist, pb.dict_keys,
+                                                         False)
     too_old, hist_mask, cand = packed_probe(rbk, _floor(hist, new_oldest),
                                             search, base_st, versions,
-                                            rmq=rmq)
+                                            level.n_used, rmq=rmq)
     p = wave_pred_matrix(cand, endpoint_ranks_live_packed(rbk))
     return too_old, hist_mask.any(1), p
 
@@ -2600,7 +2618,8 @@ def spec_dep_window(scratch: ConflictState, pb: PackedBatch,
         search = dict_history_search(scratch.keys, step.dict_keys,
                                      plain=plain)
         _, hist_mask, _ = packed_probe(step.ranks, zero, search, None,
-                                       scratch.versions, plain, rmq)
+                                       scratch.versions, scratch.n_used,
+                                       plain, rmq)
         dep = dep | hist_mask.any()
     return dep
 
@@ -2771,18 +2790,20 @@ def word_history_probe(hist, batch: BatchTensors, floor, rmq: str = "sparse",
     two = isinstance(hist, HistState)
     level = _paint_level(hist)
     if rmq == "blocked":
-        table = K.blocked_build(level.versions)
+        table = K.blocked_build(level.versions, level.n_used)
         if not two:
             _, rs, _, _ = _word_bounds(level, batch.read_begin)
             ls, _, _, _ = _word_bounds(level, batch.read_end)
             return K.blocked_probe(level.versions, table, rs, ls,
-                                   batch.read_begin, batch.read_end, *tail)
+                                   batch.read_begin, batch.read_end, *tail,
+                                   n_used=level.n_used)
         base = hist.base
         _, rs_b, _, rs_d = _word_bounds(base, batch.read_begin, level)
         ls_b, _, ls_d, _ = _word_bounds(base, batch.read_end, level)
         return K.blocked_probe(level.versions, table, rs_d, ls_d,
                                batch.read_begin, batch.read_end, *tail,
-                               base_st=hist.base_st, rs_b=rs_b, ls_b=ls_b)
+                               base_st=hist.base_st, rs_b=rs_b, ls_b=ls_b,
+                               n_used=level.n_used)
     rows = (batch.read_begin, batch.read_end)
     probe = K.word_shard_probe(level.keys[None], level.versions[None],
                                level.n_used.reshape(1), *rows, *tail[:3],
@@ -2886,12 +2907,12 @@ def word_shard_probe(hist: ConflictState, batch: BatchTensors, lo, hi,
     card: K16 over each shard's live rows [0, n_used[s]) (the rows past it
     are (+inf, NEG_VERSION)): its range-max table over them, then one
     launch, a thread a read slot walking the shards it overlaps, that ORs
-    the shards' conflict bits. Blocked: K17's build over the same array and K17's sharded probe (K16's
-    launch with the blocked range max)."""
+    the shards' conflict bits. Blocked: K17's sharded probe, the blocked
+    structure over the same live rows and K16's probe with the blocked
+    range max, two launches."""
     if _card(hist.keys, plain) and rmq == "blocked":
-        values = hist.versions.reshape(-1)
         return K.blocked_shard_probe(
-            hist.keys, values, K.blocked_build(values), batch.read_begin,
+            hist.keys, hist.versions, hist.n_used, batch.read_begin,
             batch.read_end, batch.read_mask, batch.read_version,
             batch.txn_mask, lo, hi, floor)
     if _card(hist.keys, plain):
@@ -2987,7 +3008,7 @@ def _search_steps_plain(rows, q, lo, hi, upper: bool) -> torch.Tensor:
 def live_probe_plain(keys, versions, n_used, read_begin, read_end, read_mask,
                      read_version, txn_mask, lo, hi, floor,
                      fences: int | None = None,
-                     levels: int = K.LIVE_LEVELS):
+                     levels: int = K.LIVE_LEVELS, rmq: str = "sparse"):
     """Plain twin of K8's and K16's live-prefix probe (live_probe.cuh),
     step for step: (too_old [B], hist_mask [B, R], hist_conflict [B], cand
     [B]) over the S histories ``keys`` [S, C, W] / ``versions`` [S, C],
@@ -2998,8 +3019,10 @@ def live_probe_plain(keys, versions, n_used, read_begin, read_end, read_mask,
     ``kernels.live_fences``; 0: none) and a binary search between them;
     the range [upper - 1 clamped at 0, lower) takes its max from
     :func:`live_table_plain`'s table (``levels``: the kernel's
-    LIVE_LEVELS). The too-old test is on the unclipped reads at ``floor``
-    (0-dim)."""
+    LIVE_LEVELS), or with ``rmq="blocked"`` (K17's sharded probe) from the
+    blocked structure over the shard's live rows (``block_table_live``,
+    ``range_max_blocked_live``). The too-old test is on the unclipped
+    reads at ``floor`` (0-dim)."""
     s_n, c, w = keys.shape
     b, r = read_mask.shape
     dev = keys.device
@@ -3030,8 +3053,13 @@ def live_probe_plain(keys, versions, n_used, read_begin, read_end, read_mask,
 
         a = (bound(qb, True) - 1).clamp(min=0)
         z = bound(qe, False)
-        table, top = live_table_plain(versions[s, :n], levels)
-        newest = live_range_max_plain(table, top, a, z, levels)
+        if rmq == "blocked":
+            newest = range_max_blocked_live(
+                block_table_live(versions[s], n, NEG_VERSION), a, z, n,
+                NEG_VERSION)
+        else:
+            table, top = live_table_plain(versions[s, :n], levels)
+            newest = live_range_max_plain(table, top, a, z, levels)
         hist_mask |= ok & (newest > rv)
     hist_mask = hist_mask.reshape(b, r)
     has_reads = live.reshape(b, r).any(1)
@@ -3043,25 +3071,28 @@ def live_probe_plain(keys, versions, n_used, read_begin, read_end, read_mask,
 
 def shard_probe_live_plain(hist: ConflictState, rbk: RankBatch, lo, hi,
                            floor, fences: int | None = None,
-                           levels: int = K.LIVE_LEVELS):
+                           levels: int = K.LIVE_LEVELS, rmq: str = "sparse"):
     """K8's algorithm, plain (:func:`live_probe_plain` at W = 1 over the
-    rank histories [S, C, 1]): (too_old, hist_conflict, cand)."""
+    rank histories [S, C, 1]; ``rmq="blocked"``: K17's sharded probe):
+    (too_old, hist_conflict, cand)."""
     too_old, _, hit, cand = live_probe_plain(
         hist.keys, hist.versions, hist.n_used, rbk.read_begin[..., None],
         rbk.read_end[..., None], rbk.read_mask, rbk.read_version,
-        rbk.txn_mask, lo[:, None], hi[:, None], floor, fences, levels)
+        rbk.txn_mask, lo[:, None], hi[:, None], floor, fences, levels, rmq)
     return too_old, hit, cand
 
 
 def word_shard_probe_live_plain(hist: ConflictState, batch: BatchTensors, lo,
                                 hi, floor, fences: int | None = None,
-                                levels: int = K.LIVE_LEVELS):
+                                levels: int = K.LIVE_LEVELS,
+                                rmq: str = "sparse"):
     """K16's algorithm, plain (:func:`live_probe_plain` over [S, C, W]
-    histories): (too_old, hist_mask, hist_conflict, cand)."""
+    histories; ``rmq="blocked"``: K17's sharded probe): (too_old,
+    hist_mask, hist_conflict, cand)."""
     return live_probe_plain(hist.keys, hist.versions, hist.n_used,
                             batch.read_begin, batch.read_end, batch.read_mask,
                             batch.read_version, batch.txn_mask, lo, hi, floor,
-                            fences, levels)
+                            fences, levels, rmq)
 
 
 def _endpoint_ranks(batch: BatchTensors):

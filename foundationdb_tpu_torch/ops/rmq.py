@@ -4,7 +4,10 @@ The plain versions of ``foundationdb_tpu/ops/rmq.py``'s ``sparse_table``
 and ``range_max`` (on the card built and queried by
 kernels/csrc/history_probe.cu) and of its two-level blocked structure,
 ``block_table`` and ``range_max_blocked`` (on the card
-kernels/csrc/rmq_blocked.cu, K17, with K2's table build for the top table).
+kernels/csrc/rmq_blocked.cu, K17, which builds the top table in the same
+launch), and the plain twins of K17's live build and query,
+``block_table_live`` and ``range_max_blocked_live``: the structure over a
+history's live rows [0, n_used) only, each range's end clamped to them.
 """
 
 from __future__ import annotations
@@ -133,3 +136,25 @@ def range_max_blocked(bt: BlockTable, lo: torch.Tensor, hi: torch.Tensor,
     same = torch.where(mask, bt.rows[blc], neg_inf).max(-1).values
     out = torch.where(bl == bh, same, cross)
     return torch.where(valid, out, torch.full_like(out, neg_inf))
+
+
+def block_table_live(values: torch.Tensor, n_used: int, neg_inf: int,
+                     block: int = RMQ_BLOCK) -> BlockTable | None:
+    """K17's live build, plain: ``block_table`` over the live rows
+    ``values[:n_used]`` only (None when there are none)."""
+    n = min(max(int(n_used), 0), values.shape[0])
+    return block_table(values[:n], neg_inf, block) if n else None
+
+
+def range_max_blocked_live(bt: BlockTable | None, lo: torch.Tensor,
+                           hi: torch.Tensor, n_used: int, neg_inf: int,
+                           block: int = RMQ_BLOCK) -> torch.Tensor:
+    """K17's live query, plain: max(values[max(lo, 0):min(hi, n_used)])
+    over ``block_table_live``'s structure, empty -> neg_inf. Every row of
+    the history at or past n_used being neg_inf, this is the range max
+    over all its rows for any 0 <= hi <= C."""
+    if bt is None:
+        return torch.full_like(lo, neg_inf)
+    n = min(int(n_used), bt.rows.numel())
+    return range_max_blocked(bt, lo.clamp(min=0), hi.clamp(max=n), neg_inf,
+                             block)

@@ -116,8 +116,8 @@ class ShardedConflictSet(TorchConflictSet):
     wait for a packed window.
 
     The design arms, as on ``TorchConflictSet``: ``rmq="blocked"`` takes
-    each shard's range max from K17's blocked structure, built over the S
-    shards' versions as one array, in place of K2's sparse table (resident
+    each shard's range max from K17's blocked structure, built over every
+    shard's live rows, in place of the live table of K8 and K16 (resident
     and non-resident); ``packed=False`` forces ``resident`` (and
     speculation) off, as JAX does under FDB_TPU_PACKED=0, so it runs the
     non-resident engine, whose cross-shard OR and acceptance (K3: the

@@ -943,7 +943,8 @@ def test_sharded_engine_cuda_equals_cpu(card, wave):
 def test_admission_banks(card, banks, nbits, m, n, k):
     """K11's set, clear, probe and count against the plain versions over
     bool banks: odd row counts, odd bank counts, a bank size below one
-    word and the smoke's 2^20 bits."""
+    word and the smoke's 2^20 bits; a set refused for bad slots or a bad
+    bank."""
     from foundationdb_tpu_torch import kernels as K
     from foundationdb_tpu_torch.admission import filter as af
 
@@ -955,6 +956,11 @@ def test_admission_banks(card, banks, nbits, m, n, k):
         idx = on(rng.integers(0, nbits, m), card)
         K.admission_set(words, int(bank), idx, nbits)
         af.banks_set_plain(bits, int(bank), idx)
+    for bad in (idx.cpu(), idx.int(), idx[None]):
+        with pytest.raises((TypeError, ValueError)):
+            K.admission_set(words, 0, bad, nbits)
+    with pytest.raises(ValueError):
+        K.admission_set(words, banks, idx, nbits)
     K.admission_clear(words, banks - 1)
     bits[banks - 1] = False
     assert torch.equal(af.unpack_banks(words, nbits), bits)
@@ -1056,8 +1062,9 @@ def test_word_search_and_probe(card, w, b, c):
     for dv in (delta.versions, None):
         s = got if dv is not None else ck.dict_history_search(base.keys,
                                                               pb.dict_keys)
-        for g, x in zip(ck.packed_probe(pb.ranks, floor, s, st, dv),
-                        ck.packed_probe(pb.ranks, floor, s, st, dv,
+        nu = None if dv is None else delta.n_used
+        for g, x in zip(ck.packed_probe(pb.ranks, floor, s, st, dv, nu),
+                        ck.packed_probe(pb.ranks, floor, s, st, dv, nu,
                                         plain=True)):
             assert torch.equal(g, x)
 
@@ -1594,11 +1601,11 @@ def test_design_arm_engine_cuda_equals_cpu(card, arm):
                                            (1000, 3, 300, True)])
 def test_blocked_shard_probe(card, b, s, cap, empty):
     """K17's sharded probe at W = 1 (the resident arm: K17's build over
-    the S·C versions, then the clip, rank search and blocked range max at
-    the shard's offset) against its plain version: odd B, C not a
-    multiple of the 256-row block (blocks straddle shards), an empty
-    shard, reads ending at the INT32_MAX bound. K2 builds only the top
-    table (never an S·C sparse table) and K8 does not launch."""
+    every shard's live rows, then the clip, rank search and blocked range
+    max over the shard's live rows) against its plain version: odd B, C
+    not a multiple of the 256-row block, an empty shard, reads ending at
+    the INT32_MAX bound. One entry, two CUDA kernels counted at their
+    launches; K2 and K8 do not launch."""
     from foundationdb_tpu_torch import kernels as K
 
     res = sharded_history(s, cap, card, seed=b)
@@ -1611,8 +1618,8 @@ def test_blocked_shard_probe(card, b, s, cap, empty):
     K.reset_launches()
     got = ck.shard_probe(res.hist, rbk, lo, hi, floor, "blocked")
     e = dict(K.ENTRY_LAUNCHES)
-    assert e.get("rb_build") == 1 and e.get("rb_shard_probe") == 1, e
-    assert e.get("hp_table", 0) <= 1 and "sh_probe" not in e, e
+    assert e == {"rb_shard_probe": 1}, e
+    assert K.BLOCKED_PROBE_KERNELS["last"] == 2, K.BLOCKED_PROBE_KERNELS
     want = ck.shard_probe_plain(res.hist, rbk, lo, hi, floor, "blocked")
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -1647,8 +1654,8 @@ def test_blocked_word_shard_probe(card, b, s, clip):
 def test_sharded_arm_engine_cuda_equals_cpu(card, arm):
     """Each sharded design arm on the card against the CPU plain run:
     object, wire and window paths through a reshard and an advance,
-    verdicts, levels, every leaf; a blocked arm launches K17's build and
-    sharded probe once a step and never K8 or K16."""
+    verdicts, levels, every leaf; a blocked arm launches K17's sharded
+    probe (its build and probe) once a step and never K8, K16 or K2."""
     from foundationdb_tpu_torch import kernels as K
     from foundationdb_tpu_torch.models.conflict_set import encode_resolve_batch
     from foundationdb_tpu_torch.parallel.sharded_resolver import (
@@ -1686,8 +1693,8 @@ def test_sharded_arm_engine_cuda_equals_cpu(card, arm):
             if dev != "cpu" and i % 3 == 0 and i != 7:
                 e = K.ENTRY_LAUNCHES
                 if arm.get("rmq") == "blocked":
-                    assert e.get("rb_build") == 1, e
                     assert e.get("rb_shard_probe") == 1, e
+                    assert "rb_build" not in e and "hp_table" not in e, e
                     assert "sh_probe" not in e and "wsh_probe" not in e, e
                 else:
                     assert e.get("wsh_probe") == 1 and "rb_build" not in e, e
@@ -2317,7 +2324,8 @@ def test_k12_span_just_over_the_shared_budget(card):
 
 
 def test_k12_search_at_the_main_path_shapes(card):
-    """K12 at the shapes of its callers, one CUDA kernel a call: the
+    """K12 at the shapes of its callers, one CUDA kernel a call (counted
+    at its launch; the profiler, where it sees kernels, sees no more): the
     engine's sorted dictionary (49,153 rows, W = 4) into a 2^20-row base
     and a 16,386-row delta with live counts (staged blocks), a paint's
     16,384 unsorted rows into 2^20 (direct), the read plane's 341 rows of
@@ -2359,7 +2367,8 @@ def test_k12_search_at_the_main_path_shapes(card):
                 assert torch.equal(g, x.to(torch.int32)), label
         counts = dict(zip(K.WP_BRANCHES, stats.tolist()))
         assert counts[branch] == max(counts.values()), (label, counts)
-        assert _cuda_kernels(lambda: K.word_search(*args), lambda: ()) == 1
+        assert K.WORD_SEARCH_KERNELS["last"] == 1, label
+        assert _cuda_kernels(lambda: K.word_search(*args), lambda: ()) <= 1
 
 
 @pytest.mark.parametrize("kind", ["random", "b_not_32", "no_live_write",
@@ -2369,7 +2378,8 @@ def test_k5_tiles_adversarial(card, kind):
     """K5 against its plain version and its tile twin on B not a multiple
     of 32, rows with no live write, R wide enough to shrink the tile,
     every interval equal, live empty intervals, few candidates and the
-    smoke's B = 8192; one CUDA kernel a call."""
+    smoke's B = 8192; one CUDA kernel a call (counted at its launch; the
+    profiler, where it sees kernels, sees no more)."""
     from foundationdb_tpu_torch import kernels as K
 
     rng = np.random.default_rng(len(kind))
@@ -2397,4 +2407,154 @@ def test_k5_tiles_adversarial(card, kind):
         assert torch.equal(ck.wave_pred_tiles_plain(cand, tuple(ranks)), want)
     cc, rc = cand.to(card), tuple(x.to(card) for x in ranks)
     assert torch.equal(ck.wave_pred_matrix(cc, rc).cpu(), want)
-    assert _cuda_kernels(lambda: K.wave_pred(cc, *rc), lambda: ()) == 1
+    K.wave_pred(cc, *rc)
+    assert K.WAVE_PRED_KERNELS["last"] == 1
+    assert _cuda_kernels(lambda: K.wave_pred(cc, *rc), lambda: ()) <= 1
+
+
+# --------------------------------------- K17 over the live rows
+
+
+def live_versions(rng, c, n, dev):
+    """A history level's versions [C] with n live rows (the rest
+    NEG_VERSION, as every writer leaves them) and its 0-dim n_used."""
+    v = rng.integers(-1000, 1000, c).astype(np.int32)
+    v[rng.random(c) < 0.3] = ck.NEG_VERSION
+    v[n:] = ck.NEG_VERSION
+    return on(v, dev), torch.tensor(n, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("c,n", [(1, 1), (300, 1), (300, 255), (300, 256),
+                                 (4099, 4000), (16386, 16386),
+                                 (1 << 20, 300_000), (1 << 20, 1 << 20)])
+def test_blocked_live_build_and_query(card, c, n):
+    """K17's live build (one CUDA kernel, no K2 launch: its last block
+    builds the top) and query over [0, n_used) against the plain twin
+    (``block_table_live``: its live blocks and levels bit for bit) and
+    against the JAX ``range_max_blocked`` over all C rows: queries past
+    n_used, ending at C, empty, inside one block, across the top; and a
+    full history (n_used = C) equals ``block_table`` in every block."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.ops.rmq import (
+        block_table,
+        block_table_live,
+        range_max_blocked,
+        range_max_blocked_live,
+    )
+
+    rng = np.random.default_rng(c + n)
+    v, n_used = live_versions(rng, c, n, card)
+    K.reset_launches()
+    table = K.blocked_build(v, n_used)
+    assert K.ENTRY_LAUNCHES == {"rb_build": 1}, K.ENTRY_LAUNCHES
+    assert _cuda_kernels(lambda: K.blocked_build(v, n_used), lambda: ()) <= 1
+    live = block_table_live(v, n, ck.NEG_VERSION)
+    nb = -(-n // 256)
+    levels = K.table_levels(nb)
+    assert torch.equal(table[0][:nb], live.prefix)
+    assert torch.equal(table[1][:nb], live.suffix)
+    assert torch.equal(table[2][:levels, :nb], live.top)
+    if n == c:
+        full = block_table(v, ck.NEG_VERSION)
+        for g, w in zip(K.blocked_build(v), (full.prefix, full.suffix,
+                                             full.top)):
+            assert torch.equal(g, w)
+    nq = 20000
+    lo = rng.integers(0, c + 1, nq).astype(np.int32)
+    hi = np.minimum(lo + rng.integers(-2, 700, nq), c).astype(np.int32)
+    lo[:100] = rng.integers(n, c + 1, 100)  # at or past the live rows
+    hi[100:200] = c  # ending at C
+    hi[200:300] = lo[200:300]  # empty
+    lo[300:400] = 0  # whole prefixes, across the top
+    hi[300:400] = rng.integers(0, c + 1, 100)
+    lo_t, hi_t = on(lo, card), on(hi, card)
+    got = K.blocked_query(v, table, lo_t, hi_t, n_used)
+    assert torch.equal(got, range_max_blocked_live(live, lo_t, hi_t, n,
+                                                   ck.NEG_VERSION))
+    assert torch.equal(got, range_max_blocked(
+        block_table(v, ck.NEG_VERSION), lo_t, hi_t, ck.NEG_VERSION))
+
+
+@pytest.mark.parametrize("flat,n_frac", [(True, 1.0), (True, 0.4),
+                                         (False, 0.5), (False, 1.0)])
+def test_blocked_probe_over_live_rows(card, flat, n_frac):
+    """The resident blocked probe (K17's live build, K12's rank search,
+    K17's probe with a transaction's slots on adjacent lanes) on levels
+    whose rows past n_used are (+inf, NEG_VERSION), R = 3 and R = 40
+    slots, against its plain version over all rows."""
+    from foundationdb_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(int(10 * n_frac) + flat)
+    c, cd = 5000, 700
+
+    def level(cap, frac):
+        n = max(1, int(cap * frac))
+        keys = np.full((cap, 1), ck.INT32_MAX, np.int32)
+        keys[1:n, 0] = np.sort(rng.choice(10_000, n - 1, replace=False))
+        keys[0, 0] = 0
+        v, n_used = live_versions(rng, cap, n, card)
+        return ck.ConflictState(
+            keys=on(keys, card), versions=v, n_used=n_used,
+            oldest=torch.tensor(0, dtype=torch.int32, device=card),
+            overflow=torch.tensor(False, device=card))
+
+    base = level(c, 1.0)
+    delta = level(cd if not flat else c, n_frac)
+    hist = delta if flat else ck.HistState(base, ck.build_table(
+        base.versions), delta)
+    floor = torch.tensor(10, dtype=torch.int32, device=card)
+    for b, r in ((100, 3), (37, 40)):
+        rb = rng.integers(0, 10_500, (b, r)).astype(np.int32)
+        re_ = rb + rng.integers(-3, 2000, (b, r)).astype(np.int32)
+        re_[0] = ck.INT32_MAX
+        rbk = ck.RankBatch(
+            on(rb, card), on(re_, card), on(rng.random((b, r)) < 0.9, card),
+            None, None, None,
+            on(rng.integers(-1000, 1000, b).astype(np.int32), card),
+            on(rng.random(b) < 0.95, card), None)
+        K.reset_launches()
+        got = ck.history_probe(hist, rbk, floor, "blocked")
+        e = K.ENTRY_LAUNCHES
+        assert e.get("rb_build") == 1 and e.get("rb_probe") == 1, e
+        assert "hp_table" not in e, e
+        want = ck.history_probe_plain(hist, rbk, floor, "blocked")
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("b,s,state", [
+    (30, 1, "random"), (33, 4, "random"), (64, 4, "edge"), (70, 4, "big"),
+    (1000, 3, "random"), (300, 80, "big")])
+def test_blocked_live_shard_probe(card, b, s, state):
+    """K17's sharded probe at W = 1 and W = 3 on live-prefix states
+    (shards of 1 and C live rows, an empty shard, reads of INT32_MAX,
+    spanning a shard or all of them, clipped empty; "big": full shards of
+    C = 5000 (W = 1 and 4) with ranges across the top; at S = 80 the
+    build's grid is one block a shard, which scans both of a full shard's
+    tiles and builds its top with no ticket) against the plain twin of its
+    algorithm (``rmq="blocked"``) and the per-shard plain probe over all
+    rows: two CUDA kernels a call, counted at their launches."""
+    from foundationdb_tpu_torch import kernels as K
+
+    c = 5000 if state == "big" else 300
+    hist, rbk, lo, hi = live_rank_case(s, b, state, card, c)
+    floor = torch.tensor(3, dtype=torch.int32, device=card)
+    K.reset_launches()
+    got = ck.shard_probe(hist, rbk, lo, hi, floor, "blocked")
+    assert K.ENTRY_LAUNCHES == {"rb_shard_probe": 1}, K.ENTRY_LAUNCHES
+    assert K.BLOCKED_PROBE_KERNELS["last"] == 2
+    want = ck.shard_probe_plain(hist, rbk, lo, hi, floor, "blocked")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    for g, w in zip(ck.shard_probe_live_plain(hist, rbk, lo, hi, floor,
+                                              rmq="blocked"), want):
+        assert torch.equal(g, w)
+    assert _cuda_kernels(lambda: ck.shard_probe(hist, rbk, lo, hi, floor,
+                                                "blocked"), lambda: ()) <= 2
+    hist, bt, lo, hi = live_word_case(
+        s, b, state, card, *((5000, 4) if state == "big" else (64, 3)))
+    got = ck.word_shard_probe(hist, bt, lo, hi, floor, rmq="blocked")
+    assert K.BLOCKED_PROBE_KERNELS["last"] == 2
+    want = ck.word_shard_probe_plain(hist, bt, lo, hi, floor, "blocked")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

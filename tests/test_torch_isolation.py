@@ -309,7 +309,8 @@ def test_blocked_kernel_wrappers_refuse_cpu_tensors():
         kernels.blocked_probe(v, table, v[:4], v[:4], v[:4].view(2, 2),
                               v[:4].view(2, 2),
                               torch.ones((2, 2), dtype=torch.bool), v[:2],
-                              torch.ones(2, dtype=torch.bool), v[0])
+                              torch.ones(2, dtype=torch.bool), v[0],
+                              n_used=v[0])
 
 
 def test_ctypes_signatures_match_the_c_entry_points():

@@ -38,6 +38,7 @@ import pytest
 import torch
 
 from foundationdb_tpu.models import conflict_kernel as jck
+from foundationdb_tpu.models.conflict_set import TPUConflictSet
 from foundationdb_tpu.ops import lex as jlex
 from foundationdb_tpu.parallel import sharded_resolver as jsr
 from foundationdb_tpu_torch import TorchConflictSet, convert
@@ -87,7 +88,8 @@ def txns(rng, cv, n=20):
 @pytest.mark.parametrize("engine", ["sharded", "flat", "two_level",
                                     "overflow", "packed_two_level",
                                     "packed_flat", "packed_overflow",
-                                    "resident_sharded"])
+                                    "resident_sharded", "resident_flat",
+                                    "resident_two_level"])
 def test_every_writer_leaves_rows_past_n_used_empty(engine):
     """``init_state``, then the plain ``_paint_tail`` of every batch (each
     shard's, the flat history's, the two-level engine's delta, a history
@@ -100,7 +102,13 @@ def test_every_writer_leaves_rows_past_n_used_empty(engine):
     compaction of every shard, K1's rank shift rewrite of every batch that
     inserts keys (the INT32_MAX tail stays INT32_MAX), full repacks (a
     small dictionary), a reshard, the rebase, and ``convert`` from a JAX
-    resident sharded engine."""
+    resident sharded engine. The resident engine's rank histories, which
+    K17's live build reads by their n_used under ``rmq="blocked"``: the
+    flat [C, 1] history (``init_res(delta_capacity=None)``) and the
+    two-level one's base and delta, through K4's plain paint and
+    compaction, K1's rank rewrite, full repacks, the gated fold and its
+    delta reset, and the rebase; and a JAX resident engine's two-level
+    state after the same kind of stream."""
     rng = np.random.default_rng(len(engine))
     kw = dict(KW, batch_size=24)
     if engine.endswith("sharded"):
@@ -109,6 +117,12 @@ def test_every_writer_leaves_rows_past_n_used_empty(engine):
         cs = tsr.ShardedConflictSet(n_shards=3, device="cpu",
                                     auto_reshard=False,
                                     splits=[b"\x40", b"\xa0"], **kw)
+    elif engine.startswith("resident"):
+        kw.update(resident=True, dict_capacity=256)
+        flat = engine == "resident_flat"
+        cs = TorchConflictSet(device="cpu", history="batch" if flat
+                              else "window", delta_capacity=None if flat
+                              else 48, **kw)
     else:
         kw.pop("resident")
         if engine.endswith("overflow"):
@@ -129,6 +143,19 @@ def test_every_writer_leaves_rows_past_n_used_empty(engine):
             assert_live_prefix(cs.state, "reshard")
     if engine.endswith("overflow"):
         assert cs.overflowed
+    if engine.startswith("resident") and engine != "resident_sharded":
+        assert cs.dict_stats["full_repacks"] > 0, cs.dict_stats
+        if engine == "resident_two_level":
+            jkw = {k: v for k, v in kw.items() if k != "resident"}
+            jcs = TPUConflictSet(resident=True, delta_capacity=48, **jkw)
+            cv = 100
+            for i in range(8):
+                cv += 10 if i != 5 else (1 << 30) + 7
+                jcs.resolve([rand_txn(rng, read_version=cv - 5, alphabet=256,
+                                      max_len=4) for _ in range(20)], cv,
+                            cv - 50)
+                assert_live_prefix(jcs.state, f"jax batch {i}")
+            assert jcs.dict_stats["full_repacks"] > 0, jcs.dict_stats
     if engine == "resident_sharded":
         assert cs.dict_stats["full_repacks"] > 0, cs.dict_stats
         jcs = jsr.ShardedConflictSet(n_shards=3, auto_reshard=False,

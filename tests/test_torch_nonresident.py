@@ -239,7 +239,8 @@ def test_dict_search_probe_and_too_old(captured):
             T(jh.base_st), T(jh.delta.versions), tpb.ranks, s)
         same(got, want, f"step {i}: hist mask")
         to2, hm, cand = tck.packed_probe(tpb.ranks, floor, s, T(jh.base_st),
-                                         T(jh.delta.versions))
+                                         T(jh.delta.versions),
+                                         T(jh.delta.n_used))
         same(hm, want)
         same(to2, jto)
         same(cand, np.asarray(pb.txn_mask & ~jto & ~want.any(1)))
