@@ -119,9 +119,15 @@ Phases, each fatal on failure:
    the dependency probe's answers, which are printed (windows found clean
    and dependent). (d) One ``kp_pack_window`` window equals
    ``_pack_dict`` leaf for leaf. (e) One captured step launch by launch
-   (the gated K13 fold, K12's search of base and delta and its probe,
-   K13's paint, a forced K13 fold, K13's compaction) and one captured
-   window program equal their plain versions bit for bit.
+   (K13's gated fold step, its fold needed and not; K12's search of base
+   and delta and its probe with the live table it builds, and the probe
+   of one flat level and the dependency probe over the window; K13's
+   packed paint; a forced K13 fold, of the step's history and of a full
+   base of 2^20 rows; K13's compaction) and one captured window program
+   equal their plain versions bit for bit (the probe and the paint also
+   their algorithms' twins), each call's CUDA kernels counted at launch
+   (3 a gated step, 2 a probe, 3 a paint, 2 a forced fold or a
+   compaction) and their sum outside K3 printed.
 3h. Non-resident sharded phase (``ShardedConflictSet(n_shards=4,
    resident=False)``: full-key batches, four flat [2^20, 4] shard
    histories): (a) the stream of 3b through the same runner: 3b's hash,
@@ -147,9 +153,10 @@ Phases, each fatal on failure:
    searches, K17's probe; never K2's probe) and on (a) (K17 at 2^20,
    never K2), (c) ``packed=False`` (the
    unpacked window-history engine: K14's ranks, two K16 probes, the
-   unpacked paint, K13's width-4 fold) and ``packed=False,
+   unpacked paint, K13's width-4 gated fold step) and ``packed=False,
    history="batch"``, (d) ``resident=False, history="batch"`` (the packed
-   flat arm) and (e) ``accept="seq"``: each 3b's hash, no overflow, its
+   flat arm: K12's probe with a table over the flat history's live rows,
+   never K2) and (e) ``accept="seq"``: each 3b's hash, no overflow, its
    kernel entries k times per window and never the replaced ones, one
    captured window program equal to its plain version bit for bit, its
    txns/s, p50/p99 and program ms printed. K17's full build and query at
@@ -251,7 +258,12 @@ REPLACES = {
     "sharded_many": "foundationdb_tpu/parallel/sharded_resolver.py:249",
     "admission": "foundationdb_tpu/admission/filter.py:158",
     "word_probe": "foundationdb_tpu/models/conflict_kernel.py:1445",
+    "word_probe_probe": "foundationdb_tpu/models/conflict_kernel.py:1597",
     "word_compact": "foundationdb_tpu/models/conflict_kernel.py:1489",
+    "word_compact_fold_step": "foundationdb_tpu/models/conflict_kernel.py:"
+                              "1290",
+    "word_compact_fold_forced": "foundationdb_tpu/models/conflict_kernel.py:"
+                                "1404",
     "packed_many": "foundationdb_tpu/models/conflict_kernel.py:1672",
     "word_sort": "foundationdb_tpu/models/conflict_kernel.py:291",
     "word_sort_paint": "foundationdb_tpu/ops/lex.py:160",
@@ -292,9 +304,14 @@ ADM = {"bits_log2": 20, "banks": 4}
 ADM_BATCHES, ADM_CAPTURE = 32, 17
 ADM_TIER_BATCHES, ADM_TIER_WINDOW = 24, 8
 # Phase 3g: the kernel sources the non-resident window path launches (K2
-# only for its sparse tables; K1 and K4 never).
+# only for the base's table after a fold; K1 and K4 never).
 NR_SEQ = ("history_probe", "accept", "word_probe", "word_compact")
 NR_WAVE = ("history_probe", "wave", "word_probe", "word_compact")
+# The entries a packed window never launches: K1, K2's probe, K4, and a
+# fold apart from its decision and reset (the gated step is one entry,
+# ``wc_fold_step``; ``wc_fold`` is the forced fold of advance_hist).
+NR_NEVER = ("di_insert", "sc_paint", "hp_probe", "sc_need", "sc_fold",
+            "sc_fold_step", "wc_fold")
 # Phase 3h: the kernel sources the non-resident sharded window path
 # launches (K12 for the paint's search; K1, K2, K4, K8 and K12's probe
 # never: K16 builds its own table over the shards' live rows).
@@ -2574,17 +2591,18 @@ def nonresident_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
         label="non-resident", program="packed_many", sources=NR_SEQ)
     for i, pw in enumerate(per_window):
         want = {e: WINDOW_K for e in ("wp_search", "wp_probe", "wc_paint",
+                                      "wc_fold_step", "hp_table",
                                       "ac_accept")}
         if (any(pw.get(e, 0) != n for e, n in want.items())
-                or pw.get("di_insert", 0) or pw.get("sc_paint", 0)
-                or pw.get("hp_probe", 0)):
+                or any(pw.get(e, 0) for e in NR_NEVER)):
             fail(f"non-resident window {i}: launches {pw} (want {want}, "
-                 "no K1, K2 probe or K4)")
+                 f"never {NR_NEVER})")
     if rec["verdicts_sha256"] != seq_rec["verdicts_sha256"]:
         fail("non-resident window path and the resident engine's (phase 3b) "
              "verdicts differ")
     entries = {e: sum(pw.get(e, 0) for pw in per_window)
-               for e in ("wp_search", "wp_probe", "wc_paint", "wc_fold")}
+               for e in ("wp_search", "wp_probe", "wc_paint", "wc_fold_step",
+                         "hp_table")}
     print(json.dumps({
         "phase": "non-resident", "stream": "ycsb-a",
         **{k: rec[k] for k in (
@@ -2661,20 +2679,54 @@ def nonresident_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
     state = cs.state
     pb = ck._step_packed(rb, 0)
     floor, _ = ck.too_old_mask_packed(state.delta, pb.ranks, int(olds[0]))
+    cd, c = state.delta.keys.shape[0], state.base.keys.shape[0]
+    kernels = {}  # CUDA kernels of the captured step, counted at launch
+    # K13's gated fold step (K4's decision, the tiles, the finish): needed
+    # and not, then the step's fold as the engine ran it.
+    for label, dem in (("needed", cd), ("step", int(hb.demand[0]))):
+        got = ck._maybe_merge(clone(state), dem, floor)
+        if K.WORD_COMPACT_KERNELS["wc_fold_step"] != 3:
+            fail(f"K13 gated fold step: {K.WORD_COMPACT_KERNELS} (want 3 "
+                 "CUDA kernels, counted at launch)")
+        assert_equal(f"word_compact_fold_step.{label}", got,
+                     ck._maybe_merge_plain(clone(state), dem, floor))
+    kernels["fold_step"] = K.WORD_COMPACT_KERNELS["wc_fold_step"]
+    kernels["base_table"] = K.TABLE_KERNELS["last"]
+    step_need = bool(ck.fold_need_plain(state, int(hb.demand[0]), floor))
     hist = ck._maybe_merge(clone(state), hb.demand[0], floor)
-    assert_equal("word_compact.maybe_merge", hist, ck._maybe_merge_plain(
-        clone(state), hb.demand[0], floor))
     s = ck.dict_history_search(hist.base.keys, pb.dict_keys, hist.delta.keys,
                                live_b=hist.base.n_used,
                                live_d=hist.delta.n_used)
+    kernels["search"] = K.WORD_SEARCH_KERNELS["last"]
     assert_equal("word_probe.search", list(s), list(ck.dict_history_search(
         hist.base.keys, pb.dict_keys, hist.delta.keys, plain=True)))
-    dst = K.build_table(hist.delta.versions)
     probe = ck.packed_probe(pb.ranks, floor, s, hist.base_st,
                             hist.delta.versions, hist.delta.n_used)
-    assert_equal("word_probe.probe", probe, ck.packed_probe(
+    kernels["probe"] = K.WORD_PROBE_KERNELS["last"]
+    if kernels["probe"] != 2:
+        fail(f"K12 probe: {kernels['probe']} CUDA kernels (want 2: the live "
+             "table and the probe)")
+    want_probe = ck.packed_probe(pb.ranks, floor, s, hist.base_st,
+                                 hist.delta.versions, hist.delta.n_used,
+                                 plain=True)
+    assert_equal("word_probe_probe.probe", probe, want_probe)
+    assert_equal("word_probe_probe.twin", probe, ck.level_probe_live_plain(
         pb.ranks, floor, s, hist.base_st, hist.delta.versions,
-        hist.delta.n_used, plain=True))
+        hist.delta.n_used))
+    # The probe of one flat level (the dependency probe's form: the scratch
+    # or a flat history, searched over all its rows) and the dependency
+    # probe itself over the window, with the delta as its scratch.
+    sf = ck.dict_history_search(hist.delta.keys, pb.dict_keys)
+    assert_equal("word_probe_probe.flat", ck.packed_probe(
+        pb.ranks, floor, sf, None, hist.delta.versions, hist.delta.n_used),
+        ck.packed_probe(pb.ranks, floor, sf, None, hist.delta.versions,
+                        hist.delta.n_used, plain=True))
+    before = K.ENTRY_LAUNCHES.get("wp_probe", 0)
+    dep = ck.spec_dep_window(hist.delta, rb)
+    if K.ENTRY_LAUNCHES.get("wp_probe", 0) - before != WINDOW_K:
+        fail("the dependency probe did not run K12's probe once a step")
+    assert_equal("word_probe_probe.dependency", dep,
+                 ck.spec_dep_window(hist.delta, rb, plain=True))
     too_old, _, cand = probe
     ranks = ck.endpoint_ranks_live_packed(pb.ranks)
     accepted, _ = ck.accept(cand, too_old, pb.ranks.txn_mask, ranks)
@@ -2691,27 +2743,46 @@ def nonresident_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
 
     assert_equal("word_compact.paint", paint(clone(hist.delta)),
                  paint_plain(clone(hist.delta)))
+    kernels["paint"] = K.WORD_COMPACT_KERNELS["wc_paint"]
+    if kernels["paint"] != 3:
+        fail(f"K13 packed paint: {kernels['paint']} CUDA kernels (want 3)")
+    assert_equal("word_compact.paint_twin", paint(clone(hist.delta)),
+                 ck.packed_paint_tiles_plain(clone(hist.delta), pb.dict_keys,
+                                             pb.ranks, accepted, cv0, floor,
+                                             s.rs_d))
 
     def fold(h):
         return ck.advance_hist(h, cv0, int(olds[0]))
 
     def fold_plain(h):
-        nb = ck._merge_delta_plain(h.base, h.delta, floor)
+        f = torch.maximum(h.delta.oldest, torch.full_like(h.delta.oldest,
+                                                          int(olds[0])))
+        nb = ck._merge_delta_plain(h.base, h.delta, f)
         return ck.HistState(nb, ck.sparse_table(nb.versions),
-                            ck._reset_delta(h.delta, floor))
+                            ck._reset_delta(h.delta, f))
 
-    assert_equal("word_compact.fold", fold(clone(hist)),
+    assert_equal("word_compact_fold_forced.fold", fold(clone(hist)),
                  fold_plain(clone(hist)))
+    if K.WORD_COMPACT_KERNELS["wc_fold"] != 2:
+        fail(f"K13 forced fold: {K.WORD_COMPACT_KERNELS} (want 2)")
+    # The forced fold over a full base (n_used = C = 2^20, W = 4): the
+    # delta's rows and C - n_delta rows between them.
+    full = full_base(hist, c)
+    assert_equal("word_compact_fold_forced.full", fold(clone(full)),
+                 fold_plain(clone(full)))
+    if not bool(full.base.n_used == c):
+        fail("the full base is not full")
     rows = torch.cat([hist.base.keys, hist.delta.keys])
     order = np.lexsort(rows.cpu().numpy().T[::-1])
     skeys = rows[torch.from_numpy(order).cuda()].contiguous()
     newv = torch.from_numpy(np.random.default_rng(1).integers(
         0, 4, skeys.shape[0]).astype(np.int32)).cuda()
     prior = torch.zeros((), dtype=torch.bool, device="cuda")
-    c = hist.base.keys.shape[0]
     assert_equal("word_compact.compact",
                  ck._dedup_compact(skeys, newv, c, prior),
                  ck._dedup_compact_plain(skeys, newv, c, prior))
+    if K.WORD_COMPACT_KERNELS["wc_compact"] != 2:
+        fail(f"K13 compaction: {K.WORD_COMPACT_KERNELS} (want 2)")
 
     def many(h):
         return ck.resolve_many_hist_packed(h, rb, cvs, olds,
@@ -2724,74 +2795,170 @@ def nonresident_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
     torch.cuda.synchronize()
 
     def k12():
-        ls0, rs0, ls1, rs1 = K.word_search(hist.base.keys, pb.dict_keys,
-                                           hist.delta.keys, hist.base.n_used,
-                                           hist.delta.n_used)
-        return K.word_probe(hist.base_st, ls0, rs0, dst, ls1, rs1,
-                            pb.ranks.read_begin, pb.ranks.read_end,
-                            pb.ranks.read_mask, pb.ranks.read_version,
-                            pb.ranks.txn_mask, floor)
+        return K.word_search(hist.base.keys, pb.dict_keys, hist.delta.keys,
+                             hist.base.n_used, hist.delta.n_used)
 
     def k12_plain():
-        sp = ck.dict_history_search(hist.base.keys, pb.dict_keys,
-                                    hist.delta.keys, plain=True)
-        return ck.packed_probe(pb.ranks, floor, sp, hist.base_st,
+        return ck.dict_history_search(hist.base.keys, pb.dict_keys,
+                                      hist.delta.keys, plain=True)
+
+    def probe_only():
+        return ck.packed_probe(pb.ranks, floor, s, hist.base_st,
+                               hist.delta.versions, hist.delta.n_used)
+
+    def probe_plain():
+        return ck.packed_probe(pb.ranks, floor, s, hist.base_st,
                                hist.delta.versions, hist.delta.n_used,
                                plain=True)
 
+    def step(h, dem):
+        return ck._maybe_merge(h, dem, floor)
+
+    def fold_step_plain(h, dem):
+        return ck._maybe_merge_plain(h, dem, floor)
+
     t = {
         "word_probe": (time_ms(k12), time_ms(k12_plain, reps=3)),
+        "word_probe_probe": (time_ms(probe_only),
+                             time_ms(probe_plain, reps=3)),
         "word_compact": (time_ms(paint, lambda: (clone(hist.delta),)),
                          time_ms(paint_plain, lambda: (clone(hist.delta),),
                                  reps=3)),
+        "word_compact_fold_step": (
+            time_ms(step, lambda: (clone(state), 0)),
+            time_ms(fold_step_plain, lambda: (clone(state), 0), reps=3)),
+        "word_compact_fold_forced": (
+            time_ms(fold, lambda: (clone(full),), reps=5),
+            time_ms(fold_plain, lambda: (clone(full),), reps=2)),
         "packed_many": (time_ms(many, lambda: (clone(state),), reps=5),
                         time_ms(many_plain, lambda: (clone(state),), reps=2)),
     }
+    if bool(ck.fold_need_plain(state, 0, floor)):
+        fail("the timed gated fold step's fold is needed")
+    needed_ms = (time_ms(step, lambda: (clone(state), cd), reps=5),
+                 time_ms(fold_step_plain, lambda: (clone(state), cd), reps=2))
     fold_ms = (time_ms(fold, lambda: (clone(hist),), reps=5),
                time_ms(fold_plain, lambda: (clone(hist),), reps=2))
     for name, (ms, plain) in t.items():
         print(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f} ms)")
-    print(f"kernel word_compact fold (forced, C={c}): {fold_ms[0]:.4f} ms "
-          f"(plain {fold_ms[1]:.4f} ms)")
+    print(f"kernel word_compact_fold_step needed: {needed_ms[0]:.4f} ms "
+          f"(plain {needed_ms[1]:.4f} ms); forced fold of the step's "
+          f"history ({int(hist.base.n_used)} live base rows of {c}): "
+          f"{fold_ms[0]:.4f} ms (plain {fold_ms[1]:.4f} ms)")
+    print(json.dumps({"k12_k13_cuda_kernels_per_step": kernels,
+                      "outside_k3": sum(kernels.values()),
+                      "step_fold_needed": step_need}))
 
-    # Bounds at the capture's shapes. K12: the live base and delta rows
-    # and versions read once (a merge of the sorted dictionary with each
+    # Bounds at the capture's shapes (K12's row: its search alone; its
+    # probe with the table it builds has a row of its own). K12's search:
+    # the live base and
+    # delta rows read once (a merge of the sorted dictionary with each
     # history reads no more), the dictionary read, four rank vectors
-    # written, the read slots and masks read, three [B] outputs written.
-    # K13's paint: the live delta rows read, the delta written, the write
-    # slots and the paint order read, the endpoints' dictionary rows and
-    # cross ranks gathered. The window program: k x (K12 + K3 + K13).
+    # written. Its probe: the four rank vectors and the delta's live
+    # versions read, two base-table entries a read slot, the read slots,
+    # masks and versions read, the slot mask and two [B] outputs written.
+    # K13's paint: the live delta rows read and written (and the rows up
+    # to the old n_used cleared), the write slots and the paint order
+    # read, the endpoints' dictionary rows and cross ranks gathered. The
+    # gated step (its fold not needed): the base versions read once (K4's
+    # row counts the same). The forced fold at a full base: the live rows
+    # of base and delta read, the base written, the delta reset. The
+    # window program: k x (K12 + K3 + K13).
     n1, w = pb.dict_keys.shape
     r = pb.ranks.read_begin.shape[1]
     q = pb.ranks.write_begin.shape[1]
-    nb_, nd_ = (int(x) for x in torch.stack(
-        [hist.base.n_used, hist.delta.n_used]).cpu())
-    cd = hist.delta.keys.shape[0]
-    bytes_k12 = (4 * (w + 1) * (nb_ + nd_) + 4 * w * n1 + 16 * n1
-                 + 9 * b * r + 5 * b + 3 * b)
-    bytes_k13 = (4 * (w + 1) * nd_ + 4 * (w + 1) * cd + 9 * b * q + b
+    nb_, nd_, nn_ = (int(x) for x in torch.stack(
+        [hist.base.n_used, hist.delta.n_used,
+         paint(clone(hist.delta)).n_used]).cpu())
+    bytes_search = 4 * (w + 1) * (nb_ + nd_) + 4 * w * n1 + 16 * n1
+    bytes_probe = 16 * n1 + 4 * nd_ + 8 * b * r + 9 * b * r + 5 * b \
+        + b * r + 2 * b
+    bytes_k13 = (4 * (w + 1) * (nd_ + max(nd_, nn_)) + 9 * b * q + b
                  + 8 * b * q + 2 * b * q * 4 * (w + 1))
+    whole_k13 = (4 * (w + 1) * nd_ + 4 * (w + 1) * cd + 9 * b * q + b
+                 + 8 * b * q + 2 * b * q * 4 * (w + 1))
+    bytes_step = 4 * c + 4 + 1
+    fd = int(full.delta.n_used)
+    bytes_forced = 4 * (w + 1) * (2 * c + 2 * fd)
     idx = torch.nonzero(cand).flatten().double()
     ops_k3 = float(3 * r * q * idx.sum())
     bytes_k3 = 3 * b + b * r * 9 + b * q * 9 + 2 * b
-    step = {"bytes": 0.0, "operations": 0.0}
-    for nbytes, ops in ((bytes_k12 + bytes_k13, 0.0), (bytes_k3, ops_k3)):
+    step_b = {"bytes": 0.0, "operations": 0.0}
+    for nbytes, ops in ((bytes_search + bytes_probe + bytes_k13, 0.0),
+                        (bytes_k3, ops_k3)):
         lo_ms, by = bound(nbytes, ops)
-        step[by] += lo_ms * WINDOW_K
+        step_b[by] += lo_ms * WINDOW_K
     lap("d, e")
     print(json.dumps({"phase 3g seconds": seconds}))
     return {
         "spec_cuda": {False: spec_cuda},
-        "word_probe": {"launches": entries["wp_probe"],
-                       "timing": t["word_probe"], "bound": bound(bytes_k12)},
+        "word_probe": {"launches": entries["wp_search"],
+                       "timing": t["word_probe"],
+                       "bound": bound(bytes_search)},
+        "word_probe_probe": {"launches": entries["wp_probe"],
+                             "timing": t["word_probe_probe"],
+                             "bound": bound(bytes_probe),
+                             "cuda_kernels": kernels["probe"],
+                             "delta_live": nd_},
         "word_compact": {"launches": entries["wc_paint"],
                          "timing": t["word_compact"],
-                         "bound": bound(bytes_k13)},
+                         "bound": bound(bytes_k13),
+                         "whole_cd_bound_ms": bound(whole_k13)[0],
+                         "cuda_kernels": kernels["paint"]},
+        "word_compact_fold_step": {
+            "launches": entries["wc_fold_step"],
+            "timing": t["word_compact_fold_step"], "bound": bound(bytes_step),
+            "needed_ms": needed_ms[0], "needed_plain_ms": needed_ms[1],
+            "cuda_kernels": kernels["fold_step"]},
+        "word_compact_fold_forced": {
+            "launches": 0, "timing": t["word_compact_fold_forced"],
+            "bound": bound(bytes_forced), "step_history_ms": fold_ms[0],
+            "base_rows": c},
         "packed_many": {"launches": launches["packed_many"],
                         "timing": t["packed_many"],
-                        "bound": (sum(step.values()),
-                                  max(step, key=step.get))},
+                        "bound": (sum(step_b.values()),
+                                  max(step_b, key=step_b.get)),
+                        "cuda_kernels_per_step_outside_k3":
+                            sum(kernels.values())},
     }
+
+
+def full_base(hist, c: int):
+    """``hist`` with a full base (n_used = C): row 0 the base's own
+    minimum key, then C - 1 rows that share the first W - 1 words of the
+    delta's live rows, with random last words (so the delta's rows fall
+    among them), sorted and unique; versions in [0, 1000). The forced
+    fold's full-size input."""
+    import torch
+
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+
+    rng = np.random.default_rng(5)
+    nd = int(hist.delta.n_used)
+    dk = hist.delta.keys[1:max(nd, 2)].cpu().numpy()
+    row0 = hist.base.keys[0].cpu().numpy()
+    rows = np.repeat(dk, -(-2 * c // len(dk)), 0)
+    rows[:, -1] = rng.integers(-2**31, 2**31 - 1, len(rows), dtype=np.int64)
+    rows = np.unique(rows, axis=0)
+    above = np.lexsort(np.stack([rows[:, -1], *(rows[:, :-1].T[::-1])]))
+    rows = rows[above]
+    gt = np.zeros(len(rows), bool)  # rows above row 0, lexicographically
+    eq = np.ones(len(rows), bool)
+    for j in range(rows.shape[1]):
+        gt |= eq & (rows[:, j] > row0[j])
+        eq &= rows[:, j] == row0[j]
+    rows = rows[gt][:c - 1]
+    if len(rows) < c - 1:
+        fail("could not make a full base")
+    keys = np.concatenate([row0[None], rows]).astype(np.int32)
+    vers = rng.integers(0, 1000, c).astype(np.int32)
+    dev = hist.base.keys.device
+    base = ck.ConflictState(
+        torch.from_numpy(keys).to(dev), torch.from_numpy(vers).to(dev),
+        torch.tensor(c, dtype=torch.int32, device=dev),
+        hist.base.oldest.clone(), hist.base.overflow.clone())
+    return ck.HistState(base, ck.build_table(base.versions),
+                        clone(hist.delta))
 
 
 def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
@@ -3183,10 +3350,11 @@ ARMS = {
         ("history_probe", "accept", "word_probe", "word_compact",
          "word_sort", "word_shard"),
         {"wsh_probe": 2 * WINDOW_K, "wso_ranks": WINDOW_K,
-         "ac_accept": WINDOW_K, "wc_fold": WINDOW_K,
+         "ac_accept": WINDOW_K, "wc_fold_step": WINDOW_K,
          "wc_paint_keys": WINDOW_K, "wp_search": WINDOW_K,
          "wso_sort": WINDOW_K, "wc_paint_sorted": WINDOW_K},
-        ("di_insert", "sc_paint", "wp_probe", "wc_paint", "hp_probe")),
+        ("di_insert", "sc_paint", "wp_probe", "wc_paint", "hp_probe",
+         "sc_need", "wc_fold")),
     "c_unpacked_history_batch": (
         {"packed": False, "history": "batch"}, "unpacked_many",
         ("accept", "word_probe", "word_compact", "word_sort", "word_shard"),
@@ -3194,12 +3362,14 @@ ARMS = {
          "wso_ranks": WINDOW_K, "ac_accept": WINDOW_K,
          "wc_paint_sorted": WINDOW_K},
         ("di_insert", "sc_paint", "wp_probe", "wc_paint", "wc_fold",
-         "hp_table")),
+         "wc_fold_step", "hp_table")),
     "d_nonresident_history_batch": (
-        {"resident": False, "history": "batch"}, "packed_many", NR_SEQ,
-        {"wp_search": WINDOW_K, "hp_table": WINDOW_K, "wp_probe": WINDOW_K,
+        {"resident": False, "history": "batch"}, "packed_many",
+        ("accept", "word_probe", "word_compact"),
+        {"wp_search": WINDOW_K, "wp_probe": WINDOW_K,
          "ac_accept": WINDOW_K, "wc_paint": WINDOW_K},
-        ("di_insert", "sc_paint", "wc_fold", "hp_probe")),
+        ("di_insert", "sc_paint", "wc_fold", "wc_fold_step", "hp_probe",
+         "hp_table")),
     "e_accept_seq": (
         {"accept": "seq"}, "resolve_many", SEQ_SOURCES,
         {"ac_accept": WINDOW_K, "hp_probe": WINDOW_K}, ("wv_level",)),
@@ -4584,9 +4754,29 @@ def smoke(args, pool) -> int:
         "max_abs_err": MAX_ABS_ERR["admission"], "ms": ad["ms"],
         "plain_ms": ad["plain_ms"], "bound_ms": lo, "bound_by": by,
         "library_ms": ad["library_ms"]})
+    # K12's search, and its probe with the live table it builds; K13's
+    # packed paint, its gated fold step (timed when the fold
+    # is not needed, as on most steps; the needed step's ms beside it) and
+    # its forced fold over a full base (C = 2^20, W = 4); the window
+    # program. Each new row carries its CUDA kernels a call, counted at
+    # launch.
+    extra = {
+        "word_probe_probe": ("cuda_kernels", "delta_live"),
+        "word_compact": ("cuda_kernels", "whole_cd_bound_ms"),
+        "word_compact_fold_step": ("cuda_kernels", "needed_ms",
+                                   "needed_plain_ms"),
+        "word_compact_fold_forced": ("step_history_ms", "base_rows"),
+        "packed_many": ("cuda_kernels_per_step_outside_k3",),
+    }
     for k, source in (
             ("word_probe", "foundationdb_tpu_torch/kernels/csrc/word_probe.cu"),
+            ("word_probe_probe",
+             "foundationdb_tpu_torch/kernels/csrc/word_probe.cu"),
             ("word_compact",
+             "foundationdb_tpu_torch/kernels/csrc/word_compact.cu"),
+            ("word_compact_fold_step",
+             "foundationdb_tpu_torch/kernels/csrc/word_compact.cu"),
+            ("word_compact_fold_forced",
              "foundationdb_tpu_torch/kernels/csrc/word_compact.cu"),
             ("packed_many",
              "foundationdb_tpu_torch/models/conflict_kernel.py")):
@@ -4597,7 +4787,7 @@ def smoke(args, pool) -> int:
             "replaces": REPLACES[k], "launches": r["launches"],
             "max_abs_err": MAX_ABS_ERR[k], "ms": r["timing"][0],
             "plain_ms": r["timing"][1], "bound_ms": lo, "bound_by": by,
-            "library_ms": None})
+            "library_ms": None, **{x: r[x] for x in extra.get(k, ())}})
     # K14 has two rows: its rank launch on the unclipped endpoint rows (the
     # sequential path's use), with W stable torch.sort passes over the
     # same rows beside it (no one PyTorch call sorts W-word rows), and one

@@ -20,11 +20,15 @@ smoke's phase 3h capture: window 1 of the non-resident 4-shard engine
 (``ShardedConflictSet(resident=False)``) after window 0, with its state,
 bounds, commit and oldest versions, and for its first step the
 acceptance and the fullest shard's history, clipped batch and floor. For
-K12 and K5 it saves phase 3g's first step (the packed non-resident
-engine's history after its gated fold and the step's dictionary), the
-query rows of the first dispatch of phase 3j's read stream (``--seed``,
-the smoke's) over the 2^20-key mirror, and the smoke's wave batch
-(``capture_batch`` on a wave engine: candidates and live endpoint ranks).
+K12, K13's packed paint and fold, and K5 it saves phase 3g's first step
+whole (the packed non-resident engine's history before and after its
+gated fold, the step's dictionary, rank batch, floor, demand, the
+delta's cross ranks and the acceptance, a full base of 2^20 rows from
+``chip_smoke.full_base``, and window 1's batch), window 1 of phase 3i's
+packed flat arm with its flat history, the query rows of the first
+dispatch of phase 3j's read stream (``--seed``, the smoke's) over the
+2^20-key mirror, and the smoke's wave batch (``capture_batch`` on a wave
+engine: candidates and live endpoint ranks).
 For K8 it saves phase 3e's captured step (the resident 4-shard engine's
 history after K1, its first step's rank batch, the shard bounds and the
 floor), and for K8 and K16 the same shapes over full shards
@@ -51,9 +55,14 @@ same live rows; one shard's whole unpacked paint; the window program (k
 = 8). K12: the engine's search of base and delta, one dispatch's
 read-plane search, the cross-rank search of that shard's paint (each with
 the live counts where the tree's ``word_search`` takes them); K5 on the
-wave batch. K8 and K16 (with the table each tree builds for them: K2's
-over all S·C rows, or the live table) at the captured steps and at full
-shards. K17 (``rmq="blocked"``): the flat blocked step (its build, K12's
+wave batch. Phase 3g's step: K13's packed paint, the gated fold step
+(``_maybe_merge``) whose fold is not needed and one whose fold is, the
+forced fold (``advance_hist``) of the step's history and of the full
+base, K12's probe with the table each tree builds (``packed_probe``: the
+delta's, and the packed flat arm's over its 2^20-row history), and the
+non-resident and packed flat window programs. K8 and K16 (with the
+table each tree builds for them: K2's over all S·C rows, or the live
+table) at the captured steps and at full shards. K17 (``rmq="blocked"``): the flat blocked step (its build, K12's
 two rank searches and its probe) and the blocked sharded probes at 3e's
 and 3h's captured steps and at full shards. K11: its set (the filter's
 call) and ``index_fill_`` of the same slots on bool banks, in turns.
@@ -109,6 +118,7 @@ def capture(path: str, seed: int) -> None:
         "nrs": _nrs_window(chip_smoke, stream, ycsb),
         "k12": {**_nr_step(chip_smoke, stream, ycsb),
                 "reads": _read_dispatch(chip_smoke, seed)},
+        "nr_flat": _nr_flat_window(chip_smoke, stream, ycsb),
         "k5": {"cand": wave.cand, "ranks": wave.ranks},
         **_k8_k16_inputs(chip_smoke, stream, ycsb),
         "k17_flat": _k17_flat(chip_smoke, stream, ycsb),
@@ -271,9 +281,15 @@ def _k11_inputs(seed: int) -> dict:
 
 
 def _nr_step(chip_smoke, stream, mode) -> dict:
-    """Phase 3g's captured step (``chip_smoke.nonresident_phase`` (e)):
-    the packed non-resident engine after window 0, its history after the
-    first step's gated fold, and that step's dictionary rows."""
+    """Phase 3g's captured step whole (``chip_smoke.nonresident_phase``
+    (e)): the packed non-resident engine after window 0 (``hist0``, the
+    history before the first step's gated fold), window 1's batch (its
+    dictionaries, rank batches, commit and oldest versions and write
+    demands: the window program's input), and for its first step the
+    dictionary, the rank batch, the floor, the demand, the history after
+    the fold (``hist``), the delta's cross ranks ``rs_d`` and the
+    acceptance (the paint's inputs); and the forced fold's full-size
+    input (``chip_smoke.full_base``: a base of n_used = C = 2^20 rows)."""
     from foundationdb_tpu_torch import bench
     from foundationdb_tpu_torch.models import conflict_kernel as ck
     from foundationdb_tpu_torch.models.conflict_set import upload
@@ -284,11 +300,53 @@ def _nr_step(chip_smoke, stream, mode) -> dict:
     cs.resolve_wire_window(*bench.window_wire(blob, ends, mode, k, 0), b)
     prepared = cs.pack_wire_window(*bench.window_wire(blob, ends, mode, k,
                                                       1), b)
-    pb = ck._step_packed(upload(prepared.batch, cs.device, packed=True), 0)
+    rb = upload(prepared.batch, cs.device, packed=True)
+    pb = ck._step_packed(rb, 0)
     floor, _ = ck.too_old_mask_packed(cs.state.delta, pb.ranks,
                                       int(prepared.olds_rel[0]))
-    hist = ck._maybe_merge(cs.state, prepared.batch.demand[0], floor)
-    return {"hist": _hist_dict(hist), "dict_keys": pb.dict_keys}
+    hist0 = _clone(cs.state)
+    demand = int(prepared.batch.demand[0])
+    hist = ck._maybe_merge(cs.state, demand, floor)
+    s = ck.dict_history_search(hist.base.keys, pb.dict_keys, hist.delta.keys,
+                               live_b=hist.base.n_used,
+                               live_d=hist.delta.n_used)
+    too_old, _, cand = ck.packed_probe(pb.ranks, floor, s, hist.base_st,
+                                       hist.delta.versions, hist.delta.n_used)
+    accepted, _ = ck.accept(cand, too_old, pb.ranks.txn_mask,
+                            ck.endpoint_ranks_live_packed(pb.ranks))
+    full = chip_smoke.full_base(hist, hist.base.keys.shape[0])
+    return {"hist": _hist_dict(hist), "dict_keys": pb.dict_keys,
+            "hist0": _hist_dict(hist0), "rbk": pb.ranks._asdict(),
+            "floor": floor, "demand": demand, "rs_d": s.rs_d,
+            "accepted": accepted, "cv": int(prepared.cvs_rel[0]),
+            "oldest": int(prepared.olds_rel[0]),
+            "full_base": full.base._asdict(),
+            "window": _window_dict(rb, prepared)}
+
+
+def _window_dict(rb, prepared) -> dict:
+    return {"dict_keys": rb.dict_keys, "ranks": rb.ranks._asdict(),
+            "cvs": [int(x) for x in prepared.cvs_rel],
+            "olds": [int(x) for x in prepared.olds_rel],
+            "demands": [int(x) for x in prepared.batch.demand]}
+
+
+def _nr_flat_window(chip_smoke, stream, mode) -> dict:
+    """Phase 3i's packed flat arm (``resident=False, history="batch"``):
+    its flat [2^20, W] history after window 0 and window 1's batch."""
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.models.conflict_set import upload
+
+    k, b = chip_smoke.WINDOW_K, mode.batch
+    blob, ends, _ = chip_smoke.wire_stream(stream, mode, 128)
+    cs = bench.make_engine(mode, chip_smoke.CAP, "cuda", resident=False,
+                           history="batch")
+    cs.resolve_wire_window(*bench.window_wire(blob, ends, mode, k, 0), b)
+    prepared = cs.pack_wire_window(*bench.window_wire(blob, ends, mode, k,
+                                                      1), b)
+    rb = upload(prepared.batch, cs.device, packed=True)
+    return {"state": cs.state._asdict(), "window": _window_dict(rb,
+                                                                prepared)}
 
 
 def _read_dispatch(chip_smoke, seed: int) -> dict:
@@ -640,6 +698,124 @@ def time_k12_k5(data, on, ck, K) -> dict:
     return out
 
 
+def _counted(K, table: str, key: str):
+    """A count the tree's wrappers keep of the CUDA kernels their last call
+    launched (None in a tree without it)."""
+    return getattr(K, table, {}).get(key)
+
+
+def time_k12_k13_packed(data, on, ck, K) -> dict:
+    """Phase 3g's step of the packed non-resident engine, of the imported
+    tree, each call checked against its plain version, then timed (wall
+    and device, CUDA kernels a call): K13's packed paint; the gated fold
+    step (``_maybe_merge``: the decision, the fold, the reset, K2's base
+    table) whose fold is not needed (the captured demand) and one whose
+    fold is (a demand of Cd); the forced fold (``advance_hist``) of the
+    step's history and of a full base (n_used = C = 2^20, W = 4); K12's
+    probe with the table the tree builds for the delta; the probe of the
+    packed flat arm's step over its flat 2^20-row history; the
+    non-resident window program (k = 8) and the packed flat one."""
+    import torch
+
+    d = on(data["k12"])
+
+    def hist_of(h):
+        return ck.HistState(ck.ConflictState(**h["base"]), h["base_st"],
+                            ck.ConflictState(**h["delta"]))
+
+    def packed(w):
+        return ck.PackedBatch(w["dict_keys"], ck.RankBatch(**w["ranks"]))
+
+    hist0, hist = hist_of(d["hist0"]), hist_of(d["hist"])
+    rbk, dk, floor = ck.RankBatch(**d["rbk"]), d["dict_keys"], d["floor"]
+    acc, rs_d, cv, old = d["accepted"], d["rs_d"], d["cv"], d["oldest"]
+    demand, cd = d["demand"], hist0.delta.keys.shape[0]
+    out = {}
+
+    def paint(delta, plain=False):
+        return ck._paint_and_compact_packed(delta, dk, rbk, acc, cv, floor,
+                                            rs_d, plain=plain)
+
+    _same("K13 packed paint", paint(_clone(hist.delta)),
+          paint(_clone(hist.delta), plain=True))
+    out["k13_packed_paint"] = _entry(paint, lambda: (_clone(hist.delta),))
+    out["k13_packed_paint"].update(
+        counted=_counted(K, "WORD_COMPACT_KERNELS", "wc_paint"),
+        delta_live=int(hist.delta.n_used), new_rows=2 * acc.shape[0]
+        * rbk.write_begin.shape[1])
+    for label, dem in (("not_needed", demand), ("needed", cd)):
+        need = bool(ck.fold_need_plain(hist0, dem, floor))
+        _same(f"K13 gated fold step ({label})",
+              ck._maybe_merge(_clone(hist0), dem, floor),
+              ck._maybe_merge_plain(_clone(hist0), dem, floor))
+        e = _entry(lambda h: ck._maybe_merge(h, dem, floor),
+                   lambda: (_clone(hist0),))
+        e.update(need=need, counted=_counted(K, "WORD_COMPACT_KERNELS",
+                                             "wc_fold_step"))
+        out[f"k13_gated_fold_step_{label}"] = e
+    full = ck.HistState(ck.ConflictState(**d["full_base"]), None,
+                        hist.delta)
+    full = full._replace(base_st=K.build_table(full.base.versions))
+    for label, h in (("step_history", hist), ("full_base", full)):
+        want = ck.advance_hist(_clone(h), cv, old)
+        f = torch.maximum(h.delta.oldest, torch.full_like(h.delta.oldest,
+                                                          old))
+        _same(f"K13 forced fold ({label})", want, _forced_fold_plain(
+            ck, _clone(h), old))
+        e = _entry(lambda x: ck.advance_hist(x, cv, old),
+                   lambda: (_clone(h),))
+        e.update(base_live=int(h.base.n_used), delta_live=int(
+            h.delta.n_used), counted=_counted(K, "WORD_COMPACT_KERNELS",
+                                              "wc_fold"), floor=int(f))
+        out[f"k13_forced_fold_{label}"] = e
+    s = ck.DictSearch(*_search(K, hist.base.keys, dk, hist.delta.keys,
+                               hist.base.n_used, hist.delta.n_used))
+
+    def probe(plain=False):
+        return ck.packed_probe(rbk, floor, s, hist.base_st,
+                               hist.delta.versions, hist.delta.n_used,
+                               plain=plain)
+
+    _same("K12 probe", probe(), probe(plain=True))
+    out["k12_probe_with_table"] = _entry(probe)
+    out["k12_probe_with_table"].update(
+        counted=_counted(K, "WORD_PROBE_KERNELS", "last"),
+        delta_live=int(hist.delta.n_used), slots=rbk.read_mask.numel())
+    f = on(data["nr_flat"])
+    flat = ck.ConflictState(**f["state"])
+    fw = packed(f["window"])
+    fpb = ck._step_packed(fw, 0)
+    ffloor, _ = ck.too_old_mask_packed(flat, fpb.ranks,
+                                       int(f["window"]["olds"][0]))
+    fs = ck.DictSearch(*_search(K, flat.keys, fpb.dict_keys,
+                                live0=flat.n_used))
+
+    def flat_probe(plain=False):
+        return ck.packed_probe(fpb.ranks, ffloor, fs, None, flat.versions,
+                               flat.n_used, plain=plain)
+
+    _same("K12 flat probe", flat_probe(), flat_probe(plain=True))
+    out["k12_flat_probe_with_table"] = _entry(flat_probe)
+    out["k12_flat_probe_with_table"].update(
+        counted=_counted(K, "WORD_PROBE_KERNELS", "last"),
+        live=int(flat.n_used), rows=flat.keys.shape[0])
+    for label, st, win in (("nonresident_window", hist0, d["window"]),
+                           ("packed_flat_window", flat, f["window"])):
+        pbw = packed(win)
+        args = (pbw, win["cvs"], win["olds"])
+
+        def many(x, plain=False):
+            if plain:
+                return ck.resolve_many_hist_packed_plain(x, *args)
+            return ck.resolve_many_hist_packed(x, *args,
+                                               demands=win["demands"])
+
+        _same(f"the {label} program", many(_clone(st)),
+              many(_clone(st), plain=True))
+        out[label] = _entry(many, lambda: (_clone(st),))
+    return out
+
+
 def time_k8_k16(data, on, ck, K) -> dict:
     """K8 (the sharded probe, with whatever table the imported tree builds
     for it) at phase 3e's captured step and at full shards, 3e's window
@@ -850,6 +1026,8 @@ def time_tree(path: str, tree: str) -> None:
         result.update(time_k13_k14(data, on, ck, K))
     if "k12" in data:
         result.update(time_k12_k5(data, on, ck, K))
+    if "nr_flat" in data:
+        result.update(time_k12_k13_packed(data, on, ck, K))
     if "k8" in data:
         result.update(time_k8_k16(data, on, ck, K))
     if "k17_flat" in data:

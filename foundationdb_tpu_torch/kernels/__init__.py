@@ -53,7 +53,6 @@ _SIGNATURES = {
         + [_P] * 4,
         "sc_compact": [_P, _P, _I, _I] + [_P] * 7,
         "sc_need": [_P, _I, _P, _P, _I, _I, _P, _P, _P],
-        "sc_reset": [_P, _I, _I] + [_P] * 6,
     },
     "wave": {
         "wv_pred": [_P] * 7 + [_I] * 4 + [_P] * 3,
@@ -66,16 +65,16 @@ _SIGNATURES = {
     },
     "word_probe": {
         "wp_search": [_P, _I, _P, _P, _I, _P, _P] + [_I] * 4 + [_P] * 7,
-        "wp_probe": [_P, _I, _P, _P, _P, _I, _P, _P] + [_P] * 6 + [_I] * 2
-        + [_P] * 4,
+        "wp_probe": [_P, _I, _I, _P, _P, _P, _I] + [_P] * 7 + [_I]
+        + [_P] * 4 + [_I] * 2 + [_P] * 7,
     },
     "word_compact": {
-        "wc_paint": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
-        "wc_fold": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
-                    _P, _P, _P, _P, _P],
-        "wc_compact": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _P],
+        "wc_paint": [_P, _P, _I, _I] + [_P] * 10 + [_I] * 3 + [_P] * 5,
+        "wc_fold": [_P, _P, _I, _I] + [_P] * 5 + [_I] + [_P] * 3 + [_I]
+        + [_P] * 6,
+        "wc_fold_step": [_P, _P, _I, _I] + [_P] * 5 + [_I] + [_P] * 4 + [_I]
+        + [_P] * 5,
+        "wc_compact": [_P, _P, _I, _I, _I] + [_P] * 8,
         "wc_paint_keys": [_P] * 4 + [_I] * 3 + [_P] * 3,
         "wc_paint_sorted": [_P, _P, _I, _I] + [_P] * 6 + [_I] * 2
         + [_P] * 4,
@@ -528,7 +527,9 @@ def fold(base, delta, floor, need, reset_delta: bool = False,
 def fold_need(base_versions, delta, floor, demand: int) -> torch.Tensor:
     """The gated fold's decision as a 0-dim bool on the card (one launch,
     no host sync): ``delta.n_used + demand > Cd`` or at least max(C // 8,
-    1) of ``base_versions`` in (NEG_VERSION, floor]. Any key width."""
+    1) of ``base_versions`` in (NEG_VERSION, floor]. Any key width: the
+    kernel (fold_need.cuh) that the gated steps of K4 (``fold``) and K13
+    (``word_fold``) launch first, alone."""
     c = base_versions.shape[0]
     _check(base_versions, _i32, "base.versions", (c,))
     _check(delta.n_used, _i32, "delta.n_used", ())
@@ -539,22 +540,6 @@ def fold_need(base_versions, delta, floor, demand: int) -> torch.Tensor:
           _ptr(delta.n_used), int(demand), delta.keys.shape[0], _ptr(need),
           _ptr(_workspace(dev, 0)[0]))
     return need
-
-
-def reset_delta(delta, floor, need) -> None:
-    """``_reset_delta`` in place at any key width (gated on ``need``; None
-    means always): one launch. K4's fold fuses it; K13's fold needs it."""
-    cd, w = delta.keys.shape
-    _check(delta.keys, _i32, "delta.keys")
-    _check(delta.versions, _i32, "delta.versions", (cd,))
-    _check(delta.n_used, _i32, "delta.n_used", ())
-    _check(delta.oldest, _i32, "delta.oldest", ())
-    _check(floor, _i32, "floor", ())
-    if need is not None:
-        _check(need, _bool, "need", ())
-    _call("step_compact", "sc_reset", delta.keys.device, _ptr(delta.keys), cd,
-          w, _ptr(delta.versions), _ptr(delta.n_used), _ptr(delta.oldest),
-          _ptr(floor), _ptr(need))
 
 
 def compact(skeys, newv, c_out: int, prior_overflow):
@@ -944,40 +929,91 @@ def word_search(keys0, dict_keys, keys1=None, live0=None, live1=None,
     return ls0, rs0, ls1, rs1
 
 
-def word_probe(st0, ls0, rs0, st1, ls1, rs1, read_begin, read_end,
-               read_mask, read_version, txn_mask, floor):
-    """(too_old bool [B], hist_mask bool [B, R], cand bool [B]): the read
-    slots' rank bounds gathered from K12's search of the base (``st0``
-    its sparse table [L, C], ``ls0``/``rs0``) and, unless ``st1`` is None
-    (a flat history), the delta's; ``floor`` is the 0-dim too-old floor."""
-    b, r = read_begin.shape
-    n1 = ls0.shape[0]
-    c0 = st0.shape[1]
-    _check(st0, _i32, "st0", (table_levels(c0), c0))
-    _check(ls0, _i32, "ls0", (n1,))
-    _check(rs0, _i32, "rs0", (n1,))
-    c1 = 0
-    if st1 is not None:
-        c1 = st1.shape[1]
-        _check(st1, _i32, "st1", (table_levels(c1), c1))
-        _check(ls1, _i32, "ls1", (n1,))
-        _check(rs1, _i32, "rs1", (n1,))
-    _check(read_begin, _i32, "read_begin")
-    _check(read_end, _i32, "read_end", (b, r))
+#: CUDA kernels launched by the last K12 probe (``word_probe``), as
+#: ``wp_probe`` counts them at its launch: the level's live table and the
+#: probe.
+WORD_PROBE_KERNELS = {"last": 0}
+
+
+def _level_probe_args(values, rs_d, ls_d, rows_b, rows_e, read_mask,
+                      read_version, txn_mask, floor, n_used, base_st, rs_b,
+                      ls_b, idx_b, idx_e):
+    """The checks K12's and K17's level probes share; returns (b, r, w,
+    cb, lb, out), ``out`` the bool [B (R + 2)] outputs: hist_mask, too_old,
+    cand."""
+    _check(n_used, _i32, "n_used", ())
+    b, r = read_mask.shape
+    w = 1 if rows_b.dim() == 2 else rows_b.shape[2]
+    _check(rows_b, _i32, "rows_b", tuple(rows_b.shape))
+    _check(rows_e, _i32, "rows_e", tuple(rows_b.shape))
+    if rows_b.shape[:2] != (b, r):
+        raise ValueError(f"rows_b: expected [{b}, {r}(, W)], got "
+                         f"{tuple(rows_b.shape)}")
     _check(read_mask, _bool, "read_mask", (b, r))
     _check(read_version, _i32, "read_version", (b,))
     _check(txn_mask, _bool, "txn_mask", (b,))
     _check(floor, _i32, "floor", ())
-    dev = read_begin.device
-    too_old = torch.empty(b, dtype=_bool, device=dev)
-    cand = torch.empty(b, dtype=_bool, device=dev)
-    hist_mask = torch.empty((b, r), dtype=_bool, device=dev)
-    _call("word_probe", "wp_probe", dev, _ptr(st0), c0, _ptr(ls0), _ptr(rs0),
-          _ptr(st1), c1, _ptr(ls1), _ptr(rs1), _ptr(read_begin),
-          _ptr(read_end), _ptr(read_mask), _ptr(read_version),
-          _ptr(txn_mask), _ptr(floor), b, r, _ptr(hist_mask), _ptr(too_old),
-          _ptr(cand))
-    return too_old, hist_mask, cand
+    m = rs_d.shape[0]
+    _check(rs_d, _i32, "rs_d", (m,))
+    _check(ls_d, _i32, "ls_d", (m,))
+    if (idx_b is None) != (idx_e is None):
+        raise ValueError("give both rank arrays, or neither")
+    if idx_b is None and m != b * r:
+        raise ValueError(f"bounds by slot need {b * r} rows, got {m}")
+    if idx_b is not None:
+        _check(idx_b, _i32, "idx_b", (b, r))
+        _check(idx_e, _i32, "idx_e", (b, r))
+    cb = lb = 0
+    if base_st is not None:
+        lb, cb = base_st.shape
+        _check(base_st, _i32, "base_st", (table_levels(cb), cb))
+        _check(rs_b, _i32, "rs_b", (m,))
+        _check(ls_b, _i32, "ls_b", (m,))
+    out = torch.empty(b * (r + 2), dtype=_bool, device=read_mask.device)
+    return b, r, w, cb, lb, out
+
+
+def _level_probe_out(out, b: int, r: int):
+    """(too_old [B], hist_mask [B, R], cand [B]) views of ``out``."""
+    return out[b * r:b * r + b], out[:b * r].view(b, r), out[b * r + b:]
+
+
+def word_probe(values, rs_d, ls_d, rows_b, rows_e, read_mask, read_version,
+               txn_mask, floor, *, n_used, base_st=None, rs_b=None,
+               ls_b=None, idx_b=None, idx_e=None):
+    """(too_old bool [B], hist_mask bool [B, R], cand bool [B]): K12's probe
+    (the sparse arm's), whose newest write per read slot is the range max
+    over the level's ``values`` [N] at [max(rs_d - 1, 0), ls_d), the end
+    clamped to ``n_used`` (0-dim int32, the level's live rows, read on the
+    device; every row past it must be NEG_VERSION), from a range-max table
+    built over those live rows in this call (live_probe.cuh ``lp_build``
+    at one history, into K4's workspace scratch), and, with ``base_st`` (a
+    base's sparse table [L, C]), also the base's at [max(rs_b - 1, 0),
+    ls_b). The bounds are indexed by the slot or, with ``idx_b``/``idx_e``
+    (the slots' dictionary ranks, int32 [B, R]), by its rank. A slot is
+    live when its mask is set and ``rows_b`` < ``rows_e`` ([B, R, W] rows
+    or [B, R] ranks). Two CUDA kernels (counted into
+    ``WORD_PROBE_KERNELS["last"]``): the table, and live_probe.cuh's level
+    probe (a transaction's slots on adjacent lanes)."""
+    n = values.shape[0]
+    _check(values, _i32, "values", (n,))
+    if n == 0:
+        raise ValueError("word_probe needs a level of n >= 1 rows")
+    b, r, w, cb, lb, out = _level_probe_args(
+        values, rs_d, ls_d, rows_b, rows_e, read_mask, read_version,
+        txn_mask, floor, n_used, base_st, rs_b, ls_b, idx_b, idx_e)
+    dev = read_mask.device
+    lv, tickets = _live_workspace(dev, 1, n)
+    p = out.data_ptr()
+    launched = ctypes.c_int(0)
+    _call("word_probe", "wp_probe", dev, _ptr(base_st), cb, lb, _ptr(rs_b),
+          _ptr(ls_b), _ptr(values), n, _ptr(n_used), _ptr(rs_d), _ptr(ls_d),
+          _ptr(idx_b), _ptr(idx_e), _ptr(rows_b), _ptr(rows_e), w,
+          _ptr(read_mask), _ptr(read_version), _ptr(txn_mask), _ptr(floor),
+          b, r, lv, tickets, p, p + b * r, p + b * r + b,
+          ctypes.addressof(launched))
+    WORD_PROBE_KERNELS["last"] = launched.value
+    return _level_probe_out(out, b, r)
 
 
 # ----------------------------------------------------------------- K13
@@ -993,12 +1029,31 @@ def _check_word_state(st, name: str):
     return c, w
 
 
+#: CUDA kernels launched by the last call of each K13 entry, as the entry
+#: counts them at its launch (wc_paint: the new rows' gather, the tiles,
+#: the finish; wc_fold: the tiles and the finish; wc_fold_step: K4's
+#: decision, the tiles, the finish; wc_compact: the tiles and the finish).
+WORD_COMPACT_KERNELS = {"wc_paint": 0, "wc_fold": 0, "wc_fold_step": 0,
+                        "wc_compact": 0}
+
+
+def _k13_tiles(rows: int) -> int:
+    """K4 workspace rows whose look-back words cover K13's tiles of
+    ``rows`` merged rows (``_workspace`` counts K4's tiles)."""
+    return -(-rows // K13_TILE) * K4_TILE
+
+
 def word_paint(state, dict_keys, rs, wb, we, write_mask, accepted, paint_src,
                cv: int, floor) -> None:
     """Paint in place into ``state`` (a [C, W] ConflictState): the
     accepted writes' endpoints gathered from ``dict_keys`` [N+1, W] by
-    rank, in the host's ``paint_src`` order, merged at their cross ranks
-    ``rs`` [N+1] (K12's right search of the dictionary into the state)."""
+    rank, in the host's ``paint_src`` order (a stable argsort of the
+    endpoints' ranks, so the rows are sorted), with coverage deltas (0 for
+    a rejected or empty write) and cross ranks ``rs`` [N+1] (K12's right
+    search of the dictionary into the state), into K4's workspace; then
+    K13's sorted paint over the state's live rows [0, ``n_used``) only
+    (every row past it must hold (+inf, NEG_VERSION)). Three CUDA kernels
+    (``WORD_COMPACT_KERNELS["wc_paint"]``)."""
     c, w = _check_word_state(state, "state")
     n1 = dict_keys.shape[0]
     b, q = wb.shape
@@ -1012,23 +1067,29 @@ def word_paint(state, dict_keys, rs, wb, we, write_mask, accepted, paint_src,
     _check(floor, _i32, "floor", ())
     dev = wb.device
     n2 = 2 * b * q
-    n = c + n2
-    snew = torch.empty((n2, w), dtype=_i32, device=dev)
-    mk = torch.empty((n, w), dtype=_i32, device=dev)
-    mv, t0, t1 = _scratch(n, dev, 3)
-    bsum = torch.empty((n + 1023) // 1024, dtype=_i32, device=dev)
+    ws, scratch = _workspace(dev, _k13_tiles(c + n2),
+                             c * (w + 1) + n2 * (w + 2))
+    launched = ctypes.c_int(0)
     _call("word_compact", "wc_paint", dev, _ptr(state.keys),
           _ptr(state.versions), c, w, _ptr(state.n_used),
           _ptr(state.overflow), _ptr(state.oldest), _ptr(dict_keys), _ptr(rs),
           _ptr(wb), _ptr(we), _ptr(write_mask), _ptr(accepted),
-          _ptr(paint_src), b, q, int(cv), _ptr(floor), _ptr(snew), _ptr(mk),
-          _ptr(mv), _ptr(t0), _ptr(t1), _ptr(bsum))
+          _ptr(paint_src), b, q, int(cv), _ptr(floor), _ptr(scratch),
+          _ptr(ws), ctypes.addressof(launched))
+    WORD_COMPACT_KERNELS["wc_paint"] = launched.value
 
 
-def word_fold(base, delta, floor, need) -> None:
-    """Fold the [Cd, W] ``delta`` into the [C, W] ``base`` in place
-    (skipped on the device when the 0-dim bool ``need`` is False; None
-    means always)."""
+def word_fold(base, delta, floor, need, reset_delta: bool = False,
+              demand: int | None = None) -> None:
+    """Fold the [Cd, W] ``delta`` into the [C, W] ``base`` in place over
+    the live rows of both (rows past each ``n_used`` must hold (+inf,
+    NEG_VERSION)), skipped on the device when the 0-dim bool ``need`` is
+    False (None: fold always); with ``reset_delta`` the delta is reset to
+    its min-key row at the floor over its live rows, in the fold's second
+    launch. Two CUDA kernels (``wc_fold``). With ``demand`` (the gated
+    step, ``wc_fold_step``) ``need`` is an output: K4's decision writes it
+    first, from the same call, and the delta is reset: three CUDA kernels.
+    Counted into ``WORD_COMPACT_KERNELS``."""
     c, w = _check_word_state(base, "base")
     cd, wd = _check_word_state(delta, "delta")
     if wd != w:
@@ -1037,20 +1098,32 @@ def word_fold(base, delta, floor, need) -> None:
     if need is not None:
         _check(need, _bool, "need", ())
     dev = base.keys.device
-    n = c + cd
-    mk = torch.empty((n, w), dtype=_i32, device=dev)
-    mv, t0, t1 = _scratch(n, dev, 3)
-    bsum = torch.empty((n + 1023) // 1024, dtype=_i32, device=dev)
-    _call("word_compact", "wc_fold", dev, _ptr(base.keys),
-          _ptr(base.versions), c, w, _ptr(base.n_used), _ptr(base.overflow),
-          _ptr(base.oldest), _ptr(delta.keys), _ptr(delta.versions), cd,
-          _ptr(delta.overflow), _ptr(floor), _ptr(need), _ptr(mk), _ptr(mv),
-          _ptr(t0), _ptr(t1), _ptr(bsum))
+    ws, scratch = _workspace(dev, _k13_tiles(c + cd), c * (w + 1))
+    args = (_ptr(base.keys), _ptr(base.versions), c, w, _ptr(base.n_used),
+            _ptr(base.overflow), _ptr(base.oldest), _ptr(delta.keys),
+            _ptr(delta.versions), cd, _ptr(delta.overflow),
+            _ptr(delta.n_used), _ptr(delta.oldest))
+    launched = ctypes.c_int(0)
+    if demand is None:
+        entry = "wc_fold"
+        _call("word_compact", entry, dev, *args, int(reset_delta),
+              _ptr(floor), _ptr(need), _ptr(scratch), _ptr(ws),
+              ctypes.addressof(launched))
+    elif need is None or not reset_delta:
+        raise ValueError("the gated step writes need and resets the delta")
+    else:
+        entry = "wc_fold_step"
+        _call("word_compact", entry, dev, *args, _ptr(floor), int(demand),
+              _ptr(need), _ptr(scratch), _ptr(ws),
+              ctypes.addressof(launched))
+    WORD_COMPACT_KERNELS[entry] = launched.value
 
 
 def word_compact(skeys, newv, c_out: int, prior_overflow):
     """_dedup_compact of sorted [n, W] rows: (keys [c_out, W], versions
-    [c_out], n_used, overflow)."""
+    [c_out], n_used, overflow), by the fold's tiles in their compaction
+    mode (``newv`` taken as given) and its finish: two CUDA kernels
+    (``WORD_COMPACT_KERNELS["wc_compact"]``)."""
     n, w = skeys.shape
     _check(skeys, _i32, "skeys", (n, w))
     _check(newv, _i32, "newv", (n,))
@@ -1062,11 +1135,12 @@ def word_compact(skeys, newv, c_out: int, prior_overflow):
     ov = torch.empty(c_out, dtype=_i32, device=dev)
     n_used = torch.empty((), dtype=_i32, device=dev)
     overflow = torch.empty((), dtype=_bool, device=dev)
-    t0, t1 = _scratch(n, dev, 2)
-    bsum = torch.empty((n + 1023) // 1024, dtype=_i32, device=dev)
+    launched = ctypes.c_int(0)
     _call("word_compact", "wc_compact", dev, _ptr(skeys), _ptr(newv), n, w,
           c_out, _ptr(prior_overflow), _ptr(ok), _ptr(ov), _ptr(n_used),
-          _ptr(overflow), _ptr(t0), _ptr(t1), _ptr(bsum))
+          _ptr(overflow), _ptr(_workspace(dev, _k13_tiles(n))[0]),
+          ctypes.addressof(launched))
+    WORD_COMPACT_KERNELS["wc_compact"] = launched.value
     return ok, ov, n_used, overflow
 
 
@@ -1105,8 +1179,7 @@ def word_paint_sorted(state, snew, sdelta, scross, cv: int, floor) -> None:
     _check(floor, _i32, "floor", ())
     dev = snew.device
     # Look-back words for K13's tiles, and the survivors' scratch.
-    tiles = -(-(c + n2) // K13_TILE)
-    ws, scratch = _workspace(dev, tiles * K4_TILE, c * (w + 1))
+    ws, scratch = _workspace(dev, _k13_tiles(c + n2), c * (w + 1))
     _call("word_compact", "wc_paint_sorted", dev, _ptr(state.keys),
           _ptr(state.versions), c, w, _ptr(state.n_used),
           _ptr(state.overflow), _ptr(state.oldest), _ptr(snew), _ptr(sdelta),
@@ -1391,46 +1464,18 @@ def blocked_probe(values, table, rs_d, ls_d, rows_b, rows_e, read_mask,
     ``rows_e`` ([B, R, W] endpoint rows, or [B, R] ranks). One CUDA
     kernel: a transaction's slots on adjacent lanes."""
     n, nb = _check_blocked(values, table, n_used)
-    _check(n_used, _i32, "n_used", ())
-    b, r = read_mask.shape
-    w = 1 if rows_b.dim() == 2 else rows_b.shape[2]
-    _check(rows_b, _i32, "rows_b", tuple(rows_b.shape))
-    _check(rows_e, _i32, "rows_e", tuple(rows_b.shape))
-    if rows_b.shape[:2] != (b, r):
-        raise ValueError(f"rows_b: expected [{b}, {r}(, W)], got "
-                         f"{tuple(rows_b.shape)}")
-    _check(read_mask, _bool, "read_mask", (b, r))
-    _check(read_version, _i32, "read_version", (b,))
-    _check(txn_mask, _bool, "txn_mask", (b,))
-    _check(floor, _i32, "floor", ())
-    m = rs_d.shape[0]
-    _check(rs_d, _i32, "rs_d", (m,))
-    _check(ls_d, _i32, "ls_d", (m,))
-    if (idx_b is None) != (idx_e is None):
-        raise ValueError("give both rank arrays, or neither")
-    if idx_b is None and m != b * r:
-        raise ValueError(f"bounds by slot need {b * r} rows, got {m}")
-    if idx_b is not None:
-        _check(idx_b, _i32, "idx_b", (b, r))
-        _check(idx_e, _i32, "idx_e", (b, r))
-    cb = lb = 0
-    if base_st is not None:
-        lb, cb = base_st.shape
-        _check(base_st, _i32, "base_st", (table_levels(cb), cb))
-        _check(rs_b, _i32, "rs_b", (m,))
-        _check(ls_b, _i32, "ls_b", (m,))
+    b, r, w, cb, lb, out = _level_probe_args(
+        values, rs_d, ls_d, rows_b, rows_e, read_mask, read_version,
+        txn_mask, floor, n_used, base_st, rs_b, ls_b, idx_b, idx_e)
     prefix, suffix, top = table
-    dev = read_mask.device
-    out = torch.empty(b * (r + 2), dtype=_bool, device=dev)
-    hist_mask, too_old, cand = out[:b * r].view(b, r), out[b * r:b * r + b], \
-        out[b * r + b:]
-    _call("rmq_blocked", "rb_probe", dev, _ptr(base_st), cb, lb, _ptr(rs_b),
-          _ptr(ls_b), _ptr(values), n, _ptr(n_used), _ptr(prefix),
-          _ptr(suffix), _ptr(top), nb, _ptr(rs_d), _ptr(ls_d), _ptr(idx_b),
-          _ptr(idx_e), _ptr(rows_b), _ptr(rows_e), w, _ptr(read_mask),
-          _ptr(read_version), _ptr(txn_mask), _ptr(floor), b, r,
-          _ptr(hist_mask), _ptr(too_old), _ptr(cand))
-    return too_old, hist_mask, cand
+    p = out.data_ptr()
+    _call("rmq_blocked", "rb_probe", read_mask.device, _ptr(base_st), cb, lb,
+          _ptr(rs_b), _ptr(ls_b), _ptr(values), n, _ptr(n_used),
+          _ptr(prefix), _ptr(suffix), _ptr(top), nb, _ptr(rs_d), _ptr(ls_d),
+          _ptr(idx_b), _ptr(idx_e), _ptr(rows_b), _ptr(rows_e), w,
+          _ptr(read_mask), _ptr(read_version), _ptr(txn_mask), _ptr(floor),
+          b, r, p, p + b * r, p + b * r + b)
+    return _level_probe_out(out, b, r)
 
 
 def blocked_shard_probe(keys, versions, n_used, read_begin, read_end,

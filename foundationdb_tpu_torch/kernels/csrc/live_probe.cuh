@@ -28,6 +28,14 @@
 // lp_probe): the live table above or K2's table (LpTableMax), or K17's
 // blocked structure over the same live rows (rmq_blocked.cu's RbMax).
 //
+// One level's probe (lp_level_probe, at the end): the packed engines'
+// probe of a two-level history (a base with its prebuilt K2 table, and a
+// per-batch level: the delta) or of a flat history (the level alone), the
+// slots' bounds gathered by rank from K12's search. The per-batch level's
+// range max comes from a policy over its live rows only: the live table
+// (LpTableMax at S = 1; K12's sparse arm, word_probe.cu) or K17's blocked
+// structure (RbMax; rmq_blocked.cu's rb_probe).
+//
 // Search (lp_probe): one thread a read slot, the R slots of a transaction
 // on adjacent lanes (a group of P lanes, the power of two >= R up to 32).
 // A block first stages, for every shard, F evenly spaced live rows
@@ -470,4 +478,104 @@ static inline int lp_run(LpArgs a, int* ws, int* tickets, int* launched,
   ++count;
   if (launched) *launched = count;
   return rc;
+}
+
+// ------------------------------------------------------- one level's probe
+
+// max(st[.][lo:hi]) over a sparse table [levels, n] (K2's); empty ->
+// LP_NEG. The level row and both columns are clamped into the table (the
+// JAX gather's clamp).
+__device__ __forceinline__ int lp_table_max(const int* st, int n, int levels,
+                                            int lo, int hi) {
+  const int len = hi - lo;
+  if (len <= 0) return LP_NEG;
+  const int lvl = 31 - __clz(len);
+  const int row = lvl < levels - 1 ? lvl : levels - 1;
+  const int a = st[(int64_t)row * n + min(max(lo, 0), n - 1)];
+  const int b = st[(int64_t)row * n + min(max(hi - (1 << lvl), 0), n - 1)];
+  return max(a, b);
+}
+
+// a < b over w signed words (the packed key order; ranks at w = 1).
+__device__ __forceinline__ bool lp_row_lt(const int* a, const int* b, int w) {
+  for (int j = 0; j < w; ++j)
+    if (a[j] != b[j]) return a[j] < b[j];
+  return false;
+}
+
+struct LpLevelArgs {
+  const int* bst;  // the base's sparse table [lb, cb], or null (flat)
+  int cb, lb;
+  const int *rs_b, *ls_b;  // the base's bounds (with bst)
+  const int* n_used;  // the level's live count (0-dim)
+  int n;  // the level's rows
+  const int *rs_d, *ls_d;  // the level's bounds
+  const int *idx_b, *idx_e;  // the slots' ranks into the bounds, or null
+  const int *rows_b, *rows_e;  // [B, R, w]
+  int w;
+  const bool* rmask;
+  const int* rv;
+  const bool* tmask;
+  const int* floor_p;
+  int B, R, P;
+  bool *hist_mask, *too_old, *cand;
+};
+
+// A transaction's R read slots on adjacent lanes (a group of P lanes, the
+// power of two >= R up to 32). A live slot takes its bounds from the
+// search (directly, or through its dictionary rank), the base's O(1) range
+// max when there is a base, and mx(0, a, z), the level's range max over
+// [a, z) with z clamped to the level's live count; the transaction's OR,
+// the too-old test and the candidates follow from shuffles over its lanes.
+template <class Max>
+__global__ void __launch_bounds__(LP_THREADS) lp_level_probe(LpLevelArgs g,
+                                                             Max mx) {
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = (int)(t / g.P), r0 = (int)(t % g.P);
+  const bool valid = b < g.B;
+  const int v = valid ? g.rv[b] : 0;
+  const int live_n = lp_live(g.n_used, 0, g.n);
+  bool has_reads = false, any = false;
+  for (int r = r0; valid && r < g.R; r += g.P) {
+    const int64_t s = (int64_t)b * g.R + r;
+    const bool live = g.rmask[s] && lp_row_lt(g.rows_b + s * g.w,
+                                              g.rows_e + s * g.w, g.w);
+    bool h = false;
+    if (live) {
+      has_reads = true;
+      const int64_t bi = g.idx_b ? g.idx_b[s] : s;
+      const int64_t ei = g.idx_e ? g.idx_e[s] : s;
+      int newest = LP_NEG;
+      if (g.bst)
+        newest = lp_table_max(g.bst, g.cb, g.lb, max(g.rs_b[bi] - 1, 0),
+                              g.ls_b[ei]);
+      const int nd = mx(0, max(g.rs_d[bi] - 1, 0), min(g.ls_d[ei], live_n));
+      h = max(newest, nd) > v;
+    }
+    g.hist_mask[s] = h;
+    any |= h;
+  }
+  for (int o = g.P >> 1; o > 0; o >>= 1) {
+    has_reads |= __shfl_xor_sync(0xffffffffu, has_reads, o);
+    any |= __shfl_xor_sync(0xffffffffu, any, o);
+  }
+  if (valid && r0 == 0) {
+    const bool tm = g.tmask[b];
+    const bool to = tm && has_reads && v < *g.floor_p;
+    g.too_old[b] = to;
+    g.cand[b] = tm && !to && !any;
+  }
+}
+
+// The level probe on stream st_ with the range max mx: one CUDA kernel.
+template <class Max>
+static inline int lp_level_probe_launch(LpLevelArgs g, Max mx,
+                                        cudaStream_t st_) {
+  if (g.B <= 0) return (int)cudaGetLastError();
+  g.P = 1;
+  while (g.P < g.R && g.P < 32) g.P *= 2;
+  const int64_t threads = (int64_t)g.B * g.P;
+  const int grid = (int)((threads + LP_THREADS - 1) / LP_THREADS);
+  lp_level_probe<Max><<<grid, LP_THREADS, 0, st_>>>(g, mx);
+  return (int)cudaGetLastError();
 }

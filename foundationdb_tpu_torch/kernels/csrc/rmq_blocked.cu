@@ -45,13 +45,14 @@
 // the prefix at z - 1 and two entries of the top for the whole blocks
 // between.
 //
-// Probes. rb_probe (the flat and two-level arms): a transaction's R read
-// slots on adjacent lanes (a group of P lanes, the power of two >= R up to
-// 32); each live slot takes its bounds from the search (directly, or
-// through its dictionary rank), the base's O(1) sparse range max when
-// there is a base, and the blocked range max over the level's live rows;
-// the transaction's OR, the too-old test and the candidates follow from
-// shuffles over its lanes, in the same launch. rb_shard_probe (the
+// Probes. rb_probe (the flat and two-level arms) is live_probe.cuh's level
+// probe (lp_level_probe: a transaction's R read slots on adjacent lanes;
+// each live slot's bounds from the search, directly or through its
+// dictionary rank, the base's O(1) sparse range max when there is a base;
+// the transaction's OR, the too-old test and the candidates from shuffles
+// over its lanes, in the same launch) with the blocked range max over the
+// level's live rows as its policy; K12's sparse arm (word_probe.cu) runs
+// the same kernel with the live table. rb_shard_probe (the
 // sharded arms) is live_probe.cuh's probe (K8's and K16's: fences staged
 // in shared memory, each lane walking the shards its slot overlaps,
 // searches over each shard's live rows) with rb_max as its range max,
@@ -87,20 +88,6 @@ __host__ __device__ __forceinline__ int rb_levels(int n) {
   return (c > 1 ? c : 1) + 1;
 }
 
-// max(st[.][lo:hi]) over a sparse table [levels, n]; empty -> NEG_VERSION.
-// The level row and both columns are clamped into the table (JAX's gather).
-__device__ __forceinline__ int table_max(const int* st, int n, int levels,
-                                         int lo, int hi) {
-  int len = hi - lo;
-  if (len <= 0) return NEG_VERSION;
-  int lvl = 31 - __clz(len);
-  int w = 1 << lvl;
-  int row = lvl < levels - 1 ? lvl : levels - 1;
-  int a = st[(int64_t)row * n + iclamp(lo, 0, n - 1)];
-  int b = st[(int64_t)row * n + iclamp(hi - w, 0, n - 1)];
-  return imax(a, b);
-}
-
 // The JAX range_max_blocked over a whole structure of n values (nb
 // blocks, the top [levels, nb]), out-of-range indices clamped as JAX
 // clamps them: rb_query without n_used.
@@ -123,7 +110,7 @@ __device__ int blocked_max_jax(const int* vals, int n, const int* prefix,
   }
   int bhc = bh < nb - 1 ? bh : nb - 1;
   int cross = imax(suffix[bl * G + il], prefix[bhc * G + ih]);
-  return imax(cross, table_max(top, nb, levels, bl + 1, bh));
+  return imax(cross, lp_table_max(top, nb, levels, bl + 1, bh));
 }
 
 // max(v[a:z]) of one history over its live rows, 0 <= a, z <= n; empty ->
@@ -335,75 +322,6 @@ __global__ void k_query(const int* vals, int n, const int* n_used,
                   min(hi[q], live));
 }
 
-// ---------------------------------------------------------------- probe
-
-// a < b over w signed words (the packed key order; ranks at w = 1).
-__device__ __forceinline__ bool row_lt(const int* a, const int* b, int w) {
-  for (int j = 0; j < w; ++j) {
-    if (a[j] != b[j]) return a[j] < b[j];
-  }
-  return false;
-}
-
-struct RbProbeArgs {
-  const int* bst;  // the base's sparse table [lb, cb], or null (flat)
-  int cb, lb;
-  const int *rs_b, *ls_b;  // the base's bounds (with bst)
-  const int* vals;  // the level's versions [n]
-  const int* n_used;  // its live count (0-dim)
-  const int *prefix, *suffix, *top;
-  int n, nb;
-  const int *rs_d, *ls_d;  // the level's bounds
-  const int *idx_b, *idx_e;  // the slots' ranks into the bounds, or null
-  const int *rows_b, *rows_e;  // [B, R, w]
-  int w;
-  const bool* rmask;
-  const int* rv;
-  const bool* tmask;
-  const int* floor_p;
-  int B, R, P;
-  bool *hist_mask, *too_old, *cand;
-};
-
-__global__ void __launch_bounds__(RB_THREADS) k_probe(RbProbeArgs g) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = (int)(t / g.P), r0 = (int)(t % g.P);
-  const bool valid = b < g.B;
-  const int v = valid ? g.rv[b] : 0;
-  const int live_n = lp_live(g.n_used, 0, g.n);
-  bool has_reads = false, any = false;
-  for (int r = r0; valid && r < g.R; r += g.P) {
-    const int64_t s = (int64_t)b * g.R + r;
-    const bool live = g.rmask[s] && row_lt(g.rows_b + s * g.w,
-                                           g.rows_e + s * g.w, g.w);
-    bool h = false;
-    if (live) {
-      has_reads = true;
-      const int64_t bi = g.idx_b ? g.idx_b[s] : s;
-      const int64_t ei = g.idx_e ? g.idx_e[s] : s;
-      int newest = NEG_VERSION;
-      if (g.bst)
-        newest = table_max(g.bst, g.cb, g.lb, imax(g.rs_b[bi] - 1, 0),
-                           g.ls_b[ei]);
-      const int nd = rb_max(g.vals, g.prefix, g.suffix, g.top, g.nb,
-                            imax(g.rs_d[bi] - 1, 0), min(g.ls_d[ei], live_n));
-      h = imax(newest, nd) > v;
-    }
-    g.hist_mask[s] = h;
-    any |= h;
-  }
-  for (int o = g.P >> 1; o > 0; o >>= 1) {
-    has_reads |= __shfl_xor_sync(0xffffffffu, has_reads, o);
-    any |= __shfl_xor_sync(0xffffffffu, any, o);
-  }
-  if (valid && r0 == 0) {
-    const bool tm = g.tmask[b];
-    const bool to = tm && has_reads && v < *g.floor_p;
-    g.too_old[b] = to;
-    g.cand[b] = tm && !to && !any;
-  }
-}
-
 static inline int blocks(int64_t n, int t) { return (int)((n + t - 1) / t); }
 
 // ---------------------------------------------------------------- entries
@@ -446,13 +364,11 @@ extern "C" int rb_probe(const int* bst, int cb, int lb, const int* rs_b,
                         const int* rv, const bool* tmask,
                         const int* floor_p, int B, int R, bool* hist_mask,
                         bool* too_old, bool* cand, cudaStream_t s) {
-  if (B <= 0) return (int)cudaGetLastError();
-  RbProbeArgs g{bst, cb, lb, rs_b, ls_b, vals, n_used, prefix, suffix, top,
-                n, nb, rs_d, ls_d, idx_b, idx_e, rows_b, rows_e, w, rmask,
-                rv, tmask, floor_p, B, R, 1, hist_mask, too_old, cand};
-  while (g.P < R && g.P < 32) g.P *= 2;
-  k_probe<<<blocks((int64_t)B * g.P, RB_THREADS), RB_THREADS, 0, s>>>(g);
-  return (int)cudaGetLastError();
+  LpLevelArgs g{bst, cb, lb, rs_b, ls_b, n_used, n, rs_d, ls_d, idx_b,
+                idx_e, rows_b, rows_e, w, rmask, rv, tmask, floor_p, B, R, 1,
+                hist_mask, too_old, cand};
+  return lp_level_probe_launch(g, RbMax{vals, prefix, suffix, top, 1, n, nb},
+                               s);
 }
 
 // keys [S, C, w], versions [S, C], n_used [S] (live rows, read on the

@@ -47,8 +47,9 @@
 // with a demand launches the decision, then the fold, from one call; with
 // the delta reset fused into the fold's second launch, a step whose fold
 // is not needed costs five launches: the decision, two fold launches, two
-// table launches. sc_need and sc_reset are the decision and the reset
-// alone, for K13's width-W fold.
+// table launches. The decision kernel lives in fold_need.cuh, which K13's
+// width-W fold (word_compact.cu) launches too; sc_need is the decision
+// alone.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -60,10 +61,8 @@
 #define NT 256             // threads a tile
 #define NI 8               // merged rows a thread
 #define TILE (NT * NI)     // merged rows a tile
-#define WS_TICKET 0        // workspace words (uint64)
-#define WS_RECLAIM 1
-#define WS_DONE 2
-#define WS_TOTAL 3
+#define WS_TICKET 0        // workspace words (uint64; 1 and 2: the
+#define WS_TOTAL 3         // decision's, fold_need.cuh)
 #define WS_WORDS 8         // then ntiles coverage words, ntiles count words
 
 #define M_PAINT 0
@@ -71,6 +70,7 @@
 #define M_COMPACT 2
 
 #include "lookback.cuh"
+#include "fold_need.cuh"
 
 // ----------------------------------------------------------- the tile pass
 
@@ -443,57 +443,6 @@ __global__ void k_finish(FinishArgs p) {
   }
 }
 
-// ---------------------------------------------------------- the decision
-
-// need = delta.n_used + demand > cd || #(NEG_VERSION < v <= floor) >= thr.
-__global__ void k_need(const int* bv, int c, const int* floor_p,
-                       const int* d_nused, int demand, int cd, int thr,
-                       bool* need, u64* ws) {
-  __shared__ int s_scan[32];
-  const int fl = *floor_p;
-  int cnt = 0;
-  const int stride = gridDim.x * blockDim.x;
-  const int c4 = (c & 3) == 0 && ((uintptr_t)bv & 15) == 0 ? c / 4 : 0;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < c4; i += stride) {
-    int4 v = reinterpret_cast<const int4*>(bv)[i];
-    cnt += (v.x <= fl && v.x > NEG_VERSION) + (v.y <= fl && v.y > NEG_VERSION)
-         + (v.z <= fl && v.z > NEG_VERSION) + (v.w <= fl && v.w > NEG_VERSION);
-  }
-  for (int i = 4 * c4 + blockIdx.x * blockDim.x + threadIdx.x; i < c;
-       i += stride) {
-    int v = bv[i];
-    cnt += v <= fl && v > NEG_VERSION;
-  }
-  int total;
-  block_excl_sum(cnt, s_scan, &total);
-  if (threadIdx.x == 0) {
-    atomicAdd(ws + WS_RECLAIM, (u64)total);
-    __threadfence();
-    if (atomicAdd(ws + WS_DONE, 1ull) == gridDim.x - 1) {
-      __threadfence();
-      u64 sum = atomicAdd(ws + WS_RECLAIM, 0ull);
-      *need = *d_nused + demand > cd || sum >= (u64)thr;
-      ws[WS_RECLAIM] = 0;
-      ws[WS_DONE] = 0;
-    }
-  }
-}
-
-__global__ void k_reset(int* dk, int cd, int w, int* dv, int* d_nused,
-                        int* d_oldest, const int* floor_p, const bool* need) {
-  if (need && !*need) return;
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j < cd) {
-    if (j > 0)
-      for (int k = 0; k < w; ++k) dk[(int64_t)j * w + k] = I32MAX;
-    dv[j] = NEG_VERSION;
-  }
-  if (j == 0) {
-    *d_nused = 1;
-    *d_oldest = *floor_p;
-  }
-}
-
 // ---------------------------------------------------------------- entries
 
 static inline int blocks(int64_t n, int t) { return (int)((n + t - 1) / t); }
@@ -528,16 +477,6 @@ extern "C" int sc_paint(int* keys, int* vers, int c, int* n_used,
   return run<M_PAINT>(a, f, s);
 }
 
-static void launch_need(const int* bv, int c, const int* floor_p,
-                        const int* d_nused, int demand, int cd, bool* need,
-                        u64* ws, cudaStream_t s) {
-  int nb = blocks(c, 256);
-  if (nb > 132 * 4) nb = 132 * 4;
-  int thr = c / 8 > 1 ? c / 8 : 1;
-  k_need<<<nb, 256, 0, s>>>(bv, c, floor_p, d_nused, demand, cd, thr, need,
-                            ws);
-}
-
 static int fold(int* bk, int* bv, int c, int* b_nused, bool* b_over,
                 int* b_oldest, int* dk, int* dv, int cd, const bool* d_over,
                 int* d_nused, int* d_oldest, int reset, const int* floor_p,
@@ -570,7 +509,7 @@ extern "C" int sc_fold_step(int* bk, int* bv, int c, int* b_nused,
                             int* d_oldest, const int* floor_p, int demand,
                             bool* need, int* scratch, u64* ws,
                             cudaStream_t s) {
-  launch_need(bv, c, floor_p, d_nused, demand, cd, need, ws, s);
+  fn_launch_need(bv, c, floor_p, d_nused, demand, cd, need, ws, s);
   return fold(bk, bv, c, b_nused, b_over, b_oldest, dk, dv, cd, d_over,
               d_nused, d_oldest, 1, floor_p, need, scratch, ws, s);
 }
@@ -588,20 +527,11 @@ extern "C" int sc_compact(const int* mk, const int* mv, int n, int c_out,
   return run<M_COMPACT>(a, f, s);
 }
 
-// The gated fold's decision into the 0-dim bool need (one launch), for a
-// fold launched apart (K13's at width W).
+// The gated fold's decision alone into the 0-dim bool need (one launch):
+// what the gated steps of K4 and K13 launch first, for checks.
 extern "C" int sc_need(const int* bv, int c, const int* floor_p,
                        const int* d_nused, int demand, int cd, bool* need,
                        u64* ws, cudaStream_t s) {
-  launch_need(bv, c, floor_p, d_nused, demand, cd, need, ws, s);
-  return (int)cudaGetLastError();
-}
-
-// The delta reset alone (width w), gated on need (null: always).
-extern "C" int sc_reset(int* dk, int cd, int w, int* dv, int* d_nused,
-                        int* d_oldest, const int* floor_p, const bool* need,
-                        cudaStream_t s) {
-  k_reset<<<blocks(cd, 256), 256, 0, s>>>(dk, cd, w, dv, d_nused, d_oldest,
-                                          floor_p, need);
+  fn_launch_need(bv, c, floor_p, d_nused, demand, cd, need, ws, s);
   return (int)cudaGetLastError();
 }

@@ -1,86 +1,95 @@
 // K13: step-function rewrites over W-word keys — the packed paint, the
-// base+delta fold and the dedup + compaction they share, and the unpacked
-// paint (its new endpoint rows and its sorted paint).
+// base+delta fold and the dedup + compaction, and the unpacked paint (its
+// new endpoint rows and its sorted paint).
 //
 // Replaces (foundationdb_tpu/models/conflict_kernel.py):
 //   _paint_and_compact_packed (:1489) -> _paint_tail (:925), as run by
 //   resolve_batch_hist_packed (:1634), wave_apply_batch_hist_packed
 //   (:2501), paint_batch_hist_packed (:2732) and _spec_mark_rejected
 //   (:2854);
-//   _merge_delta (:1243) at width W, as run by _maybe_merge (:1290) and
-//   advance_hist (:1404);
+//   _merge_delta (:1243) at width W, as run by _maybe_merge (:1290), with
+//   its decision and _reset_delta (:1229), and by advance_hist (:1404);
 //   _dedup_compact (:977) over [n, W] rows;
 //   _paint_and_compact (:869) -> _paint_tail (:925), the unpacked flat
 //   paint (wc_paint_keys, wc_paint_sorted), as run by resolve_batch
 //   (:1108) and parallel/sharded_resolver.py _sharded_resolve (:160).
 //
-// Bound on the H100: bytes. The fold reads the [C, W] base and [Cd, W]
-// delta and rewrites the base (C = 2^20, W = 4: ~20 MB of state, ~40 MB of
-// scratch through the merge and the two scans); a paint touches its live
-// rows and 2BQ new rows (~36 K at W words). The searches add dependent
-// loads mostly in L2.
+// Bound on the H100: bytes. A paint touches the live rows of its level
+// and 2BQ new rows; a fold reads the live rows of base and delta and
+// rewrites the base's (C = 2^20, W = 4, a full base: ~40 MB); a gated step
+// whose fold is not needed reads the base versions once (the decision).
+// What is left is the tiles' chains of dependent loads and the launches.
 //
-// The packed paint, the fold and the compaction (wc_paint, wc_fold,
-// wc_compact) are K4's first design at width W, one word row per thread.
-// A paint takes the host's paint order (``paint_src``: a stable argsort of
-// the write endpoints' ranks, the permutation the JAX rank sort gives) and
-// K12's cross ranks into the delta (rs), and gathers each endpoint's key
-// back from the batch dictionary by its rank, so nothing is sorted on the
-// card. Rows are scattered to their merge slots (a new or delta row lands
-// at its index plus the count of history rows <= it, a history row at its
-// index plus the count of new rows < it: the JAX merge order), the
-// coverage and keep prefix sums are device-wide scans, and the dedup and
-// forced minimum-key rule use W-word row compares. A rejected write merges
-// as a no-op endpoint (coverage delta 0) and is compacted out, which
-// leaves the same state as the JAX paint's parking of it on the
-// dictionary's +inf row. Every fold launch reads an optional device flag
-// and exits at once when it is false.
+// Live rows. Every row of a history at or past n_used holds (+inf,
+// NEG_VERSION) (every writer leaves it so; tests/test_torch_live_prefix.py
+// checks it). Such rows change nothing in a merge but the forced row when
+// every key is +inf, which any +inf row then stands for; so every rewrite
+// here merges the live rows [0, n_used) (read on the device) only, and its
+// work is in proportion to the live rows, not to C.
 //
-// The unpacked paint: wc_paint_keys writes the accepted writes' endpoint
-// rows (a rejected write parked on the +inf row, as the JAX
-// _paint_and_compact parks it, :893-900) and their coverage deltas; K12's
-// search gives their cross ranks, K14 (word_sort.cu) sorts the rows
-// carrying deltas and cross ranks; wc_paint_sorted is _paint_tail (:925)
-// from those sorted rows, in K4's second design (step_compact.cu) at width
-// W and over the live rows only, two launches. Every row of a history at
-// or past n_used holds (+inf, NEG_VERSION) (every writer leaves it so), and
-// such rows change nothing in the merge but the forced row when every key
-// is +inf, which any +inf row then stands for; so the merge is of the
-// live rows [0, n_used) (read on the device) and the n2 new rows, and the
-// work is in proportion to n_used + n2, not C + n2. New row k sits at
-// merged position k + min(its cross rank, n_used) (history rows before
-// equal new rows, the JAX merge order), so a tile of 256 merged rows (one
-// a thread: small tiles spread over more SMs) finds its new rows by one
-// search over those positions, marks their slots, and fills the others
-// from the history in order; nothing merged is written to device memory.
-// Persistent blocks take tiles by ticket until the live merged length is
-// covered. Two sums cross tiles by a decoupled look-back: the coverage
-// before the tile and the survivors before it. The dedup needs, for the
-// tile's first run of equal keys, the version of the row before the run:
-// the run starts at the tile unless the row before the tile has its key,
-// and then one lower-bound search in each input finds its start; the
-// coverage there is the tile's less the deltas of the run's new rows
-// before the tile. The forced row is the last of the minimum key's run
-// (the last row when every key is +inf). Survivors land in a scratch
-// buffer; a second launch copies them back, writes (+inf, NEG_VERSION)
-// over [new n_used, old n_used) only, n_used, the sticky overflow and
-// oldest, and re-zeroes the look-back words and the ticket (K4's
-// workspace, step_compact.cu's layout).
+// The sorted paint (wc_paint_sorted: K4's second design at width W,
+// step_compact.cu): new row k sits at merged position k + min(its cross
+// rank, n_used) (history rows before equal new rows, the JAX merge order),
+// so a tile of 256 merged rows (one a thread: small tiles spread over more
+// SMs) finds its new rows by one search over those positions, marks their
+// slots, and fills the others from the history in order; nothing merged
+// is written to device memory. Persistent blocks take tiles by ticket
+// until the live merged length is covered. Two sums cross tiles by a
+// decoupled look-back: the coverage before the tile and the survivors
+// before it. The dedup needs, for the tile's first run of equal keys, the
+// version of the row before the run: the run starts at the tile unless the
+// row before the tile has its key, and then one lower-bound search in each
+// input finds its start; the coverage there is the tile's less the deltas
+// of the run's new rows before the tile. The forced row is the last of the
+// minimum key's run (the last row when every key is +inf). Survivors land
+// in a scratch buffer; a second launch copies them back, writes (+inf,
+// NEG_VERSION) over [new n_used, old n_used) only, n_used, the sticky
+// overflow and oldest, and re-zeroes the look-back words and the ticket
+// (K4's workspace, step_compact.cu's layout).
+//
+// The packed paint (wc_paint, three launches): its new rows are already in
+// key order. paint_src is the stable argsort of the write endpoints'
+// dictionary ranks, the dictionary is sorted, and each endpoint's cross
+// rank into the level is rs[rank] (K12's right search). One small launch
+// gathers them (row k: the dictionary row of rank(paint_src[k]), coverage
+// delta +1/-1, 0 for a rejected or empty write, cross rank rs[rank]) into
+// the workspace; the sorted paint's two launches follow. The gather costs
+// one coalesced pass over 2BQ rows; reading through the indirection inside
+// the tiles instead would put three dependent loads (paint_src, the slot's
+// rank, rs or the dictionary row) into every step of their merge-path
+// searches. A rejected write stays a no-op endpoint at its own key (delta
+// 0): the new rows stay sorted, the dedup drops it or keeps it as the last
+// row of a run with the version that run's last row has anyway, so the
+// state is the one the JAX paint leaves by parking it on the +inf row
+// wherever the level's first row is at or below every endpoint, as the
+// minimum-key row every engine's history keeps is.
+//
+// The fold (wc_fold, wc_fold_step) and the compaction (wc_compact): the
+// same tiles over the stable merge of two sorted inputs, base before equal
+// delta rows (K4's M_FOLD mode at width W): a tile finds where its slices
+// start by one merge-path diagonal search at each end (a warp, 32 pivots a
+// step), stages the slices in shared memory and merges them there, a
+// thread a merged row. A merged row's version is the max of the two step
+// functions there (its own value and the other input's last row before it,
+// a halo row from before the tile when there is none in the tile), GC'd to
+// the floor; then the dedup, the forced row and the survivors' look-back
+// as in the paint (no coverage). The finish writes the base back over its
+// live rows, and resets the delta to its minimum-key row at the floor over
+// the delta's live rows: _maybe_merge's reset, in the same call. The
+// gated step (wc_fold_step) is three launches: K4's decision
+// (fold_need.cuh), the tiles and the finish, both exiting at once when the
+// decision is False. The compaction is the A-only mode out of place, its
+// versions given (no GC).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fold_need.cuh"
 #include "lookback.cuh"
 
 #define I32MAX 2147483647
 #define NEG_VERSION (-2147483647)
 #define NEG_M1 (-2147483647 - 1)
-#define FULL 0xffffffffu
-#define ST 256
-#define SI 4
-#define STILE (ST * SI)
-
-#define GATE if (need && !*need) return
 
 __device__ __forceinline__ const int* row(const int* a, int64_t i, int w) {
   return a + i * w;
@@ -103,300 +112,7 @@ __device__ __forceinline__ void copy_row(int* dst, const int* src, int w) {
   for (int j = 0; j < w; ++j) dst[j] = src[j];
 }
 
-// first index of a sorted [n, w] array with row >= q (strict) / > q.
-__device__ __forceinline__ int search(const int* a, int n, const int* q,
-                                      int w, bool upper) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    int mid = (lo + hi) >> 1;
-    int c = cmp_row(row(a, mid, w), q, w);
-    if (c < 0 || (upper && c == 0)) lo = mid + 1; else hi = mid;
-  }
-  return lo;
-}
-
-// ---------------------------------------------------------------- scan
-
-__device__ int block_incl_scan(int v, int* ws) {
-  int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int nwarps = blockDim.x >> 5;
-  for (int o = 1; o < 32; o <<= 1) {
-    int y = __shfl_up_sync(FULL, v, o);
-    if (lane >= o) v += y;
-  }
-  if (lane == 31) ws[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    int s = lane < nwarps ? ws[lane] : 0;
-    for (int o = 1; o < 32; o <<= 1) {
-      int y = __shfl_up_sync(FULL, s, o);
-      if (lane >= o) s += y;
-    }
-    if (lane < nwarps) ws[lane] = s;
-  }
-  __syncthreads();
-  if (warp > 0) v += ws[warp - 1];
-  return v;
-}
-
-__global__ void k_scan_tile(const int* in, int* out, int n, int* bsum,
-                            const bool* need) {
-  GATE;
-  __shared__ int ws[32];
-  int64_t base = (int64_t)blockIdx.x * STILE + threadIdx.x * SI;
-  int x[SI];
-  int s = 0;
-  for (int k = 0; k < SI; ++k) {
-    x[k] = base + k < n ? in[base + k] : 0;
-    s += x[k];
-  }
-  int incl = block_incl_scan(s, ws);
-  int run = incl - s;
-  for (int k = 0; k < SI; ++k) {
-    run += x[k];
-    if (base + k < n) out[base + k] = run;
-  }
-  if (threadIdx.x == blockDim.x - 1) bsum[blockIdx.x] = incl;
-}
-
-__global__ void k_scan_sums(int* bsum, int nb, const bool* need) {
-  GATE;
-  __shared__ int ws[32];
-  __shared__ int carry;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int c0 = 0; c0 < nb; c0 += blockDim.x) {
-    int i = c0 + threadIdx.x;
-    int v = i < nb ? bsum[i] : 0;
-    int incl = block_incl_scan(v, ws);
-    int cbase = carry;
-    __syncthreads();
-    if (i < nb) bsum[i] = cbase + incl - v;
-    if (threadIdx.x == blockDim.x - 1) carry = cbase + incl;
-    __syncthreads();
-  }
-}
-
-__global__ void k_scan_add(int* out, int n, const int* bsum,
-                           const bool* need) {
-  GATE;
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) out[i] += bsum[i / STILE];
-}
-
 static inline int blocks(int64_t n, int t) { return (int)((n + t - 1) / t); }
-
-static void scan(const int* in, int* out, int n, int* bsum, const bool* need,
-                 cudaStream_t s) {
-  int nb = blocks(n, STILE);
-  k_scan_tile<<<nb, ST, 0, s>>>(in, out, n, bsum, need);
-  k_scan_sums<<<1, ST, 0, s>>>(bsum, nb, need);
-  k_scan_add<<<blocks(n, 256), 256, 0, s>>>(out, n, bsum, need);
-}
-
-// ------------------------------------------------------- dedup + compact
-
-__global__ void k_keep(const int* mk, const int* mv, int n, int w, int* flag,
-                       const bool* need) {
-  GATE;
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int* key = row(mk, i, w);
-  bool keep1 = (i == n - 1) || cmp_row(key, row(mk, i + 1, w), w) != 0;
-  bool inf = is_inf(key, w);
-  bool keep = false;
-  if (keep1 && !inf) {
-    int s = search(mk, n, key, w, false);  // run start
-    int prev_v = s > 0 ? mv[s - 1] : NEG_M1;
-    keep = mv[i] != prev_v;
-  }
-  bool min_last = !is_inf(mk, w) ? (keep1 && cmp_row(key, mk, w) == 0)
-                                 : (i == n - 1);
-  flag[i] = keep || min_last;
-}
-
-__global__ void k_scatter(const int* mk, const int* mv, const int* flag,
-                          const int* cum, int n, int w, int c_out, int* ok,
-                          int* ov, const bool* need) {
-  GATE;
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || !flag[i]) return;
-  int k = cum[i] - 1;
-  if (k < c_out) {
-    copy_row(ok + (int64_t)k * w, row(mk, i, w), w);
-    ov[k] = mv[i];
-  }
-}
-
-__global__ void k_fill(const int* cum, int n, int w, int c_out, int* ok,
-                       int* ov, int* n_used, bool* overflow,
-                       const bool* prior_a, const bool* prior_b,
-                       int* oldest_out, const int* floor_p,
-                       const bool* need) {
-  GATE;
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= c_out) return;
-  int total = cum[n - 1];
-  if (j >= total) {
-    for (int q = 0; q < w; ++q) ok[(int64_t)j * w + q] = I32MAX;
-    ov[j] = NEG_VERSION;
-  }
-  if (j == 0) {
-    *n_used = total < c_out ? total : c_out;
-    bool prior = (prior_a && *prior_a) || (prior_b && *prior_b);
-    *overflow = prior || total > c_out;
-    if (oldest_out) *oldest_out = *floor_p;
-  }
-}
-
-static void compact(const int* mk, const int* mv, int n, int w, int c_out,
-                    int* ok, int* ov, int* n_used, bool* overflow,
-                    const bool* prior_a, const bool* prior_b, int* oldest_out,
-                    const int* floor_p, int* t0, int* t1, int* bsum,
-                    const bool* need, cudaStream_t s) {
-  const int T = 256;
-  k_keep<<<blocks(n, T), T, 0, s>>>(mk, mv, n, w, t0, need);
-  scan(t0, t1, n, bsum, need, s);
-  k_scatter<<<blocks(n, T), T, 0, s>>>(mk, mv, t0, t1, n, w, c_out, ok, ov,
-                                       need);
-  k_fill<<<blocks(c_out, T), T, 0, s>>>(t1, n, w, c_out, ok, ov, n_used,
-                                        overflow, prior_a, prior_b,
-                                        oldest_out, floor_p, need);
-}
-
-// ------------------------------------------------------------------ paint
-
-__global__ void k_paint_new(const int* vers, const int* dict, const int* rs,
-                            int w, const int* wb, const int* we,
-                            const bool* wmask, const bool* accepted,
-                            const int* src, int B, int Q, int* snew, int* mk,
-                            int* md, int* mv) {
-  int e2 = B * Q;
-  int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= 2 * e2) return;
-  int e = src[k];
-  bool is_begin = e < e2;
-  int slot = is_begin ? e : e - e2;
-  int a = wb[slot], z = we[slot];
-  bool valid = accepted[slot / Q] && wmask[slot] && a < z;
-  int rank = is_begin ? a : z;
-  int cross = rs[rank];
-  int64_t pos = (int64_t)k + cross;
-  const int* key = row(dict, rank, w);
-  copy_row(mk + pos * w, key, w);
-  copy_row(snew + (int64_t)k * w, key, w);
-  md[pos] = valid ? (is_begin ? 1 : -1) : 0;
-  mv[pos] = vers[cross > 0 ? cross - 1 : 0];
-}
-
-__global__ void k_paint_old(const int* keys, const int* vers, int c, int w,
-                            const int* snew, int n2, int* mk, int* md,
-                            int* mv) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c) return;
-  const int* key = row(keys, i, w);
-  int64_t pos = (int64_t)i + search(snew, n2, key, w, false);
-  copy_row(mk + pos * w, key, w);
-  md[pos] = 0;
-  mv[pos] = vers[i];
-}
-
-__global__ void k_newv(const int* mk, const int* cov, int* mv, int n, int w,
-                       int cv, const int* floor_p) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  int v = cov[i] > 0 ? cv : mv[i];
-  mv[i] = (v <= *floor_p || is_inf(row(mk, i, w), w)) ? NEG_VERSION : v;
-}
-
-// ------------------------------------------------------------------- fold
-
-__global__ void k_fold_delta(const int* bk, const int* bv, int c,
-                             const int* dk, const int* dv, int cd, int w,
-                             const int* floor_p, int* mk, int* mv,
-                             const bool* need) {
-  GATE;
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= cd) return;
-  const int* key = row(dk, j, w);
-  int cross = search(bk, c, key, w, true);
-  int vb = bv[cross > 0 ? cross - 1 : 0];
-  int v = vb > dv[j] ? vb : dv[j];
-  int64_t pos = (int64_t)j + cross;
-  copy_row(mk + pos * w, key, w);
-  mv[pos] = (v <= *floor_p || is_inf(key, w)) ? NEG_VERSION : v;
-}
-
-__global__ void k_fold_base(const int* bk, const int* bv, int c,
-                            const int* dk, const int* dv, int cd, int w,
-                            const int* floor_p, int* mk, int* mv,
-                            const bool* need) {
-  GATE;
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= c) return;
-  const int* key = row(bk, i, w);
-  int lb = search(dk, cd, key, w, false);
-  int cb = search(dk, cd, key, w, true);
-  int vd = dv[cb > 0 ? cb - 1 : 0];
-  int v = bv[i] > vd ? bv[i] : vd;
-  int64_t pos = (int64_t)i + lb;
-  copy_row(mk + pos * w, key, w);
-  mv[pos] = (v <= *floor_p || is_inf(key, w)) ? NEG_VERSION : v;
-}
-
-// ---------------------------------------------------------------- entries
-
-// Paint the accepted writes into the history (keys [c, w] / vers [c], in
-// place); dict [n1, w] is the batch dictionary, rs [n1] its cross ranks
-// into keys. Scratch: snew [2BQ, w], mk [n, w], mv, t0, t1 [n], n = c+2BQ.
-extern "C" int wc_paint(int* keys, int* vers, int c, int w, int* n_used,
-                        bool* overflow, int* oldest, const int* dict,
-                        const int* rs, const int* wb, const int* we,
-                        const bool* wmask, const bool* accepted,
-                        const int* src, int B, int Q, int cv,
-                        const int* floor_p, int* snew, int* mk, int* mv,
-                        int* t0, int* t1, int* bsum, cudaStream_t s) {
-  const int T = 256;
-  int n2 = 2 * B * Q;
-  int n = c + n2;
-  k_paint_new<<<blocks(n2, T), T, 0, s>>>(vers, dict, rs, w, wb, we, wmask,
-                                          accepted, src, B, Q, snew, mk, t0,
-                                          mv);
-  k_paint_old<<<blocks(c, T), T, 0, s>>>(keys, vers, c, w, snew, n2, mk, t0,
-                                         mv);
-  scan(t0, t1, n, bsum, nullptr, s);
-  k_newv<<<blocks(n, T), T, 0, s>>>(mk, t1, mv, n, w, cv, floor_p);
-  compact(mk, mv, n, w, c, keys, vers, n_used, overflow, overflow, nullptr,
-          oldest, floor_p, t0, t1, bsum, nullptr, s);
-  return (int)cudaGetLastError();
-}
-
-// Fold the delta into the base (base arrays in place); need may be null.
-extern "C" int wc_fold(int* bk, int* bv, int c, int w, int* b_nused,
-                       bool* b_over, int* b_oldest, const int* dk,
-                       const int* dv, int cd, const bool* d_over,
-                       const int* floor_p, const bool* need, int* mk, int* mv,
-                       int* t0, int* t1, int* bsum, cudaStream_t s) {
-  const int T = 256;
-  int n = c + cd;
-  k_fold_delta<<<blocks(cd, T), T, 0, s>>>(bk, bv, c, dk, dv, cd, w, floor_p,
-                                           mk, mv, need);
-  k_fold_base<<<blocks(c, T), T, 0, s>>>(bk, bv, c, dk, dv, cd, w, floor_p,
-                                         mk, mv, need);
-  compact(mk, mv, n, w, c, bk, bv, b_nused, b_over, b_over, d_over, b_oldest,
-          floor_p, t0, t1, bsum, need, s);
-  return (int)cudaGetLastError();
-}
-
-// Dedup + compaction of sorted [n, w] rows alone (out of place).
-extern "C" int wc_compact(const int* mk, const int* mv, int n, int w,
-                          int c_out, const bool* prior, int* ok, int* ov,
-                          int* n_used, bool* overflow, int* t0, int* t1,
-                          int* bsum, cudaStream_t s) {
-  compact(mk, mv, n, w, c_out, ok, ov, n_used, overflow, prior, nullptr,
-          nullptr, nullptr, t0, t1, bsum, nullptr, s);
-  return (int)cudaGetLastError();
-}
 
 // ------------------------------------------------- the unpacked paint
 
@@ -438,9 +154,10 @@ extern "C" int wc_paint_keys(const int* wb, const int* we, const bool* wmask,
 #define SMEM_DYN 231424   // dynamic shared memory a tile may use (227 KB
                           // less 1 KB for the static arrays)
 #define WS_TICKET 0       // workspace words (uint64), step_compact.cu's head
-#define WS_TOTAL 3
+#define WS_TOTAL 3        // (1 and 2: the fold's decision, fold_need.cuh)
 #define WS_LIVE 4
 #define WS_NTILES 5
+#define WS_DLIVE 6        // the fold: the delta's live rows before it
 #define WS_WORDS 8        // then ntiles coverage words, ntiles count words
 
 struct SortedPaint {
@@ -686,7 +403,312 @@ __global__ void k_sorted_finish(int* hk, int* hv, int c, int w, int* n_used,
   }
 }
 
-// Per device: the SM count, and the tile kernel allowed SMEM_DYN bytes.
+
+// ------------------------------------------- the packed paint's new rows
+
+// Row k of the packed paint's sorted new rows (k in paint_src order): the
+// dictionary row of its endpoint's rank, its coverage delta (0 for a
+// rejected or empty write) and its cross rank rs[rank] into the level.
+__global__ void k_packed_rows(const int* dict, const int* rs, int w,
+                              const int* wb, const int* we, const bool* wmask,
+                              const bool* accepted, const int* src, int B,
+                              int Q, int* nk, int* nd, int* nx) {
+  const int e2 = B * Q;
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= 2 * e2) return;
+  const int e = src[k];
+  const bool begin = e < e2;
+  const int slot = begin ? e : e - e2;
+  const int a = wb[slot], z = we[slot];
+  const bool valid = accepted[slot / Q] && wmask[slot] && a < z;
+  const int rank = begin ? a : z;
+  nx[k] = rs[rank];
+  nd[k] = valid ? (begin ? 1 : -1) : 0;
+  copy_row(nk + (int64_t)k * w, row(dict, rank, w), w);
+}
+
+// ------------------------------------------ the fold and the compaction
+
+#define M_FOLD 0
+#define M_COMPACT 1
+
+struct FoldTiles {
+  const int* ak;  // A: the base [ca, w] (fold), the rows (compact)
+  const int* av;
+  int ca;
+  const int* a_nused;  // A's live rows (0-dim), or null: all ca rows
+  const int* bk;  // B: the delta [cb, w] (fold); unused by the compaction
+  const int* bv;
+  int cb;
+  const int* b_nused;
+  int w;
+  const int* floor_p;  // the fold's GC floor
+  int c_out;
+  int ntiles;  // tiles of ca + cb rows: the span of the look-back array
+  int* sk;     // survivors: the scratch (fold), the output (compact)
+  int* sv;
+  u64* ws;
+  const bool* need;  // the gated step's decision, or null
+};
+
+// The rows [0, live) of an input of c rows (at least one row; all c
+// without a count).
+__device__ __forceinline__ int live_of(const int* n_used, int c) {
+  return n_used ? min(max(*n_used, 1), c) : c;
+}
+
+// The stable merge of A's and B's live rows, each merged row's version
+// (the max of the two step functions there, GC'd: the fold; A's value:
+// the compaction), deduped and compacted by tiles of PT merged rows into
+// the survivors' array. Persistent blocks take tiles by ticket.
+template <int MODE>
+__global__ void __launch_bounds__(PT) k_fold_tiles(FoldTiles p) {
+  if (p.need && !*p.need) return;
+  extern __shared__ int sm[];
+  const int w = p.w, T = PT;
+  int* s_row = sm;             // [T, w] the slices: A's rows, then B's
+  int* s_sv = s_row + T * w;   // [T] their values
+  int* s_src = s_sv + T;       // [T] each merged row's slice row
+  int* s_val = s_src + T;      // [T] each merged row's version
+  int* s_k0 = s_val + T;       // [w] merged row 0
+  int* s_next = s_k0 + w;      // [w] the row after the tile
+  __shared__ int s_scan[32];
+  __shared__ int s_m[8];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int na = live_of(p.a_nused, p.ca);
+  const int nb = MODE == M_FOLD ? live_of(p.b_nused, p.cb) : 0;
+  const int n = na + nb, nt = (n + T - 1) / T;
+  const int fl = MODE == M_FOLD ? *p.floor_p : 0;
+  const int* A = p.ak;
+  const int* B = p.bk;
+  for (;;) {
+    if (tid == 0) s_m[0] = (int)atomicAdd(p.ws + WS_TICKET, 1ull);
+    __syncthreads();
+    const int t = s_m[0];
+    if (t >= nt) return;
+    if (t == 0 && tid == 0) {
+      p.ws[WS_LIVE] = (u64)na;
+      p.ws[WS_DLIVE] = (u64)nb;
+      p.ws[WS_NTILES] = (u64)nt;
+    }
+    const int d0 = t * T, d1 = min(n, d0 + T), len = d1 - d0;
+
+    // A's rows among the first diag merged rows, at each end of the tile
+    // (A's rows before equal rows of B).
+    if (warp < 2) {
+      const int diag = warp ? d1 : d0;
+      const int a = warp_search(max(0, diag - nb), min(diag, na), [&](int m) {
+        return cmp_row(row(A, m, w), row(B, diag - 1 - m, w), w) <= 0;
+      });
+      if (lane == 0) s_m[1 + warp] = a;
+    }
+    __syncthreads();
+    const int a0 = s_m[1], a1 = s_m[2], b0 = d0 - a0, b1 = d1 - a1;
+    const int la = a1 - a0, lb = len - la;
+
+    // The slices, coalesced, STAGE loads in flight a thread.
+    for (int e0 = tid; e0 < len * w; e0 += PT * STAGE) {
+      int x[STAGE];
+#pragma unroll
+      for (int u = 0; u < STAGE; ++u) {
+        const int e = e0 + u * PT;
+        x[u] = 0;
+        if (e < len * w) {
+          const int i = e / w;
+          x[u] = (i < la ? row(A, a0 + i, w) : row(B, b0 + i - la, w))[e - i * w];
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < STAGE; ++u)
+        if (e0 + u * PT < len * w) s_row[e0 + u * PT] = x[u];
+    }
+    if (tid < len) s_sv[tid] = tid < la ? p.av[a0 + tid] : p.bv[b0 + tid - la];
+    if (warp == 0) {
+      // The row before the tile's first run of equal keys: the tile's
+      // first row has the key fk; the run began before the tile when the
+      // last row of either input before it has fk, and then one
+      // lower-bound search in each input finds its start.
+      const bool fa_first =
+          a0 < a1 && (b0 >= b1 || cmp_row(row(A, a0, w), row(B, b0, w), w) <= 0);
+      const int* fk = fa_first ? row(A, a0, w) : row(B, b0, w);
+      int fa = a0, fb = b0;
+      if ((a0 > 0 && cmp_row(row(A, a0 - 1, w), fk, w) == 0) ||
+          (b0 > 0 && cmp_row(row(B, b0 - 1, w), fk, w) == 0)) {
+        fa = warp_search(0, a0, [&](int m) {
+          return cmp_row(row(A, m, w), fk, w) < 0;
+        });
+        fb = warp_search(0, b0, [&](int m) {
+          return cmp_row(row(B, m, w), fk, w) < 0;
+        });
+      }
+      if (lane == 0) {
+        int vp = NEG_M1;  // no row before the run
+        if (fa + fb > 0 && MODE == M_COMPACT) {
+          vp = p.av[fa - 1];
+        } else if (fa + fb > 0) {
+          const bool from_b =
+              fb > 0 && (fa == 0 || cmp_row(row(A, fa - 1, w),
+                                            row(B, fb - 1, w), w) <= 0);
+          const int* kp = from_b ? row(B, fb - 1, w) : row(A, fa - 1, w);
+          const int v = from_b ? max(p.bv[fb - 1], p.av[max(fa - 1, 0)])
+                               : max(p.av[fa - 1], p.bv[max(fb - 1, 0)]);
+          vp = gcw(v, is_inf(kp, w), fl);
+        }
+        s_m[3] = vp;
+      }
+    } else if (warp == 1) {
+      // Merged row 0, the row after the tile, and the halos: each input's
+      // last value before the tile.
+      const int* k0 = nb == 0 || cmp_row(row(A, 0, w), row(B, 0, w), w) <= 0
+                          ? row(A, 0, w) : row(B, 0, w);
+      for (int q = lane; q < w; q += 32) s_k0[q] = k0[q];
+      if (d1 < n) {
+        const int* after =
+            a1 < na && (b1 >= nb || cmp_row(row(A, a1, w), row(B, b1, w), w) <= 0)
+                ? row(A, a1, w) : row(B, b1, w);
+        for (int q = lane; q < w; q += 32) s_next[q] = after[q];
+      }
+      if (lane == 0) {
+        s_m[4] = p.av[max(a0 - 1, 0)];
+        s_m[5] = MODE == M_FOLD ? p.bv[max(b0 - 1, 0)] : 0;
+      }
+    }
+    __syncthreads();
+
+    // Each thread merges its row r of the tile from the slices (a
+    // diagonal search in shared memory) and takes its version.
+    const int r = tid;
+    int v = NEG_VERSION;
+    if (r < len) {
+      int lo = max(0, r - lb), hi = min(r, la);
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (cmp_row(s_row + mid * w, s_row + (la + r - 1 - mid) * w, w) <= 0)
+          lo = mid + 1;
+        else
+          hi = mid;
+      }
+      const int ai = lo, bi = r - lo;
+      const bool from_a =
+          ai < la && (bi >= lb ||
+                      cmp_row(s_row + ai * w, s_row + (la + bi) * w, w) <= 0);
+      const int src = from_a ? ai : la + bi;
+      s_src[r] = src;
+      if (MODE == M_FOLD) {
+        const int x = from_a
+            ? max(s_sv[ai], bi > 0 ? s_sv[la + bi - 1] : s_m[5])
+            : max(s_sv[la + bi], ai > 0 ? s_sv[ai - 1] : s_m[4]);
+        v = gcw(x, is_inf(s_row + src * w, w), fl);
+      } else {
+        v = s_sv[ai];
+      }
+      s_val[r] = v;
+    }
+    __syncthreads();
+
+    // Dedup: the last row of each run stays unless its version equals the
+    // previous run's last row's; the minimum key's last row is forced.
+    const int* key = s_row + (r < len ? s_src[r] : 0) * w;
+    const bool k0_inf = is_inf(s_k0, w), has_next = d1 < n;
+    const int start =
+        r > 0 && r < len && cmp_row(key, s_row + s_src[r - 1] * w, w) != 0
+            ? r : -1;
+    const int st = max(block_excl_max(start, s_scan), start);
+    bool keep = false;
+    if (r < len) {
+      const bool keep1 = r + 1 < len
+          ? cmp_row(key, s_row + s_src[r + 1] * w, w) != 0
+          : (!has_next || cmp_row(key, s_next, w) != 0);
+      const int prev = st < 0 ? s_m[3] : s_val[st - 1];
+      const bool forced = !k0_inf ? (keep1 && cmp_row(key, s_k0, w) == 0)
+                                  : (d0 + r == n - 1);
+      keep = forced || (keep1 && v != prev && !is_inf(key, w));
+    }
+    int agg;
+    const int idx = block_excl_sum(keep, s_scan, &agg);
+    if (warp == 0) {
+      const int e = look_back(p.ws + WS_WORDS, t, agg);
+      if (lane == 0) {
+        s_m[6] = e;
+        if (t == nt - 1) p.ws[WS_TOTAL] = (u64)(e + agg);
+      }
+    }
+    __syncthreads();
+    if (keep && s_m[6] + idx < p.c_out) {
+      copy_row(p.sk + (int64_t)(s_m[6] + idx) * w, key, w);
+      p.sv[s_m[6] + idx] = v;
+    }
+    __syncthreads();  // before the next tile reuses shared memory
+  }
+}
+
+struct FoldFinish {
+  const int* sk;  // survivors in scratch (the fold, in place), or null
+  const int* sv;  // (the compaction: written to its output by the tiles)
+  int* ok;  // the base (fold) or the output (compact)
+  int* ov;
+  int c_out, w;
+  int* n_used;
+  bool* overflow;
+  const bool* prior_a;
+  const bool* prior_b;
+  int* oldest;
+  const int* floor_p;
+  int* dk;  // the delta to reset (its live rows), or null
+  int* dv;
+  int* d_nused;
+  int* d_oldest;
+  u64* ws;
+  int ntiles;
+  const bool* need;
+};
+
+// The survivors back into the base, (+inf, NEG_VERSION) over [new n_used,
+// old n_used) (the output's every row past the survivors, out of place),
+// n_used, the sticky overflow and oldest; the delta reset to its min-key
+// row at the floor over its live rows; the look-back words and the ticket
+// re-zeroed for the next call.
+__global__ void k_fold_finish(FoldFinish f) {
+  if (f.need && !*f.need) return;
+  const int total = (int)f.ws[WS_TOTAL], nt = (int)f.ws[WS_NTILES];
+  const int nold = f.sk ? (int)f.ws[WS_LIVE] : f.c_out;
+  const int ndold = f.dk ? (int)f.ws[WS_DLIVE] : 0;
+  const int nnew = min(total, f.c_out), w = f.w;
+  const int span = max(max(nnew, nold), max(nt, ndold));
+  for (int j = blockIdx.x * blockDim.x + threadIdx.x; j < span;
+       j += gridDim.x * blockDim.x) {
+    if (j < nnew) {
+      if (f.sk) {
+        copy_row(f.ok + (int64_t)j * w, f.sk + (int64_t)j * w, w);
+        f.ov[j] = f.sv[j];
+      }
+    } else if (j < nold) {
+      for (int q = 0; q < w; ++q) f.ok[(int64_t)j * w + q] = I32MAX;
+      f.ov[j] = NEG_VERSION;
+    }
+    if (j < ndold) {
+      if (j > 0)
+        for (int q = 0; q < w; ++q) f.dk[(int64_t)j * w + q] = I32MAX;
+      f.dv[j] = NEG_VERSION;
+    }
+    if (j < nt) f.ws[WS_WORDS + j] = 0;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    *f.n_used = nnew;
+    const bool prior = (f.prior_a && *f.prior_a) || (f.prior_b && *f.prior_b);
+    *f.overflow = prior || total > f.c_out;
+    if (f.oldest) *f.oldest = *f.floor_p;
+    if (f.dk) {
+      *f.d_nused = 1;
+      *f.d_oldest = *f.floor_p;
+    }
+    f.ws[WS_TICKET] = 0;
+  }
+}
+
+// ---------------------------------------------------------------- entries
+
+// Per device: the SM count, and the tile kernels allowed SMEM_DYN bytes.
 static cudaError_t device_setup(int* sms) {
   static int count[64];
   int dev = 0;
@@ -697,12 +719,37 @@ static cudaError_t device_setup(int* sms) {
     return cudaSuccess;
   }
   e = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(k_sorted_tiles,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             SMEM_DYN);
+  const void* fns[] = {(const void*)k_sorted_tiles,
+                       (const void*)k_fold_tiles<M_FOLD>,
+                       (const void*)k_fold_tiles<M_COMPACT>};
+  for (const void* fn : fns)
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_DYN);
   if (e == cudaSuccess && dev < 64) count[dev] = *sms;
   return e;
+}
+
+static inline size_t sorted_smem(int w) { return (size_t)PT * (w + 2) * 4 + 8 * w; }
+static inline size_t fold_smem(int w) { return (size_t)PT * (w + 3) * 4 + 8 * w; }
+
+// The sorted paint's two launches (the tiles and the finish).
+static int sorted_paint(int* keys, int* vers, int c, int w, int* n_used,
+                        bool* overflow, int* oldest, const int* snew,
+                        const int* sdelta, const int* scross, int n2, int cv,
+                        const int* floor_p, int* scratch, u64* ws, int sms,
+                        cudaStream_t s) {
+  SortedPaint a = {keys, vers, c, w, n_used, snew, sdelta, scross, n2, cv,
+                   floor_p, blocks((int64_t)c + n2, PT), scratch,
+                   scratch + (int64_t)c * w, ws};
+  int grid = a.ntiles < 4 * sms ? a.ntiles : 4 * sms;
+  k_sorted_tiles<<<grid, PT, sorted_smem(w), s>>>(a);
+  int fgrid = blocks(c, 256) < 4 * sms ? blocks(c, 256) : 4 * sms;
+  k_sorted_finish<<<fgrid, 256, 0, s>>>(keys, vers, c, w, n_used, overflow,
+                                        oldest, floor_p, scratch,
+                                        scratch + (int64_t)c * w, ws,
+                                        a.ntiles);
+  return (int)cudaGetLastError();
 }
 
 // _paint_tail at width w from sorted new rows (snew [n2, w], sdelta,
@@ -716,21 +763,138 @@ extern "C" int wc_paint_sorted(int* keys, int* vers, int c, int w,
                                const int* scross, int n2, int cv,
                                const int* floor_p, int* scratch, u64* ws,
                                cudaStream_t s) {
-  if ((int64_t)PT * (w + 2) * 4 + 8 * w > SMEM_DYN || c < 1)
+  if (sorted_smem(w) > SMEM_DYN || c < 1) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t e = device_setup(&sms);
+  if (e != cudaSuccess) return (int)e;
+  return sorted_paint(keys, vers, c, w, n_used, overflow, oldest, snew,
+                      sdelta, scross, n2, cv, floor_p, scratch, ws, sms, s);
+}
+
+// The packed paint of the accepted writes into the history (keys [c, w] /
+// vers [c], in place): dict [n1, w] is the batch dictionary, rs [n1] its
+// cross ranks into keys (K12's right search), wb/we/wmask [B, Q] the write
+// ranks, src [2BQ] the host's paint order. Scratch: c (w + 1) + 2BQ (w +
+// 2) ints; ws as wc_paint_sorted's. Three CUDA kernels (the gather, the
+// tiles, the finish; two with no writes), counted into *launched.
+extern "C" int wc_paint(int* keys, int* vers, int c, int w, int* n_used,
+                        bool* overflow, int* oldest, const int* dict,
+                        const int* rs, const int* wb, const int* we,
+                        const bool* wmask, const bool* accepted,
+                        const int* src, int B, int Q, int cv,
+                        const int* floor_p, int* scratch, u64* ws,
+                        int* launched, cudaStream_t s) {
+  *launched = 0;
+  if (sorted_smem(w) > SMEM_DYN || c < 1) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t e = device_setup(&sms);
+  if (e != cudaSuccess) return (int)e;
+  const int n2 = 2 * B * Q;
+  int* nk = scratch + (int64_t)c * (w + 1);
+  int* nd = nk + (int64_t)n2 * w;
+  int* nx = nd + n2;
+  int count = 0;
+  if (n2 > 0) {
+    k_packed_rows<<<blocks(n2, 256), 256, 0, s>>>(dict, rs, w, wb, we, wmask,
+                                                  accepted, src, B, Q, nk, nd,
+                                                  nx);
+    ++count;
+  }
+  const int rc = sorted_paint(keys, vers, c, w, n_used, overflow, oldest, nk,
+                              nd, nx, n2, cv, floor_p, scratch, ws, sms, s);
+  *launched = count + 2;
+  return rc;
+}
+
+// The fold's tiles and finish (two launches), gated on need when given.
+static int fold(int* bk, int* bv, int c, int w, int* b_nused, bool* b_over,
+                int* b_oldest, int* dk, int* dv, int cd, const bool* d_over,
+                int* d_nused, int* d_oldest, int reset, const int* floor_p,
+                const bool* need, int* scratch, u64* ws, int sms,
+                cudaStream_t s) {
+  FoldTiles a = {bk, bv, c, b_nused, dk, dv, cd, d_nused, w, floor_p, c,
+                 blocks((int64_t)c + cd, PT), scratch,
+                 scratch + (int64_t)c * w, ws, need};
+  FoldFinish f = {scratch, scratch + (int64_t)c * w, bk, bv, c, w,
+                  b_nused, b_over, b_over, d_over, b_oldest, floor_p,
+                  reset ? dk : nullptr, dv, d_nused, d_oldest, ws, a.ntiles,
+                  need};
+  const int grid = a.ntiles < 4 * sms ? a.ntiles : 4 * sms;
+  k_fold_tiles<M_FOLD><<<grid, PT, fold_smem(w), s>>>(a);
+  const int fgrid = blocks(c, 256) < 4 * sms ? blocks(c, 256) : 4 * sms;
+  k_fold_finish<<<fgrid, 256, 0, s>>>(f);
+  return (int)cudaGetLastError();
+}
+
+// Fold the delta (dk [cd, w] / dv) into the base (bk [c, w] / bv, in
+// place) over the live rows of both; with reset, the delta is reset to its
+// min-key row at the floor. Gated on need when given (null: always).
+// Scratch: c (w + 1) ints; ws the zeroed look-back state of 8 + ceil((c +
+// cd) / 256) words, left zeroed. Two CUDA kernels, counted into *launched.
+extern "C" int wc_fold(int* bk, int* bv, int c, int w, int* b_nused,
+                       bool* b_over, int* b_oldest, int* dk, int* dv, int cd,
+                       const bool* d_over, int* d_nused, int* d_oldest,
+                       int reset, const int* floor_p, const bool* need,
+                       int* scratch, u64* ws, int* launched, cudaStream_t s) {
+  *launched = 0;
+  if (fold_smem(w) > SMEM_DYN || c < 1 || cd < 1)
     return (int)cudaErrorInvalidValue;
   int sms = 0;
   cudaError_t e = device_setup(&sms);
   if (e != cudaSuccess) return (int)e;
-  SortedPaint a = {keys, vers, c, w, n_used, snew, sdelta, scross, n2, cv,
-                   floor_p, blocks((int64_t)c + n2, PT), scratch,
-                   scratch + (int64_t)c * w, ws};
-  size_t smem = (size_t)PT * (w + 2) * 4 + 8 * w;
-  int grid = a.ntiles < 4 * sms ? a.ntiles : 4 * sms;
-  k_sorted_tiles<<<grid, PT, smem, s>>>(a);
-  int fgrid = blocks(c, 256) < 4 * sms ? blocks(c, 256) : 4 * sms;
-  k_sorted_finish<<<fgrid, 256, 0, s>>>(keys, vers, c, w, n_used, overflow,
-                                        oldest, floor_p, scratch,
-                                        scratch + (int64_t)c * w, ws,
-                                        a.ntiles);
+  const int rc = fold(bk, bv, c, w, b_nused, b_over, b_oldest, dk, dv, cd,
+                      d_over, d_nused, d_oldest, reset, floor_p, need,
+                      scratch, ws, sms, s);
+  *launched = 2;
+  return rc;
+}
+
+// The gated step: K4's decision writes need (the 0-dim bool), then the
+// fold with the delta reset runs gated on it. Three CUDA kernels, counted
+// into *launched.
+extern "C" int wc_fold_step(int* bk, int* bv, int c, int w, int* b_nused,
+                            bool* b_over, int* b_oldest, int* dk, int* dv,
+                            int cd, const bool* d_over, int* d_nused,
+                            int* d_oldest, const int* floor_p, int demand,
+                            bool* need, int* scratch, u64* ws, int* launched,
+                            cudaStream_t s) {
+  *launched = 0;
+  if (fold_smem(w) > SMEM_DYN || c < 1 || cd < 1)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t e = device_setup(&sms);
+  if (e != cudaSuccess) return (int)e;
+  fn_launch_need(bv, c, floor_p, d_nused, demand, cd, need, ws, s);
+  const int rc = fold(bk, bv, c, w, b_nused, b_over, b_oldest, dk, dv, cd,
+                      d_over, d_nused, d_oldest, 1, floor_p, need, scratch,
+                      ws, sms, s);
+  *launched = 3;
+  return rc;
+}
+
+// Dedup + compaction of sorted [n, w] rows mk / versions mv alone (out of
+// place, into ok [c_out, w] / ov): the tiles' A-only mode and the finish.
+// Two CUDA kernels, counted into *launched.
+extern "C" int wc_compact(const int* mk, const int* mv, int n, int w,
+                          int c_out, const bool* prior, int* ok, int* ov,
+                          int* n_used, bool* overflow, u64* ws, int* launched,
+                          cudaStream_t s) {
+  *launched = 0;
+  if (fold_smem(w) > SMEM_DYN || n < 1 || c_out < 1)
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  cudaError_t e = device_setup(&sms);
+  if (e != cudaSuccess) return (int)e;
+  FoldTiles a = {mk, mv, n, nullptr, nullptr, nullptr, 0, nullptr, w,
+                 nullptr, c_out, blocks(n, PT), ok, ov, ws, nullptr};
+  FoldFinish f = {nullptr, nullptr, ok, ov, c_out, w, n_used, overflow,
+                  prior, nullptr, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, nullptr, ws, a.ntiles, nullptr};
+  const int grid = a.ntiles < 4 * sms ? a.ntiles : 4 * sms;
+  k_fold_tiles<M_COMPACT><<<grid, PT, fold_smem(w), s>>>(a);
+  const int fgrid = blocks(c_out, 256) < 4 * sms ? blocks(c_out, 256)
+                                                 : 4 * sms;
+  k_fold_finish<<<fgrid, 256, 0, s>>>(f);
+  *launched = 2;
   return (int)cudaGetLastError();
 }

@@ -6,8 +6,9 @@
 //   of the two-level history (or one flat state);
 //   _history_conflict_ranges_hist_packed (:1597) and the flat
 //   _history_conflict_ranges_packed (:1458) with too_old_mask_packed
-//   (:1425): read slots gather their bounds by rank, range max over the
-//   versions from K2's sparse tables.
+//   (:1425): read slots gather their bounds by rank, the range max over the
+//   base from its K2 table and over the per-batch level from a table built
+//   here over its live rows.
 //
 // Bound on the H100: dependent-load latency, not bytes. Every search walks
 // a chain of loads whose next address depends on the last compare; the
@@ -62,13 +63,28 @@
 // key byte order). The JAX search narrows one word column at a time, a
 // cascade built for the TPU's vector gathers; the answers are the same.
 //
-// The probe is one thread per transaction, as K2's: for each live read
-// slot it gathers lo = max(rs[begin] - 1, 0) and hi = ls[end] for the base
-// and the delta and takes the two O(1) range maxima from K2's tables, then
-// folds too-old and the per-transaction OR into the acceptance candidates.
+// The probe (wp_probe, the sparse arm's; K17's rb_probe is the blocked
+// arm's): the packed engines' history probe by rank, over a two-level
+// history (the base with its prebuilt K2 table, and the delta) or a flat
+// one (the level alone: the flat history, the speculation scratch). The
+// per-batch level gets a range-max table over its live rows only, in one
+// launch, with its n_used read on the device: live_probe.cuh's lp_build at
+// one history (windowed-max levels 1..8 over the live rows and a sparse
+// table over the 256-row block maxima, built by the column's last block),
+// in place of K2's ~21 levels over every row of the level, every batch (a
+// flat history's 2^20). Its query is at most four independent loads, and
+// the table keeps the sparse arm the sparse-table design beside K17's
+// blocked arm. Then live_probe.cuh's level probe (the kernel K17's
+// rb_probe runs, with this table as its range max): a transaction's R
+// slots on adjacent lanes, each slot's bounds gathered by rank from the
+// search, the end clamped to the live count, the base's range max from
+// its K2 table; the OR and the too-old test by shuffles over the lanes.
+// Two CUDA kernels a call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "live_probe.cuh"
 
 #define NEG_VERSION (-2147483647)
 #define I32MAX 2147483647
@@ -352,52 +368,6 @@ k_search(const int* keys0, int c0, const int* live0, const int* keys1,
   }
 }
 
-__device__ __forceinline__ int range_max(const int* st, int n, int lo, int hi) {
-  int len = hi - lo;
-  if (len <= 0) return NEG_VERSION;
-  int lvl = 31 - __clz(len);
-  int b = hi - (1 << lvl);
-  if (b < 0) b = 0;
-  int x = st[(int64_t)lvl * n + lo];
-  int y = st[(int64_t)lvl * n + b];
-  return x > y ? x : y;
-}
-
-__global__ void k_probe(const int* st0, int c0, const int* ls0,
-                        const int* rs0, const int* st1, int c1,
-                        const int* ls1, const int* rs1, const int* rb,
-                        const int* re, const bool* rmask, const int* rv,
-                        const bool* tmask, const int* floor_p, int B, int R,
-                        bool* hist_mask, bool* too_old, bool* cand) {
-  int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  int v = rv[b];
-  bool has_reads = false, any_hist = false;
-  for (int r = 0; r < R; ++r) {
-    int s = b * R + r;
-    int qb = rb[s], qe = re[s];
-    bool live = rmask[s] && qb < qe;
-    bool h = false;
-    if (live) {
-      has_reads = true;
-      int lo = rs0[qb] - 1;
-      int newest = range_max(st0, c0, lo < 0 ? 0 : lo, ls0[qe]);
-      if (st1) {
-        int lod = rs1[qb] - 1;
-        int nd = range_max(st1, c1, lod < 0 ? 0 : lod, ls1[qe]);
-        newest = newest > nd ? newest : nd;
-      }
-      h = newest > v;
-    }
-    hist_mask[s] = h;
-    any_hist |= h;
-  }
-  bool t = tmask[b];
-  bool to = t && has_reads && v < *floor_p;
-  too_old[b] = to;
-  cand[b] = t && !to && !any_hist;
-}
-
 static inline int blocks(int64_t n, int t) { return (int)((n + t - 1) / t); }
 
 // (ls, rs) of every dictionary row in keys0 and, when keys1 is given, in
@@ -427,18 +397,38 @@ extern "C" int wp_search(const int* keys0, int c0, const int* live0,
   return (int)cudaGetLastError();
 }
 
-// st1/ls1/rs1 may be null (a flat history).
-extern "C" int wp_probe(const int* st0, int c0, const int* ls0,
-                        const int* rs0, const int* st1, int c1,
-                        const int* ls1, const int* rs1, const int* rb,
-                        const int* re, const bool* rmask, const int* rv,
-                        const bool* tmask, const int* floor_p, int B, int R,
-                        bool* hist_mask, bool* too_old, bool* cand,
-                        cudaStream_t s) {
-  const int T = 128;
-  if (B > 0)
-    k_probe<<<blocks(B, T), T, 0, s>>>(st0, c0, ls0, rs0, st1, c1, ls1, rs1,
-                                       rb, re, rmask, rv, tmask, floor_p, B,
-                                       R, hist_mask, too_old, cand);
-  return (int)cudaGetLastError();
+// The probe of one level of n rows (vals, n_used its 0-dim live count)
+// by the bounds rs_d/ls_d, and of a base when bst (its K2 table [lb, cb])
+// is given, by rs_b/ls_b: the bounds indexed by the slot, or through
+// idx_b/idx_e (the slots' dictionary ranks [B, R]) when given. A slot is
+// live when its mask is set and rows_b < rows_e ([B, R, w] rows, ranks at
+// w = 1). lv: the live table's scratch (kernels.live_table_words(1, n)
+// words), tickets: one zeroed word (left zeroed). Two CUDA kernels (the
+// level's live table, the probe), counted into *launched.
+extern "C" int wp_probe(const int* bst, int cb, int lb, const int* rs_b,
+                        const int* ls_b, const int* vals, int n,
+                        const int* n_used, const int* rs_d, const int* ls_d,
+                        const int* idx_b, const int* idx_e,
+                        const int* rows_b, const int* rows_e, int w,
+                        const bool* rmask, const int* rv, const bool* tmask,
+                        const int* floor_p, int B, int R, int* lv,
+                        int* tickets, bool* hist_mask, bool* too_old,
+                        bool* cand, int* launched, cudaStream_t s) {
+  *launched = 0;
+  if (B <= 0) return (int)cudaGetLastError();
+  if (n <= 0 || R <= 0) return (int)cudaErrorInvalidValue;
+  int* top = lv + (int64_t)LP_LV * n;
+  int gx = (n + LP_OWN - 1) / LP_OWN;
+  if (gx > LP_BUILD_GRID) gx = LP_BUILD_GRID;
+  lp_build<<<dim3(gx, 1), LP_BUILD_THREADS, 0, s>>>(vals, n_used, 1, n, lv,
+                                                    top, tickets);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  LpLevelArgs g{bst, cb, lb, rs_b, ls_b, n_used, n, rs_d, ls_d, idx_b,
+                idx_e, rows_b, rows_e, w, rmask, rv, tmask, floor_p, B, R, 1,
+                hist_mask, too_old, cand};
+  const int rc = lp_level_probe_launch(
+      g, LpTableMax{vals, lv, top, nullptr, 1, n}, s);
+  *launched = 2;
+  return rc;
 }

@@ -971,19 +971,14 @@ def _fold_launch(base: ConflictState, delta: ConflictState, floor,
                  demand: int | None):
     """The fold and the delta reset on the card; with ``demand`` gated on
     the device's decision (returned: a 0-dim bool), else forced. K4 for
-    the rank-space (width-1) history: the decision, the fold and the reset
-    from one call; K13 for a non-resident engine's [C, W] word keys, with
-    K4's decision and reset launches around it."""
+    the rank-space (width-1) history, K13 for a non-resident engine's
+    [C, W] word keys: the decision, the fold's tiles and its finish (which
+    resets the delta) from one call, both over the live rows."""
     need = None
     if demand is not None:
         need = torch.empty((), dtype=torch.bool, device=base.keys.device)
-    if base.keys.shape[1] == 1:
-        K.fold(base, delta, floor, need, reset_delta=True, demand=demand)
-        return need
-    if demand is not None:
-        need = K.fold_need(base.versions, delta, floor, demand)
-    K.word_fold(base, delta, floor, need)
-    K.reset_delta(delta, floor, need)
+    fold = K.fold if base.keys.shape[1] == 1 else K.word_fold
+    fold(base, delta, floor, need, reset_delta=True, demand=demand)
     return need
 
 
@@ -993,9 +988,9 @@ def _maybe_merge(hist: HistState, demand: int, floor) -> HistState:
 
     On the card the decision stays on the device: K4's decision kernel
     writes ``need`` (``fold_need_plain``'s value), a 0-dim bool that the
-    fold, reset and table launches read, exiting at once when it is
-    False. No host sync; five launches a step when nothing folds (K4,
-    width 1).
+    fold's and the table's launches read, exiting at once when it is
+    False. No host sync; five launches a step when nothing folds (the
+    decision, K4's or K13's two fold launches, K2's two table launches).
     ``demand`` is the host-known count 2·(live write ranges)."""
     base, base_st, delta = hist
     if not _on_card(base.keys):
@@ -1149,7 +1144,8 @@ def _k4_value(mode: str, from_a: bool, i: int, ai: int, bi: int, a_val,
 
 
 def k4_tiles_plain(a, a_val, b, b_val, mode: str, c_out: int, prior: bool,
-                   cv: int = 0, floor: int = 0, tile: int = K4_TILE):
+                   cv: int = 0, floor: int = 0, tile: int = K4_TILE,
+                   inf=INT32_MAX):
     """K4's tile algorithm over the stable merge of the sorted width-1 rows
     ``a`` and ``b`` (Python lists): (keys, versions, n_used, overflow) of
     the dedup + compaction to ``c_out`` rows, as ``_dedup_compact_plain``
@@ -1164,7 +1160,9 @@ def k4_tiles_plain(a, a_val, b, b_val, mode: str, c_out: int, prior: bool,
     before the tile's first run (the previous dedup survivor) is computed
     from the inputs at that run's start, found by two lower-bound
     searches, with the coverage there the tile's coverage minus the
-    deltas of the run's rows before the tile."""
+    deltas of the run's rows before the tile. Rows of W words are tuples,
+    with ``inf`` the +inf row (K13's fold and compaction at width W, over
+    the live rows and at its tile of 256 rows)."""
     from bisect import bisect_left
 
     na, nb = len(a), len(b)
@@ -1175,7 +1173,7 @@ def k4_tiles_plain(a, a_val, b, b_val, mode: str, c_out: int, prior: bool,
     def newv(dc, v, key, cov):
         if mode == "paint" and cov > 0:
             v = cv
-        return NEG_VERSION if gc and (v <= floor or key == INT32_MAX) else v
+        return NEG_VERSION if gc and (v <= floor or key == inf) else v
 
     out_k, out_v = [], []
     cov_before = cnt_before = 0
@@ -1213,8 +1211,8 @@ def k4_tiles_plain(a, a_val, b, b_val, mode: str, c_out: int, prior: bool,
             nk = keys[r + 1] if r + 1 < len(keys) else min(nxt, default=None)
             keep1 = g == n - 1 or key != nk
             prev = prev_first if start < 0 else vals[start - 1]
-            forced = (keep1 and key == k0) if k0 != INT32_MAX else g == n - 1
-            if forced or (keep1 and vals[r] != prev and key != INT32_MAX):
+            forced = (keep1 and key == k0) if k0 != inf else g == n - 1
+            if forced or (keep1 and vals[r] != prev and key != inf):
                 local.append(r)
         for r in local:
             if cnt_before < c_out:
@@ -1224,17 +1222,20 @@ def k4_tiles_plain(a, a_val, b, b_val, mode: str, c_out: int, prior: bool,
         cov_before = cov
     total = cnt_before
     pad = c_out - len(out_k)
-    return (out_k + [INT32_MAX] * pad, out_v + [NEG_VERSION] * pad,
+    return (out_k + [inf] * pad, out_v + [NEG_VERSION] * pad,
             min(total, c_out), bool(prior) or total > c_out)
 
 
 def _k4_state(out, device, oldest) -> ConflictState:
+    """A ConflictState from ``k4_tiles_plain``'s output: rows of ints
+    (width 1) or of W-word tuples."""
     keys, vers, n_used, overflow = out
+    keys = torch.tensor(keys, dtype=torch.int32, device=device)
     return ConflictState(
-        keys=torch.tensor(keys, dtype=torch.int32, device=device)[:, None],
+        keys=keys[:, None] if keys.dim() == 1 else keys,
         versions=torch.tensor(vers, dtype=torch.int32, device=device),
         n_used=_i32(n_used, device),
-        oldest=oldest.to(device=device, dtype=torch.int32).clone(),
+        oldest=_i32(oldest, device).clone(),
         overflow=torch.tensor(overflow, device=device))
 
 
@@ -2336,36 +2337,66 @@ def packed_probe(rbk: RankBatch, floor, search: DictSearch, base_st,
     """(too_old [B], hist_mask [B, R], cand [B]) with ``floor`` the 0-dim
     too-old floor; the levels as ``_history_conflict_ranges_hist_packed``
     takes them, ``n_used`` the 0-dim live count of the per-batch level
-    (None with ``delta_versions``). On the card, sparse: K2's table over
-    the per-batch level (the delta, or the flat history), then K12's probe
-    launch. Blocked: K17's build over that level's live rows and K17's
-    probe, which gathers the slots' bounds by rank from K12's search and
-    takes the base's range max from its prebuilt sparse table."""
+    (None with ``delta_versions``). On the card the per-batch level (the
+    delta, or the flat history, given by its versions with ``base_st``
+    None) gets a range-max structure over its live rows only, and one
+    probe launch gathers the slots' bounds by rank from K12's search,
+    takes the base's range max from its prebuilt sparse table and writes
+    the three outputs. Sparse: K12's probe (the live table, then
+    live_probe.cuh's level probe). Blocked: K17's build and probe."""
     if _card(rbk.read_begin, plain):
+        if delta_versions is None:
+            raise ValueError("the card's probe needs the per-batch level's "
+                             "versions (a flat history: base_st None)")
         tail = (rbk.read_mask, rbk.read_version, rbk.txn_mask, floor)
         flat = base_st is None
-        if rmq == "blocked" and delta_versions is not None:
-            ls, rs = ((search.ls_b, search.rs_b) if flat
-                      else (search.ls_d, search.rs_d))
+        ls, rs = ((search.ls_b, search.rs_b) if flat
+                  else (search.ls_d, search.rs_d))
+        kw = dict(base_st=base_st, rs_b=None if flat else search.rs_b,
+                  ls_b=None if flat else search.ls_b, idx_b=rbk.read_begin,
+                  idx_e=rbk.read_end, n_used=n_used)
+        if rmq == "blocked":
             return K.blocked_probe(
                 delta_versions, K.blocked_build(delta_versions, n_used), rs,
-                ls, rbk.read_begin, rbk.read_end, *tail,
-                base_st=base_st, rs_b=None if flat else search.rs_b,
-                ls_b=None if flat else search.ls_b,
-                idx_b=rbk.read_begin, idx_e=rbk.read_end, n_used=n_used)
-        st = None if delta_versions is None else K.build_table(delta_versions)
-        if flat:
-            base_st, st = st, None
-        return K.word_probe(base_st, search.ls_b, search.rs_b, st,
-                            search.ls_d if st is not None else None,
-                            search.rs_d if st is not None else None,
-                            rbk.read_begin, rbk.read_end, *tail)
+                ls, rbk.read_begin, rbk.read_end, *tail, **kw)
+        return K.word_probe(delta_versions, rs, ls, rbk.read_begin,
+                            rbk.read_end, *tail, **kw)
     has_reads = (rbk.read_mask & (rbk.read_begin < rbk.read_end)).any(1)
     too_old = rbk.txn_mask & has_reads & (rbk.read_version < floor)
     hist_mask = _history_conflict_ranges_hist_packed(base_st, delta_versions,
                                                      rbk, search, rmq)
     cand = rbk.txn_mask & ~too_old & ~hist_mask.any(1)
     return too_old, hist_mask, cand
+
+
+def level_probe_live_plain(rbk: RankBatch, floor, search: DictSearch,
+                           base_st, values, n_used,
+                           levels: int = K.LIVE_LEVELS):
+    """Plain twin of K12's probe (``kernels.word_probe``), step for step:
+    each live read slot's bounds by rank from the search (the delta's
+    pair, or a flat level's ``_b`` pair when ``base_st`` is None), the end
+    clamped to the level's live count ``n_used``, the level's range max
+    from :func:`live_table_plain`'s table over ``values[:n_used]``, the
+    base's from its sparse table ``base_st``. (too_old, hist_mask, cand)
+    as :func:`packed_probe` gives them."""
+    b, r = rbk.read_begin.shape
+    rbf = rbk.read_begin.reshape(-1).long()
+    ref = rbk.read_end.reshape(-1).long()
+    flat = base_st is None
+    ls, rs = ((search.ls_b, search.rs_b) if flat
+              else (search.ls_d, search.rs_d))
+    n = min(max(int(n_used), 0), values.shape[0])
+    table, top = live_table_plain(values[:n], levels)
+    newest = live_range_max_plain(table, top, (rs[rbf] - 1).clamp(min=0),
+                                  ls[ref].clamp(max=n), levels)
+    if not flat:
+        newest = torch.maximum(newest, range_max(
+            base_st, (search.rs_b[rbf] - 1).clamp(min=0), search.ls_b[ref],
+            NEG_VERSION))
+    live = rbk.read_mask & (rbk.read_begin < rbk.read_end)
+    hist_mask = live & (newest.reshape(b, r) > rbk.read_version[:, None])
+    too_old = rbk.txn_mask & live.any(1) & (rbk.read_version < floor)
+    return too_old, hist_mask, rbk.txn_mask & ~too_old & ~hist_mask.any(1)
 
 
 def _paint_and_compact_packed_plain(state: ConflictState, dict_keys,
@@ -2396,8 +2427,10 @@ def _paint_and_compact_packed(state: ConflictState, dict_keys,
     dictionary into ``state``, searched here when None); the commit
     version is painted where coverage is positive, GC to the floor,
     compaction. A rejected write merges as a no-op endpoint, which leaves
-    the state the JAX paint leaves by parking it on the +inf row. In place
-    on the card."""
+    the state the JAX paint leaves by parking it on the +inf row wherever
+    the state's first row is at or below every endpoint (an engine's
+    history keeps its minimum-key row). In place on the card: K13's packed
+    paint over the state's live rows (three launches)."""
     if rs is None:
         rs = dict_history_search(state.keys, dict_keys, plain=plain,
                                  live_b=state.n_used).rs_b
@@ -3446,6 +3479,86 @@ def paint_sorted_tiles_plain(state: ConflictState, snew, sdelta, scross,
     return ConflictState(keys=keys_out, versions=vers_out, n_used=_i32(m, dev),
                          oldest=_i32(new_oldest, dev).clone(),
                          overflow=state.overflow | (total > c))
+
+
+def _live_rows_plain(st: ConflictState):
+    """(rows as tuples, versions) of a level's live rows [0, n_used), at
+    least one: what K13's fold reads."""
+    n = min(max(int(st.n_used), 1), st.keys.shape[0])
+    return [tuple(r) for r in st.keys[:n].tolist()], st.versions[:n].tolist()
+
+
+def word_fold_tiles_plain(base: ConflictState, delta: ConflictState, floor,
+                          tile: int = K13_TILE) -> ConflictState:
+    """K13's fold by its tile algorithm (K4's at width W, ``k4_tiles_plain``
+    in its fold mode) over the live rows of base and delta only, tiles of
+    ``tile`` merged rows: ``_merge_delta_plain``'s base wherever every row
+    past each ``n_used`` holds (+inf, NEG_VERSION)."""
+    c, w = base.keys.shape
+    a, av = _live_rows_plain(base)
+    b, bv = _live_rows_plain(delta)
+    out = k4_tiles_plain(a, av, b, bv, "fold", c,
+                         bool(base.overflow | delta.overflow),
+                         floor=int(floor), tile=tile, inf=(INT32_MAX,) * w)
+    return _k4_state(out, base.keys.device, floor)
+
+
+def word_fold_step_tiles_plain(hist: HistState, demand: int | None, floor,
+                               tile: int = K13_TILE) -> HistState:
+    """K13's gated fold step by its algorithm (``_maybe_merge_plain``'s
+    result; with ``demand`` None the forced fold of ``advance_hist``): K4's
+    decision (:func:`fold_need_plain`), then, when it holds, the tiles'
+    fold (:func:`word_fold_tiles_plain`), the base's sparse table and the
+    delta reset to its min-key row at ``floor``."""
+    base, base_st, delta = hist
+    if demand is not None and not bool(fold_need_plain(hist, demand, floor)):
+        return hist
+    nb = word_fold_tiles_plain(base, delta, floor, tile)
+    return HistState(nb, sparse_table(nb.versions), _reset_delta(delta, floor))
+
+
+def word_compact_tiles_plain(skeys, newv, c_out: int, prior_overflow,
+                             tile: int = K13_TILE):
+    """K13's compaction by its tile algorithm: ``_dedup_compact_plain``'s
+    result for [n, W] rows."""
+    w = skeys.shape[1]
+    out = k4_tiles_plain([tuple(r) for r in skeys.tolist()], newv.tolist(),
+                         [], [], "compact", c_out, bool(prior_overflow),
+                         tile=tile, inf=(INT32_MAX,) * w)
+    st = _k4_state(out, skeys.device, 0)
+    return st.keys, st.versions, st.n_used, st.overflow
+
+
+def packed_paint_rows_plain(dict_keys, rbk: RankBatch, accepted, rs):
+    """(snew [2BQ, W], sdelta, scross): the packed paint's new rows in the
+    host's ``paint_src`` order, as K13's gather writes them: row k the
+    dictionary row of its endpoint's rank, coverage delta +1 / -1 (0 for
+    a rejected or empty write, which stays at its own key), cross rank
+    ``rs[rank]``. Sorted, since ``paint_src`` sorts the ranks."""
+    b, q = rbk.write_begin.shape
+    e2 = b * q
+    src = rbk.paint_src.long()
+    begin = src < e2
+    slot = torch.where(begin, src, src - e2)
+    wb = rbk.write_begin.reshape(-1)[slot]
+    we = rbk.write_end.reshape(-1)[slot]
+    valid = accepted[slot // q] & rbk.write_mask.reshape(-1)[slot] & (wb < we)
+    rank = torch.where(begin, wb, we).long()
+    sign = torch.where(begin, 1, -1)
+    delta = torch.where(valid, sign, 0).to(torch.int32)
+    return dict_keys[rank], delta, rs[rank]
+
+
+def packed_paint_tiles_plain(state: ConflictState, dict_keys, rbk: RankBatch,
+                             accepted, commit_version: int, new_oldest, rs,
+                             tile: int = K13_TILE) -> ConflictState:
+    """K13's packed paint by its algorithm: the gather of the new rows
+    (:func:`packed_paint_rows_plain`), then the sorted paint's tiles over
+    the state's live rows (:func:`paint_sorted_tiles_plain`)."""
+    snew, sdelta, scross = packed_paint_rows_plain(dict_keys, rbk, accepted,
+                                                   rs)
+    return paint_sorted_tiles_plain(state, snew, sdelta, scross,
+                                    commit_version, new_oldest, tile)
 
 
 def _accept_or_schedule(cand, too_old, txn_mask, ranks, wave: bool,

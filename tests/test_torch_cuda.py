@@ -1059,12 +1059,15 @@ def test_word_search_and_probe(card, w, b, c):
         assert torch.equal(g, x)
     floor = torch.tensor(5, dtype=torch.int32, device=card)
     st = ck.build_table(base.versions)
-    for dv in (delta.versions, None):
-        s = got if dv is not None else ck.dict_history_search(base.keys,
-                                                              pb.dict_keys)
-        nu = None if dv is None else delta.n_used
-        for g, x in zip(ck.packed_probe(pb.ranks, floor, s, st, dv, nu),
-                        ck.packed_probe(pb.ranks, floor, s, st, dv, nu,
+    flat = ck.dict_history_search(base.keys, pb.dict_keys)
+    # Two levels (the base's table, the delta's live rows), then the base
+    # as one flat level (its versions and live rows; the card builds the
+    # level's table itself).
+    for s, bst, lvl in ((got, st, delta), (flat, None, base)):
+        for g, x in zip(ck.packed_probe(pb.ranks, floor, s, bst,
+                                        lvl.versions, lvl.n_used),
+                        ck.packed_probe(pb.ranks, floor, s, bst,
+                                        lvl.versions, lvl.n_used,
                                         plain=True)):
             assert torch.equal(g, x)
 
@@ -2558,3 +2561,348 @@ def test_blocked_live_shard_probe(card, b, s, state):
     want = ck.word_shard_probe_plain(hist, bt, lo, hi, floor, "blocked")
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# --- K13's packed paint and width-W fold over the live rows, K12's probe
+# over a live table: against their plain twins, with their launch counts
+
+
+def _cpu(tree):
+    if tree is None or isinstance(tree, torch.Tensor):
+        return None if tree is None else tree.cpu()
+    return type(tree)(*(_cpu(x) for x in tree))
+
+
+def _clone(st):
+    return ck.ConflictState(*(x.clone() for x in st))
+
+
+def packed_case(rng, st, b, q, kind, r=2):
+    """(PackedBatch on st's device, accepted [B]): a sorted dictionary of
+    history keys and new rows (+inf padded, the +inf row last), rank
+    ranges (empty ones among them), the host's paint order; ``hist``:
+    every write endpoint a history key, ``run``: every write on one pair
+    of ranks (a run of equal rows past a tile), ``rejected``: every write
+    rejected, ``full``: every write accepted, one rank wide, on keys not
+    in the history (a full history then overflows)."""
+    dev = st.keys.device
+    w = st.keys.shape[1]
+    live = int(st.n_used)
+    hist = st.keys[:live].cpu().numpy()
+    n = 2 * b * (r + q)
+    more = rng.integers(-2**31 + 1, 2**31 - 1, (n, w),
+                        dtype=np.int64).astype(np.int32)
+    if w > 1:
+        more[:, 0] = rng.integers(-3, 3, n)
+    rows = np.concatenate([hist[rng.integers(0, live, n // 2)], more])
+    if kind == "full":  # no history keys: each write adds boundaries
+        rows = more
+    rows = np.unique(rows[~(rows == ck.INT32_MAX).all(1)], axis=0)[:n]
+    if kind == "hist":
+        rows = np.unique(hist[~(hist == ck.INT32_MAX).all(1)], axis=0)[:n]
+    u = len(rows)
+    dict_keys = np.full((n + 1, w), ck.INT32_MAX, np.int32)
+    dict_keys[:u] = rows
+
+    def pairs(cols, lo=0, hi=4):
+        a = rng.integers(0, u, (b, cols))
+        z = np.minimum(a + rng.integers(lo, hi, (b, cols)), u)
+        return a.astype(np.int32), z.astype(np.int32)
+
+    rb, re_ = pairs(r)
+    wb, we = pairs(q, *((1, 2) if kind == "full" else (0, 4)))
+    if kind == "run":
+        wb[:], we[:] = u // 2, min(u // 2 + 1, u)
+    acc = rng.random(b) < {"rejected": 0.0, "full": 1.0}.get(kind, 0.7)
+    paint = np.concatenate([wb.reshape(-1), we.reshape(-1)])
+    ranks = ck.RankBatch(
+        on(rb, dev), on(re_, dev), on(rng.random((b, r)) < 0.9, dev),
+        on(wb, dev), on(we, dev), on(rng.random((b, q)) < 0.85, dev),
+        on(rng.integers(0, 70, b).astype(np.int32), dev),
+        on(rng.random(b) < 0.95, dev),
+        on(np.argsort(paint, kind="stable").astype(np.int32), dev))
+    return ck.PackedBatch(on(dict_keys, dev), ranks), on(acc, dev)
+
+
+def poison_tail(st, rng):
+    """A copy of ``st`` whose rows past n_used hold random keys and
+    versions newer than any: a kernel that reads only the live rows gives
+    the answer it gives on ``st``."""
+    k, v = st.keys.clone(), st.versions.clone()
+    n, (c, w) = int(st.n_used), st.keys.shape
+    k[n:] = on(rng.integers(-2**31, 2**31 - 1, (c - n, w), dtype=np.int64)
+               .astype(np.int32), st.keys.device)
+    v[n:] = 1 << 30
+    return ck.ConflictState(k, v, *(x.clone() for x in st[2:]))
+
+
+K13_PAINT_CASES = ["random", "n_used_1", "full", "rejected", "hist", "run",
+                   "expire_all", "q0"]
+
+
+@pytest.mark.parametrize("case", K13_PAINT_CASES)
+@pytest.mark.parametrize("w", [1, 4, 9])
+def test_k13_packed_paint_live_tiles(card, case, w):
+    """K13's packed paint (the new rows' gather, the sorted paint's tiles
+    over the live rows, the finish; twice, on copies) against its tile
+    twin and the plain paint: a history of one row, a full one whose
+    survivors overflow, every write rejected, endpoints on history keys, a
+    run of equal endpoints past a tile, a floor past every version, no
+    write slots; three CUDA kernels a call (two with no write slots),
+    counted at their launches."""
+    from foundationdb_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(K13_PAINT_CASES.index(case) * 10 + w)
+    c = 5000
+    live = {"n_used_1": 1, "full": c}.get(case, 2000)
+    st = live_word_state(rng, c, live, w, card)
+    b, q = (700, 0) if case == "q0" else (700, 2)
+    pb, acc = packed_case(rng, st, b, q, case)
+    fl = 100 if case == "expire_all" else 10
+    floor = torch.tensor(fl, dtype=torch.int32, device=card)
+    rs = K.word_search(st.keys, pb.dict_keys, live0=st.n_used)[1]
+    want = ck.packed_paint_tiles_plain(_cpu(st), pb.dict_keys.cpu(),
+                                       _cpu(pb.ranks), acc.cpu(), 77, fl,
+                                       rs.cpu())
+    if q:  # the plain paint (``_paint_tail``) needs a new row
+        plain = ck._paint_and_compact_packed(
+            _cpu(st), pb.dict_keys.cpu(), _cpu(pb.ranks), acc.cpu(), 77, fl,
+            rs.cpu(), plain=True)
+        for f, g, x in zip(want._fields, plain, want):
+            assert torch.equal(g, x), (case, f)
+    for run in range(2):
+        got = ck._paint_and_compact_packed(_clone(st), pb.dict_keys,
+                                           pb.ranks, acc, 77, floor, rs)
+        assert K.WORD_COMPACT_KERNELS["wc_paint"] == (3 if q else 2)
+        for f, g, x in zip(want._fields, got, want):
+            assert torch.equal(g.cpu(), x), (case, f, run)
+    if case == "full":
+        assert bool(want.overflow)
+
+
+K13_FOLD_CASES = ["random", "equal_keys", "n_used_1", "full", "expire_all",
+                  "all_inf"]
+
+
+def fold_case(rng, case, w, card, c=5000, cd=700):
+    live = {"n_used_1": 1, "full": c}.get(case, 2000)
+    base = live_word_state(rng, c, live, w, card)
+    if case == "all_inf":
+        base = ck.ConflictState(torch.full_like(base.keys, ck.INT32_MAX),
+                                torch.full_like(base.versions,
+                                                ck.NEG_VERSION),
+                                torch.ones_like(base.n_used), *base[3:])
+    nd = 1 if case == "n_used_1" else 300
+    delta = live_word_state(rng, cd, nd, w, card, vmax=90)
+    if case == "equal_keys":  # delta rows on base keys
+        k = delta.keys.clone()
+        pick = np.sort(rng.choice(np.arange(1, live), nd - 1, replace=False))
+        k[1:nd] = base.keys[on(pick, card)]
+        delta = ck.ConflictState(k, *delta[1:])
+    fl = {"expire_all": 100}.get(case, 20)
+    return base, delta, fl
+
+
+@pytest.mark.parametrize("case", K13_FOLD_CASES)
+@pytest.mark.parametrize("w", [2, 4, 9])
+def test_k13_word_fold_live_tiles(card, case, w):
+    """K13's width-W fold over the live rows of base and delta: the
+    forced fold with the reset (``advance_hist``'s) and the gated step
+    (``_maybe_merge``: the decision, the tiles, the finish, then K2's
+    gated table) with the fold needed and not needed, against the tile
+    twin and the plain fold; when not needed no array changes. Two CUDA
+    kernels a forced fold, three a gated step, counted at their
+    launches. (A width-1 history folds with K4.)"""
+    from foundationdb_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(K13_FOLD_CASES.index(case) * 10 + w)
+    base, delta, fl = fold_case(rng, case, w, card)
+    floor = torch.tensor(fl, dtype=torch.int32, device=card)
+    hist = ck.HistState(base, ck.build_table(base.versions), delta)
+    want = ck.word_fold_step_tiles_plain(_cpu(hist), None, floor.cpu())
+    plain_b = ck._merge_delta_plain(_cpu(base), _cpu(delta), floor.cpu())
+    for f, g, x in zip(plain_b._fields, plain_b, want.base):
+        assert torch.equal(g, x), (case, f)
+    for run in range(2):
+        b2, d2 = _clone(base), _clone(delta)
+        K.word_fold(b2, d2, floor, None, reset_delta=True)
+        assert K.WORD_COMPACT_KERNELS["wc_fold"] == 2
+        for g, x in zip((*b2, *d2), (*want.base, *want.delta)):
+            assert torch.equal(g.cpu(), x), (case, run)
+    needs = set()
+    # Not needed (a floor that expires few base rows, room for the
+    # demand), then needed (a demand past the delta's room).
+    for demand, f in ((0, 0), (delta.keys.shape[0], fl)):
+        f = torch.tensor(f, dtype=torch.int32, device=card)
+        need = bool(ck.fold_need_plain(hist, demand, f))
+        needs.add(need)
+        want = ck.word_fold_step_tiles_plain(_cpu(hist), demand, f.cpu())
+        got = ck._maybe_merge(ck.HistState(_clone(base), hist.base_st.clone(),
+                                           _clone(delta)), demand, f)
+        assert K.WORD_COMPACT_KERNELS["wc_fold_step"] == 3
+        for g, x in zip(_hist_leaves(got), _hist_leaves(want)):
+            assert torch.equal(g.cpu(), x), (case, demand)
+        if not need:
+            for g, x in zip(_hist_leaves(got), _hist_leaves(hist)):
+                assert torch.equal(g, x), (case, demand)
+    assert needs == {False, True}, needs
+
+
+@pytest.mark.parametrize("w", [2, 4, 9])
+def test_k13_word_compact_tiles(card, w):
+    """K13's compaction (the tiles' compaction mode and the finish) against
+    its tile twin and the plain compaction on the sorted rows of two
+    histories (runs, +inf rows), at a capacity that overflows and one that
+    does not: two CUDA kernels a call."""
+    from foundationdb_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(w)
+    base, delta, _ = fold_case(rng, "equal_keys", w, card, c=3000, cd=500)
+    rows = torch.cat([base.keys, delta.keys])
+    skeys = rows[on(np.lexsort(rows.cpu().numpy().T[::-1]), card)].contiguous()
+    newv = on(rng.integers(0, 4, skeys.shape[0]).astype(np.int32), card)
+    for c_out in (5, 3000):
+        for prior in (False, True):
+            pr = torch.tensor(prior, device=card)
+            want = ck.word_compact_tiles_plain(skeys.cpu(), newv.cpu(), c_out,
+                                               pr.cpu())
+            for g, x in zip(ck._dedup_compact_plain(skeys.cpu(), newv.cpu(),
+                                                    c_out, pr.cpu()), want):
+                assert torch.equal(g, x)
+            got = ck._dedup_compact(skeys, newv, c_out, pr)
+            assert K.WORD_COMPACT_KERNELS["wc_compact"] == 2
+            for g, x in zip(got, want):
+                assert torch.equal(g.cpu(), x), (c_out, prior)
+
+
+K12_PROBE_CASES = ["random", "n_used_1", "full", "hist", "flat_2_20"]
+
+
+@pytest.mark.parametrize("case", K12_PROBE_CASES)
+@pytest.mark.parametrize("w", [1, 4, 9])
+def test_k12_probe_over_live_table(card, case, w):
+    """K12's probe (a range-max table over the per-batch level's live rows,
+    then the level probe by rank) against its twin and the plain probe:
+    two levels (the base with its K2 table) and one flat level, a level
+    of one row, a full one, slots on history keys, and a flat history of
+    C = 2^20 with 20,000 live rows at the main path's batch (B = 8192, R
+    = 2): two CUDA kernels a call, counted at their launches."""
+    from foundationdb_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(K12_PROBE_CASES.index(case) * 10 + w)
+    big = case == "flat_2_20"
+    c, b = (1 << 20, 8192) if big else (5000, 700)
+    live = {"n_used_1": 1, "full": c}.get(case, 20000 if big else 2000)
+    base = live_word_state(rng, c, live, w, card, vmax=90)
+    delta = live_word_state(rng, 700, 1 if case == "n_used_1" else 300, w,
+                            card, vmax=90)
+    pb, _ = packed_case(rng, base, b, 1, case)
+    floor = torch.tensor(12, dtype=torch.int32, device=card)
+    ranks = pb.ranks
+    levels = [("flat", None, base)]
+    if not big:
+        levels.append(("two-level", ck.build_table(base.versions), delta))
+    for label, base_st, lvl in levels:
+        if base_st is None:
+            s = ck.dict_history_search(lvl.keys, pb.dict_keys,
+                                       live_b=lvl.n_used)
+        else:
+            s = ck.dict_history_search(base.keys, pb.dict_keys, lvl.keys,
+                                       live_b=base.n_used, live_d=lvl.n_used)
+        got = ck.packed_probe(ranks, floor, s, base_st, lvl.versions,
+                              lvl.n_used)
+        assert K.WORD_PROBE_KERNELS["last"] == 2
+        want = ck.level_probe_live_plain(
+            _cpu(ranks), floor.cpu(), _cpu(s),
+            None if base_st is None else base_st.cpu(), lvl.versions.cpu(),
+            lvl.n_used.cpu())
+        plain = ck.packed_probe(ranks, floor, s, base_st, lvl.versions,
+                                lvl.n_used, plain=True)
+        for g, x, y in zip(got, want, plain):
+            assert torch.equal(g.cpu(), x), (case, label)
+            assert torch.equal(y.cpu(), x), (case, label)
+
+
+def test_k12_k13_read_only_live_rows(card):
+    """The paint, the fold and the probe read no row past a level's
+    n_used: with those rows poisoned (random keys, versions newer than
+    any) each gives its answer on the clean level, and the paint and the
+    fold leave the poisoned rows past the old n_used as they were."""
+    from foundationdb_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(17)
+    c, w = 1 << 18, 4
+    st = live_word_state(rng, c, 3000, w, card)
+    pb, acc = packed_case(rng, st, 1000, 2, "random")
+    floor = torch.tensor(10, dtype=torch.int32, device=card)
+    rs = K.word_search(st.keys, pb.dict_keys, live0=st.n_used)[1]
+    clean = ck._paint_and_compact_packed(_clone(st), pb.dict_keys, pb.ranks,
+                                         acc, 77, floor, rs)
+    dirty = poison_tail(st, rng)
+    tail = dirty.keys[3000:].clone(), dirty.versions[3000:].clone()
+    got = ck._paint_and_compact_packed(dirty, pb.dict_keys, pb.ranks, acc,
+                                       77, floor, rs)
+    n = max(int(clean.n_used), 3000)  # rows the paint may write
+    assert int(got.n_used) == int(clean.n_used)
+    assert torch.equal(got.keys[:n], clean.keys[:n])
+    assert torch.equal(got.versions[:n], clean.versions[:n])
+    assert torch.equal(got.keys[n:], tail[0][n - 3000:])
+    assert torch.equal(got.versions[n:], tail[1][n - 3000:])
+    # The fold: a poisoned base and delta.
+    base, delta, fl = fold_case(rng, "random", w, card, c=c, cd=4096)
+    floor = torch.tensor(fl, dtype=torch.int32, device=card)
+    b_clean, d_clean = _clone(base), _clone(delta)
+    K.word_fold(b_clean, d_clean, floor, None, reset_delta=True)
+    b_dirty, d_dirty = poison_tail(base, rng), poison_tail(delta, rng)
+    nb, nd = int(base.n_used), int(delta.n_used)
+    b_tail, d_tail = b_dirty.keys[nb:].clone(), d_dirty.keys[nd:].clone()
+    K.word_fold(b_dirty, d_dirty, floor, None, reset_delta=True)
+    assert int(b_dirty.n_used) == int(b_clean.n_used)
+    m = max(int(b_clean.n_used), nb)
+    assert torch.equal(b_dirty.keys[:m], b_clean.keys[:m])
+    assert torch.equal(b_dirty.versions[:m], b_clean.versions[:m])
+    assert torch.equal(b_dirty.keys[m:], b_tail[m - nb:])
+    assert torch.equal(d_dirty.keys[:nd], d_clean.keys[:nd])
+    assert torch.equal(d_dirty.keys[nd:], d_tail)
+    # The probe: a poisoned flat level (searched over its live rows).
+    lvl = live_word_state(rng, c, 3000, w, card, vmax=90)
+    pb, _ = packed_case(rng, lvl, 2000, 1, "random")
+    s = ck.dict_history_search(lvl.keys, pb.dict_keys, live_b=lvl.n_used)
+    want = ck.packed_probe(pb.ranks, floor, s, None, lvl.versions, lvl.n_used)
+    got = ck.packed_probe(pb.ranks, floor, s, None,
+                          poison_tail(lvl, rng).versions, lvl.n_used)
+    for g, x in zip(got, want):
+        assert torch.equal(g, x)
+
+
+def test_k12_k13_launch_counts(card):
+    """By the profiler, at most: three CUDA kernels a packed paint, three a
+    gated fold step whose fold is not needed, two a forced fold, two a
+    probe with its table (C = 2^20, the main path's batch)."""
+    from foundationdb_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(5)
+    st = live_word_state(rng, 16386, 3000, 4, card)
+    pb, acc = packed_case(rng, st, 8192, 1, "random")
+    floor = torch.tensor(10, dtype=torch.int32, device=card)
+    rs = K.word_search(st.keys, pb.dict_keys, live0=st.n_used)[1]
+    paint = _cuda_kernels(
+        lambda d: ck._paint_and_compact_packed(d, pb.dict_keys, pb.ranks,
+                                               acc, 77, floor, rs),
+        lambda: (_clone(st),))
+    base = live_word_state(rng, 1 << 20, 20000, 4, card)
+    delta = live_word_state(rng, 16386, 3000, 4, card)
+    need = torch.empty((), dtype=torch.bool, device=card)
+    step = _cuda_kernels(
+        lambda: K.word_fold(base, delta, floor, need, reset_delta=True,
+                            demand=0), lambda: ())
+    assert not bool(need)
+    forced = _cuda_kernels(
+        lambda b, d: K.word_fold(b, d, floor, None, reset_delta=True),
+        lambda: (_clone(base), _clone(delta)))
+    s = ck.dict_history_search(base.keys, pb.dict_keys, live_b=base.n_used)
+    probe = _cuda_kernels(
+        lambda: ck.packed_probe(pb.ranks, floor, s, None, base.versions,
+                                base.n_used), lambda: ())
+    assert paint <= 3 and step <= 3 and forced <= 2 and probe <= 2, (
+        paint, step, forced, probe)
