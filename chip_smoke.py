@@ -87,16 +87,19 @@ Phases, each fatal on failure:
    ``shard_occupancy`` is printed. (b) The same stream starting on
    uniform splits, resharded to the density splits at its middle: the
    same hash, shards moved. (c) A 4-shard wave engine over the first 16
-   batches equals 3c's single wave engine in verdicts and levels; K10
-   launches once per batch and 0 < occupied tiles <= total tiles. (d) One
+   batches equals 3c's single wave engine in verdicts and levels; the
+   exchange (K10) is K5's OR mode, S launches a batch, never
+   ``sh_exchange``, and every fused exchange of the run (the OR matrix and
+   the stats) equals ``wave_exchange_plain`` of the shards' stacked plain
+   matrices; 0 < occupied tiles <= total tiles. (d) One
    captured step launch by launch (K9 with and without the reads, through
    its checked entry and as the window program launches it, into buffers
    allocated and checked once a window; K8 over the shards' live rows,
    also against the plain twin of its algorithm and at full shards,
    n_used = C, with its live table's and probe's device times and the
-   table's bytes printed; K5 per shard, K10) and one captured sharded
-   window program equal their plain versions bit for bit, every state
-   leaf included. (e) Window 0 on the CPU (a worker process beside phase 4,
+   table's bytes printed; K5's plain store per shard, the fused exchange)
+   and one captured sharded window program equal their plain versions bit
+   for bit, every state leaf included. (e) Window 0 on the CPU (a worker process beside phase 4,
    checked after it) equals the card's in verdicts and every state leaf.
 3f. Admission phase: (a) the first 32 batches of the stream on the
    object path through a resident cuda engine with a device-backend
@@ -134,12 +137,16 @@ Phases, each fatal on failure:
    no overflow, per window K16, K15, K14's ranks and K3 k times and the
    unpacked paint (K13's keys, K12's search, K14's sort, K13's sorted
    paint) 4k times, never K1, K2, K4, K8 or K12's probe;
-   ``shard_occupancy`` printed. (b) The same stream starting on uniform
+   ``shard_occupancy`` printed; every K15 launch (the window program's,
+   into its window buffers) equals ``word_clip_plain``. (b) The same stream starting on uniform
    splits, resharded to the density splits at its middle: the same
    hash. (c) A 4-shard non-resident wave engine over 16 batches equals
-   3c's verdicts and levels. (d) One captured step launch by launch (K16
+   3c's verdicts and levels, its exchange K5's OR mode (never
+   ``sh_exchange``), every K15 launch and fused exchange equal to the
+   plain twins. (d) One captured step launch by launch (K16
    over the shards' live rows as K8 in 3e(d), K15 with and without the
-   reads, K14's ranks, its
+   reads, through its checked entry and into the window's buffers
+   (``WordWindowClip``), K14's ranks, its
    sort of one shard's paint rows, K13's sorted paint, each shard's whole
    paint) and one captured window program equal their plain versions bit
    for bit, every state leaf included. (e) Window 0 on the CPU (a worker
@@ -209,13 +216,15 @@ Phases, each fatal on failure:
    sparse arm's answer, two CUDA kernels a call counted at launch (at
    most two by the profiler), txns/s, p50/p99 and program ms
    printed; and a 16-batch ``packed=False, wave_commit=True`` sharded
-   twin equal to 3c's verdicts and levels.
+   twin equal to 3c's verdicts and levels. Every K15 launch of the
+   non-resident arms and every fused exchange of the wave twin equal the
+   plain twins.
 4. Cross-check: the first 16 batches again on the CPU (plain versions),
    and 16 batches each of the mako and tpcc shapes on cuda against the
    CPU: the verdicts must be equal.
 5. The seconds of each phase, a ``kernels`` JSON line (K1-K4, the
-   window program, K5, K6, K7, the paint-only window, K8, K9, K10, the
-   sharded window program, K11, K12, K13, the non-resident window
+   window program, K5, K6, K7, the paint-only window, K8, K9, K10 (K5's
+   OR mode), the sharded window program, K11, K12, K13, the non-resident window
    program, K14, K15, K16, K13's sorted paint, the non-resident
    sharded window program, K17 and each design arm's window program,
    K12's read-plane search and its W = 1 rank search, K17's two sharded
@@ -317,7 +326,7 @@ NR_NEVER = ("di_insert", "sc_paint", "hp_probe", "sc_need", "sc_fold",
 # never: K16 builds its own table over the shards' live rows).
 NRS_SEQ = ("accept", "word_probe", "word_compact", "word_sort",
            "word_shard")
-NRS_WAVE = ("wave", "shard", "word_probe", "word_compact", "word_sort",
+NRS_WAVE = ("wave", "word_probe", "word_compact", "word_sort",
             "word_shard")
 
 
@@ -1112,6 +1121,99 @@ def counted_run(blob, ends, mode, n_batches: int, wave: bool,
         fail(f"{len(per_window)} dispatches, {launches[program]} "
              f"window programs for {n_windows} windows")
     return rec, verdicts, levels, cs, launches, per_window
+
+
+def capture_launches():
+    """Every launch of K15's window step (``WordWindowClip.step``) and of
+    the fused exchanges (``shard_pred_exchange``, ``word_pred_exchange``)
+    until ``restore`` is called: each call's inputs and outputs cloned on
+    the card where it runs (no host sync), for ``check_launches`` after
+    the run. Returns (captures, restore)."""
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+
+    caps = []
+    step = ck.WordWindowClip.step
+    shard_x, word_x = ck.shard_pred_exchange, ck.word_pred_exchange
+
+    def clip_step(self, batch):
+        out = step(self, batch)
+        if self.out is not None:
+            caps.append(("clip", (clone(batch), self.lo, self.hi,
+                                  self.reads), clone(out)))
+        return out
+
+    def shard_exchange(cand, clip, stats_out=None, plain=False):
+        got = shard_x(cand, clip, stats_out, plain)
+        if not plain:
+            caps.append(("ranks", (cand.clone(), clone(clip)), clone(got)))
+        return got
+
+    def word_exchange(cand, batch, clip, stats_out=None, plain=False):
+        got = word_x(cand, batch, clip, stats_out, plain)
+        if not plain:
+            caps.append(("keys", (cand.clone(), clone(batch), clone(clip)),
+                         clone(got)))
+        return got
+
+    ck.WordWindowClip.step = clip_step
+    ck.shard_pred_exchange, ck.word_pred_exchange = (shard_exchange,
+                                                     word_exchange)
+
+    def restore():
+        ck.WordWindowClip.step = step
+        ck.shard_pred_exchange, ck.word_pred_exchange = shard_x, word_x
+
+    return caps, restore
+
+
+def check_launches(caps, label: str) -> dict:
+    """Each captured launch against its plain twin: K15's against
+    ``word_clip_plain``; a fused exchange's (p, stats) against
+    ``wave_exchange_plain`` of the shards' stacked plain matrices (from
+    the clipped ranks, or from K14's plain ranks of the clipped key rows).
+    Returns the launches checked, by kind."""
+    import torch
+
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+
+    n = {"clip": 0, "exchange": 0}
+    for kind, args, got in caps:
+        if kind == "clip":
+            want = ck.word_clip_plain(*args)
+            assert_equal(f"word_clip.{label}",
+                         [x for x in got if x is not None],
+                         [x for x in want if x is not None])
+            n["clip"] += 1
+            continue
+        cand, clip = args[0], args[-1]
+        shards = range(clip.write_begin.shape[0])
+        if kind == "ranks":
+            ranks = [ck._clip_live(clip, s) for s in shards]
+        else:
+            ranks = [ck.endpoint_ranks_live_plain(ck.clip_view(args[1], clip,
+                                                               s))
+                     for s in shards]
+        assert_equal(f"wave_exchange.{label}", got, ck.wave_exchange_plain(
+            torch.stack([ck.wave_pred_matrix_plain(cand, r) for r in ranks])))
+        n["exchange"] += 1
+    caps.clear()
+    return n
+
+
+def exchange_bound(cand, ranks) -> tuple[float, float]:
+    """(bytes, operations) of the fused exchange over the shards' clipped
+    ``ranks``: K5's of each shard (the candidate mask, the read slots of
+    candidates and every write slot read once; two compares per (live
+    read slot of a candidate, live write slot)), the one matrix and the
+    stats written once."""
+    b = cand.shape[0]
+    bp = (b + 31) // 32 * 32
+    n_cand = int(cand.sum())
+    nbytes, ops = float(b + 4 * bp * (bp // 32) + 8), 0.0
+    for rb, _, rm, wb, _, wm in ranks:
+        nbytes += 9 * n_cand * rb.shape[1] + 9 * b * wb.shape[1]
+        ops += 2.0 * float((rm & cand[:, None]).sum()) * float(wm.sum())
+    return nbytes, ops
 
 
 def window_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
@@ -2172,31 +2274,43 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     lap("b")
 
     # (c) A wave engine of SHARDS shards on the first two windows against
-    # phase 3c's single wave engine: verdicts and levels; K10 once a batch.
+    # phase 3c's single wave engine: verdicts and levels; the exchange is
+    # K5's OR mode, S launches a batch (never K10's old sh_exchange), each
+    # fused exchange held against the plain twin after the run.
     n_wave = 2 * WINDOW_K
     wb, we = blob[: int(ends[n_wave * b])], ends[: n_wave * b + 1]
-    wrec, wv, wl, _, _, wpw = counted_run(
-        wb, we, mode, n_wave, wave=True, engine=engine, label="sharded wave",
-        program="sharded_many", sources=SHARD_WAVE)
+    caps, restore = capture_launches()
+    try:
+        wrec, wv, wl, _, _, wpw = counted_run(
+            wb, we, mode, n_wave, wave=True, engine=engine,
+            label="sharded wave", program="sharded_many", sources=SHARD_WAVE)
+    finally:
+        restore()
+    checked = check_launches(caps, "3e_c")
     if not (np.array_equal(wv, wave_out["verdicts"][:2])
             and np.array_equal(wl, wave_out["levels"][:2])):
         fail("sharded wave engine: verdicts or levels differ from the "
              "single wave engine's (phase 3c)")
     for i, pw in enumerate(wpw):
-        if (pw.get("sh_exchange", 0) != WINDOW_K
-                or pw.get("wv_pred", 0) != SHARDS * WINDOW_K
+        if (pw.get("sh_exchange", 0) or pw.get("wv_pred", 0)
+                or pw.get("wv_pred_or", 0) != SHARDS * WINDOW_K
                 or pw.get("wv_level", 0) != WINDOW_K or pw.get("ac_accept")
                 or pw.get("hp_table", 0)):
             fail(f"sharded wave window {i}: launches {pw}")
+    if checked["exchange"] < n_wave:
+        fail(f"sharded wave: {checked['exchange']} fused exchanges checked "
+             f"for {n_wave} batches")
     xs = wrec["exchange_stats"]
     if not 0 < xs["tiles_occupied"] <= xs["tiles_total"]:
         fail(f"exchange_stats {xs}")
-    k10_launches = sum(pw.get("sh_exchange", 0) for pw in wpw)
+    k10_launches = sum(pw.get("wv_pred_or", 0) for pw in wpw)
     print(json.dumps({"phase": "sharded wave", "txns": wrec["txns"],
                       "committed": wrec["committed"],
                       "reordered": wrec["reordered"],
                       "cycle_aborted": wrec["cycle_aborted"],
-                      "exchange_stats": xs, "k10_launches": k10_launches,
+                      "exchange_stats": xs,
+                      "k5_or_mode_launches": k10_launches,
+                      "exchanges_checked": checked["exchange"],
                       "levels_equal_phase_3c": True, "card": card}))
     lap("c")
 
@@ -2252,11 +2366,11 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
                  ck.shard_probe_plain(fh, frbk, flo, fhi, floor[0]))
     too_old, _, cand = ck.shard_probe(h, rbk, lo, hi, floor[0])
     clip_w = ck.shard_clip(rbk, lo, hi, True)
-    ps = ck.shard_pred_matrices(cand, clip_w)
-    assert_equal("wave_pred.sharded", ps, torch.stack(
-        [ck.wave_pred_matrix_plain(cand, ck._clip_live(clip_w, s))
-         for s in range(SHARDS)]))
-    assert_equal("wave_exchange", ck.wave_exchange(ps),
+    xranks = [ck._clip_live(clip_w, s) for s in range(SHARDS)]
+    ps = torch.stack([ck.wave_pred_matrix_plain(cand, x) for x in xranks])
+    for s, x in enumerate(xranks):  # the two-phase payload's plain store
+        assert_equal("wave_pred.sharded", ck.wave_pred_matrix(cand, x), ps[s])
+    assert_equal("wave_exchange", ck.shard_pred_exchange(cand, clip_w),
                  ck.wave_exchange_plain(ps))
 
     def many(res):
@@ -2281,8 +2395,10 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
             time_ms(lambda: ck.shard_probe(h, rbk, lo, hi, f0)),
             time_ms(lambda: ck.shard_probe_plain(h, rbk, lo, hi, f0),
                     reps=3)),
-        "wave_exchange": (time_ms(lambda: ck.wave_exchange(ps)),
-                          time_ms(lambda: ck.wave_exchange_plain(ps))),
+        "wave_exchange": (
+            time_ms(lambda: ck.shard_pred_exchange(cand, clip_w)),
+            time_ms(lambda: ck.shard_pred_exchange(cand, clip_w, plain=True),
+                    reps=2)),
         "sharded_many": (time_ms(many, lambda: (clone(state),), reps=5),
                          time_ms(many_plain, lambda: (clone(state),), reps=2)),
     }
@@ -2308,17 +2424,17 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     # Bounds at the capture's shapes. K9 (writes only, the main path): the
     # write ranks and masks read once, S clipped copies written. K8: the
     # shards' live keys and versions, the read slots, read versions and
-    # txn mask read once, three [B] outputs written. K10: the S matrices
-    # read, the OR and the stats written. The window program: K1 once,
+    # txn mask read once, three [B] outputs written. K10, the fused
+    # exchange (exchange_bound): each shard's clipped ranks read once, the
+    # one matrix and the stats written. The window program: K1 once,
     # then per step K9, K8, K3 and S flat paints (each shard's live rows
     # read, its [C] arrays written, the clipped writes read).
     r = rbk.read_begin.shape[1]
     q = rbk.write_begin.shape[1]
     d1, w = state.dict_keys.shape
-    bp, nw = ps.shape[1], ps.shape[2]
     bytes_k9 = b * q * 9 + SHARDS * b * q * 9 + 8 * SHARDS
     bytes_k8 = 8 * sum(n_used) + b * r * 9 + 5 * b + 8 * SHARDS + 4 + 3 * b
-    bytes_k10 = SHARDS * bp * nw * 4 + bp * nw * 4 + 8
+    bytes_k10, ops_k10 = exchange_bound(cand, xranks)
     idx = torch.nonzero(cand).flatten().double()
     ops_k3 = float(3 * r * q * idx.sum())
     bytes_k3 = 3 * b + b * r * 9 + b * q * 9 + 2 * b
@@ -2349,7 +2465,7 @@ def sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
                        "library_ms": clamp_ms, "entry_ms": entry_ms},
         "wave_exchange": {"launches": k10_launches,
                           "timing": t["wave_exchange"],
-                          "bound": bound(bytes_k10)},
+                          "bound": bound(bytes_k10, ops_k10)},
         "sharded_many": {"launches": launches["sharded_many"],
                          "timing": t["sharded_many"],
                          "bound": (sum(step.values()),
@@ -2991,11 +3107,20 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
         t0 = now
 
     engine = {**sharded_engine(stream, mode), "resident": False}
-    # (a) The window path, counted.
-    rec, _, _, _, launches, per_window = counted_run(
-        blob, ends, mode, n_batches, wave=False, engine=engine,
-        label="non-resident sharded", program="nr_sharded_many",
-        sources=NRS_SEQ)
+    # (a) The window path, counted; every K15 launch (into the window's
+    # buffers) held against the plain version after the run.
+    caps, restore = capture_launches()
+    try:
+        rec, _, _, _, launches, per_window = counted_run(
+            blob, ends, mode, n_batches, wave=False, engine=engine,
+            label="non-resident sharded", program="nr_sharded_many",
+            sources=NRS_SEQ)
+    finally:
+        restore()
+    checked = check_launches(caps, "3h_a")
+    if checked["clip"] < n_batches:
+        fail(f"non-resident sharded: {checked['clip']} K15 launches checked "
+             f"for {n_batches} steps")
     want = {"wsh_probe": WINDOW_K,
             "wsh_clip": WINDOW_K, "wso_ranks": WINDOW_K,
             "ac_accept": WINDOW_K, **{e: s_n * WINDOW_K for e in (
@@ -3025,6 +3150,7 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
                                    for k in NRS_SEQ},
                                 **{e: n / n_windows
                                    for e, n in entries.items()}},
+        "k15_launches_checked": checked["clip"],
         "single_engine_sha_equal": True, "card": card}))
     lap("a")
 
@@ -3056,20 +3182,29 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     # phase 3c's single wave engine: verdicts and levels.
     n_wave = 2 * WINDOW_K
     wb, we = blob[: int(ends[n_wave * b])], ends[: n_wave * b + 1]
-    wrec, wv, wl, _, _, wpw = counted_run(
-        wb, we, mode, n_wave, wave=True, engine=engine,
-        label="non-resident sharded wave", program="nr_sharded_many",
-        sources=NRS_WAVE)
+    caps, restore = capture_launches()
+    try:
+        wrec, wv, wl, _, _, wpw = counted_run(
+            wb, we, mode, n_wave, wave=True, engine=engine,
+            label="non-resident sharded wave", program="nr_sharded_many",
+            sources=NRS_WAVE)
+    finally:
+        restore()
+    checked = check_launches(caps, "3h_c")
     if not (np.array_equal(wv, wave_out["verdicts"][:2])
             and np.array_equal(wl, wave_out["levels"][:2])):
         fail("non-resident sharded wave engine: verdicts or levels differ "
              "from the single wave engine's (phase 3c)")
     for i, pw in enumerate(wpw):
-        if (pw.get("sh_exchange", 0) != WINDOW_K
-                or pw.get("wv_pred", 0) != s_n * WINDOW_K
+        if (pw.get("sh_exchange", 0) or pw.get("wv_pred", 0)
+                or pw.get("wv_pred_or", 0) != s_n * WINDOW_K
                 or pw.get("wso_ranks", 0) != s_n * WINDOW_K
+                or pw.get("wsh_clip", 0) != WINDOW_K
                 or pw.get("wv_level", 0) != WINDOW_K or pw.get("ac_accept")):
             fail(f"non-resident sharded wave window {i}: launches {pw}")
+    if min(checked.values()) < n_wave:
+        fail(f"non-resident sharded wave: launches checked {checked} for "
+             f"{n_wave} batches")
     xs = wrec["exchange_stats"]
     if not 0 < xs["tiles_occupied"] <= xs["tiles_total"]:
         fail(f"exchange_stats {xs}")
@@ -3077,8 +3212,8 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
                       "txns": wrec["txns"], "committed": wrec["committed"],
                       "reordered": wrec["reordered"],
                       "cycle_aborted": wrec["cycle_aborted"],
-                      "exchange_stats": xs, "levels_equal_phase_3c": True,
-                      "card": card}))
+                      "exchange_stats": xs, "launches_checked": checked,
+                      "levels_equal_phase_3c": True, "card": card}))
     lap("c")
 
     # (d) One captured step launch by launch, and one captured window
@@ -3113,12 +3248,19 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
     assert_equal("word_shard_probe.full",
                  ck.word_shard_probe(fh, fstep, flo, fhi, floor[0]),
                  ck.word_shard_probe_plain(fh, fstep, flo, fhi, floor[0]))
+    # K15 through its checked entry and as the window program launches it
+    # (buffers and checks once a window, ck.WordWindowClip).
+    wclips = {reads: ck.WordWindowClip.of(bt, lo, hi, reads)
+              for reads in (False, True)}
     for reads in (False, True):
+        want = [x for x in ck.word_clip_plain(step, lo, hi, reads)
+                if x is not None]
         assert_equal("word_clip",
                      [x for x in ck.word_clip(step, lo, hi, reads)
-                      if x is not None],
-                     [x for x in ck.word_clip_plain(step, lo, hi, reads)
-                      if x is not None])
+                      if x is not None], want)
+        assert_equal("word_clip.window",
+                     [x for x in wclips[reads].step(step) if x is not None],
+                     want)
     assert_equal("word_sort.ranks", ck.endpoint_ranks_live(step),
                  ck.endpoint_ranks_live_plain(step))
     too_old, _, _, cand = ck.word_shard_probe(state, step, lo, hi, floor[0])
@@ -3177,7 +3319,7 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
         "word_sort": (time_ms(lambda: ck.endpoint_ranks_live(step)),
                       time_ms(lambda: ck.endpoint_ranks_live_plain(step),
                               reps=3)),
-        "word_clip": (time_ms(lambda: ck.word_clip(step, lo, hi, False)),
+        "word_clip": (time_ms(lambda: wclips[False].step(step)),
                       time_ms(lambda: ck.word_clip_plain(step, lo, hi,
                                                          False), reps=3)),
         "word_shard_probe": (
@@ -3196,6 +3338,8 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
                                     reps=1)),
     }
     torch_sort_ms = time_ms(lambda: sort_keys_with_payload(flat))
+    clip_entry_ms = time_ms(lambda: ck.word_clip(step, lo, hi, False))
+    clip_device = cuda_kernels(lambda: wclips[False].step(step))
     paint_sort_ms = time_ms(lambda: K.word_sort(pi["keys"], (pi["delta"],
                                                              pi["cross"])))
     paint_sort_plain_ms = time_ms(lambda: sort_keys_with_payload(
@@ -3226,6 +3370,10 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
         fh, fstep, flo, fhi, f0))["device_ms"] or None
     for name, (ms, plain) in t.items():
         print(f"kernel {name}: {ms:.4f} ms (plain {plain:.4f} ms)")
+    print(f"kernel word_clip: the window program's launch "
+          f"{t['word_clip'][0]:.4f} ms ({clip_device['launches']} CUDA "
+          f"kernels, {clip_device['device_ms']:.5f} device ms), the checked "
+          f"entry (allocating) {clip_entry_ms:.4f} ms")
     print(f"kernel word_sort: {flat.shape[0]} rows ranked in "
           f"{t['word_sort'][0]:.4f} ms; {flat.shape[1]} stable torch.sort "
           f"passes over them {torch_sort_ms:.4f} ms; one shard's paint sort "
@@ -3298,7 +3446,10 @@ def nr_sharded_phase(blob, ends, mode, n_batches: int, stream, seed: int,
                             "bound": bound(bytes_sort, ops_sort),
                             "rows": pi["keys"].shape[0]},
         "word_clip": {"launches": entries["wsh_clip"],
-                      "timing": t["word_clip"], "bound": bound(bytes_k15)},
+                      "timing": t["word_clip"], "bound": bound(bytes_k15),
+                      "entry_ms": clip_entry_ms,
+                      "device_ms": clip_device["device_ms"] or None,
+                      "cuda_kernels": clip_device["launches"]},
         "word_shard_probe": {"launches": entries["wsh_probe"],
                              "timing": t["word_shard_probe"],
                              "bound": bound(bytes_k16), **k16},
@@ -4118,21 +4269,22 @@ SHARD_ARMS = {
         {"rb_shard_probe": (1, 0), "sh_clip": (1, 0), "ac_accept": (1, 0),
          "sc_paint": (0, 1)},
         ("sh_probe", "wsh_probe", "hp_probe", "wp_probe", "rb_build",
-         "hp_table")),
+         "hp_table", "sh_exchange")),
     "nr_sharded_blocked": (
         {"resident": False, "rmq": "blocked"}, "nr_sharded_many",
         (*NRS_SEQ, "rmq_blocked"),
         {"rb_shard_probe": (1, 0), "wsh_clip": (1, 0), "wso_ranks": (1, 0),
          "ac_accept": (1, 0), **{e: (0, 1) for e in _NRS_PAINT}},
         ("wsh_probe", "sh_probe", "di_insert", "sc_paint", "wp_probe",
-         "wc_paint", "hp_probe", "rb_build", "hp_table")),
+         "wc_paint", "hp_probe", "rb_build", "hp_table", "sh_exchange")),
     "sharded_unpacked": (
         {"packed": False}, "nr_sharded_many", NRS_SEQ,
         {"wsh_probe": (1, 0), "wsh_clip": (1, 0),
          "wso_ranks": (1, 0), "ac_accept": (1, 0),
          **{e: (0, 1) for e in _NRS_PAINT}},
         ("di_insert", "sc_paint", "sh_probe", "wp_probe", "wc_paint",
-         "hp_probe", "hp_table", "rb_build", "rb_shard_probe")),
+         "hp_probe", "hp_table", "rb_build", "rb_shard_probe",
+         "sh_exchange")),
 }
 SHARD_ARM_REPLACES = {
     "sharded_blocked": "foundationdb_tpu/parallel/sharded_resolver.py:249",
@@ -4338,9 +4490,17 @@ def sharded_arms_phase(blob, ends, mode, n_batches: int, stream, card: str,
     t0 = time.perf_counter()
     for name, (arm, program, sources, want, never) in SHARD_ARMS.items():
         engine = {**sharded_engine(stream, mode), **arm}
-        rec, _, _, cs, launches, per_window = counted_run(
-            blob, ends, mode, n_batches, wave=False, engine=engine,
-            label=name, program=program, sources=sources)
+        caps, restore = capture_launches()
+        try:
+            rec, _, _, cs, launches, per_window = counted_run(
+                blob, ends, mode, n_batches, wave=False, engine=engine,
+                label=name, program=program, sources=sources)
+        finally:
+            restore()
+        checked = check_launches(caps, name)
+        if program == "nr_sharded_many" and checked["clip"] < n_batches:
+            fail(f"{name}: {checked['clip']} K15 launches checked for "
+                 f"{n_batches} steps")
         want_n = {e: k * WINDOW_K + s * SHARDS * WINDOW_K
                   for e, (k, s) in want.items()}
         for i, pw in enumerate(per_window):
@@ -4425,19 +4585,29 @@ def sharded_arms_phase(blob, ends, mode, n_batches: int, stream, card: str,
     n_wave = 2 * WINDOW_K
     wb, we = blob[: int(ends[n_wave * mode.batch])], \
         ends[: n_wave * mode.batch + 1]
-    wrec, wv, wl, _, _, wpw = counted_run(
-        wb, we, mode, n_wave, wave=True,
-        engine={**sharded_engine(stream, mode), "packed": False},
-        label="sharded unpacked wave", program="nr_sharded_many",
-        sources=NRS_WAVE)
+    caps, restore = capture_launches()
+    try:
+        wrec, wv, wl, _, _, wpw = counted_run(
+            wb, we, mode, n_wave, wave=True,
+            engine={**sharded_engine(stream, mode), "packed": False},
+            label="sharded unpacked wave", program="nr_sharded_many",
+            sources=NRS_WAVE)
+    finally:
+        restore()
+    checked = check_launches(caps, "3k_wave")
     if not (np.array_equal(wv, wave_out["verdicts"][:2])
             and np.array_equal(wl, wave_out["levels"][:2])):
         fail("sharded unpacked wave engine: verdicts or levels differ from "
              "phase 3c")
     for i, pw in enumerate(wpw):
         if (pw.get("wv_level", 0) != WINDOW_K or pw.get("ac_accept")
-                or pw.get("sh_exchange", 0) != WINDOW_K):
+                or pw.get("sh_exchange", 0) or pw.get("wv_pred", 0)
+                or pw.get("wv_pred_or", 0) != SHARDS * WINDOW_K
+                or pw.get("wsh_clip", 0) != WINDOW_K):
             fail(f"sharded unpacked wave window {i}: launches {pw}")
+    if min(checked.values()) < n_wave:
+        fail(f"sharded unpacked wave: launches checked {checked} for "
+             f"{n_wave} batches")
     print(json.dumps({"phase": "sharded arm unpacked wave",
                       **{k: wrec[k] for k in (
                           "txns", "committed", "reordered", "cycle_aborted",
@@ -4729,7 +4899,7 @@ def smoke(args, pool) -> int:
     for k, source in (
             ("shard_probe", "foundationdb_tpu_torch/kernels/csrc/shard.cu"),
             ("shard_clip", "foundationdb_tpu_torch/kernels/csrc/shard.cu"),
-            ("wave_exchange", "foundationdb_tpu_torch/kernels/csrc/shard.cu"),
+            ("wave_exchange", "foundationdb_tpu_torch/kernels/csrc/wave.cu"),
             ("sharded_many",
              "foundationdb_tpu_torch/models/conflict_kernel.py")):
         r = sh[k]
@@ -4742,6 +4912,10 @@ def smoke(args, pool) -> int:
             "library_ms": r.get("library_ms")})
     rows[-4].update({k: sh["shard_probe"][k] for k in LIVE_PROBE_KEYS})
     rows[-3].update(checked_entry_ms=sh["shard_clip"]["entry_ms"])
+    # K10 is K5's OR mode: its launches are the OR-mode K5 launches of 3e(c)
+    # (S a batch), its time one step's fused exchange.
+    rows[-2].update(fused_into="K5's OR mode, wave.cu wv_pred_or",
+                    launches_are="K5 OR-mode launches, S a batch")
     # K11 is timed by its set launch (the per-batch feed), with
     # ``index_fill_`` on bool banks (the same sets, 32x the bytes) as its
     # yardstick; no one PyTorch call searches word rows (K12), paints or
@@ -4820,6 +4994,9 @@ def smoke(args, pool) -> int:
                      for k in LIVE_PROBE_KEYS})
     rows[-2].update({k: nrs["word_paint_sorted"][k] for k in (
         "whole_paint_ms", "whole_c_bound_ms", "c18_ms", "live_rows")})
+    rows[-4].update(checked_entry_ms=nrs["word_clip"]["entry_ms"],
+                    device_ms=nrs["word_clip"]["device_ms"],
+                    cuda_kernels=nrs["word_clip"]["cuda_kernels"])
     # K17 is timed by the flat blocked arm's per-step work at C = 2^20: its
     # live build and its probe of the captured step's slot bounds, beside
     # the parent design's build over all rows + query; its yardstick is

@@ -38,8 +38,8 @@ non-resident engine (a [C, W] word-key history and a dictionary per
 batch: K12 and K13 in place of K1, K2's probe and K4); its record has no
 ``dict_stats`` (null). ``--resident 0 --resolvers N`` resolves with the
 non-resident sharded engine (full-key batches, N flat [C, W] shard
-histories: K2's table, K14, K15, K16, K3 or K5/K10/K6, and the unpacked
-paint of K12, K13 and K14). Prints one JSON line.
+histories: K2's table, K14, K15, K16, K3 or K5 in its OR mode (K10) and
+K6, and the unpacked paint of K12, K13 and K14). Prints one JSON line.
 
 The run is on the card (``--device cuda``, the default, raises without
 one); ``--device cpu`` runs the plain torch versions.
@@ -292,8 +292,9 @@ def profile_window(blob, txn_ends, mode: ModeConfig, capacity: int,
     program timed alone on a copy of the same state. The replayed
     phases must give the window program's verdicts (and levels). A wave
     engine's acceptance is K5 and K6 in place of K3; a sharded engine's
-    step is K9, K8 (its live table and probe), then K3 (or K5 per shard,
-    K10 and K6) and K4 per shard. A flat history (``history="batch"``) has no fold and
+    step is K9, K8 (its live table and probe), then K3 (or the exchange,
+    ``k10_exchange``: K5 in its OR mode per shard, and K6) and K4 per
+    shard. A flat history (``history="batch"``) has no fold and
     its K2 probe builds the table over all C versions; ``rmq="blocked"``
     times K17's build (``k17_build``) and its probe with K12's rank search
     (``k17_probe``) in place of K2's. ``engine`` holds further
@@ -418,8 +419,7 @@ def _replay_sharded_step(timed, hist, res, rbk, cv: int, old: int,
         rbk.read_begin, rbk.read_end, rbk.read_mask, rbk.read_version,
         rbk.txn_mask, res.shard_lo, res.shard_hi, floor[0])
     if wave:
-        ps = timed("k5_pred", ck.shard_pred_matrices, cand, clip)
-        p, _ = timed("k10_exchange", ck.wave_exchange, ps)
+        p, _ = timed("k10_exchange", ck.shard_pred_exchange, cand, clip)
         accepted, _, _ = timed("k6_level", ck.wave_level, cand, p, too_old,
                                rbk.txn_mask, level_out=got.levels[i],
                                verdicts_out=got.verdicts[i])

@@ -1,5 +1,5 @@
-"""K1-K5, K8, K11, K12, K13's sorted paint, K14, K16 and K17 of one source
-tree against another's, on inputs captured once.
+"""K1-K5, K8, K10, K11, K12, K13's sorted paint, K14-K16 and K17 of one
+source tree against another's, on inputs captured once.
 
     python3 foundationdb_tpu_torch/kernel_ab.py capture IN.pt [--seed S]
     python3 foundationdb_tpu_torch/kernel_ab.py time IN.pt [--tree DIR]
@@ -37,7 +37,13 @@ phase 3i's flat blocked arm's captured step (``chip_smoke.arm_program``
 with ``rmq="blocked", history="batch"``: the flat [2^20, 1] history and
 its first step's rank batch); K17's sharded probes run on K8's and K16's
 captures. For K11 it saves 4 banks of 2^20 bits with 3,132 random slots
-set (a record's m·k, the smoke's) and another 3,132 slots to set.
+set (a record's m·k, the smoke's) and another 3,132 slots to set. For
+K10, the sharded wave exchange, it saves the first step of a captured
+window of phase 3e(c)'s resident 4-shard wave engine (the first window
+after window 0 that brings a dictionary delta: the candidates and the
+batch clipped to each shard with its reads) and of phase 3h(c)'s
+non-resident one (window 1: the candidates, the step's key rows and
+their clip); K15 runs on 3h's capture.
 
 ``time`` imports ``foundationdb_tpu_torch`` from ``DIR`` (default: the
 tree holding this file), holds that tree's K1-K4 against its own plain
@@ -66,6 +72,16 @@ table) at the captured steps and at full shards. K17 (``rmq="blocked"``): the fl
 two rank searches and its probe) and the blocked sharded probes at 3e's
 and 3h's captured steps and at full shards. K11: its set (the filter's
 call) and ``index_fill_`` of the same slots on bool banks, in turns.
+K15 on 3h's captured step (writes; and with the reads, as a wave engine
+clips): through its checked entry (``word_clip``: checks and allocates
+every call) and, where the tree has it, as the window program launches
+it (``WordWindowClip.step``: into buffers checked and allocated once a
+window). K10: the exchange of 3e(c)'s and 3h(c)'s captured wave steps
+as the tree runs it (the S K5 matrices into an [S, BP, BP/32] buffer and
+K10's OR, or K5's OR mode into one matrix; the K14 ranks of each shard's
+clipped rows at 3h), with the bytes it allocates (``peak_alloc_bytes``:
+the CUDA caching allocator's peak over one call) and the device ms of
+each kernel by name (K10's own, K5's plain store and its OR mode).
 Run it on two trees in turns (A, B, B, A) in one call to compare them on
 one card. Needs a CUDA card; imports no JAX.
 """
@@ -123,6 +139,7 @@ def capture(path: str, seed: int) -> None:
         **_k8_k16_inputs(chip_smoke, stream, ycsb),
         "k17_flat": _k17_flat(chip_smoke, stream, ycsb),
         "k11": _k11_inputs(seed),
+        "k10": _k10_inputs(chip_smoke, stream, ycsb),
     })
     torch.save(out, path)
     counts = ck.accept_counts(*(out["smoke"][k] for k in (
@@ -248,6 +265,60 @@ def _k8_k16_inputs(chip_smoke, stream, mode) -> dict:
         "read_begin": frb, "read_end": fre, "read_mask": fm,
         "read_version": frv, "txn_mask": ftm}, "lo": flo, "hi": fhi,
         "floor": floor}
+    return out
+
+
+def _k10_inputs(chip_smoke, stream, mode) -> dict:
+    """The exchange's inputs at the first step of a captured window of
+    the smoke's 4-shard wave engines: 3e(c)'s resident engine (the first
+    window after window 0 that brings a dictionary delta, after K1: the
+    candidates and the rank batch clipped to each shard, reads included)
+    and 3h(c)'s non-resident one (window 1 after window 0: the
+    candidates, the step's key rows, their clip and the bounds)."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+    from foundationdb_tpu_torch.models.conflict_set import (
+        _RepackPlan,
+        upload,
+        upload_keys,
+    )
+
+    k, b = chip_smoke.WINDOW_K, mode.batch
+    blob, ends, n = chip_smoke.wire_stream(stream, mode, 128)
+    engine = chip_smoke.sharded_engine(stream, mode)
+    cs = bench.make_engine(mode, chip_smoke.CAP, "cuda", True, **engine)
+    cs.resolve_wire_window(*bench.window_wire(blob, ends, mode, k, 0), b)
+    for wi in range(1, n // k):
+        prepared = cs.pack_wire_window(
+            *bench.window_wire(blob, ends, mode, k, wi), b)
+        hb = prepared.batch
+        if not isinstance(hb, _RepackPlan) and hb.n_new:
+            break
+        cs.dispatch_window(prepared)()
+    rb = upload(hb, cs.device)
+    res1 = ck.apply_delta(chip_smoke.clone(cs.state), rb.delta_keys,
+                          hb.n_new)
+    rbk = ck._step(rb.ranks, 0)
+    h, lo, hi = res1.hist, res1.shard_lo, res1.shard_hi
+    floor = torch.maximum(h.oldest, torch.full_like(
+        h.oldest, int(prepared.olds_rel[0])))
+    _, _, cand = ck.shard_probe(h, rbk, lo, hi, floor[0])
+    out = {"resident": {"cand": cand, "clip": ck.shard_clip(
+        rbk, lo, hi, True)._asdict()}}
+    cs = bench.make_engine(mode, chip_smoke.CAP, "cuda", True,
+                           **{**engine, "resident": False})
+    cs.resolve_wire_window(*bench.window_wire(blob, ends, mode, k, 0), b)
+    prepared = cs.pack_wire_window(*bench.window_wire(blob, ends, mode, k,
+                                                      1), b)
+    step = ck._step_batch(upload_keys(prepared.batch, cs.device), 0)
+    state, lo, hi = cs.state, cs._lo_dev, cs._hi_dev
+    floor = torch.maximum(state.oldest, torch.full_like(
+        state.oldest, int(prepared.olds_rel[0])))
+    _, _, _, cand = ck.word_shard_probe(state, step, lo, hi, floor[0])
+    out["keys"] = {"cand": cand, "step": step._asdict(), "lo": lo, "hi": hi,
+                   "clip": ck.word_clip(step, lo, hi, True)._asdict()}
     return out
 
 
@@ -935,6 +1006,79 @@ def time_k17_k11(data, on, ck, K) -> dict:
     return out
 
 
+def _peak_alloc(fn) -> int:
+    """Bytes the CUDA caching allocator's peak rises by over one call."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def time_k15_k10(data, on, ck, K) -> dict:
+    """K15 on phase 3h's captured step (writes, and writes and reads)
+    through its checked entry and, where the imported tree has it, into
+    the window program's buffers (``WordWindowClip``); and the sharded
+    wave exchange of 3e(c)'s and 3h(c)'s captured steps as the tree runs
+    it (``shard_pred_matrices`` + ``wave_exchange``, or
+    ``shard_pred_exchange``; at 3h ``word_pred_matrices`` +
+    ``wave_exchange``, or ``word_pred_exchange``): each checked against
+    the plain versions, then timed (wall and device, kernels by name), the
+    exchange with the bytes one call allocates."""
+    import torch
+
+    def real(x):
+        return [t for t in x if t is not None]
+
+    out = {}
+    n = on(data["nrs"])
+    bt = ck.BatchTensors(**n["batch"])
+    step = ck._step_batch(bt, 0)
+    lo, hi = n["lo"], n["hi"]
+    for reads in (False, True):
+        tag = "_reads" if reads else ""
+        want = real(ck.word_clip_plain(step, lo, hi, reads))
+        _same(f"K15 checked{tag}", real(ck.word_clip(step, lo, hi, reads)),
+              want)
+        out[f"k15_checked{tag}"] = _entry(
+            lambda r=reads: ck.word_clip(step, lo, hi, r))
+        if hasattr(ck, "WordWindowClip"):
+            wc = ck.WordWindowClip.of(bt, lo, hi, reads)
+            _same(f"K15 window step{tag}", real(wc.step(step)), want)
+            out[f"k15_window_step{tag}"] = _entry(lambda w=wc: w.step(step))
+    d = on(data["k10"])
+    r, x = d["resident"], d["keys"]
+    rclip = ck.ShardClip(**r["clip"])
+    xstep, xclip = ck.BatchTensors(**x["step"]), ck.WordClip(**x["clip"])
+    s_n = rclip.write_begin.shape[0]
+    cases = {
+        "resident": (r["cand"], [ck._clip_live(rclip, s)
+                                 for s in range(s_n)]),
+        "keys": (x["cand"], [ck.endpoint_ranks_live_plain(
+            ck.clip_view(xstep, xclip, s)) for s in range(s_n)])}
+    fused = hasattr(ck, "shard_pred_exchange")
+    for label, (cand, ranks) in cases.items():
+        want = ck.wave_exchange_plain(torch.stack(
+            [ck.wave_pred_matrix_plain(cand, q) for q in ranks]))
+        if label == "resident":
+            fn = ((lambda c=cand: ck.shard_pred_exchange(c, rclip)) if fused
+                  else (lambda c=cand: ck.wave_exchange(
+                      ck.shard_pred_matrices(c, rclip))))
+        else:
+            fn = ((lambda c=cand: ck.word_pred_exchange(c, xstep, xclip))
+                  if fused else (lambda c=cand: ck.wave_exchange(
+                      ck.word_pred_matrices(c, xstep, xclip))))
+        _same(f"K10 exchange ({label})", fn(), want)
+        e = _entry(fn)
+        e.update(peak_alloc_bytes=_peak_alloc(fn), batch=cand.shape[0],
+                 shards=s_n, fused=fused)
+        out[f"k10_exchange_{label}"] = e
+    return out
+
+
 def _forced_fold_plain(ck, hist, old):
     import torch
 
@@ -1032,6 +1176,8 @@ def time_tree(path: str, tree: str) -> None:
         result.update(time_k8_k16(data, on, ck, K))
     if "k17_flat" in data:
         result.update(time_k17_k11(data, on, ck, K))
+    if "k10" in data:
+        result.update(time_k15_k10(data, on, ck, K))
     print(json.dumps(result))
 
 

@@ -2,9 +2,10 @@
 
 Each wrapper checks device, dtype, shape and contiguity, allocates outputs
 and scratch with ``torch.empty``, launches on the current CUDA stream, and
-raises if the C entry returns a CUDA error. K9 also has an unchecked
-launch into given buffers (``shard_clip_into``), for a window program
-that checks and allocates once a window. ``LAUNCHES`` holds one integer
+raises if the C entry returns a CUDA error. K9 and K15 also have an
+unchecked launch into given buffers (``shard_clip_into``,
+``word_clip_into``), for a window program that checks and allocates once
+a window. ``LAUNCHES`` holds one integer
 per kernel source, ``ENTRY_LAUNCHES`` one per C entry point; a wrapper
 adds one to both where it calls into its library and nowhere else. The
 libraries are built (build.py) the first time any wrapper runs, never at
@@ -56,12 +57,12 @@ _SIGNATURES = {
     },
     "wave": {
         "wv_pred": [_P] * 7 + [_I] * 4 + [_P] * 3,
+        "wv_pred_or": [_P] * 7 + [_I] * 6 + [_P] * 5,
         "wv_level": [_P] * 4 + [_I] * 2 + [_P] * 7,
     },
     "shard": {
         "sh_clip": [_P] * 6 + [_I] * 3 + [_P] * 2 + [_I] * 2 + [_P] * 7,
         "sh_probe": [_P, _I, _P, _P, _I] + [_P] * 8 + [_I] * 2 + [_P] * 7,
-        "sh_exchange": [_P, _I, _I, _I, _P, _P, _P],
     },
     "word_probe": {
         "wp_search": [_P, _I, _P, _P, _I, _P, _P] + [_I] * 4 + [_P] * 7,
@@ -601,23 +602,60 @@ def wave_pred_tile(r: int, q: int, nw: int) -> int:
 WAVE_PRED_KERNELS = {"last": 0}
 
 
-def wave_pred(cand, rb, re_, read_live, wb, we, write_live, out=None):
+def wave_pred(cand, rb, re_, read_live, wb, we, write_live):
     """Packed predecessor rows int32 [BP, BP/32], BP = B rounded up to 32
     (bit i of row j: a read of txn i overlaps a write of txn j; candidate
-    columns only, diagonal clear); written into ``out`` when given."""
+    columns only, diagonal clear)."""
     b, r, q = _check_ranks(rb, re_, read_live, wb, we, write_live)
     _check(cand, _bool, "cand", (b,))
     bp = (b + 31) // 32 * 32
-    rows = out
-    if rows is None:
-        rows = torch.empty((bp, bp // 32), dtype=_i32, device=cand.device)
-    _check(rows, _i32, "rows", (bp, bp // 32))
+    rows = torch.empty((bp, bp // 32), dtype=_i32, device=cand.device)
     launched = ctypes.c_int(0)
     _call("wave", "wv_pred", cand.device, _ptr(cand), _ptr(rb), _ptr(re_),
           _ptr(read_live), _ptr(wb), _ptr(we), _ptr(write_live), b, r, q, bp,
           _ptr(rows), ctypes.addressof(launched))
     WAVE_PRED_KERNELS["last"] = launched.value
     return rows
+
+
+def _pred_workspace(dev):
+    """K5's OR-mode workspace, int32 [2] (the tile count and the ticket):
+    zeroed when made and left zeroed by every launch that runs to its end;
+    one per device, stream and thread, as K4's."""
+    index = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (index, torch._C._cuda_getCurrentRawStream(index))
+    cache = getattr(_WORKSPACE, "pred", None)
+    if cache is None:
+        cache = _WORKSPACE.pred = {}
+    ws = cache.get(key)
+    if ws is None:
+        ws = cache[key] = torch.zeros(2, dtype=_i32, device=dev)
+    return ws
+
+
+def wave_pred_or(cand, rb, re_, read_live, wb, we, write_live, p, stats,
+                 shard: int, n_shards: int) -> None:
+    """K5's OR mode, the sharded engines' exchange (K10): shard ``shard``
+    of ``n_shards``'s predecessor rows into ``p`` int32 [BP, BP/32], the
+    calls made in shard order on one stream. Shard 0 stores its rows and
+    sets ``stats`` int32 [2] to (its occupied 32x32-bit tiles,
+    S·(BP/32)·(BP/32)); a later shard ORs its nonzero words into ``p`` and
+    adds its occupied tiles (counted before the OR) to ``stats[0]``. One
+    CUDA kernel a call, counted into ``WAVE_PRED_KERNELS["last"]``."""
+    b, r, q = _check_ranks(rb, re_, read_live, wb, we, write_live)
+    _check(cand, _bool, "cand", (b,))
+    bp = (b + 31) // 32 * 32
+    _check(p, _i32, "p", (bp, bp // 32))
+    _check(stats, _i32, "stats", (2,))
+    if not 0 <= shard < n_shards:
+        raise ValueError(f"shard {shard} of {n_shards}")
+    launched = ctypes.c_int(0)
+    _call("wave", "wv_pred_or", cand.device, _ptr(cand), _ptr(rb),
+          _ptr(re_), _ptr(read_live), _ptr(wb), _ptr(we), _ptr(write_live),
+          b, r, q, bp, shard, n_shards, _ptr(p),
+          _ptr(_pred_workspace(cand.device)), _ptr(stats),
+          ctypes.addressof(launched))
+    WAVE_PRED_KERNELS["last"] = launched.value
 
 
 def wave_level(cand, p, too_old=None, txn_mask=None, stats=None, level=None,
@@ -662,7 +700,7 @@ def wave_level(cand, p, too_old=None, txn_mask=None, stats=None, level=None,
     return accepted, level, verdicts
 
 
-# ----------------------------------------------------------------- K8-K10
+# ----------------------------------------------------------------- K8, K9
 
 
 def shard_clip_out(s: int, b: int, r: int, q: int, reads: bool, device):
@@ -776,25 +814,6 @@ def shard_probe(keys, versions, n_used, read_begin, read_end, read_mask,
           ctypes.addressof(launched))
     LIVE_PROBE_KERNELS["last"] = launched.value
     return out.unbind(0)
-
-
-def wave_exchange(ps, stats=None):
-    """K10: (the OR of the S packed predecessor matrices ``ps`` [S, BP,
-    BP/32] as int32 [BP, BP/32], int32 [2] stats: the occupied 32x32-bit
-    tiles summed over the shards, and S·(BP/32)·(BP/32)); the stats go
-    into ``stats`` when given."""
-    s, bp, nw = ps.shape
-    _check(ps, _i32, "ps", (s, bp, bp // 32))
-    if bp % 32 or bp == 0:
-        raise ValueError(f"ps: {bp} rows (want a positive multiple of 32)")
-    dev = ps.device
-    if stats is None:
-        stats = torch.empty(2, dtype=_i32, device=dev)
-    _check(stats, _i32, "stats", (2,))
-    p = torch.empty((bp, nw), dtype=_i32, device=dev)
-    _call("shard", "sh_exchange", dev, _ptr(ps), s, bp, nw, _ptr(p),
-          _ptr(stats))
-    return p, stats
 
 
 # ----------------------------------------------------------------- K11
@@ -1266,6 +1285,74 @@ def word_ranks(rb, re_, read_mask, wb, we, write_mask):
 # ----------------------------------------------------------------- K15, K16
 
 
+def word_clip_out(s: int, b: int, r: int, q: int, w: int, reads: bool,
+                  device):
+    """K15's outputs, carved from ONE allocation: (write_begin, write_end
+    int32 [S, B, Q, W], write_mask bool [S, B, Q], read_begin, read_end
+    int32 [S, B, R, W], read_mask bool [S, B, R]), the read three None
+    unless ``reads``. The int32 views come first, so at W = 4 each starts
+    16-byte aligned (K15's vector path)."""
+    nq, nr = s * b * q, (s * b * r if reads else 0)
+    ni = 2 * (nq + nr) * w
+    buf = torch.empty(4 * ni + nq + nr, dtype=torch.uint8, device=device)
+    ints = buf[:4 * ni].view(_i32)
+    masks = buf[4 * ni:].view(_bool)
+    out = [ints[:nq * w].view(s, b, q, w),
+           ints[nq * w:2 * nq * w].view(s, b, q, w),
+           masks[:nq].view(s, b, q)]
+    if not reads:
+        return tuple(out) + (None, None, None)
+    return tuple(out) + (ints[2 * nq * w:(2 * nq + nr) * w].view(s, b, r, w),
+                         ints[(2 * nq + nr) * w:].view(s, b, r, w),
+                         masks[nq:].view(s, b, r))
+
+
+def check_word_clip(rb, re_, read_mask, wb, we, write_mask, lo, hi,
+                    reads: bool, out) -> None:
+    """K15's checks of a full-key batch ([B, R, W] / [B, Q, W], or a
+    window of them, [k, B, R, W] / [k, B, Q, W]: every step's slice is
+    then contiguous too), the [S, W] shard bounds and the outputs ``out``
+    (``word_clip_out``)."""
+    lead = rb.shape[:-3]
+    b, r, w = rb.shape[-3:]
+    q = wb.shape[-2]
+    _check(rb, _i32, "read_begin")
+    _check(re_, _i32, "read_end", (*lead, b, r, w))
+    _check(read_mask, _bool, "read_mask", (*lead, b, r))
+    _check(wb, _i32, "write_begin", (*lead, b, q, w))
+    _check(we, _i32, "write_end", (*lead, b, q, w))
+    _check(write_mask, _bool, "write_mask", (*lead, b, q))
+    s = lo.shape[0]
+    _check(lo, _i32, "shard_lo", (s, w))
+    _check(hi, _i32, "shard_hi", (s, w))
+    for name, t, shape in (
+            ("write_begin", out[0], (s, b, q, w)),
+            ("write_end", out[1], (s, b, q, w)),
+            ("write_mask", out[2], (s, b, q)),
+            ("read_begin", out[3], (s, b, r, w)),
+            ("read_end", out[4], (s, b, r, w)),
+            ("read_mask", out[5], (s, b, r))):
+        if t is None:
+            if reads:
+                raise ValueError(f"out {name}: needed with reads")
+            continue
+        _check(t, _bool if name.endswith("mask") else _i32, f"out {name}",
+               shape)
+
+
+def word_clip_into(rb, re_, read_mask, wb, we, write_mask, lo, hi,
+                   reads: bool, out) -> None:
+    """K15 into ``out``, unchecked: the window program's launch of each
+    step, after ``check_word_clip`` of the window's arrays."""
+    s, b, q, w = out[0].shape
+    _call("word_shard", "wsh_clip", lo.device, rb.data_ptr(),
+          re_.data_ptr(), read_mask.data_ptr(), wb.data_ptr(),
+          we.data_ptr(), write_mask.data_ptr(), b, rb.shape[-2], q, w,
+          lo.data_ptr(), hi.data_ptr(), s, int(reads), out[0].data_ptr(),
+          out[1].data_ptr(), out[2].data_ptr(), _ptr(out[3]), _ptr(out[4]),
+          _ptr(out[5]))
+
+
 def word_clip(rb, re_, read_mask, wb, we, write_mask, lo, hi, reads: bool):
     """K15: the [B, ., W] full-key batch clipped to each shard's [lo[s],
     hi[s]) (``lo``/``hi`` [S, W]): (write_begin, write_end int32 [S, B, Q,
@@ -1274,30 +1361,12 @@ def word_clip(rb, re_, read_mask, wb, we, write_mask, lo, hi, reads: bool):
     ``reads``. A clipped mask is the mask and begin < end after the
     clamp."""
     b, r, w = rb.shape
-    q = wb.shape[1]
-    _check(rb, _i32, "read_begin", (b, r, w))
-    _check(re_, _i32, "read_end", (b, r, w))
-    _check(read_mask, _bool, "read_mask", (b, r))
-    _check(wb, _i32, "write_begin", (b, q, w))
-    _check(we, _i32, "write_end", (b, q, w))
-    _check(write_mask, _bool, "write_mask", (b, q))
-    s = lo.shape[0]
-    _check(lo, _i32, "shard_lo", (s, w))
-    _check(hi, _i32, "shard_hi", (s, w))
-    dev = lo.device
-    owb, owe = (torch.empty((s, b, q, w), dtype=_i32, device=dev)
-                for _ in range(2))
-    owm = torch.empty((s, b, q), dtype=_bool, device=dev)
-    orb = ore = orm = None
-    if reads:
-        orb, ore = (torch.empty((s, b, r, w), dtype=_i32, device=dev)
-                    for _ in range(2))
-        orm = torch.empty((s, b, r), dtype=_bool, device=dev)
-    _call("word_shard", "wsh_clip", dev, _ptr(rb), _ptr(re_),
-          _ptr(read_mask), _ptr(wb), _ptr(we), _ptr(write_mask), b, r, q, w,
-          _ptr(lo), _ptr(hi), s, int(reads), _ptr(owb), _ptr(owe),
-          _ptr(owm), _ptr(orb), _ptr(ore), _ptr(orm))
-    return owb, owe, owm, orb, ore, orm
+    out = word_clip_out(lo.shape[0], b, r, wb.shape[1], w, reads, lo.device)
+    check_word_clip(rb, re_, read_mask, wb, we, write_mask, lo, hi, reads,
+                    out)
+    word_clip_into(rb, re_, read_mask, wb, we, write_mask, lo, hi, reads,
+                   out)
+    return out
 
 
 def word_shard_probe(keys, versions, n_used, read_begin, read_end,

@@ -1,15 +1,13 @@
-// K8, K9, K10: the sharded engine's probe, clip and wave exchange (S
-// keyspace shards of one card, the shard axis leading every array).
+// K8, K9: the sharded engine's probe and clip (S keyspace shards of one
+// card, the shard axis leading every array). Its wave exchange, K10, is
+// K5's OR mode (wave.cu wv_pred_or).
 //
 // Replaces (foundationdb_tpu/):
 //   K8: parallel/sharded_resolver.py _res_shard_step (:188), its probe half
 //       with models/conflict_kernel.py too_old_mask_packed (:1425) and
 //       _history_conflict_ranges_res (:2136), and the cross-shard OR of the
 //       conflict bits (the all_gather of pack_bits_u32 or the psum, :199-205);
-//   K9: models/conflict_kernel.py clip_ranks (:2109), every shard at once;
-//   K10: parallel/sharded_resolver.py _wave_exchange_and_level (:169), its
-//       all_gather + OR of the shards' predecessor matrices, and
-//       models/conflict_kernel.py wave_occupied_tiles (:764).
+//   K9: models/conflict_kernel.py clip_ranks (:2109), every shard at once.
 //
 // K9 is elementwise and bound by bytes: per shard it reads the batch's
 // endpoint ranks and masks and writes their clamped copies (S x B x Q
@@ -29,23 +27,11 @@
 // candidates, so K3 and K6 take them as they take K2's. Bound: dependent
 // loads of the searches (a few steps into L2 past the shared fences) and
 // LP_LV writes a live row for the table.
-//
-// K10 ORs the S packed predecessor matrices [S, BP, BP/32] into one and
-// counts each shard's occupied 32x32-bit tiles (32 rows x 1 word). A block
-// of 32 x 8 threads owns one tile row (32 rows) of a strip of 32 words:
-// the 32 threads of a warp read 32 consecutive words (coalesced), each
-// thread ORs 4 rows, and the block ORs its 8 row groups in shared memory
-// per shard to decide each tile's occupancy. Bytes bound: the S matrices
-// read once, the OR written once. The stats pair (occupied summed over
-// shards, S x (BP/32) x (BP/32)) stays on the device for the host to fold
-// lazily.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "live_probe.cuh"
-
-#define FULL 0xffffffffu
 
 __device__ __forceinline__ int clamp(int v, int lo, int hi) {
   v = v > lo ? v : lo;
@@ -164,54 +150,4 @@ extern "C" int sh_probe(const int* keys, int C, const int* versions,
   a.B = B;
   a.R = R;
   return lp_run(a, ws, tickets, launched, s);
-}
-
-// ----------------------------------------------------------------- K10
-
-__global__ void k_exchange(const unsigned* P, int S, int BP, int NW,
-                           unsigned* out, int* stats) {
-  __shared__ unsigned any_s[8][32];
-  int tx = threadIdx.x, ty = threadIdx.y;
-  int w = blockIdx.x * 32 + tx;
-  int g = blockIdx.y;
-  bool ok = w < NW;
-  unsigned acc[4] = {0u, 0u, 0u, 0u};
-  int count = 0;
-  for (int s = 0; s < S; ++s) {
-    unsigned any = 0u;
-    for (int k = 0; k < 4; ++k) {
-      int row = g * 32 + ty + 8 * k;
-      unsigned v = ok ? P[((int64_t)s * BP + row) * NW + w] : 0u;
-      acc[k] |= v;
-      any |= v;
-    }
-    any_s[ty][tx] = any;
-    __syncthreads();
-    if (ty == 0) {
-      unsigned o = 0u;
-      for (int y = 0; y < 8; ++y) o |= any_s[y][tx];
-      count += (ok && o != 0u) ? 1 : 0;
-    }
-    __syncthreads();
-  }
-  if (ok)
-    for (int k = 0; k < 4; ++k)
-      out[(int64_t)(g * 32 + ty + 8 * k) * NW + w] = acc[k];
-  if (ty == 0) {
-    for (int o = 16; o > 0; o >>= 1) count += __shfl_down_sync(FULL, count, o);
-    if (tx == 0 && count) atomicAdd(&stats[0], count);
-  }
-  if (blockIdx.x == 0 && blockIdx.y == 0 && tx == 0 && ty == 0)
-    stats[1] = S * (BP / 32) * NW;
-}
-
-// P [S, BP, NW] -> out [BP, NW]; stats int32 [2].
-extern "C" int sh_exchange(const unsigned* P, int S, int BP, int NW,
-                           unsigned* out, int* stats, cudaStream_t s) {
-  cudaError_t e = cudaMemsetAsync(stats, 0, 2 * sizeof(int), s);
-  if (e != cudaSuccess) return (int)e;
-  if (BP > 0 && NW > 0)
-    k_exchange<<<dim3((NW + 31) / 32, BP / 32), dim3(32, 8), 0, s>>>(
-        P, S, BP, NW, out, stats);
-  return (int)cudaGetLastError();
 }

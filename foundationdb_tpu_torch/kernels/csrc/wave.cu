@@ -32,6 +32,19 @@
 // load serves 8 tests and the 8 ballots of a word are independent (the
 // loop is bound by issue, not by latency). The diagonal is cleared by a
 // mask; a word with no live candidate reader is skipped without a test.
+// The sharded engines' exchange (K10: parallel/sharded_resolver.py
+// _wave_exchange_and_level (:169), the OR of the shards' matrices, and
+// models/conflict_kernel.py wave_occupied_tiles (:764)) is K5's OR mode
+// (wv_pred_or): shard 0's launch stores its rows as above, each later
+// shard's ORs its nonzero words into the same matrix and stores nothing
+// for a row without a live write. The launches run in stream order and a
+// word is one thread's in a launch, so the matrix needs no atomic. Each
+// launch counts its own shard's occupied 32x1-word tiles before the OR (a
+// block's bitmask of (32-row group, word) in shared memory, one atomic
+// add a block into a two-word workspace); its last block (a ticket) adds
+// the count into stats[0] (shard 0's sets it), writes stats[1] = S ·
+// (BP/32)², and leaves the workspace zeroed. No [S, BP, BP/32] buffer, no
+// memset, no exchange launch.
 //
 // K6 levels the candidates Kahn-style, in a fixed sequence of launches
 // with no host read between them (the window path allows no host sync; the
@@ -97,17 +110,26 @@
 #define EMPTY_END (-2147483647 - 1)
 
 #define PRED_RPW 8  // rows a warp forms at once
+// K5's modes: the plain store; shard 0 of the OR mode (the store and the
+// tile count); a later shard (the OR of its nonzero words and the count).
+#define PRED_STORE 0
+#define PRED_FIRST 1
+#define PRED_OR 2
 
 // Shared memory: reads int2 [R][32·TW], writes int2 [PRED_ROWS][Q] and the
 // words' live reader masks unsigned [TW]; statically the block's rows
-// with a live write, then (from the end) those without, and their count.
+// with a live write, then (from the end) those without, and their count;
+// in the OR mode each 32-row group's occupied words (a bit a word).
+template <int MODE>
 __global__ void __launch_bounds__(PRED_WARPS * 32)
 k_pred(const bool* cand, const int* rb, const int* re, const bool* rlive,
        const int* wb, const int* we, const bool* wlive, int B, int R, int Q,
-       int BP, int NW, int TW, unsigned* rows) {
+       int BP, int NW, int TW, unsigned* rows, int n_shards, int* ws,
+       int* stats) {
   extern __shared__ int2 s_pred[];
   __shared__ short s_order[PRED_ROWS];
   __shared__ int s_nlive;
+  __shared__ unsigned s_occ[PRED_ROWS / 32];
   const int cols = 32 * TW;
   int2* s_read = s_pred;
   int2* s_write = s_read + (size_t)R * cols;
@@ -117,6 +139,7 @@ k_pred(const bool* cand, const int* rb, const int* re, const bool* rlive,
   const int j0 = blockIdx.y * PRED_ROWS;
   const int nrows = min(PRED_ROWS, BP - j0);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  if (MODE != PRED_STORE && tid < PRED_ROWS / 32) s_occ[tid] = 0u;
   // Staging: every load of an item issued at once (a dead slot's values
   // are read and dropped), four items in flight a thread.
 #pragma unroll 4
@@ -166,10 +189,12 @@ k_pred(const bool* cand, const int* rb, const int* re, const bool* rlive,
   }
   __syncthreads();
   const int nlive = s_nlive;
-  // Rows without a live write: zeros, one store of TW words a row.
-  for (int x = PRED_ROWS - 1 - warp; x >= PRED_ROWS - (nrows - nlive);
-       x -= PRED_WARPS)
-    if (lane < tw) rows[(size_t)(j0 + s_order[x]) * NW + w0 + lane] = 0u;
+  // Rows without a live write: zeros, one store of TW words a row (none
+  // in the OR mode past shard 0).
+  if (MODE != PRED_OR)
+    for (int x = PRED_ROWS - 1 - warp; x >= PRED_ROWS - (nrows - nlive);
+         x -= PRED_WARPS)
+      if (lane < tw) rows[(size_t)(j0 + s_order[x]) * NW + w0 + lane] = 0u;
   // Rows with one, PRED_RPW at a time a warp: their write intervals in
   // registers, one reader interval load serving every row, PRED_RPW
   // independent ballots a word.
@@ -210,7 +235,30 @@ k_pred(const bool* cand, const int* rb, const int* re, const bool* rlive,
       if (jr[x] < 0 || lane >= tw) continue;
       const int j = j0 + jr[x];
       const unsigned diag = lane == (j >> 5) - w0 ? 1u << (j & 31) : 0u;
-      rows[(size_t)j * NW + w0 + lane] = mine[x] & ~diag;
+      const unsigned v = mine[x] & ~diag;
+      unsigned* dst = rows + (size_t)j * NW + w0 + lane;
+      if (MODE == PRED_OR) {
+        if (v) *dst |= v;
+      } else {
+        *dst = v;
+      }
+      if (MODE != PRED_STORE && v) atomicOr(&s_occ[jr[x] >> 5], 1u << lane);
+    }
+  }
+  if (MODE == PRED_STORE) return;
+  __syncthreads();
+  if (tid == 0) {
+    int occ = 0;
+    for (int g = 0; g < PRED_ROWS / 32; ++g) occ += __popc(s_occ[g]);
+    if (occ) atomicAdd(&ws[0], occ);
+    __threadfence();
+    const unsigned nb = gridDim.x * gridDim.y;
+    if (atomicAdd(reinterpret_cast<unsigned*>(&ws[1]), 1u) == nb - 1) {
+      __threadfence();
+      const int all = atomicExch(&ws[0], 0);
+      ws[1] = 0;
+      stats[0] = (MODE == PRED_FIRST ? 0 : stats[0]) + all;
+      stats[1] = n_shards * (BP / 32) * NW;
     }
   }
 }
@@ -719,6 +767,29 @@ static int pred_tile(int R, int Q, int NW) {
   return tw < NW ? tw : NW;
 }
 
+template <int MODE>
+static int launch_pred(const bool* cand, const int* rb, const int* re,
+                       const bool* rlive, const int* wb, const int* we,
+                       const bool* wlive, int B, int R, int Q, int BP,
+                       unsigned* rows, int n_shards, int* ws, int* stats,
+                       cudaStream_t s) {
+  const int nw = BP / 32;
+  const int tw = pred_tile(R, Q, nw);
+  const size_t smem = (size_t)8 * R * 32 * tw + (size_t)PRED_ROWS * 8 * Q +
+                      4 * 32;
+  if (smem > 47 * 1024) {  // beside the static arrays: past 48 KB in all
+    cudaError_t e = cudaFuncSetAttribute(
+        k_pred<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  k_pred<MODE><<<dim3((nw + tw - 1) / tw, (BP + PRED_ROWS - 1) / PRED_ROWS),
+                 PRED_WARPS * 32, smem, s>>>(cand, rb, re, rlive, wb, we,
+                                             wlive, B, R, Q, BP, nw, tw, rows,
+                                             n_shards, ws, stats);
+  return (int)cudaGetLastError();
+}
+
 // The CUDA kernels launched (one, or none for BP = 0) are counted into
 // *launched when given.
 extern "C" int wv_pred(const bool* cand, const int* rb, const int* re,
@@ -727,20 +798,31 @@ extern "C" int wv_pred(const bool* cand, const int* rb, const int* re,
                        unsigned* rows, int* launched, cudaStream_t s) {
   if (launched) *launched = 0;
   if (BP <= 0) return (int)cudaGetLastError();
-  const int nw = BP / 32;
-  const int tw = pred_tile(R, Q, nw);
-  const size_t smem = (size_t)8 * R * 32 * tw + (size_t)PRED_ROWS * 8 * Q +
-                      4 * 32;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        k_pred, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  k_pred<<<dim3((nw + tw - 1) / tw, (BP + PRED_ROWS - 1) / PRED_ROWS),
-           PRED_WARPS * 32, smem, s>>>(cand, rb, re, rlive, wb, we, wlive, B,
-                                       R, Q, BP, nw, tw, rows);
+  const int e = launch_pred<PRED_STORE>(cand, rb, re, rlive, wb, we, wlive,
+                                        B, R, Q, BP, rows, 0, nullptr,
+                                        nullptr, s);
   if (launched) *launched = 1;
-  return (int)cudaGetLastError();
+  return e;
+}
+
+// The OR mode: shard `shard` of `n_shards` (launched in order 0..S-1 on
+// one stream) into rows [BP, BP/32]; ws int32 [2] zeroed (left zeroed);
+// stats int32 [2]. One CUDA kernel, counted into *launched when given.
+extern "C" int wv_pred_or(const bool* cand, const int* rb, const int* re,
+                          const bool* rlive, const int* wb, const int* we,
+                          const bool* wlive, int B, int R, int Q, int BP,
+                          int shard, int n_shards, unsigned* rows, int* ws,
+                          int* stats, int* launched, cudaStream_t s) {
+  if (launched) *launched = 0;
+  if (BP <= 0) return (int)cudaGetLastError();
+  const int e =
+      shard == 0
+          ? launch_pred<PRED_FIRST>(cand, rb, re, rlive, wb, we, wlive, B, R,
+                                    Q, BP, rows, n_shards, ws, stats, s)
+          : launch_pred<PRED_OR>(cand, rb, re, rlive, wb, we, wlive, B, R, Q,
+                                 BP, rows, n_shards, ws, stats, s);
+  if (launched) *launched = 1;
+  return e;
 }
 
 // Round state past this many bytes of shared memory lives in global scratch.

@@ -2017,21 +2017,6 @@ def _clip_live(clip: ShardClip, s: int) -> tuple:
             clip.write_begin[s], clip.write_end[s], clip.write_mask[s])
 
 
-def shard_pred_matrices(cand, clip: ShardClip) -> torch.Tensor:
-    """int32 [S, BP, BP/32]: each shard's predecessor rows from its clipped
-    ranges (K5 once per shard, into one buffer)."""
-    n_shards = clip.write_begin.shape[0]
-    if not _on_card(cand):
-        return torch.stack([wave_pred_matrix_plain(cand, _clip_live(clip, s))
-                            for s in range(n_shards)])
-    bp = (cand.shape[0] + 31) // 32 * 32
-    ps = torch.empty((n_shards, bp, bp // 32), dtype=torch.int32,
-                     device=cand.device)
-    for s in range(n_shards):
-        K.wave_pred(cand, *_clip_live(clip, s), out=ps[s])
-    return ps
-
-
 def wave_occupied_tiles(p: torch.Tensor) -> torch.Tensor:
     """int32 0-dim: the non-zero 32x32-bit tiles (32 rows x 1 word) of a
     packed predecessor matrix (the JAX ``wave_occupied_tiles``)."""
@@ -2054,13 +2039,57 @@ def wave_exchange_plain(ps: torch.Tensor):
     return p, torch.stack([occ.to(torch.int32), total])
 
 
-def wave_exchange(ps: torch.Tensor, stats_out=None):
-    """K10: the OR of the shards' predecessor matrices and the exchange
-    stats pair (into ``stats_out``, an int32 [2], when given)."""
-    if _on_card(ps):
-        return K.wave_exchange(ps, stats=stats_out)
-    p, stats = wave_exchange_plain(ps)
-    return p, _written(stats_out, stats)
+def wave_pred_or_plain(cand, ranks, p, stats, shard: int,
+                       n_shards: int) -> None:
+    """Plain twin of K5's OR mode (``kernels.wave_pred_or``), in place:
+    shard ``shard``'s predecessor rows stored into ``p`` (shard 0) or
+    OR-ed into it, its occupied tiles (``wave_occupied_tiles`` of its own
+    rows) set into (shard 0) or added to ``stats[0]``, and ``stats[1] =
+    S·(BP/32)·(BP/32)``. Over shards 0..S-1 in order: the OR and stats of
+    ``wave_exchange_plain``."""
+    rows = wave_pred_matrix_plain(cand, ranks)
+    occ = wave_occupied_tiles(rows)
+    if shard == 0:
+        p.copy_(rows)
+        stats[0] = occ
+    else:
+        p |= rows
+        stats[0] += occ
+    bp, w = rows.shape
+    stats[1] = n_shards * (bp // 32) * w
+
+
+def wave_pred_or(cand, ranks, p, stats, shard: int, n_shards: int,
+                 plain: bool = False) -> None:
+    """K5's OR mode (on the card) or its plain twin: one shard's step of
+    the fused exchange, in place into ``p`` and ``stats``."""
+    if _card(cand, plain):
+        K.wave_pred_or(cand, *ranks, p, stats, shard, n_shards)
+    else:
+        wave_pred_or_plain(cand, ranks, p, stats, shard, n_shards)
+
+
+def _exchange_out(cand, stats_out):
+    bp = (cand.shape[0] + 31) // 32 * 32
+    p = torch.empty((bp, bp // 32), dtype=torch.int32, device=cand.device)
+    stats = stats_out if stats_out is not None else torch.empty(
+        2, dtype=torch.int32, device=cand.device)
+    return p, stats
+
+
+def shard_pred_exchange(cand, clip: ShardClip, stats_out=None,
+                        plain: bool = False):
+    """The sharded wave exchange (the port of the JAX
+    ``_wave_exchange_and_level`` before its leveling): (the OR of the
+    shards' predecessor matrices from their clipped ranges, int32 [BP,
+    BP/32]; int32 [2] stats: occupied tiles summed over the shards, and
+    S·(BP/32)·(BP/32)), the stats into ``stats_out`` when given. On the
+    card K5 in its OR mode once a shard, into one matrix."""
+    p, stats = _exchange_out(cand, stats_out)
+    n_shards = clip.write_begin.shape[0]
+    for s in range(n_shards):
+        wave_pred_or(cand, _clip_live(clip, s), p, stats, s, n_shards, plain)
+    return p, stats
 
 
 def _paint_shards(hist: ConflictState, rbk: RankBatch, clip: ShardClip,
@@ -2094,9 +2123,7 @@ def _sharded_step_plain(hist: ConflictState, lo, hi, rbk: RankBatch,
     too_old, _, cand = shard_probe_plain(hist, rbk, lo, hi, floor[0], rmq)
     levels = xstats = None
     if wave:
-        ps = torch.stack([wave_pred_matrix_plain(cand, _clip_live(clip, s))
-                          for s in range(lo.shape[0])])
-        p, xstats = wave_exchange_plain(ps)
+        p, xstats = shard_pred_exchange(cand, clip, plain=True)
         accepted, levels, verdicts = wave_level_plain(cand, p, too_old,
                                                       rbk.txn_mask, stats)
     else:
@@ -2113,9 +2140,9 @@ def _sharded_step(hist: ConflictState, lo, hi, rbk: RankBatch,
                   wclip: WindowClip | None = None):
     """One step of the JAX ``_res_shard_step`` on every shard. On the card:
     K9 and K8 (blocked: K17's build and sharded probe), then K3
-    once on the unclipped batch, or K5 per shard, K10 and K6 on the
-    clipped ranges, then K4 once per shard. The
-    verdicts, levels and exchange stats go into the given buffers.
+    once on the unclipped batch, or K5 in its OR mode per shard (the
+    exchange, K10) and K6 on the clipped ranges, then K4 once per shard.
+    The verdicts, levels and exchange stats go into the given buffers.
     Returns (verdicts, levels or None, exchange stats or None, new hist)."""
     if not _on_card(hist.keys):
         v, lv, x, hist = _sharded_step_plain(hist, lo, hi, rbk,
@@ -2130,7 +2157,7 @@ def _sharded_step(hist: ConflictState, lo, hi, rbk: RankBatch,
     too_old, _, cand = shard_probe(hist, rbk, lo, hi, floor[0], rmq)
     levels = xstats = None
     if wave:
-        p, xstats = wave_exchange(shard_pred_matrices(cand, clip), xstats_out)
+        p, xstats = shard_pred_exchange(cand, clip, xstats_out)
         accepted, levels, verdicts = wave_level(
             cand, p, too_old, rbk.txn_mask, stats=stats,
             level_out=levels_out, verdicts_out=verdicts_out)
@@ -2172,8 +2199,8 @@ def sharded_resolve_res_many(res: ResState, rb: ResidentBatch,
     exchange stats int32 [k, 2] or None, new ResState); the verdicts and
     levels are written into ``out``, the stats into ``xstats``, when given.
     On the card: K1 once, then per step K9, K8 (blocked: K17's
-    build and sharded probe), K3 (or K5 per shard, K10, K6) and K4 per
-    shard. No host sync inside the window."""
+    build and sharded probe), K3 (or K5's OR mode per shard, K6) and K4
+    per shard. No host sync inside the window."""
     k, b = rb.ranks.txn_mask.shape
     dev = res.dict_keys.device
     if _on_card(res.dict_keys):
@@ -2897,6 +2924,37 @@ def word_clip(batch: BatchTensors, lo, hi, reads: bool,
             batch.write_begin, batch.write_end, batch.write_mask, lo, hi,
             reads))
     return word_clip_plain(batch, lo, hi, reads)
+
+
+class WordWindowClip(NamedTuple):
+    """K15 for every step of a window: its buffers, allocated once and
+    checked once against the window's [k, ...] key rows; ``step`` clips
+    step i into them unchecked (on the card), or through the plain version
+    (on the CPU, or with ``plain``). A step's clip is dead after its
+    paint: the next step writes the same buffers in stream order."""
+
+    out: WordClip | None
+    lo: torch.Tensor
+    hi: torch.Tensor
+    reads: bool
+
+    @classmethod
+    def of(cls, batches: BatchTensors, lo, hi, reads: bool,
+           plain: bool = False) -> "WordWindowClip":
+        out = None
+        if _card(lo, plain):
+            _, b, r, w = batches.read_begin.shape
+            q = batches.write_begin.shape[2]
+            out = WordClip(*K.word_clip_out(lo.shape[0], b, r, q, w, reads,
+                                            lo.device))
+            K.check_word_clip(*batches[:6], lo, hi, reads, out)
+        return cls(out, lo, hi, reads)
+
+    def step(self, batch: BatchTensors) -> WordClip:
+        if self.out is None:
+            return word_clip_plain(batch, self.lo, self.hi, self.reads)
+        K.word_clip_into(*batch[:6], self.lo, self.hi, self.reads, self.out)
+        return self.out
 
 
 def clip_view(batch: BatchTensors, clip: WordClip, s: int) -> BatchTensors:
@@ -3670,24 +3728,19 @@ def wave_apply(state, batch: BatchTensors, cand, p, commit_version: int,
         _paint_level(state), batch, accepted, commit_version, floor))
 
 
-def word_pred_matrices(cand, batch: BatchTensors, clip: WordClip,
-                       plain: bool = False) -> torch.Tensor:
-    """int32 [S, BP, BP/32]: each shard's predecessor rows from its
-    clipped ranges (per shard K14's ranks of the clipped rows, then K5,
-    into one buffer)."""
+def word_pred_exchange(cand, batch: BatchTensors, clip: WordClip,
+                       stats_out=None, plain: bool = False):
+    """The full-key sharded wave exchange: (p int32 [BP, BP/32], stats
+    int32 [2]) as ``shard_pred_exchange``, each shard's rows from K14's
+    ranks of its clipped key rows, then K5 in its OR mode into one
+    matrix."""
+    p, stats = _exchange_out(cand, stats_out)
     n_shards = clip.write_begin.shape[0]
-    if not _card(cand, plain):
-        return torch.stack([
-            wave_pred_matrix_plain(
-                cand, endpoint_ranks_live_plain(clip_view(batch, clip, s)))
-            for s in range(n_shards)])
-    bp = (cand.shape[0] + 31) // 32 * 32
-    ps = torch.empty((n_shards, bp, bp // 32), dtype=torch.int32,
-                     device=cand.device)
     for s in range(n_shards):
-        K.wave_pred(cand, *endpoint_ranks_live(clip_view(batch, clip, s)),
-                    out=ps[s])
-    return ps
+        wave_pred_or(cand, endpoint_ranks_live(clip_view(batch, clip, s),
+                                               plain),
+                     p, stats, s, n_shards, plain)
+    return p, stats
 
 
 def _paint_word_shards(hist: ConflictState, batch: BatchTensors,
@@ -3712,32 +3765,32 @@ def sharded_resolve(hist: ConflictState, batch: BatchTensors,
                     commit_version: int, new_oldest, lo, hi,
                     wave: bool = False, stats=None, verdicts_out=None,
                     levels_out=None, xstats_out=None, plain: bool = False,
-                    rmq: str = "sparse"):
+                    rmq: str = "sparse", wclip: WordWindowClip | None = None):
     """One step of the JAX ``_sharded_resolve`` (:107-166) on every shard
     of ``hist`` ([S, C, W]; bounds ``lo``/``hi`` [S, W]). On the card:
-    K16 (blocked: K17's build and sharded probe), K15, then K14's ranks
-    and K3 on the unclipped batch, or per shard K14's ranks of the clipped batch and K5, then K10
-    and K6 (the port of ``_wave_exchange_and_level``, :169-185); then the
-    unpacked paint per shard. The verdicts, levels and exchange stats go
-    into the given buffers. Returns (verdicts, levels or None, exchange
-    stats int32 [2] or None, new hist)."""
+    K16 (blocked: K17's build and sharded probe), K15 (checked, or into
+    the window's buffers given ``wclip``), then K14's ranks and K3 on the
+    unclipped batch, or per shard K14's ranks of the clipped batch and K5
+    in its OR mode (the exchange, K10), then K6 (the port of
+    ``_wave_exchange_and_level``, :169-185); then the unpacked paint per
+    shard. The verdicts, levels and exchange stats go into the given
+    buffers. Returns (verdicts, levels or None, exchange stats int32 [2]
+    or None, new hist)."""
     dev = hist.keys.device
     floor = torch.maximum(hist.oldest, _i32(new_oldest, dev))
     too_old, _, _, cand = word_shard_probe(hist, batch, lo, hi, floor[0],
                                            plain, rmq)
-    clip = word_clip(batch, lo, hi, wave, plain)
+    clip = (word_clip(batch, lo, hi, wave, plain) if wclip is None
+            else wclip.step(batch))
     xstats = None
+    if wave:
+        p, xstats = word_pred_exchange(cand, batch, clip, xstats_out, plain)
     if wave and plain:
-        p, xstats = wave_exchange_plain(
-            word_pred_matrices(cand, batch, clip, True))
-        xstats = _written(xstats_out, xstats)
         accepted, levels, verdicts = wave_level_plain(
             cand, p, too_old, batch.txn_mask, stats)
         verdicts = _written(verdicts_out, verdicts)
         levels = _written(levels_out, levels)
     elif wave:
-        p, xstats = wave_exchange(word_pred_matrices(cand, batch, clip),
-                                  xstats_out)
         accepted, levels, verdicts = wave_level(
             cand, p, too_old, batch.txn_mask, stats=stats,
             level_out=levels_out, verdicts_out=verdicts_out)
@@ -3756,7 +3809,8 @@ def sharded_resolve_many(hist: ConflictState, batches: BatchTensors,
                          out: WindowOut | None = None, xstats=None,
                          plain: bool = False, rmq: str = "sparse"):
     """The non-resident sharded window program (the JAX scan, :551-558): k
-    steps of ``sharded_resolve`` with no host sync inside the window.
+    steps of ``sharded_resolve`` with no host sync inside the window, K15
+    checked and its buffers allocated once a window (``WordWindowClip``).
     Returns (verdicts int8 [k, B], levels int32 [k, B] or None, exchange
     stats int32 [k, 2] or None, new hist), written into ``out`` and
     ``xstats`` when given."""
@@ -3768,12 +3822,13 @@ def sharded_resolve_many(hist: ConflictState, batches: BatchTensors,
         out = window_out(k, b, dev, wave)
     if wave and xstats is None:
         xstats = torch.empty((k, 2), dtype=torch.int32, device=dev)
+    wclip = WordWindowClip.of(batches, lo, hi, wave, plain)
     for i in range(k):
         *_, hist = sharded_resolve(
             hist, _step_batch(batches, i), int(commit_versions[i]),
             int(new_oldests[i]), lo, hi, wave, stats, out.verdicts[i],
             out.levels[i] if wave else None, xstats[i] if wave else None,
-            plain, rmq)
+            plain, rmq, wclip)
     return out.verdicts, out.levels, xstats if wave else None, hist
 
 

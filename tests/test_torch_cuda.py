@@ -868,23 +868,63 @@ def test_shard_probe(card, b, s, empty, state):
     assert bool(want[1].any())
 
 
-@pytest.mark.parametrize("s,bp,empty", [(1, 32, False), (3, 64, True),
-                                        (4, 1024, True)])
-def test_wave_exchange(card, s, bp, empty):
-    """K10 against its plain version: S = 1, odd shard counts, and a shard
-    whose matrix is all zero (no occupied tile)."""
-    rng = np.random.default_rng(s * bp)
-    ps = rng.integers(0, 2**32, (s, bp, bp // 32), dtype=np.uint64).astype(
-        np.uint32)
-    ps[:, rng.random(bp) < 0.5] = 0  # whole rows empty: empty tiles too
-    ps[:, :32] = 0
-    if empty:
-        ps[1] = 0
-    t = on(ps.view(np.int32), card)
-    got = ck.wave_exchange(t)
-    want = ck.wave_exchange_plain(t)
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+def or_mode_shards(rng, b, kinds, dev):
+    """(cand, one shard's clipped ranks per kind): random, no live write,
+    or every read and write on one key (every tile of every candidate
+    column occupied)."""
+    cand = on(rng.random(b) < 0.85, dev)
+    shards = []
+    for kind in kinds:
+        _, ranks = wave_inputs(rng, b, 2, 1, max(b // 4, 40), dev)
+        ranks = list(ranks)
+        if kind == "none":
+            ranks[5] = torch.zeros_like(ranks[5])
+        elif kind == "dense":
+            ranks = [torch.zeros_like(ranks[0]), torch.full_like(ranks[1], 5),
+                     torch.ones_like(ranks[2]), torch.zeros_like(ranks[3]),
+                     torch.full_like(ranks[4], 5), torch.ones_like(ranks[5])]
+        shards.append(tuple(ranks))
+    return cand, shards
+
+
+@pytest.mark.parametrize("s,kinds", [
+    (1, ("random",)), (1, ("dense",)), (2, ("none", "dense")),
+    (4, ("random", "none", "random", "dense"))])
+@pytest.mark.parametrize("b", [31, 32, 8192, 8193])
+def test_k5_or_mode_exchange(card, s, kinds, b):
+    """K5's OR mode (the fused exchange, K10) against the OR of the stacked
+    plain matrices and the sum of their ``wave_occupied_tiles``
+    (``wave_exchange_plain``): into a matrix and stats full of garbage,
+    shard 0 with no live write or fully occupied, a later shard with no
+    live write; through ``kernels.wave_pred_or`` and
+    ``ck.shard_pred_exchange``; one CUDA kernel a shard, counted at its
+    launch (the profiler, where it sees kernels, sees no more); the
+    workspace left zeroed."""
+    from foundationdb_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(b * 10 + s + len(kinds[0]))
+    cand, shards = or_mode_shards(rng, b, kinds, card)
+    want = ck.wave_exchange_plain(torch.stack(
+        [ck.wave_pred_matrix_plain(cand, r) for r in shards]))
+    bp = (b + 31) // 32 * 32
+    p = torch.full((bp, bp // 32), -1, dtype=torch.int32, device=card)
+    stats = torch.full((2,), 12345, dtype=torch.int32, device=card)
+
+    def fused():
+        for i, r in enumerate(shards):
+            K.wave_pred_or(cand, *r, p, stats, i, s)
+            assert K.WAVE_PRED_KERNELS["last"] == 1
+
+    fused()
+    assert torch.equal(p, want[0]) and torch.equal(stats, want[1])
+    assert int(want[1][0]) > 0
+    clip = ck.ShardClip(*(torch.stack([r[j] for r in shards])
+                          for j in (3, 4, 5, 0, 1, 2)))
+    got = ck.shard_pred_exchange(cand, clip)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    torch.cuda.synchronize()
+    assert not K._pred_workspace(card).any()
+    assert _cuda_kernels(lambda: fused(), lambda: ()) <= s
 
 
 @pytest.mark.parametrize("wave", [False, True])
@@ -1275,6 +1315,88 @@ def test_word_clip(card, b, s):
         want = ck.word_clip_plain(bt, lo, hi, reads)
         for g, x in zip(got, want):
             assert (g is None and x is None) or torch.equal(g, x)
+
+
+def clip_case(rng, b, r, q, w, lo, hi, dev, dead=False):
+    """A BatchTensors of key rows for K15: random words, signed extremes,
+    the shard bounds themselves and rows differing from a bound in the last
+    word only, begin <= end per slot; every mask false when ``dead``."""
+    bounds = np.concatenate([lo, hi])
+    near = np.repeat(bounds, 3, 0)
+    near[1::3, -1] = np.maximum(near[1::3, -1].astype(np.int64) - 1,
+                                -2**31).astype(np.int32)
+    near[2::3, -1] = np.minimum(near[2::3, -1].astype(np.int64) + 1,
+                                2**31 - 1).astype(np.int32)
+
+    def rows(n):
+        pool = np.concatenate([key_rows(rng, 2 * n, w, "extremes"),
+                               key_rows(rng, 2 * n, w, "random"), near])
+        a = pool[rng.integers(0, len(pool), 2 * b * n)].reshape(b, n, 2, w)
+        swap = ck.lex_lt(torch.from_numpy(a[:, :, 1]),
+                         torch.from_numpy(a[:, :, 0])).numpy()[..., None]
+        x = np.where(swap, a[:, :, 1], a[:, :, 0])
+        y = np.where(swap, a[:, :, 0], a[:, :, 1])
+        m = rng.random((b, n)) < (0.0 if dead else 0.85)
+        return on(x, dev), on(y, dev), on(m, dev)
+
+    return ck.BatchTensors(*rows(r), *rows(q),
+                           on(np.zeros(b, np.int32), dev),
+                           on(np.ones(b, bool), dev))
+
+
+@pytest.mark.parametrize("w", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("s", [1, 3, 4, 8])
+def test_word_clip_window_buffers(card, w, s):
+    """K15 as the window program launches it (``ck.WordWindowClip``:
+    buffers and checks once a [k, ...] window, every step's slice clipped
+    into them) against ``word_clip_plain``: W = 4 (16-byte rows) and the
+    word loop; rows equal to a bound or one off in its last word;
+    INT32_MIN / INT32_MAX words; a step with every mask false; B·Q and
+    B·R not multiples of 4; one CUDA kernel a step. At W = 4 also rows
+    that are not 16-byte aligned (the word loop) through the checked
+    entry."""
+    from foundationdb_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(100 * w + s)
+    b, r, q, k = 37, 3, 1, 3
+    rows = np.unique(np.concatenate([key_rows(rng, 4 * s, w, "extremes"),
+                                     key_rows(rng, 4 * s, w, "random")]),
+                     axis=0)  # sorted: the int32 words' lexicographic order
+    rows = rows[(rows != -2**31).any(1)]
+    pick = np.sort(rng.choice(len(rows), s - 1, replace=False))
+    lo = np.concatenate([np.full((1, w), -2**31, np.int32), rows[pick]])
+    hi = np.concatenate([lo[1:], np.full((1, w), ck.INT32_MAX, np.int32)])
+    steps = [clip_case(rng, b, r, q, w, lo, hi, card, dead=i == 1)
+             for i in range(k)]
+    window = ck.BatchTensors(*(torch.stack(x) for x in zip(*steps)))
+    tlo, thi = on(lo, card), on(hi, card)
+    for reads in (False, True):
+        wclip = ck.WordWindowClip.of(window, tlo, thi, reads)
+        for i in range(k):
+            before = K.ENTRY_LAUNCHES.get("wsh_clip", 0)
+            got = wclip.step(ck._step_batch(window, i))
+            assert K.ENTRY_LAUNCHES["wsh_clip"] == before + 1
+            want = ck.word_clip_plain(steps[i], tlo, thi, reads)
+            for g, x in zip(got, want):
+                assert (g is None and x is None) or torch.equal(g, x)
+            got = ck.word_clip(steps[i], tlo, thi, reads)
+            for g, x in zip(got, want):
+                assert (g is None and x is None) or torch.equal(g, x)
+        step = ck._step_batch(window, 0)
+        assert _cuda_kernels(lambda: wclip.step(step), lambda: ()) <= 1
+    if w == 4:  # rows one word past 16-byte alignment
+        def shifted(t):
+            buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=card)
+            buf[1:] = t.reshape(-1)
+            return buf[1:].view(t.shape)
+
+        step = steps[0]
+        odd = step._replace(**{f: shifted(getattr(step, f)) for f in (
+            "read_begin", "read_end", "write_begin", "write_end")})
+        got = ck.word_clip(odd, tlo, thi, True)
+        want = ck.word_clip_plain(step, tlo, thi, True)
+        for g, x in zip(got, want):
+            assert torch.equal(g, x)
 
 
 def nr_sharded(s, capacity, dev, seed=0, batch=None):
