@@ -69,13 +69,24 @@ Phases, each fatal on failure:
    speculative resolve (depth 2, every window confirmed). (a) Its verdict
    hash equals an untiered engine's with the same delta slots; it
    demotes (>= 3 events), never full-repacks, repairs nothing; K7 launches
-   and K3 launches k times per window. (b) Every K7 launch of (a) equals
-   the plain version in the dictionary, n_keys and every rank leaf. (c)
+   once a demotion event (one K1 rewrite beside it) and K3 k times per
+   window. (b) Every K7 launch of (a) equals the plain version in the
+   dictionary, n_keys and every rank leaf, and K7's tile twin
+   (``dict_evict_tiles_plain``) in the dictionary, n_keys and shift. (c)
    With a hook that revokes the first accepted txn of every window, 16
    batches at window 4 and depth 3 on cuda equal depth 1 on cuda and
    depth 3 on the CPU (worker processes beside phase 4, checked after
    it) in verdicts, spec_metrics (depth 1 has no younger window to flip)
    and every state leaf, sequentially and on wave engines (levels too).
+   (c′) The same adversary across demotions: check (c)'s stream on a
+   tiered speculative engine sized from its own ``dictionary_counts``
+   (``spec_tier``: MVCC window SPEC_K, a hot tier that fills at window
+   1, evict chunks of a quarter delta) demotes at least twice and repairs
+   at least one window; depth 3 on cuda equals depth 1 on cuda and depth
+   3 on the CPU (workers beside phase 4) in verdicts, levels,
+   spec_metrics, dict_stats and every state leaf, sequentially and on
+   wave engines; one K7 launch a demotion event, each equal to the plain
+   version and the tile twin.
    (d) One captured paint-only window (``paint_many_res``, forced mask)
    equals its plain version in every state leaf.
 3e. Sharded phase: the stream of 3b through the same runner on a
@@ -219,6 +230,15 @@ Phases, each fatal on failure:
    twin equal to 3c's verdicts and levels. Every K15 launch of the
    non-resident arms and every fused exchange of the wave twin equal the
    plain twins.
+3l. Baseline phase (the north star's CPU SkipList, ported as
+   ``models/cpu_conflict_set.py`` over ``native/skiplist.cpp``): (a) the
+   pinned baseline (``bench.CPU_BASELINE_PIN``: YCSB-A, 262,144 txns,
+   2^16 keys, seed 20260729) through the skiplist a batch a call, and the
+   same stream through the window path on the card (window 8, best of
+   3): txns/s, p50 and p99 (per batch for the skiplist, per window for
+   the card), ``vs_baseline`` and the verdict parity; (b) the skiplist
+   over 3b's stream, its verdict hash equal to 3b's. A differing verdict
+   fails the phase and names the first differing txn.
 4. Cross-check: the first 16 batches again on the CPU (plain versions),
    and 16 batches each of the mako and tpcc shapes on cuda against the
    CPU: the verdicts must be equal.
@@ -1848,8 +1868,8 @@ def spec_run(seed: int, device: str, depth: int, wave: bool,
     3i(d)).
     Returns (verdicts, levels or None, spec_metrics, state leaves as
     numpy, paint-only windows launched, seconds, [younger windows the
-    dependency probe found clean, dependent]); also run in a worker
-    process for the CPU."""
+    dependency probe found clean, dependent], dict_stats); also run in a
+    worker process for the CPU."""
     import torch
 
     from foundationdb_tpu_torch import bench, convert
@@ -1898,13 +1918,15 @@ def spec_run(seed: int, device: str, depth: int, wave: bool,
     state = convert.snapshot(cs)["state"]  # reconciles the ring first
     return (np.stack(out), np.stack(levels) if wave else None,
             cs.spec_metrics(), state, ck.LAUNCHES["paint_many"],
-            time.perf_counter() - t0, deps)
+            time.perf_counter() - t0, deps, cs.dict_stats)
 
 
-def same_spec(got, other, wave: bool, name: str, metrics: bool) -> None:
+def same_spec(got, other, wave: bool, name: str, metrics: bool,
+              stats: bool = False) -> None:
     """Check (c): two spec_run results agree in verdicts, levels, every
     state leaf and (with ``metrics``) spec_metrics; without, all but
-    spec_flipped (depth 1 has no younger window to flip)."""
+    spec_flipped (depth 1 has no younger window to flip). With ``stats``
+    (check (c′)) also in dict_stats."""
     label = "wave" if wave else "sequential"
     if not np.array_equal(got[0], other[0]) or (
             wave and not np.array_equal(got[1], other[1])):
@@ -1916,21 +1938,92 @@ def same_spec(got, other, wave: bool, name: str, metrics: bool) -> None:
     for k, v in other[3].items():
         if got[3][k].tobytes() != v.tobytes():
             fail(f"adversarial {label}: state leaf {k} differs from {name}")
+    if stats and got[7] != other[7]:
+        fail(f"adversarial {label}: dict_stats {got[7]} vs {name} "
+             f"{other[7]}")
 
 
-def check_spec_cpu(td: dict, cpu_spec: dict, label: str = "") -> None:
+def check_spec_cpu(td: dict, cpu_spec: dict, label: str = "",
+                   key: str = "spec_cuda") -> None:
     """Check (c)'s CPU half: depth 3 on the CPU (worker processes, beside
-    phase 4) equals depth 3 on cuda."""
+    phase 4) equals depth 3 on cuda (``td[key]``; check (c′):
+    ``spec_tier_cuda``, dict_stats too)."""
     for wave, job in cpu_spec.items():
         cpu = job.get()
-        same_spec(td["spec_cuda"][wave], cpu, wave, "depth 3 on the cpu",
-                  metrics=True)
-        if cpu[6] != td["spec_cuda"][wave][6]:
+        same_spec(td[key][wave], cpu, wave, "depth 3 on the cpu",
+                  metrics=True, stats=key == "spec_tier_cuda")
+        if cpu[6] != td[key][wave][6]:
             fail(f"adversarial{label}: the dependency probe answered "
-                 f"{cpu[6]} on the cpu, {td['spec_cuda'][wave][6]} on cuda")
+                 f"{cpu[6]} on the cpu, {td[key][wave][6]} on cuda")
         print(f"cross-check adversarial{label} "
               f"{'wave' if wave else 'sequential'}: depth 3 on cuda equals "
               f"depth 3 on the cpu ({cpu[5]:.1f} s in a worker process)")
+
+
+def spec_tier(seed: int) -> dict:
+    """Check (c′)'s engine: a tiered speculative engine over check (c)'s
+    stream (SPEC_BATCHES batches over TIER_KEYS keys, windows of SPEC_K),
+    sized from the stream's own ``dictionary_counts``: an MVCC window of
+    SPEC_K versions (keys of older windows may demote), delta slots that
+    hold the largest window's new keys, a hot tier of the keys touched by
+    the end of window 1 plus one delta (windows 2 and 3 must demote), and
+    evict chunks of a quarter delta (an event spans several)."""
+    from foundationdb_tpu_torch.loadgen.ycsb import (
+        MODES,
+        dictionary_counts,
+        gen_workload,
+    )
+
+    mode = MODES["ycsb"]
+    stream = gen_workload(SPEC_BATCHES * mode.batch, TIER_KEYS, seed, mode)
+    counts = dictionary_counts(*stream[:3], mode.batch, SPEC_K)
+    delta = (max(counts["new"]) + 1024) // 1024 * 1024
+    return {"dict_hot_capacity": counts["touched"][1] + delta,
+            "dict_delta_slots": delta, "dict_demote_batch": delta // 4,
+            "window_versions": SPEC_K}
+
+
+def evict_capturer(apply_evict, out: list):
+    """``apply_evict`` that appends (state before, evict vector, n_ev,
+    n_live, state after, (K7, K1 rewrite) entries it made) to ``out``."""
+    from foundationdb_tpu_torch import kernels as K
+
+    def capturing(res, ev, n_ev=None, n_live=None):
+        before = clone(res)
+        was = (K.ENTRY_LAUNCHES.get("de_evict", 0),
+               K.ENTRY_LAUNCHES.get("di_rewrite", 0))
+        after = apply_evict(res, ev, n_ev, n_live)
+        made = (K.ENTRY_LAUNCHES.get("de_evict", 0) - was[0],
+                K.ENTRY_LAUNCHES.get("di_rewrite", 0) - was[1])
+        out.append((before, ev.clone(), n_ev, n_live, clone(after), made))
+        return after
+
+    return capturing
+
+
+def check_evict_captures(captures, label: str = "") -> None:
+    """Every captured ``apply_evict`` call made one K7 launch and one K1
+    rank rewrite, and equals the plain version (the dictionary, n_keys
+    and every rank leaf after the rewrite); its K7 output equals K7's tile
+    twin (the dictionary, n_keys and the shift)."""
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+
+    for before, ev, n_ev, n_live, after, made in captures:
+        if made != (1, 1):
+            fail(f"dict_evict{label}: (K7, K1 rewrite) entries of one "
+                 f"demotion {made}, want (1, 1)")
+        plain = ck._dict_evict_plain(before.dict_keys, before.n_keys, ev)
+        nd, nn, shift = plain
+        h = before.hist
+        bk, dk, lo, hi = ck._rewrite_ranks_plain(
+            [h.base.keys, h.delta.keys, before.shard_lo, before.shard_hi],
+            shift, False)
+        assert_equal(f"dict_evict{label}", after, ck.ResState(
+            nd, nn, ck.HistState(h.base._replace(keys=bk), h.base_st,
+                                 h.delta._replace(keys=dk)), lo, hi))
+        twin = ck.dict_evict_tiles_plain(before.dict_keys, before.n_keys, ev,
+                                         n_ev, n_live)
+        assert_equal(f"dict_evict.tile_twin{label}", twin, plain)
 
 
 def tiered_phase(args, card: str) -> dict:
@@ -1977,17 +2070,11 @@ def tiered_phase(args, card: str) -> dict:
     lap("stream")
 
     # (a) + (b): every K7 launch of the run is captured (state before and
-    # after) and checked against the plain version once the run is over.
+    # after, the kernel entries it made) and checked against the plain
+    # version and K7's tile twin once the run is over.
     captures = []
     apply_evict = ck.apply_evict
-
-    def capturing(res, ev, n_ev=None):
-        before = clone(res)
-        out = apply_evict(res, ev, n_ev)
-        captures.append((before, ev.clone(), n_ev, clone(out)))
-        return out
-
-    ck.apply_evict = capturing
+    ck.apply_evict = evict_capturer(apply_evict, captures)
     try:
         rec, _, _, cs, launches, per_window = counted_run(
             blob, ends, mode, n_batches, wave=False, label="tiered",
@@ -2007,6 +2094,10 @@ def tiered_phase(args, card: str) -> dict:
              f"{st['full_repacks']} (want 0), spec_repaired "
              f"{sm['spec_repaired']} (want 0), K7 launches "
              f"{launches['dict_evict']}")
+    if not len(captures) == st["demotion_events"] == launches["dict_evict"]:
+        fail(f"tiered run: {st['demotion_events']} demotion events, "
+             f"{len(captures)} apply_evict calls, {launches['dict_evict']} "
+             "K7 launches (want one of each an event)")
     plain = bench.run_wire(blob, ends, mode, n_batches, CAP, "cuda",
                            window=WINDOW_K, pipeline_depth=WINDOW_DEPTH,
                            repeats=1, warmup=False,
@@ -2038,30 +2129,21 @@ def tiered_phase(args, card: str) -> dict:
         "untiered_full_repacks": plain["dict_stats"]["full_repacks"],
         "card": card}))
 
-    # (b) Every K7 launch of (a) against the plain version: the
-    # dictionary, n_keys and every rank leaf after the rewrite.
-    for before, ev, n_ev, after in captures:
-        nd, nn, shift = ck._dict_evict_plain(before.dict_keys, before.n_keys,
-                                             ev)
-        h = before.hist
-        bk, dk, lo, hi = ck._rewrite_ranks_plain(
-            [h.base.keys, h.delta.keys, before.shard_lo, before.shard_hi],
-            shift, False)
-        assert_equal("dict_evict", after, ck.ResState(
-            nd, nn, ck.HistState(h.base._replace(keys=bk), h.base_st,
-                                 h.delta._replace(keys=dk)), lo, hi))
-    before, ev, n_ev, _ = captures[0]
+    # (b) Every K7 launch of (a) against the plain version and K7's tile
+    # twin: the dictionary, n_keys and every rank leaf after the rewrite.
+    check_evict_captures(captures)
+    before, ev, n_ev, n_live, _, _ = captures[0]
     d1, w = before.dict_keys.shape
     e = ev.shape[0]
     k7 = (time_ms(lambda: K.dict_evict(before.dict_keys, before.n_keys, ev,
-                                       n_ev)),
+                                       n_ev, n_live)),
           time_ms(lambda: ck._dict_evict_plain(before.dict_keys,
                                                before.n_keys, ev), reps=3))
     keep = torch.ones(d1, dtype=torch.bool, device="cuda")
     keep[ev[:n_ev].long()] = False
     keep[int(before.n_keys):] = False
     library = time_ms(lambda: before.dict_keys[keep])
-    whole = time_ms(lambda r: ck.apply_evict(r, ev, n_ev),
+    whole = time_ms(lambda r: ck.apply_evict(r, ev, n_ev, n_live),
                     lambda: (clone(before),), reps=5)
     print(f"kernel dict_evict ({len(captures)} launches checked, D+1 {d1}, "
           f"E {e}, {n_ev} evicted): {k7[0]:.4f} ms (plain {k7[1]:.4f} ms; "
@@ -2122,13 +2204,54 @@ def tiered_phase(args, card: str) -> dict:
     if paint_launches <= 0:
         fail("the paint-only window was not launched under the adversary")
     lap("c")
+
+    # (c′) The adversary across demotions: check (c)'s stream on a tiered
+    # engine sized from its own dictionary counts to demote (spec_tier),
+    # every K7 launch of its cuda runs captured and checked.
+    tier = spec_tier(args.seed)
+    tier_captures = []
+    spec_tier_cuda = {}
+    ck.apply_evict = evict_capturer(apply_evict, tier_captures)
+    try:
+        for wave in (False, True):
+            k7_before = K.LAUNCHES["dict_evict"]
+            got = spec_tier_cuda[wave] = spec_run(args.seed, "cuda", 3, wave,
+                                                  design=tier)
+            k7_launches = K.LAUNCHES["dict_evict"] - k7_before
+            same_spec(got, spec_run(args.seed, "cuda", 1, wave, design=tier),
+                      wave, "depth 1 on cuda", metrics=False, stats=True)
+            label = "wave" if wave else "sequential"
+            st = got[7]
+            if (st["demotion_events"] < 2 or st["full_repacks"]
+                    or got[2]["spec_repaired"] < 1):
+                fail(f"adversarial across demotions {label}: demotion "
+                     f"events {st['demotion_events']} (want >= 2), full "
+                     f"repacks {st['full_repacks']} (want 0), spec_repaired "
+                     f"{got[2]['spec_repaired']} (want >= 1)")
+            if k7_launches != st["demotion_events"]:
+                fail(f"adversarial across demotions {label}: {k7_launches} "
+                     f"K7 launches for {st['demotion_events']} events")
+            print(json.dumps({
+                "check": "c′ adversary across demotions", "wave": wave,
+                "txns": int(got[0].size), "depth_3_equals_depth_1": True,
+                "k7_launches_depth_3": k7_launches,
+                "demotion_chunks": st["demotion_bytes"]
+                // (4 * tier["dict_demote_batch"]),
+                **{k: st[k] for k in ("demotions", "demotion_events",
+                                      "demotion_stalls", "demotion_bytes",
+                                      "promotions", "full_repacks")},
+                "spec_metrics": got[2], "engine": tier}))
+    finally:
+        ck.apply_evict = apply_evict
+    check_evict_captures(tier_captures, ".across_demotions")
+    lap("c′")
     print(json.dumps({"phase 3d seconds": seconds}))
 
     # Bounds of the timed captures. K7: the kept source rows
-    # (n_keys - n_ev) and the evict vector read, the [D+1, W] output and
-    # the shift table written, n_keys read and written. The paint-only
-    # window: K1's insert and rewrite once (as the K1 row's basis) plus k
-    # paints (the K4 row's basis) at this window's shapes.
+    # (n_keys - n_ev) and the evict vector's real ranks read, the [D+1, W]
+    # output and the shift table written, n_keys read and written. The
+    # paint-only window: K1's insert and rewrite once (as the K1 row's
+    # basis) plus k paints (the K4 row's basis) at this window's shapes.
     kept = int(before.n_keys) - n_ev
     c = state.hist.base.keys.shape[0]
     cd = state.hist.delta.keys.shape[0]
@@ -2136,13 +2259,82 @@ def tiered_phase(args, card: str) -> dict:
     bytes_k4 = cd * 8 * 2 + b * q * 9 + b + 2 * b * q * 4
     paint_bytes = SPEC_K * bytes_k4 + k1_bytes(
         int(state.n_keys), hb.n_new, *state.dict_keys.shape, c, cd)
-    return {"spec_cuda": spec_cuda,
+    return {"spec_cuda": spec_cuda, "spec_tier_cuda": spec_tier_cuda,
+            "spec_tier": tier,
             "dict_evict": {"launches": launches["dict_evict"], "ms": k7[0],
                            "plain_ms": k7[1], "partial_library_ms": library,
-                           "bound": bound(4 * (kept * w + d1 * w + d1 + e)
+                           "bound": bound(4 * (kept * w + d1 * w + d1 + n_ev)
                                           + 8)},
             "paint_many": {"launches": paint_launches, "ms": pm[0],
                            "plain_ms": pm[1], "bound": bound(paint_bytes)}}
+
+
+def first_difference(got: np.ndarray, want: np.ndarray, batch: int) -> str:
+    """The first txn at which two verdict streams (batch order) differ:
+    its index, batch and both verdicts."""
+    i = int(np.flatnonzero(got.reshape(-1) != want.reshape(-1))[0])
+    return (f"txn {i} (batch {i // batch}, row {i % batch}): "
+            f"{int(got.reshape(-1)[i])} vs {int(want.reshape(-1)[i])}")
+
+
+def baseline_phase(stream, mode, n_batches: int, window_rec: dict,
+                   card: str) -> None:
+    """Phase 3l: (a) the pinned baseline (``bench.CPU_BASELINE_PIN``)
+    through the port's CPU SkipList engine, one batch a call, and the same
+    stream through the window path on the card (the bench's runner,
+    window WINDOW_K, best of 3): txns/s, p50 and p99 of each with their
+    units, ``vs_baseline`` and the verdict parity; (b) the skiplist over
+    3b's stream, its verdict hash equal to 3b's. A verdict that differs
+    fails the phase, naming the first differing txn."""
+    from foundationdb_tpu_torch import bench
+
+    pmode, pn, pstream = bench.pinned_stream()
+    t0 = time.perf_counter()
+    cpu_batches = bench.marshal_cpu_batches(pn, *pstream, pmode)
+    marshal_s = time.perf_counter() - t0
+    dt, conf, lat, cpu_v = bench.run_cpu(cpu_batches, pmode)
+    cpu = {"config": dict(bench.CPU_BASELINE_PIN),
+           **bench.cpu_record(pn * pmode.batch, dt, conf, lat, cpu_v)}
+    blob, ends, _ = wire_stream(pstream, pmode, pn)
+    rec, verdicts, _, _ = bench.run_wire(
+        blob, ends, pmode, pn, CAP, "cuda", window=WINDOW_K,
+        pipeline_depth=WINDOW_DEPTH, repeats=3)
+    if rec["verdicts_sha256"] != cpu["verdicts_sha256"]:
+        fail("baseline (a): the skiplist's and the card's verdicts differ "
+             "at " + first_difference(cpu_v, verdicts, pmode.batch))
+    print(json.dumps({
+        "phase": "baseline (a) pinned", "config": cpu["config"],
+        "cpu_skiplist": {k: cpu[k] for k in (
+            "txns_per_sec", "elapsed_s", "p50_ms", "p99_ms",
+            "latency_samples", "conflicts")},
+        "cpu_latency_unit": "ms a batch of 8192 txns",
+        "cpu_marshal_s_untimed": marshal_s,
+        "card_window_path": {k: rec[k] for k in (
+            "txns_per_s", "seconds", "window_ms_p50", "window_ms_p99",
+            "window", "pipeline_depth", "conflict")},
+        "card_latency_unit": f"ms a window of {rec['window']} batches "
+                             f"of 8192 txns",
+        **bench.baseline_fields(rec, cpu),
+        "verdicts_sha256": rec["verdicts_sha256"], "card": card}))
+    t0 = time.perf_counter()
+    cpu_batches = bench.marshal_cpu_batches(n_batches, *stream, mode)
+    marshal_s = time.perf_counter() - t0
+    dt, conf, lat, cpu_v = bench.run_cpu(cpu_batches, mode)
+    big = bench.cpu_record(n_batches * mode.batch, dt, conf, lat, cpu_v)
+    if big["verdicts_sha256"] != window_rec["verdicts_sha256"]:
+        fail("baseline (b): the skiplist's verdicts differ from 3b's hash "
+             f"({big['verdicts_sha256']} vs "
+             f"{window_rec['verdicts_sha256']})")
+    print(json.dumps({
+        "phase": "baseline (b) 3b stream", "keys": N_KEYS,
+        "txns": n_batches * mode.batch,
+        "cpu_skiplist": {k: big[k] for k in (
+            "txns_per_sec", "elapsed_s", "p50_ms", "p99_ms",
+            "latency_samples", "conflicts", "machine_state")},
+        "cpu_latency_unit": "ms a batch of 8192 txns",
+        "cpu_marshal_s_untimed": marshal_s,
+        **bench.baseline_fields(window_rec, big),
+        "verdicts_sha256": big["verdicts_sha256"], "card": card}))
 
 
 def sharded_engine(stream, mode, uniform: bool = False) -> dict:
@@ -4645,10 +4837,10 @@ def main() -> int:
         return 2
 
     # The host replay of check (c) of phase 3c (beside phases 3-4), the CPU
-    # runs of check (c) of phase 3d, the CPU half of check (e) of phases 3e
-    # and 3h, of the tiered run of 3f and of the adversary of 3g (beside
-    # phase 4) run in six worker processes; the workers are stopped
-    # however the run ends.
+    # runs of checks (c) and (c′) of phase 3d, the CPU half of check (e) of
+    # phases 3e and 3h, of the tiered run of 3f and of the adversary of 3g
+    # (beside phase 4) run in six worker processes; the workers are
+    # stopped however the run ends.
     pool = multiprocessing.get_context("spawn").Pool(6)
     try:
         return smoke(args, pool)
@@ -4776,11 +4968,19 @@ def smoke(args, pool) -> int:
                             wp["record"], wv)
     lap("3k sharded arms")
 
-    # Check (c) of phase 3d, check (e) of phase 3e, the tiered run of 3f
-    # and the adversary of 3g on the CPU, in the workers beside phase 4
-    # (the measured phases run without them).
+    # 3l. The north-star baseline: the CPU SkipList engine on this host
+    # (before the workers of phase 4 start).
+    baseline_phase(stream, ycsb, n_wire, wp["record"], card)
+    lap("3l baseline")
+
+    # Checks (c) and (c′) of phase 3d, check (e) of phase 3e, the tiered
+    # run of 3f and the adversary of 3g on the CPU, in the workers beside
+    # phase 4 (the measured phases run without them).
     cpu_spec = {wave: pool.apply_async(spec_run, (args.seed, "cpu", 3, wave))
                 for wave in (False, True)}
+    cpu_tier_spec = {wave: pool.apply_async(
+        spec_run, (args.seed, "cpu", 3, wave, True, td["spec_tier"]))
+        for wave in (False, True)}
     cpu_sharded = pool.apply_async(sharded_window0,
                                    (args.seed, args.batches, "cpu"))
     cpu_tiered_adm = pool.apply_async(tiered_admission_run,
@@ -4810,6 +5010,7 @@ def smoke(args, pool) -> int:
     check_replay(wk)
     check_big_replay(wv["big"])
     check_spec_cpu(td, cpu_spec)
+    check_spec_cpu(td, cpu_tier_spec, " across demotions", "spec_tier_cuda")
     check_sharded_cpu(sh, cpu_sharded)
     check_tiered_admission(ad, cpu_tiered_adm)
     check_spec_cpu(nr, cpu_nr_spec, " non-resident")

@@ -5,7 +5,7 @@
         [--pipeline-depth 4] [--repeats 3] [--device cuda|cpu] [--inline]
         [--wave-commit 0|1] [--dict-hot-capacity N] [--dict-delta-slots N]
         [--spec-resolve 0|1] [--spec-depth N] [--shifting-hotspot]
-        [--resolvers N] [--resident 0|1] [--profile]
+        [--resolvers N] [--resident 0|1] [--baseline 0|1] [--profile]
 
 A YCSB-A, mako or TPC-C shaped stream (``loadgen/ycsb.py``) is encoded in
 the resolver wire format and resolved through
@@ -39,7 +39,17 @@ batch: K12 and K13 in place of K1, K2's probe and K4); its record has no
 ``dict_stats`` (null). ``--resident 0 --resolvers N`` resolves with the
 non-resident sharded engine (full-key batches, N flat [C, W] shard
 histories: K2's table, K14, K15, K16, K3 or K5 in its OR mode (K10) and
-K6, and the unpacked paint of K12, K13 and K14). Prints one JSON line.
+K6, and the unpacked paint of K12, K13 and K14). ``--baseline 1`` (the
+default, as the repository's ``bench.py`` always races it) also resolves
+the same stream, marshalled to the C ABI outside the timed loop, through
+the CPU SkipList engine (``models/cpu_conflict_set.py``) one batch a
+call, and adds its txns/s, per-batch p50/p99, ``vs_baseline`` (the
+card's txns/s over the skiplist's), ``p99_vs_cpu`` (the card's window
+p99 over the skiplist's batch p99: the units differ and are named in
+``latency_units``), ``verdict_parity`` (the two verdict streams equal
+byte for byte) and the host's ``machine_state`` to the record.
+``run_pinned_cpu_baseline`` runs the skiplist alone on the pinned
+configuration ``CPU_BASELINE_PIN``. Prints one JSON line.
 
 The run is on the card (``--device cuda``, the default, raises without
 one); ``--device cpu`` runs the plain torch versions.
@@ -67,6 +77,9 @@ from foundationdb_tpu_torch.loadgen.ycsb import (
     gen_workload,
 )
 from foundationdb_tpu_torch.models import conflict_kernel as ck
+from foundationdb_tpu_torch.models.cpu_conflict_set import (
+    CPUSkipListConflictSet,
+)
 from foundationdb_tpu_torch.models.conflict_set import (
     TorchConflictSet,
     _RepackPlan,
@@ -97,14 +110,14 @@ def make_engine(mode: ModeConfig, capacity: int, device, wave: bool = False,
                 **engine) -> TorchConflictSet:
     """The mode's engine; ``engine`` holds further constructor arguments
     (dict_hot_capacity, dict_delta_slots, spec_resolve, spec_depth,
-    resident; with
+    resident, window_versions in place of WINDOW; with
     ``n_shards`` a ShardedConflictSet, and its splits and auto_reshard)."""
     cls = ShardedConflictSet if "n_shards" in engine else TorchConflictSet
-    return cls(
-        capacity=capacity, batch_size=mode.batch,
-        max_read_ranges=mode.n_reads, max_write_ranges=mode.n_writes,
-        max_key_bytes=KEY_BYTES, window_versions=WINDOW, device=device,
-        wave_commit=wave, **engine)
+    return cls(**{
+        "capacity": capacity, "batch_size": mode.batch,
+        "max_read_ranges": mode.n_reads, "max_write_ranges": mode.n_writes,
+        "max_key_bytes": KEY_BYTES, "window_versions": WINDOW,
+        "device": device, "wave_commit": wave, **engine})
 
 
 def density_sample(write_ids: np.ndarray, mode: ModeConfig) -> list[bytes]:
@@ -431,6 +444,137 @@ def _replay_sharded_step(timed, hist, res, rbk, cv: int, old: int,
                  floor)
 
 
+# ---------------------------------------------------------------------------
+# CPU baseline path
+# ---------------------------------------------------------------------------
+
+
+def marshal_cpu_batches(n_batches, read_ids, write_ids, write_mask, lag,
+                        mode: ModeConfig = MODES["ycsb"]):
+    """Pre-marshal every batch to the skiplist's C ABI (outside the timed
+    loop): (blob, ranges, read counts, write counts, read versions, commit
+    version, oldest version) a batch.
+
+    Blob layout: one 9-byte record per range (8-byte BE key + 0x00); the
+    begin endpoint is bytes [9i, 9i+8), the end endpoint [9i, 9i+9).
+    Ranges are emitted in per-txn order: reads then the optional writes.
+    """
+    B, R, Q = mode.batch, mode.n_reads, mode.n_writes
+    out = []
+    for b in range(n_batches):
+        s = slice(b * B, (b + 1) * B)
+        r_ids, w_ids, wm = read_ids[s], write_ids[s], write_mask[s]
+        slots = np.concatenate([r_ids, w_ids], axis=1)
+        live = np.ones((B, R + Q), bool)
+        live[:, R:] = wm[:, None]
+        ids = slots[live]
+        m = ids.size
+        recs = np.zeros((m, 9), np.uint8)
+        recs[:, :8] = ids.astype(">u8").view(np.uint8).reshape(m, 8)
+        blob = recs.tobytes()
+        off = 9 * np.arange(m, dtype=np.int64)
+        ranges = np.stack(
+            [off, np.full(m, 8, np.int64), off, np.full(m, 9, np.int64)],
+            axis=1)
+        rc = np.full(B, R, np.int32)
+        wc = (wm * Q).astype(np.int32)
+        cv = b + 1
+        rv = np.maximum(cv - 1 - lag[s], 0).astype(np.int64)
+        out.append((blob, np.ascontiguousarray(ranges), rc, wc, rv,
+                    cv, max(0, cv - WINDOW)))
+    return out
+
+
+def run_cpu(batches, mode: ModeConfig = MODES["ycsb"]):
+    """The marshalled batches through one CPU SkipList engine, a batch a
+    call. Returns (seconds, conflicts, per-batch latency ms, verdicts int8
+    [n_batches, B]): the dispatch-to-verdict latency of each batch, for
+    the equal-p99 comparison of the north-star metric."""
+    cs = CPUSkipListConflictSet()
+    verdicts = np.zeros((len(batches), mode.batch), np.int8)
+    lat_ms = []
+    t0 = time.perf_counter()
+    for i, (blob, ranges, rc, wc, rv, cv, oldest) in enumerate(batches):
+        tb = time.perf_counter()
+        cs.oldest_version = max(cs.oldest_version, oldest)
+        cs.resolve_marshalled(blob, ranges, rc, wc, rv, cv, out=verdicts[i])
+        lat_ms.append((time.perf_counter() - tb) * 1e3)
+    dt = time.perf_counter() - t0
+    return dt, int((verdicts == 1).sum()), lat_ms, verdicts
+
+
+# The pinned CPU-baseline configuration of the repository's bench.py: one
+# fixed txn count, key count and seed, so that the baseline's txns/s is
+# comparable across runs whatever size the card's run has.
+CPU_BASELINE_PIN = {
+    "mode": "ycsb",
+    "txns": 262_144,
+    "keys": 1 << 16,
+    "seed": 20260729,
+}
+
+
+def machine_state() -> dict:
+    """The host's cores and 1-minute load (the skiplist's number is
+    host-sensitive: a loaded host skews it)."""
+    import os
+
+    try:
+        load1 = os.getloadavg()[0]
+    except (OSError, AttributeError):
+        load1 = None
+    return {"cpu_count": os.cpu_count(), "loadavg_1m": load1}
+
+
+def cpu_record(n_txns: int, dt: float, conflicts: int, lat: list,
+               verdicts: np.ndarray) -> dict:
+    """A skiplist run's record: txns/s, per-batch p50/p99, its verdict
+    hash (batch order, as the card's ``verdicts_sha256``)."""
+    return {"txns_per_sec": n_txns / dt, "elapsed_s": dt,
+            "conflicts": conflicts, "p50_ms": pct(lat, 50),
+            "p99_ms": pct(lat, 99), "latency_samples": len(lat),
+            "verdicts_sha256": hashlib.sha256(verdicts.tobytes()).hexdigest(),
+            "machine_state": machine_state()}
+
+
+def pinned_stream():
+    """(mode, batches, stream) of ``CPU_BASELINE_PIN``."""
+    mode = MODES[CPU_BASELINE_PIN["mode"]]
+    n_batches = max(1, CPU_BASELINE_PIN["txns"] // mode.batch)
+    stream = gen_workload(n_batches * mode.batch, CPU_BASELINE_PIN["keys"],
+                          CPU_BASELINE_PIN["seed"], mode)
+    return mode, n_batches, stream
+
+
+def run_pinned_cpu_baseline() -> dict:
+    """The fixed-configuration CPU SkipList baseline, with the machine
+    state it ran under."""
+    mode, n_batches, stream = pinned_stream()
+    dt, conf, lat, verdicts = run_cpu(
+        marshal_cpu_batches(n_batches, *stream, mode), mode)
+    return {"config": dict(CPU_BASELINE_PIN),
+            **cpu_record(n_batches * mode.batch, dt, conf, lat, verdicts)}
+
+
+def baseline_fields(record: dict, cpu: dict) -> dict:
+    """The baseline fields of a card record beside a ``cpu_record`` of
+    the same stream."""
+    return {
+        "cpu_baseline_txns_per_sec": cpu["txns_per_sec"],
+        "cpu_p50_ms": cpu["p50_ms"], "cpu_p99_ms": cpu["p99_ms"],
+        "vs_baseline": record["txns_per_s"] / cpu["txns_per_sec"],
+        "p99_vs_cpu": (record["window_ms_p99"] / cpu["p99_ms"]
+                       if cpu["p99_ms"] else None),
+        "latency_units": {"window_ms": f"ms a window of "
+                                       f"{record['window']} batches",
+                          "cpu_ms": "ms a batch"},
+        "verdict_parity": cpu["verdicts_sha256"]
+        == record["verdicts_sha256"],
+        "cpu_verdicts_sha256": cpu["verdicts_sha256"],
+        "machine_state": cpu["machine_state"],
+    }
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--mode", choices=sorted(MODES), default="ycsb")
@@ -474,6 +618,9 @@ def main(argv=None) -> int:
     ap.add_argument("--packed", choices=("0", "1"), default="1",
                     help="0: the unpacked engine, full key rows to the card "
                          "(FDB_TPU_PACKED)")
+    ap.add_argument("--baseline", choices=("0", "1"), default="1",
+                    help="1: also resolve the stream through the CPU "
+                         "SkipList engine and add the baseline fields")
     ap.add_argument("--profile", action="store_true",
                     help="also time each kernel launch of one warm window "
                          "(needs the card)")
@@ -513,6 +660,11 @@ def main(argv=None) -> int:
            "resident": args.resident == "1",
            "design": {k: engine[k] for k in ("history", "packed", "rmq",
                                               "accept")}, **record}
+    if args.baseline == "1":
+        dt, conf, lat, verdicts = run_cpu(
+            marshal_cpu_batches(n_batches, *stream, mode), mode)
+        out.update(baseline_fields(record, cpu_record(
+            n_batches * mode.batch, dt, conf, lat, verdicts)))
     if dev.type == "cuda":
         out["card"] = card_line()
         out["kind"] = torch.cuda.get_device_name(0)

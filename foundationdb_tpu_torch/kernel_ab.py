@@ -1,7 +1,8 @@
-"""K1-K5, K8, K10, K11, K12, K13's sorted paint, K14-K16 and K17 of one
-source tree against another's, on inputs captured once.
+"""K1-K5, K7, K8, K10, K11, K12, K13's sorted paint, K14-K16 and K17 of
+one source tree against another's, on inputs captured once.
 
     python3 foundationdb_tpu_torch/kernel_ab.py capture IN.pt [--seed S]
+        [--only k7]
     python3 foundationdb_tpu_torch/kernel_ab.py time IN.pt [--tree DIR]
 
 ``capture`` runs this tree's engine on the smoke's YCSB-A stream
@@ -43,7 +44,12 @@ window of phase 3e(c)'s resident 4-shard wave engine (the first window
 after window 0 that brings a dictionary delta: the candidates and the
 batch clipped to each shard with its reads) and of phase 3h(c)'s
 non-resident one (window 1: the candidates, the step's key rows and
-their clip); K15 runs on 3h's capture.
+their clip); K15 runs on 3h's capture. For K7 it saves the first
+demotion event of phase 3d's tiered run (``chip_smoke.TIER``, the
+speculative engine at depth 2 on the unthreaded runner): the resident
+state before it, the event's sorted order of evicted ranks (rebuilt from
+the tree's ``apply_evict`` calls, chunked or not), the mirror's key count
+and the evict chunk. ``--only k7`` captures that alone.
 
 ``time`` imports ``foundationdb_tpu_torch`` from ``DIR`` (default: the
 tree holding this file), holds that tree's K1-K4 against its own plain
@@ -82,6 +88,15 @@ K10's OR, or K5's OR mode into one matrix; the K14 ranks of each shard's
 clipped rows at 3h), with the bytes it allocates (``peak_alloc_bytes``:
 the CUDA caching allocator's peak over one call) and the device ms of
 each kernel by name (K10's own, K5's plain store and its OR mode).
+K7: K7 alone on the event (the tree's entry, with the live count where
+it takes one) and the whole demotion as the tree's ``_demote_now`` runs
+it on the card: the upload of the evict vector, then one
+``apply_evict`` a chunk of e ranks, each rebased by the count already
+gone (a tree without K7's tile twin), or one ``apply_evict`` of the
+whole order padded to whole chunks (a tree with it), at the captured
+chunk (one chunk) and at a quarter of the event (four chunks), each with
+its CUDA kernels, device ms and the bytes one call allocates. Each
+tree's demotion is held against the plain version of the whole event.
 Run it on two trees in turns (A, B, B, A) in one call to compare them on
 one card. Needs a CUDA card; imports no JAX.
 """
@@ -102,13 +117,19 @@ def _inputs(args) -> dict:
             "ranks": ranks}
 
 
-def capture(path: str, seed: int) -> None:
+def capture(path: str, seed: int, only: str | None = None) -> None:
     import chip_smoke
     import torch
 
     from foundationdb_tpu_torch.loadgen.ycsb import MODES, gen_workload
     from foundationdb_tpu_torch.models import conflict_kernel as ck
 
+    if only == "k7":
+        out = {"k7": _to_cpu(_k7_event(chip_smoke))}
+        torch.save(out, path)
+        print(json.dumps({"captured": path, "k7": {
+            k: out["k7"][k] for k in ("n_live", "e", "n_ev")}}))
+        return
     ycsb = MODES["ycsb"]
     stream = gen_workload(128 * ycsb.batch, chip_smoke.N_KEYS, 0, ycsb)
     cap = chip_smoke.capture_batch(stream, ycsb, wave=False)
@@ -140,6 +161,7 @@ def capture(path: str, seed: int) -> None:
         "k17_flat": _k17_flat(chip_smoke, stream, ycsb),
         "k11": _k11_inputs(seed),
         "k10": _k10_inputs(chip_smoke, stream, ycsb),
+        "k7": _k7_event(chip_smoke),
     })
     torch.save(out, path)
     counts = ck.accept_counts(*(out["smoke"][k] for k in (
@@ -332,6 +354,66 @@ def _k17_flat(chip_smoke, stream, mode) -> dict:
         blob, ends, mode, {"rmq": "blocked", "history": "batch"})
     return {"hist": state.hist._asdict(),
             "rbk": ck._step(rb.ranks, 0)._asdict()}
+
+
+def _k7_event(chip_smoke) -> dict:
+    """The first demotion event of phase 3d's tiered run: the state before
+    it, its sorted order of evicted ranks, the mirror's key count and the
+    evict chunk e (``dict_demote_batch``)."""
+    import torch
+
+    from foundationdb_tpu_torch import bench
+    from foundationdb_tpu_torch.loadgen.ycsb import MODES, gen_workload
+    from foundationdb_tpu_torch.models import conflict_kernel as ck
+    from foundationdb_tpu_torch.sched.packing import PipelinedWindowRunner
+
+    mode = MODES["ycsb"]
+    stream = gen_workload(128 * mode.batch, chip_smoke.TIER_KEYS, 0, mode)
+    blob, ends, n = chip_smoke.wire_stream(stream, mode, 128)
+    cs = bench.make_engine(mode, chip_smoke.CAP, "cuda", spec_resolve=True,
+                           spec_depth=2, **chip_smoke.TIER)
+    event: dict = {}
+    demote, apply_evict = cs._demote_now, ck.apply_evict
+
+    def first_event(incoming, protect=None):
+        if event:
+            return demote(incoming, protect)
+        before, n_live, calls = _clone(cs.state), cs._mirror.n, []
+
+        def spy(res, ev, n_ev=None, *rest):
+            calls.append(ev[:n_ev].clone())
+            return apply_evict(res, ev, n_ev, *rest)
+
+        ck.apply_evict = spy
+        try:
+            got = demote(incoming, protect)
+        finally:
+            ck.apply_evict = apply_evict
+        if got:
+            done, order = 0, []
+            for chunk in calls:  # a chunk's ranks are rebased by `done`
+                order.append(chunk + done)
+                done += chunk.numel()
+            event.update(res=_res_dict(before), n_live=n_live,
+                         order=torch.cat(order), n_ev=done,
+                         e=cs.dict_demote_batch)
+        return got
+
+    cs._demote_now = first_event
+    runner = PipelinedWindowRunner(cs, threaded=False)
+    try:
+        for wi in range(n // chip_smoke.WINDOW_K):
+            runner.submit(*bench.window_wire(blob, ends, mode,
+                                             chip_smoke.WINDOW_K, wi),
+                          mode.batch)
+            runner.collect_next()
+            if event:
+                break
+    finally:
+        runner.close()
+    if not event:
+        raise SystemExit("kernel_ab: phase 3d's stream never demoted")
+    return event
 
 
 def _k11_inputs(seed: int) -> dict:
@@ -1079,6 +1161,78 @@ def time_k15_k10(data, on, ck, K) -> dict:
     return out
 
 
+def _demotion(ck, res, order, n_live: int, e: int):
+    """The device half of a demotion event as the imported tree's
+    ``_demote_now`` runs it: with K7's tile twin (one launch an event),
+    the whole order padded to whole chunks of e ranks in one
+    ``apply_evict``; without, one ``apply_evict`` a chunk, each rebased by
+    the count already gone. ``order`` is a sorted int32 numpy array."""
+    import numpy as np
+    import torch
+
+    dev = res.dict_keys.device
+    if hasattr(ck, "dict_evict_tiles_plain"):
+        ev = np.full(-(-len(order) // e) * e, ck.INT32_MAX, np.int32)
+        ev[:len(order)] = order
+        return ck.apply_evict(res, torch.from_numpy(ev).to(dev), len(order),
+                              n_live)
+    for done in range(0, len(order), e):
+        chunk = order[done:done + e] - done
+        ev = np.full(e, ck.INT32_MAX, np.int32)
+        ev[:len(chunk)] = chunk
+        res = ck.apply_evict(res, torch.from_numpy(ev).to(dev), len(chunk))
+    return res
+
+
+def time_k7(data, on, ck, K) -> dict:
+    """K7 alone on the captured demotion event, and the whole demotion
+    (``_demotion``) at the captured chunk and at a quarter of the event
+    (four chunks): each checked against the plain version of the whole
+    event, then timed (wall and device, CUDA kernels a call, bytes one
+    call allocates)."""
+    import inspect
+
+    import torch
+
+    d = on(data["k7"])
+    r, h = d["res"], d["res"]["hist"]
+    res = ck.ResState(r["dict_keys"], r["n_keys"], ck.HistState(
+        ck.ConflictState(**h["base"]), h["base_st"],
+        ck.ConflictState(**h["delta"])), r["shard_lo"], r["shard_hi"])
+    order = d["order"].cpu().numpy()
+    n_live, n_ev, e = d["n_live"], d["n_ev"], d["e"]
+    ev = torch.full((e * -(-n_ev // e),), ck.INT32_MAX, dtype=torch.int32,
+                    device=res.dict_keys.device)
+    ev[:n_ev] = d["order"]
+    nd, nn, shift = ck._dict_evict_plain(res.dict_keys, res.n_keys, ev)
+    h = res.hist
+    bk, dk, lo, hi = ck._rewrite_ranks_plain(
+        [h.base.keys, h.delta.keys, res.shard_lo, res.shard_hi], shift, False)
+    want = ck.ResState(nd, nn, ck.HistState(h.base._replace(keys=bk),
+                                             h.base_st,
+                                             h.delta._replace(keys=dk)),
+                       lo, hi)
+    takes_live = "n_live" in inspect.signature(K.dict_evict).parameters
+    live = (n_live,) if takes_live else ()
+    got = K.dict_evict(res.dict_keys, res.n_keys, ev, n_ev, *live)
+    _same("K7", got, (nd, nn, shift))
+    fn = (lambda: K.dict_evict(res.dict_keys, res.n_keys, ev, n_ev, *live))
+    out = {"k7": {**_entry(fn), "peak_alloc_bytes": _peak_alloc(fn),
+                  "d1": res.dict_keys.shape[0], "w": res.dict_keys.shape[1],
+                  "n_live": n_live, "n_ev": n_ev, "e": e,
+                  "takes_n_live": takes_live}}
+    for label, chunk in (("one_chunk", e), ("four_chunks", -(-n_ev // 4))):
+        _same(f"K7 demotion ({label})",
+              _demotion(ck, _clone(res), order, n_live, chunk), want)
+        run = (lambda r, c=chunk: _demotion(ck, r, order, n_live, c))
+        entry = _entry(run, lambda: (_clone(res),))
+        copy = _clone(res)
+        entry.update(peak_alloc_bytes=_peak_alloc(lambda: run(copy)),
+                     chunk=chunk, chunks=-(-n_ev // chunk))
+        out[f"k7_demotion_{label}"] = entry
+    return out
+
+
 def _forced_fold_plain(ck, hist, old):
     import torch
 
@@ -1114,6 +1268,11 @@ def time_tree(path: str, tree: str) -> None:
 
     result = {"tree": str(Path(tree).resolve()), "card": card_line(),
               "package": str(Path(K.__file__).resolve().parent.parent)}
+    if "k7" in data:
+        result.update(time_k7(data, on, ck, K))
+    if "smoke" not in data:  # a capture of K7 alone
+        print(json.dumps(result))
+        return
     for name in ("smoke", "dense_8192", "dense_32768", "stream_32768"):
         a = on(data[name])
         args = (a["cand"], a["too_old"], a["txn_mask"], a["ranks"])
@@ -1188,12 +1347,14 @@ def main() -> None:
     ap.add_argument("--tree", default=str(HERE))
     ap.add_argument("--seed", type=int, default=0,
                     help="capture: phase 3j's read stream seed")
+    ap.add_argument("--only", choices=("k7",),
+                    help="capture: the K7 demotion event alone")
     args = ap.parse_args()
     # Import the package (and chip_smoke) from the tree asked for, never
     # from this file's directory.
     sys.path[0] = str(Path(args.tree).resolve())
     if args.mode == "capture":
-        capture(args.path, args.seed)
+        capture(args.path, args.seed, args.only)
     else:
         time_tree(args.path, args.tree)
 

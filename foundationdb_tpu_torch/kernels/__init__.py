@@ -35,7 +35,7 @@ _SIGNATURES = {
         "di_rebase": [_P, _I, _P, _I, _I, _P],
     },
     "dict_evict": {
-        "de_evict": [_P, _I, _I, _P, _I, _P, _P, _P, _P, _P],
+        "de_evict": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P],
     },
     "history_probe": {
         "hp_table": [_P, _I, _I, _P, _P, _P, _P],
@@ -220,24 +220,28 @@ def rebase_versions(arrays: list, delta: int) -> None:
 
 
 def dict_evict(dict_keys: torch.Tensor, n_keys: torch.Tensor,
-               evict_ranks: torch.Tensor, n_ev: int):
+               evict_ranks: torch.Tensor, n_ev: int, n_live: int):
     """(compacted dictionary [D+1, W], new n_keys 0-dim, shift int32 [D+1]
     with shift[r] = -(evicted ranks <= r)); ``evict_ranks`` [E] holds
-    strictly increasing ranks, INT32_MAX padded, ``n_ev`` of them real."""
+    strictly increasing ranks below ``n_live``, INT32_MAX padded, ``n_ev``
+    of them real. ``n_live`` is the host's count of the dictionary's
+    keys (equal to ``n_keys``): K7 reads rows [0, n_live) only. One CUDA
+    kernel (csrc/dict_evict.cu)."""
     d1, w = dict_keys.shape
     e = evict_ranks.shape[0]
     _check(dict_keys, _i32, "dict_keys")
     _check(n_keys, _i32, "n_keys", ())
     _check(evict_ranks, _i32, "evict_ranks", (e,))
-    if not 0 <= n_ev <= e:
-        raise ValueError(f"n_ev {n_ev} outside [0, {e}]")
+    if not 0 <= n_ev <= min(e, n_live) or n_live > d1:
+        raise ValueError(f"n_ev {n_ev}, n_live {n_live}: want 0 <= n_ev <= "
+                         f"min(E {e}, n_live) and n_live <= D+1 {d1}")
     dev = dict_keys.device
     out = torch.empty_like(dict_keys)
     new_n = torch.empty((), dtype=_i32, device=dev)
     shift = torch.empty(d1, dtype=_i32, device=dev)
     _call("dict_evict", "de_evict", dev, _ptr(dict_keys), d1, w,
-          _ptr(evict_ranks), int(n_ev), _ptr(n_keys), _ptr(out), _ptr(new_n),
-          _ptr(shift))
+          _ptr(evict_ranks), int(n_ev), int(n_live), _ptr(n_keys), _ptr(out),
+          _ptr(new_n), _ptr(shift))
     return out, new_n, shift
 
 
@@ -392,6 +396,7 @@ def _scratch(n: int, dev, count: int):
 #: (dict_insert.cu KTILE).
 K4_TILE = 2048
 K1_TILE = 2048
+K7_TILE = 2048  # source rows a K7 tile (ETILE in csrc/dict_evict.cu)
 #: Merged rows of K13's sorted-paint tile (word_compact.cu PT, one a
 #: thread).
 K13_TILE = 256

@@ -1107,9 +1107,11 @@ def apply_delta(res: ResState, delta_keys, n_new: int | None = None):
 # The tile designs of K4 and K1, in plain Python (the kernels' twins)
 # ---------------------------------------------------------------------------
 
-#: Merged rows a K4 tile holds (256 threads x 8), output rows a K1 tile.
+#: Merged rows a K4 tile holds (256 threads x 8), output rows a K1 tile,
+#: source rows a K7 tile.
 K4_TILE = K.K4_TILE
 K1_TILE = K.K1_TILE
+K7_TILE = K.K7_TILE
 
 
 def merge_path_split(a, b, diag: int) -> int:
@@ -1353,30 +1355,72 @@ def _dict_evict_plain(dict_keys, n_keys, evict_ranks):
     return out, new_n, shift
 
 
-def _dict_evict(dict_keys, n_keys, evict_ranks, n_ev: int):
+def dict_evict_tiles_plain(dict_keys, n_keys, evict_ranks, n_ev: int,
+                           n_live: int, tile: int = K7_TILE):
+    """K7's demotion by its tile algorithm: (compacted dictionary, new
+    n_keys, shift) as ``_dict_evict_plain`` gives them. Tiles cover the
+    source rows [0, n_live); a tile finds its slice [s0, s1) of the sorted
+    evict vector by two searches, marks the slice's rows, and an exclusive
+    count of the marks gives each row the evicted ranks below it
+    (``before``): shift[r] = -(before + mark), and a kept row r lands at
+    r - before. The tail, rows [n_live - n_ev, D+1) of the output and
+    shifts [n_live, D+1), is written without reading anything."""
+    d1 = dict_keys.shape[0]
+    dev = dict_keys.device
+    ev = evict_ranks[:n_ev].contiguous()
+    out = torch.empty_like(dict_keys)
+    shift = torch.empty(d1, dtype=torch.int32, device=dev)
+    for r0 in range(0, n_live, tile):
+        r1 = min(r0 + tile, n_live)
+        s0, s1 = (int(x) for x in torch.searchsorted(
+            ev, torch.tensor([r0, r1], dtype=torch.int32, device=dev)))
+        mark = torch.zeros(r1 - r0, dtype=torch.int32, device=dev)
+        mark[(ev[s0:s1] - r0).long()] = 1
+        before = s0 + torch.cumsum(mark, 0, dtype=torch.int32) - mark
+        shift[r0:r1] = -(before + mark)
+        r = torch.arange(r0, r1, device=dev)
+        kept = mark == 0
+        out[(r - before)[kept]] = dict_keys[r0:r1][kept]
+    out[n_live - n_ev:] = INT32_MAX
+    shift[n_live:] = -n_ev
+    return out, n_keys - n_ev, shift
+
+
+def _dict_evict(dict_keys, n_keys, evict_ranks, n_ev: int, n_live: int):
     """Remove the ``n_ev`` strictly increasing ranks at the head of
-    ``evict_ranks`` (INT32_MAX padded) from the dictionary, the inverse of
+    ``evict_ranks`` (INT32_MAX padded, all below ``n_live``, the host's
+    count of the dictionary's keys) from the dictionary, the inverse of
     ``_dict_insert``. Returns (new dict, new n_keys, shift) with
     shift[r] = -(evicted ranks <= r): a surviving rank r becomes
-    r + shift[r]. On the card, K7."""
+    r + shift[r]. On the card, K7 (one launch over the live rows)."""
     if _on_card(dict_keys):
-        return K.dict_evict(dict_keys, n_keys, evict_ranks, n_ev)
+        return K.dict_evict(dict_keys, n_keys, evict_ranks, n_ev, n_live)
+    if n_live != int(n_keys):
+        raise ValueError(f"the host counts {n_live} keys, the dictionary "
+                         f"{int(n_keys)}")
     return _dict_evict_plain(dict_keys, n_keys, evict_ranks)
 
 
-def apply_evict(res: ResState, evict_ranks, n_ev: int | None = None):
+def apply_evict(res: ResState, evict_ranks, n_ev: int | None = None,
+                n_live: int | None = None):
     """Fold a demotion delta into the resident state: evict the ranks from
     the dictionary (K7) and shift every history rank and shard bound down
     past them (K1's rewrite), the mirror image of ``apply_delta``. The
     host guarantees that no evicted rank is still referenced. The JAX
     ``lax.cond`` on an empty delta is decided on the host from ``n_ev``
-    (the chunk's real count); without it, the count is read from the
-    device."""
+    (the real count); ``n_live`` is the host's count of the dictionary's
+    keys. Without them, each is read from the device. A demotion event
+    evicts its whole sorted order in one call: evicting ascending chunks
+    one after another, each rebased by the count already gone, leaves
+    every surviving rank where one call does."""
     if n_ev is None:
         n_ev = int((evict_ranks != INT32_MAX).sum())
     if n_ev == 0:
         return res
-    nd, nn, shift = _dict_evict(res.dict_keys, res.n_keys, evict_ranks, n_ev)
+    if n_live is None:
+        n_live = int(res.n_keys)
+    nd, nn, shift = _dict_evict(res.dict_keys, res.n_keys, evict_ranks, n_ev,
+                                n_live)
     return _rewrite_res_ranks(res, shift, False, nd, nn)
 
 

@@ -713,8 +713,9 @@ class TorchConflictSet:
             self.dict_capacity = self.dict_hot_capacity
             self.dict_delta_slots = min(self.dict_delta_slots,
                                         max(1, self.dict_hot_capacity // 2))
-        # The static evict-vector width (K7 runs once per chunk of it) and
-        # the key count past which a pack demotes first.
+        # The evict chunk (a demotion event ships whole chunks of it, the
+        # JAX engine's static evict width; K7 runs once an event) and the
+        # key count past which a pack demotes first.
         self.dict_demote_batch = (int(dict_demote_batch
                                       or self.dict_delta_slots)
                                   if self.tiered else 0)
@@ -1214,10 +1215,13 @@ class TorchConflictSet:
         dispatch's keys (``protect``: its probed u64 rows) stay; with an
         admission filter attached, keys its banks report maybe written
         since the floor stay. The survivors demote oldest-last-used first,
-        enough to get past the watermark plus half an evict chunk, as K7
-        launches on ascending
-        chunks of ``dict_demote_batch`` ranks, each rebased by the count
-        already gone. Returns the count demoted (0: nothing evictable)."""
+        enough to get past the watermark plus half an evict chunk. The
+        event's whole sorted order ships at once, padded to whole chunks
+        of ``dict_demote_batch`` ranks (the JAX engine's static evict
+        width, so ``demotion_bytes`` counts 4·e a chunk as it does): one
+        K7 launch and one rank rewrite an event, which leave the state
+        the JAX engine's ascending chunks leave. Returns the count
+        demoted (0: nothing evictable)."""
         mir = self._mirror
         with mir.lock:
             used = mir.used_sorted()
@@ -1245,16 +1249,13 @@ class TorchConflictSet:
                        + max(1, self.dict_demote_batch // 2))
             order = np.sort(idx[np.argsort(used[idx], kind="stable")[:want]])
             e = self.dict_demote_batch
-            for done in range(0, len(order), e):
-                # Chunks ascend, so every rank evicted before lies below
-                # this chunk: its device ranks are off by exactly `done`.
-                chunk = order[done:done + e] - done
-                ev = np.full(e, INT32_MAX, np.int32)
-                ev[:len(chunk)] = chunk
-                self.state = ck.apply_evict(
-                    self.state, torch.from_numpy(ev).to(self.device),
-                    len(chunk))
-                mir.stats["demotion_bytes"] += 4 * e
+            chunks = -(-len(order) // e)
+            ev = np.full(chunks * e, INT32_MAX, np.int32)
+            ev[:len(order)] = order
+            self.state = ck.apply_evict(
+                self.state, torch.from_numpy(ev).to(self.device), len(order),
+                mir.n)
+            mir.stats["demotion_bytes"] += 4 * e * chunks
             mir.demote(order)
             mir.stats["demotion_events"] += 1
             return len(order)

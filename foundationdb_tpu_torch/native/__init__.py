@@ -1,10 +1,13 @@
-"""The port's native wire packer (keypack.cpp), built at first use.
+"""The port's native libraries, built at first use: the wire packer
+(keypack.cpp) and the CPU SkipList conflict engine (skiplist.cpp, the
+baseline of ``models/cpu_conflict_set.py``).
 
-``keypack.cpp`` is compiled with ``g++ -O3 -std=c++17 -shared -fPIC``
-into ``_build/`` beside this file and loaded with ctypes. The library name
-carries a hash of the source, so an edited source is rebuilt and an
-unchanged one reused. There is no Python fallback: a missing compiler or a
-failed build raises.
+Each source is compiled with ``g++ -O3 -std=c++17 -shared -fPIC`` (the
+skiplist also with ``-march=native``, as the JAX package builds its
+copy) into ``_build/`` beside this file and loaded with ctypes. The
+library name carries a hash of the source and its flags, so an edited
+source is rebuilt and an unchanged one reused. There is no Python
+fallback: a missing compiler or a failed build raises.
 
 ``count_txns`` validates a whole wire buffer; ``pack_batch`` packs ``count``
 transactions from a byte offset into padded batch arrays that the caller
@@ -35,7 +38,11 @@ _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _I64 = ctypes.c_int64
 _INT = ctypes.c_int
-_SIGNATURES = {
+_VOIDP = ctypes.c_void_p
+_I64P = ctypes.POINTER(ctypes.c_int64)
+_I8P = ctypes.POINTER(ctypes.c_int8)
+EXTRA_FLAGS = {"skiplist": ("-march=native",)}
+_KEYPACK = {
     "kp_pack_batch": [_U8P, _I64, _I64, _INT, _INT, _INT, _INT, _INT, _I64,
                       _I32P, _I32P, _U8P, _I32P, _I32P, _U8P, _I32P, _U8P],
     "kp_count_txns": [_U8P, _I64, _I64],
@@ -43,11 +50,30 @@ _SIGNATURES = {
                        _I64, _I32P, _I32P, _U8P, _I32P, _I32P, _U8P, _I32P,
                        _U8P, _I32P, _I32P, _I32P, _I32P, _I32P],
 }
+# (argtypes, restype) of each library's entries.
+_SIGNATURES = {
+    "keypack": {fn: (args, _I64) for fn, args in _KEYPACK.items()},
+    "skiplist": {
+        "cs_create": ([], _VOIDP),
+        "cs_destroy": ([_VOIDP], None),
+        "cs_node_count": ([_VOIDP], _I64),
+        # blob, ranges [n, 4] (boff, blen, eoff, elen; a txn's reads, then
+        # its writes), read counts, write counts, read versions, n, commit
+        # version, oldest version, verdicts out (int8).
+        "cs_resolve": ([_VOIDP, ctypes.c_char_p, _I64P, _I32P, _I32P, _I64P,
+                        ctypes.c_int32, _I64, _I64, _I8P], None),
+    },
+}
+
+
+def _flags(name: str) -> tuple:
+    return CXX_FLAGS + EXTRA_FLAGS.get(name, ())
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((SRC_DIR / f"{name}.cpp").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:12]}.so"
+    h = hashlib.sha256((SRC_DIR / f"{name}.cpp").read_bytes())
+    h.update(" ".join(_flags(name)).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def _build(name: str) -> Path:
@@ -56,11 +82,11 @@ def _build(name: str) -> Path:
         return out
     cxx = shutil.which("g++")
     if cxx is None:
-        raise RuntimeError(f"g++ not found: the native {name} packer cannot "
-                           "be built")
+        raise RuntimeError(f"g++ not found: the native {name} library "
+                           "cannot be built")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    r = subprocess.run([cxx, *CXX_FLAGS, str(SRC_DIR / f"{name}.cpp"), "-o",
+    r = subprocess.run([cxx, *_flags(name), str(SRC_DIR / f"{name}.cpp"), "-o",
                         str(tmp)], capture_output=True, text=True)
     if r.returncode != 0:
         raise RuntimeError(f"g++ failed for {name}.cpp (exit "
@@ -69,18 +95,29 @@ def _build(name: str) -> Path:
     return out
 
 
-def keypack() -> ctypes.CDLL:
-    """The loaded keypack library (built on the first call)."""
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name`` (built on the first call), its entries
+    bound by ``_SIGNATURES``."""
     with _LOCK:
-        lib = _LIBS.get("keypack")
+        lib = _LIBS.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(_build("keypack")))
-            for fn, argtypes in _SIGNATURES.items():
+            lib = ctypes.CDLL(str(_build(name)))
+            for fn, (argtypes, restype) in _SIGNATURES[name].items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
-                f.restype = _I64
-            _LIBS["keypack"] = lib
+                f.restype = restype
+            _LIBS[name] = lib
         return lib
+
+
+def keypack() -> ctypes.CDLL:
+    """The loaded keypack library (built on the first call)."""
+    return load("keypack")
+
+
+def skiplist() -> ctypes.CDLL:
+    """The loaded CPU SkipList library (built on the first call)."""
+    return load("skiplist")
 
 
 def _ptr(a: np.ndarray, dtype, ctype):

@@ -359,7 +359,7 @@ def test_dict_evict_and_rank_rewrite(card, d, w, e, n_ev):
     pick = rng.choice(np.arange(1, n - 1), max(n_ev - 2, 0), replace=False)
     ev[:n_ev] = np.sort(np.concatenate([[0, n - 1], pick])[:n_ev])
     n_keys = torch.tensor(n, dtype=torch.int32, device=card)
-    got = ck._dict_evict(on(rows, card), n_keys, on(ev, card), n_ev)
+    got = ck._dict_evict(on(rows, card), n_keys, on(ev, card), n_ev, n)
     want = ck._dict_evict_plain(on(rows, card), n_keys, on(ev, card))
     for g, x in zip(got, want):
         assert g.dtype == x.dtype and torch.equal(g, x)
@@ -381,6 +381,47 @@ def test_dict_evict_and_rank_rewrite(card, d, w, e, n_ev):
     for (name, x), y in zip(convert.state_leaves(a).items(),
                             convert.state_leaves(b).values()):
         assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("d,w,n,n_ev,case", [
+    (4200, 4, 4100, 0, "none"), (4200, 4, 4100, 1, "one"),
+    (4200, 4, 4100, 4100, "all"), (4200, 1, 4100, 2, "edges"),
+    (4200, 4, 4100, 40, "runs"), (4200, 3, 4100, 700, "random"),
+    (4200, 4, 4100, 700, "unaligned"), (4200, 4, 0, 0, "empty"),
+    (4200, 4, 4201, 300, "full"), (5000, 9, 4990, 1000, "random"),
+    (1_310_720, 4, 1_013_000, 158_464, "random")])
+def test_dict_evict_tiles_adversarial(card, d, w, n, n_ev, case):
+    """K7 against its tile twin and the plain version, bit for bit: no
+    rank, one, every live rank, the first and last live ranks, runs
+    across tiles, an empty and a full dictionary, W = 1, 3, 4 and 9, a
+    dictionary whose rows are not 16-byte aligned (the word loop at
+    W = 4) and the smoke's demotion shape; one CUDA kernel a call."""
+    rng = np.random.default_rng(d + w + n + n_ev)
+    rows = np.full((d + 1 + 1, w), ck.INT32_MAX, np.int32)
+    live = np.sort(rng.integers(-2**30, 2**30, (n, w)).astype(np.int32),
+                   axis=0)
+    rows[:n] = live
+    ev = np.full(max(n_ev, 1) + 5, ck.INT32_MAX, np.int32)
+    pick = {"none": [], "one": [n // 2], "all": np.arange(n),
+            "edges": [0, n - 1], "empty": [],
+            "runs": [*range(2038, 2058), *range(4080, 4100)]}.get(case)
+    if pick is None:
+        pick = np.sort(rng.choice(n, n_ev, replace=False))
+    ev[:n_ev] = pick
+    buf = on(rows.reshape(-1), card)
+    # "unaligned": the dictionary starts one int into its buffer.
+    off = 1 if case == "unaligned" else 0
+    dk = buf[off:off + (d + 1) * w].view(d + 1, w)
+    n_keys = torch.tensor(n, dtype=torch.int32, device=card)
+    evt = on(ev, card)
+    before = ck.K.LAUNCHES["dict_evict"]
+    got = ck._dict_evict(dk, n_keys, evt, n_ev, n)
+    torch.cuda.synchronize()
+    assert ck.K.LAUNCHES["dict_evict"] == before + 1
+    for want in (ck._dict_evict_plain(dk.clone(), n_keys, evt),
+                 ck.dict_evict_tiles_plain(dk.clone(), n_keys, evt, n_ev, n)):
+        for g, x in zip(got, want):
+            assert g.dtype == x.dtype and torch.equal(g, x), case
 
 
 # ------------------------------------------------------------ K5, K6 (wave)
