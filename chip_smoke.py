@@ -55,9 +55,9 @@ Phases, each fatal on failure:
    captured batch prints its phase counters (``k6_phase_clocks``: the
    prologue with the first wave, the level kernel's wave and stall rounds,
    the stalls' prefix, walk, rescan and release time, and the counts).
-   (g) The stream's txns in batches of 32,768 (K6's round state then
-   lives in global scratch, not shared memory) through a cuda wave engine
-   on the object path: every batch's K6 levels equal the host
+   (g) The stream's first 16 batches of 32,768 txns (K6's round state
+   then lives in global scratch, not shared memory) through a cuda wave
+   engine on the object path: every batch's K6 levels equal the host
    replay (``wavemesh.level_wave_edges`` of its K5 matrix, in the workers
    beside the later phases, checked after phase 4), and the last batch's
    K6 output and stats equal ``wave_level_plain``; K6's time on it and
@@ -262,10 +262,35 @@ Phases, each fatal on failure:
    ``IndexedOracleConflictSet`` (workers beside phase 4, checked after
    it): the same ``commit_outcomes_sha256`` and reads, and on the CPU the
    same roles' metrics and every engine leaf.
+3n. Cluster phase (``sim/cluster.py`` ``SimCluster`` on its defaults:
+   each generation's engines, ``new_conflict_set("torch")`` at capacity
+   2^14 and batch 256, and both storage servers' read plane on the card):
+   3 coordinators and an elected cluster controller, 2 tlogs, 2 storage
+   servers in one team, under 256 closed-loop YCSB-A clients over 2^20
+   12-byte keys, each transaction through the client library
+   (``open_database(c).run``: ``tr.get_multi`` of its reads, ``tr.set``
+   of its write, the commit; ``sim/cluster_load.py``), with kills at
+   counts of finished transactions. Runs: (a) one resolver, 16,384
+   transactions, ``resolver0`` killed at 1/3 and ``tlog0`` at 2/3; (b)
+   two resolvers with wave commit, 4,096, ``resolver1`` killed at 1/2.
+   Each fatal: epochs 1 to 3 and 1 to 2, each recovered epoch's first
+   commit at least ``EPOCH_VERSION_JUMP`` past its recovery version; no
+   transaction given up; every acknowledged write read back through
+   ``tr.get_multi`` (K12) equal to the host replay in version and (wave,
+   index) order; in each generation K1-K4 on (a), K5 and K6 and never K3
+   on (b), and K12; no fail-safe and no overflow. Printed: wall s,
+   transactions/s, committed share, retries and error codes, each
+   recovery's virtual and wall time from the kill to the new epoch's
+   first commit, the new resolvers' first dispatch and longest dispatch
+   up to it, ``torch.cuda.memory_allocated()`` at it (before and after a
+   gc), the launches by generation. Each run again over the plain
+   versions on the CPU and over the oracle (workers beside phases 3-4,
+   from the end of phase 2; checked after phase 4), the read plane on its
+   host arm: the same ``cluster_outcomes_sha256``.
 4. Cross-check: the first 16 batches again on the CPU (plain versions),
    and 16 batches each of the mako and tpcc shapes on cuda against the
    CPU: the verdicts must be equal; then the CPU halves of 3d, 3e, 3f,
-   3g, 3h and 3m.
+   3g, 3h, 3m and 3n.
 5. The seconds of each phase, a ``kernels`` JSON line (K1-K4, the
    window program, K5, K6, K7, the paint-only window, K8, K9, K10 (K5's
    OR mode), the sharded window program, K11, K12, K13, the non-resident window
@@ -346,8 +371,8 @@ SPEC_K, SPEC_BATCHES = 4, 16  # check (c): window, batches
 SHARDS = 4  # phase 3e: keyspace shards on the card (a 4-resolver config)
 # Check (g) of phase 3c: a wave batch four times the stream's, too large
 # for K6's round state to fit in one block's shared memory (it then lives
-# in global scratch).
-BIG_WAVE_BATCH = 32768
+# in global scratch), on the stream's first BIG_WAVE_BATCHES such batches.
+BIG_WAVE_BATCH, BIG_WAVE_BATCHES = 32768, 16
 # Phase 3f: the admission filter's geometry (2^20 bits: the repository's
 # default of 2^16 saturates at 8192-txn batches), the object-path batches
 # it is fed, the one whose K11 launches are captured (the 17th record: its
@@ -1622,10 +1647,10 @@ def replay_edges(bp: int, b: int, cand: list, rows, words, vals):
 
 
 def big_wave_check(stream, pool, card: str) -> dict:
-    """Check (g) of phase 3c: the stream's txns in batches of
-    BIG_WAVE_BATCH through a cuda wave engine on the object path. Every
-    batch's K5 matrix (its nonzero words) goes to a worker for the host
-    replay, checked by ``check_big_replay``; the last batch's K6 output
+    """Check (g) of phase 3c: the stream's first BIG_WAVE_BATCHES batches
+    of BIG_WAVE_BATCH txns through a cuda wave engine on the object path.
+    Every batch's K5 matrix (its nonzero words) goes to a worker for the
+    host replay, checked by ``check_big_replay``; the last batch's K6 output
     and stats are held against ``wave_level_plain`` and K6 is timed on
     it."""
     import dataclasses
@@ -1640,7 +1665,7 @@ def big_wave_check(stream, pool, card: str) -> dict:
     from foundationdb_tpu_torch.models import conflict_kernel as ck
 
     mode = dataclasses.replace(MODES["ycsb"], batch=BIG_WAVE_BATCH)
-    n = len(stream[0]) // mode.batch
+    n = min(BIG_WAVE_BATCHES, len(stream[0]) // mode.batch)
     cs = make_engine(mode, "cuda", wave=True)
     real, seen = ck.wave_level, []
 
@@ -1865,7 +1890,7 @@ def wave_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
     print(json.dumps({"k6_phase_clocks": k6_phase_clocks(clk),
                       "wave_batch": wk["index"], "card": card}))
 
-    # (g) Batches of 32,768 txns through a cuda wave engine.
+    # (g) 16 batches of 32,768 txns through a cuda wave engine.
     big = big_wave_check(stream, pool, card)
     return {"launches": entries, "verdicts": verdicts, "levels": levels,
             "big": big}
@@ -5006,6 +5031,234 @@ def check_commit_path(cm: dict, jobs: dict) -> None:
             "oracle_wall_s": orc["summary"]["wall_s"]}))
 
 
+# Phase 3n: one simulated cluster (sim/cluster.py SimCluster: coordinators,
+# an elected cluster controller, the commit path's roles on a SimNetwork,
+# two tlogs, two storage servers in one team of two) under 256 closed-loop
+# YCSB-A clients over 2^20 keys, each transaction through the client
+# library (open_database(c).run: tr.get_multi, tr.set, the commit), with
+# kills at counts of finished transactions. The engines are the sim's
+# (new_conflict_set("torch"): capacity 2^14, batch 256), recruited afresh
+# on the card at every recovery. Runs: (resolvers, wave commit,
+# transactions, {fraction of the run: role to kill}).
+CLUSTER_RUNS = {"a": (1, False, 16_384, {1 / 3: "resolver0",
+                                         2 / 3: "tlog0"}),
+                "b": (2, True, 4_096, {1 / 2: "resolver1"})}
+CLUSTER_CLIENTS = 256
+CLUSTER_KEY_BITS = 20
+
+
+def cluster_run(run: str, engine: str, seed: int) -> dict:
+    """Run ``run`` of phase 3n over ``engine``: ``"cuda"`` (the card
+    engines and read plane, ``SimCluster``'s default), ``"cpu"`` (the
+    engines' plain versions on the CPU) or ``"oracle"`` (the oracle); the
+    last two, in worker processes beside phase 4, read through the read
+    plane's host arm (numpy's search of the mirror's memcmp view, the
+    device arm's answers byte for byte; K12's plain twin, a torch search
+    step by step, would take most of their time). Returns the run's summary, the recoveries, each generation's
+    launches (the counts between its recruitment and the next; cuda) and
+    its resolvers' fail-safe and overflow counts, whether every
+    acknowledged write read back equal to the host replay, and the K12
+    searches of the read-back."""
+    import gc
+
+    import torch
+
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.client.ryw import open_database
+    from foundationdb_tpu_torch.reads.read_set import TorchReadSet
+    from foundationdb_tpu_torch.runtime.sequencer import EPOCH_VERSION_JUMP
+    from foundationdb_tpu_torch.sim.cluster import SimCluster
+    from foundationdb_tpu_torch.sim.cluster_load import ClusterLoad
+
+    n_res, wave, n, kills = CLUSTER_RUNS[run]
+    if engine != "cuda":
+        torch.set_num_threads(1)  # beside the measured phases 3-3n
+    c = SimCluster(seed=seed, engine="oracle" if engine == "oracle"
+                   else "torch", device=None if engine == "cuda" else "cpu",
+                   n_storages=2, n_replicas=2, n_tlogs=2, n_coordinators=3,
+                   n_resolvers=n_res, wave_commit=wave)
+    on_card = engine == "cuda"
+    if not on_card:
+        for s in c.storages:
+            s.read_set = s._reads.read_set = TorchReadSet(s.map, arm="host")
+
+    def probe() -> dict:
+        if not on_card:
+            return {}
+        held = torch.cuda.memory_allocated()
+        gc.collect()
+        return {"memory_allocated": held,
+                "memory_allocated_after_gc": torch.cuda.memory_allocated()}
+
+    load = ClusterLoad(c, open_database(c), probe=probe,
+                       kills={round(f * n): role for f, role in kills.items()})
+    gens: list[dict] = []
+
+    def close_generation() -> None:
+        """The launches since the last recruitment, and the fail-safe and
+        overflow counts of the resolvers being replaced."""
+        m = [settled(r.get_metrics()) for r in c.resolvers]
+        gens.append({
+            "epoch": c.controller.generation.epoch,
+            "launches": dict(K.LAUNCHES), "entries": dict(K.ENTRY_LAUNCHES),
+            "fail_safe": [x["txns_rejected_fail_safe"] for x in m],
+            "overflow_events": [x["overflow_events"] for x in m],
+            "overflowed": [bool(getattr(r.cs, "overflowed", False))
+                           for r in c.resolvers]})
+        K.reset_launches()
+
+    recruit = c.recruit_generation
+
+    def recruit_and_close(epoch, recovery_version, seed_entries):
+        close_generation()
+        return recruit(epoch=epoch, recovery_version=recovery_version,
+                       seed_entries=seed_entries)
+
+    c.recruit_generation = recruit_and_close
+    memory0 = torch.cuda.memory_allocated() if on_card else None
+    K.reset_launches()
+    summary = load.run_ycsb(n, CLUSTER_CLIENTS, CLUSTER_KEY_BITS, seed=seed)
+    close_generation()
+    final = load.replay()
+    got = load.read_back(sorted(final))
+    firsts = load.epoch_firsts()
+    d = np.asarray(load.dispatch_s) * 1e3
+    return {
+        "summary": summary, "recoveries": load.recoveries,
+        "generations": gens, "written_keys": len(final),
+        "read_back_equal": got == final,
+        "read_back_k12": K.ENTRY_LAUNCHES.get("wp_search", 0),
+        "epochs_ok": all(
+            firsts[e] is not None and firsts[e] >= rv + EPOCH_VERSION_JUMP
+            for e, rv in load.generations[1:]),
+        "epoch_firsts": firsts,
+        "first_dispatches": {e: load.first_dispatches_ms(e)
+                             for e in load.gen_dispatch_s},
+        "dispatches": len(d),
+        "dispatch_ms_p50": float(np.percentile(d, 50)) if len(d) else None,
+        "dispatch_ms_p99": float(np.percentile(d, 99)) if len(d) else None,
+        "memory_start": memory0,
+        "memory_end": torch.cuda.memory_allocated() if on_card else None}
+
+
+def settled(coro):
+    """The value of a coroutine that never waits (a role's metrics RPC),
+    taken without the loop: recruitment runs inside a loop task."""
+    try:
+        coro.send(None)
+    except StopIteration as e:
+        return e.value
+    coro.close()
+    raise RuntimeError("the coroutine waited")
+
+
+def cluster_phase(seed: int, card: str) -> dict:
+    """Phase 3n's card half: runs (a) and (b) over the card engines, each
+    fatal on failure (epochs 1 -> 3 and 1 -> 2, each recovered epoch's
+    first commit at least EPOCH_VERSION_JUMP past its recovery version, no
+    transaction given up, every acknowledged write read back through
+    ``tr.get_multi`` (K12) equal to the host replay, K1-K4 launched in
+    each generation of (a), K5 and K6 and never K3 in each of (b), no
+    fail-safe and no overflow); the CPU and oracle halves are checked
+    after phase 4."""
+    out = {}
+    for run, (n_res, wave, n, kills) in CLUSTER_RUNS.items():
+        t0 = time.perf_counter()
+        r = cluster_run(run, "cuda", seed)
+        wall = time.perf_counter() - t0
+        s = r["summary"]
+        label = f"cluster ({run})"
+        want_epochs = list(range(1, len(kills) + 2))
+        if s["epochs"] != want_epochs or not r["epochs_ok"]:
+            fail(f"{label}: epochs {s['epochs']} (want {want_epochs}), "
+                 f"firsts {r['epoch_firsts']}, recovery versions "
+                 f"{s['recovery_versions']}")
+        if s["failed"] or s["committed"] != n:
+            fail(f"{label}: {s['failed']} transactions given up "
+                 f"({s['error_codes']})")
+        if not r["read_back_equal"] or not r["written_keys"]:
+            fail(f"{label}: an acknowledged write did not read back through "
+                 "tr.get_multi")
+        if r["read_back_k12"] < 1:
+            fail(f"{label}: the read-back launched no K12 search")
+        if len(r["generations"]) != len(want_epochs):
+            fail(f"{label}: {len(r['generations'])} generations recruited")
+        for g in r["generations"]:
+            L, E = g["launches"], g["entries"]
+            if wave and (any(E.get(e, 0) <= 0 for e in ("wv_pred",
+                                                         "wv_level"))
+                         or L["accept"]):
+                fail(f"{label} epoch {g['epoch']}: K5/K6 not launched or "
+                     f"K3 launched: {E}")
+            if not wave and any(L[k] <= 0 for k in SEQ_SOURCES):
+                fail(f"{label} epoch {g['epoch']}: a kernel of K1-K4 was "
+                     f"not launched: {L}")
+            if E.get("wp_search", 0) <= 0:
+                fail(f"{label} epoch {g['epoch']}: the read plane launched "
+                     "no K12 search")
+            if any(g["fail_safe"]) or any(g["overflow_events"]) or \
+                    any(g["overflowed"]):
+                fail(f"{label} epoch {g['epoch']}: a resolver took its "
+                     f"fail-safe or overflowed: {g}")
+        print(json.dumps({
+            "phase": "cluster", "run": run, "resolvers": n_res,
+            "wave_commit": wave, "txns": n, "clients": CLUSTER_CLIENTS,
+            "keys": 1 << CLUSTER_KEY_BITS, "wall_s": s["wall_s"],
+            "run_and_checks_wall_s": wall,
+            "commits_per_s": s["committed"] / s["wall_s"],
+            "write_commits_per_s": s["write_commits"] / s["wall_s"],
+            "committed_share": s["committed_share"],
+            "retries": s["retries"], "error_codes": s["error_codes"],
+            "virtual_s": s["virtual_s"], "epochs": s["epochs"],
+            "recovery_versions": s["recovery_versions"],
+            "epoch_firsts": r["epoch_firsts"],
+            "recoveries": r["recoveries"],
+            "first_dispatches": r["first_dispatches"],
+            "dispatches": r["dispatches"],
+            "dispatch_ms_p50": r["dispatch_ms_p50"],
+            "dispatch_ms_p99": r["dispatch_ms_p99"],
+            "memory_start": r["memory_start"],
+            "memory_end": r["memory_end"],
+            "launches_by_generation": [
+                {"epoch": g["epoch"],
+                 "launches": {k: v for k, v in g["launches"].items() if v},
+                 "entries": g["entries"]} for g in r["generations"]],
+            "read_back_keys": r["written_keys"],
+            "read_back_k12": r["read_back_k12"],
+            "cluster_outcomes_sha256": s["cluster_outcomes_sha256"],
+            "card": card}))
+        out[run] = r
+    return out
+
+
+def check_cluster(cl: dict, jobs: dict) -> None:
+    """Phase 3n's CPU halves (workers beside phase 4): each run over the
+    plain versions on the CPU and over the oracle gives the card's
+    ``cluster_outcomes_sha256`` (every transaction's attempts, error
+    codes and outcome, the epochs and their recovery versions) and reads
+    every acknowledged write back."""
+    for run, r in cl.items():
+        s = r["summary"]
+        cpu, orc = jobs[run]["cpu"].get(), jobs[run]["oracle"].get()
+        for name, o in (("the cpu", cpu), ("the oracle", orc)):
+            if o["summary"]["cluster_outcomes_sha256"] != \
+                    s["cluster_outcomes_sha256"]:
+                fail(f"cluster ({run}): cluster_outcomes_sha256 "
+                     f"{s['cluster_outcomes_sha256']} on cuda, "
+                     f"{o['summary']['cluster_outcomes_sha256']} over {name}")
+            if not o["read_back_equal"]:
+                fail(f"cluster ({run}): a write did not read back over "
+                     f"{name}")
+        print(json.dumps({
+            "cross-check": f"cluster ({run})",
+            "cluster_outcomes_sha256": {
+                "cuda": s["cluster_outcomes_sha256"],
+                "cpu": cpu["summary"]["cluster_outcomes_sha256"],
+                "oracle": orc["summary"]["cluster_outcomes_sha256"]},
+            "cpu_wall_s": cpu["summary"]["wall_s"],
+            "oracle_wall_s": orc["summary"]["wall_s"]}))
+
+
 def bench_engine(mode, wave: bool, engine: dict):
     from foundationdb_tpu_torch.bench import make_engine as make
 
@@ -5032,10 +5285,11 @@ def main() -> int:
         print(f"chip_smoke: the repository is missing ({e})", file=sys.stderr)
         return 2
 
-    # The host replay of check (c) of phase 3c (beside phases 3-4), the CPU
-    # runs of checks (c) and (c′) of phase 3d, the CPU half of check (e) of
-    # phases 3e and 3h, of the tiered run of 3f and of the adversary of 3g
-    # (beside phase 4) run in six worker processes; the workers are
+    # The host replay of check (c) of phase 3c and the CPU and oracle runs
+    # of 3n (beside phases 3-4), the CPU runs of checks (c) and (c′) of
+    # phase 3d, the CPU half of check (e) of phases 3e and 3h, of the
+    # tiered run of 3f, of the adversary of 3g and the CPU and oracle runs
+    # of 3m (beside phase 4) run in six worker processes; the workers are
     # stopped however the run ends.
     pool = multiprocessing.get_context("spawn").Pool(6)
     try:
@@ -5079,6 +5333,14 @@ def smoke(args, pool) -> int:
     wk = wave_kernel_phase(stream, ycsb, pool)
     k12_k5_adversarial()
     lap("2 kernels")
+
+    # Phase 3n's CPU and oracle halves start here, in the workers beside
+    # phases 3-4 (one torch thread each): their plain versions run for
+    # minutes, which beside phase 4 alone would set its length.
+    cpu_cluster = {run: {e: pool.apply_async(cluster_run,
+                                             (run, e, args.seed))
+                         for e in ("cpu", "oracle")}
+                   for run in CLUSTER_RUNS}
 
     # 3. End to end, counting launches of this run only.
     K.reset_launches()
@@ -5169,14 +5431,19 @@ def smoke(args, pool) -> int:
     baseline_phase(stream, ycsb, n_wire, wp["record"], card)
     lap("3l baseline")
 
+
     # 3m. The commit path's roles on one loop over the card engine.
     cm = commit_path_phase(args.seed, card)
     lap("3m commit path")
 
-    # Phase 3m over the CPU and the oracle (run (a), the longest, first),
-    # checks (c) and (c′) of phase 3d, check (e) of phase 3e, the tiered
-    # run of 3f and the adversary of 3g on the CPU, in the workers beside
-    # phase 4 (the measured phases run without them).
+    # 3n. One simulated cluster with its control plane and client, the
+    # engines recruited on the card at every recovery.
+    cl = cluster_phase(args.seed, card)
+    lap("3n cluster")
+
+    # Phase 3m over the CPU and the oracle, checks (c) and (c′) of phase
+    # 3d, check (e) of phase 3e, the tiered run of 3f and the adversary of
+    # 3g on the CPU, in the workers beside phase 4.
     cpu_commit = {run: {e: pool.apply_async(commit_path_run,
                                             (run, e, args.seed))
                         for e in ("cpu", "oracle")}
@@ -5221,6 +5488,7 @@ def smoke(args, pool) -> int:
     check_spec_cpu(nr, cpu_nr_spec, " non-resident")
     check_sharded_cpu(nrs, cpu_nr_sharded, "non-resident sharded")
     check_commit_path(cm, cpu_commit)
+    check_cluster(cl, cpu_cluster)
     lap("4 cross-checks")
     print(json.dumps({"phase_seconds": phase_s}))
 

@@ -9,8 +9,11 @@ Flow loop and versioned map; ``runtime`` also holds the commit path's
 roles (sequencer, resolver, commit and GRV proxies, tlog, storage server,
 ratekeeper), which ``server.make_conflict_set`` and
 ``sim.cluster.new_conflict_set`` hand their engines and
-``sim/commit_path.py`` wires on one loop. It imports torch and numpy,
-never JAX or the JAX package.
+``sim/commit_path.py`` wires on one loop, and the control plane;
+``sim.cluster.SimCluster`` runs a whole cluster on ``sim/network.py``
+under its cluster controller, and ``client`` is the client library
+(``open_database``). It imports torch and numpy, never JAX or the JAX
+package.
 """
 
 from foundationdb_tpu_torch.models.conflict_set import TorchConflictSet  # noqa: F401

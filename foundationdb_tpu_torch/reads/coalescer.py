@@ -1,6 +1,8 @@
 """Storage-side deadline coalescer for the read plane.
 
-The port of ``foundationdb_tpu/reads/coalescer.py``. The brain that
+The port of ``foundationdb_tpu/reads/coalescer.py`` (its brain learns
+a dispatch's cost on the loop's clock, not the wall's: the one difference,
+see ``_dispatch``). The brain that
 batches resolver dispatches (sched/coalescer.py: latency-budget deadline
 coalescing and an online dispatch cost model) gathers concurrent get /
 multi-get / get_range requests queued against one storage server into a
@@ -119,7 +121,7 @@ class ReadCoalescer:
 
     def _dispatch(self, batch: list[_Req], oldest_ms: float) -> None:
         sink = span_sink(self.loop)
-        t0 = perf_counter()
+        t0, t0_loop = perf_counter(), self.loop.now
         if self._t_first is None:
             self._t_first = t0
         point_reqs = [r for r in batch if r.kind == "points"]
@@ -154,7 +156,13 @@ class ReadCoalescer:
         self.stats["point_reads"] += len(flat_keys)
         self.stats["range_reads"] += len(range_reqs)
         self.stats["busy_s"] += dt
-        self.brain.observe_dispatch(len(batch), dt * 1000.0)
+        # The brain learns the dispatch's cost on the loop's clock, as the
+        # resolver's queue does (sched/resolver_queue.py): none on a
+        # simulated loop, whose runs stay a function of their seed. The
+        # JAX module feeds it the wall time, so its simulated reads depend
+        # on the host's speed.
+        self.brain.observe_dispatch(len(batch),
+                                    (self.loop.now - t0_loop) * 1000.0)
         if sink is not None:
             sink.stage_tick("read_coalesce", oldest_ms / 1000.0, len(batch))
             pack_s = self.read_set.stats["pack_s"] - pack_before

@@ -17,6 +17,9 @@ fault injection) drawn from the loop's seeded RNG.
 Process semantics for fault injection: every task belongs to a named process
 (inherited from the spawning task); ``Loop.kill_process`` cancels all its
 tasks, so in-flight actors die mid-await exactly like a crashed fdbserver.
+It cancels them in spawn order; the JAX module cancels them in the order
+of a set hashed by address, which varies from run to run under one seed
+(the one difference from the JAX module).
 """
 
 from __future__ import annotations
@@ -174,7 +177,11 @@ class Loop:
         self._timers: list[tuple[float, int, Promise]] = []
         self._seq = 0
         self._current: Task | None = None
-        self._tasks_by_process: dict[str, set[Task]] = {}
+        # Each process's live tasks in spawn order (a dict as an ordered
+        # set): a kill cancels them in that order. The JAX Loop keeps a
+        # set of tasks, hashed by address, so the order in which a kill
+        # wakes their waiters varies from run to run under one seed.
+        self._tasks_by_process: dict[str, dict[Task, None]] = {}
         self.dead_processes: set[str] = set()
         # BUGGIFY (reference: flow/Buggify.h): OFF by default (production
         # and plain tests see zero behavior change); the sim campaign
@@ -232,9 +239,9 @@ class Loop:
         if process is None:
             process = self._current.process if self._current else "<main>"
         t = Task(self, coro, process, name)
-        self._tasks_by_process.setdefault(process, set()).add(t)
+        self._tasks_by_process.setdefault(process, {})[t] = None
         t.add_done_callback(
-            lambda _f: self._tasks_by_process.get(process, set()).discard(t)
+            lambda _f: self._tasks_by_process.get(process, {}).pop(t, None)
         )
         self._ready.append((t, None))
         return t

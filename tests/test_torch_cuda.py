@@ -3110,3 +3110,51 @@ def test_commit_path_on_the_card_equals_cpu_and_oracle(card):
     want = convert.snapshot(cpu.engines[0])["state"]
     for k, v in convert.snapshot(gpu.engines[0])["state"].items():
         assert v.tobytes() == want[k].tobytes(), k
+
+
+def test_cluster_on_the_card_equals_cpu_and_oracle(card):
+    """Run (a) of chip_smoke.py's phase 3n at 2^12 keys, 2,048
+    transactions and one kill: one simulated cluster (coordinators, the
+    controller, two tlogs, two storage servers in one team) with its
+    engines and read plane on the card, the resolver killed halfway, gives
+    the outcomes (every attempt's error code, the epochs and recovery
+    versions) of the same run on the CPU and over the oracle; every
+    acknowledged write reads back through tr.get_multi; K1-K4 and K12
+    launch in both generations."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.client.ryw import open_database
+    from foundationdb_tpu_torch.sim.cluster import SimCluster
+    from foundationdb_tpu_torch.sim.cluster_load import ClusterLoad
+
+    def run(engine, device):
+        c = SimCluster(seed=5, engine=engine, device=device, n_storages=2,
+                       n_replicas=2, n_tlogs=2, n_coordinators=3)
+        load = ClusterLoad(c, open_database(c), kills={1024: "resolver0"})
+        launches = []
+        recruit = c.recruit_generation
+
+        def recruit_and_count(**kw):
+            launches.append(dict(K.LAUNCHES, **K.ENTRY_LAUNCHES))
+            K.reset_launches()
+            return recruit(**kw)
+
+        c.recruit_generation = recruit_and_count
+        K.reset_launches()
+        s = load.run_ycsb(2048, 128, 12, seed=5)
+        launches.append(dict(K.LAUNCHES, **K.ENTRY_LAUNCHES))
+        final = load.replay()
+        assert load.read_back(sorted(final)) == final and final
+        assert all(r.cs.overflowed is False for r in c.resolvers
+                   if hasattr(r.cs, "overflowed"))
+        return s, launches
+
+    s, launches = run("torch", None)
+    assert s["epochs"] == [1, 2] and s["failed"] == 0 and s["conflicts"]
+    for gen in launches:
+        assert all(gen[k] > 0 for k in ("dict_insert", "history_probe",
+                                        "accept", "step_compact",
+                                        "wp_search")), gen
+    s_cpu, _ = run("torch", "cpu")
+    s_orc, _ = run("oracle", "cpu")
+    assert s["cluster_outcomes_sha256"] == s_cpu["cluster_outcomes_sha256"] \
+        == s_orc["cluster_outcomes_sha256"]

@@ -519,12 +519,17 @@ def test_brains_decide_as_jax():
 
 
 def coalesced_run(flow, coalescer_cls, read_set, stream, n_clients=12,
-                  budget_ms=0.25, seed=4):
+                  budget_ms=0.25, seed=4, loop_clock=False):
     """``stream`` through ``n_clients`` closed-loop clients on a Loop of
     ``flow`` through a coalescer: (answers, requests per dispatch, stats,
-    the read set's stats)."""
+    the read set's stats). ``loop_clock`` feeds the brain each dispatch's
+    cost on the loop's clock (none on a simulated loop), as the port's
+    coalescer does, in place of the JAX coalescer's wall time."""
     loop = flow.Loop(seed=seed)
     rc = coalescer_cls(loop, read_set, budget_ms=budget_ms, max_window=8)
+    if loop_clock:
+        brain, observe = rc.brain, type(rc.brain).observe_dispatch
+        brain.observe_dispatch = lambda depth, _ms: observe(brain, depth, 0.0)
     sizes = []
     dispatch = rc._dispatch
 
@@ -559,7 +564,7 @@ def test_read_coalescer_equals_jax_under_one_seed(budget_ms):
                         TorchReadSet(vmap, arm="device", device="cpu"),
                         stream, budget_ms=budget_ms)
     want = coalesced_run(jflow, JCoalescer, TPUReadSet(ss.map, device=True),
-                         stream, budget_ms=budget_ms)
+                         stream, budget_ms=budget_ms, loop_clock=True)
     assert got[0] == want[0]
     assert got[1] == want[1] and sum(got[1]) == len(stream)
     assert len(got[1]) < len(stream)  # the coalescer batched
