@@ -47,9 +47,9 @@ Phases, each fatal on failure:
    overflow. Then, each fatal: (a) per-batch ``resolve_wire`` on cuda
    gives the same verdict hash and levels; (b) window 0 on the CPU equals
    the card's in verdicts, levels and every state leaf; (d) mako and
-   tpcc, 16 batches at window 4, give equal verdicts and levels on cuda
+   tpcc, 8 batches at window 4, give equal verdicts and levels on cuda
    and the CPU; (e) two wave shards on the card, fed the
-   ``wavemesh.clip_txns`` halves of 16 batches through ``resolve_edges``
+   ``wavemesh.clip_txns`` halves of 8 batches through ``resolve_edges``
    / ``combine_edges`` / ``resolve_apply``, give the single wave
    engine's verdicts and ``last_wave``. K6's stats build on phase 2's
    captured batch prints its phase counters (``k6_phase_clocks``: the
@@ -270,7 +270,7 @@ Phases, each fatal on failure:
    12-byte keys, each transaction through the client library
    (``open_database(c).run``: ``tr.get_multi`` of its reads, ``tr.set``
    of its write, the commit; ``sim/cluster_load.py``), with kills at
-   counts of finished transactions. Runs: (a) one resolver, 16,384
+   counts of finished transactions. Runs: (a) one resolver, 8,192
    transactions, ``resolver0`` killed at 1/3 and ``tlog0`` at 2/3; (b)
    two resolvers with wave commit, 4,096, ``resolver1`` killed at 1/2.
    Each fatal: epochs 1 to 3 and 1 to 2, each recovered epoch's first
@@ -284,13 +284,49 @@ Phases, each fatal on failure:
    first commit, the new resolvers' first dispatch and longest dispatch
    up to it, ``torch.cuda.memory_allocated()`` at it (before and after a
    gc), the launches by generation. Each run again over the plain
-   versions on the CPU and over the oracle (workers beside phases 3-4,
-   from the end of phase 2; checked after phase 4), the read plane on its
-   host arm: the same ``cluster_outcomes_sha256``.
+   versions on the CPU and over the oracle (workers beside phases 3m-4,
+   from the end of phase 3l; checked after phase 4), the read plane on
+   its host arm: the same ``cluster_outcomes_sha256``.
+3o. Specs phase (``sim/specs.py``, ``sim/workloads.py``, ``sim/run.py``:
+   the repository's TOML simulation specs, each [[test]] on a fresh
+   ``SimCluster`` on its defaults, every generation's engines and the read
+   plane on the card, under the seeded ``FaultInjector``'s kills (the
+   controller's too), partitions and clogs and BUGGIFY as each test asks).
+   (a) Every [[test]] of tests/specs/*.toml through the port's
+   ``run_one`` at the run's seed: each ported test passes its workloads'
+   own checks; each test whose workload or cluster arm is not ported
+   (``SPEC_REFUSED``) raises ``NotImplementedError`` naming its module.
+   (b) One spec at scale (``SPEC_B``): Chaos.toml's ChaosMultiResolver
+   faults and cluster (3 tlogs, 3 storages, 2 replicas, 3 coordinators, 2
+   resolvers, 2 proxies) under mako's 90/10 mix over 16,384 rows (1,024
+   transactions, 64 clients), YCSB-B over 2,048 keys (1,024, 64;
+   ``get_multi`` through K12), TPC-C new-order over 4 warehouses of 10
+   districts and 2,048 items (512, 32) and Cycle over 1,024 nodes (512,
+   32), at once (``SPEC_B_CUT_FROM``: the keys and items for the MVCC
+   window, the transaction counts to a quarter for time). Each fatal:
+   every workload's own check (Cycle's ring, TPC-C's dense order ids and
+   stock conservation, mako's read-your-committed, YCSB's ``get_multi``
+   parity); no transaction given up; no fail-safe and no overflow; K1-K4
+   in every generation whose resolvers resolved a transaction; in (b) at
+   least one kill and a recovery to a higher epoch after it, and K12.
+   Printed: wall s and committed transactions/s of wall by run, test and
+   workload; retries by error code; the kills, partitions and clogs, each
+   kill with the virtual and wall s to its new epoch's first acknowledged
+   commit; dispatch p50/p99 ms; launches by kernel; memory_allocated at
+   the start and the end. Each run again over the plain versions on the
+   CPU, over the oracle given the ranges the engine resolves (its pack
+   widens a transaction of more than 8 read or write ranges) and over the
+   oracle on the exact ranges (workers, (b) on the CPU from the end of
+   phase 2, the others from the end of 3l; checked after phase 4): the
+   same ``spec_outcomes_sha256`` on the first two;
+   on the exact oracle the same record for every test none of whose
+   transactions was widened.
 4. Cross-check: the first 16 batches again on the CPU (plain versions),
    and 16 batches each of the mako and tpcc shapes on cuda against the
    CPU: the verdicts must be equal; then the CPU halves of 3d, 3e, 3f,
-   3g, 3h, 3m and 3n.
+   3g, 3h, 3m, 3n and 3o (in workers from the end of phase 3l, beside
+   phases 3m-4, but 3o(b)'s on the CPU, which starts at the end of phase
+   2).
 5. The seconds of each phase, a ``kernels`` JSON line (K1-K4, the
    window program, K5, K6, K7, the paint-only window, K8, K9, K10 (K5's
    OR mode), the sharded window program, K11, K12, K13, the non-resident window
@@ -373,6 +409,11 @@ SHARDS = 4  # phase 3e: keyspace shards on the card (a 4-resolver config)
 # for K6's round state to fit in one block's shared memory (it then lives
 # in global scratch), on the stream's first BIG_WAVE_BATCHES such batches.
 BIG_WAVE_BATCH, BIG_WAVE_BATCHES = 32768, 16
+# Checks (d) and (e) of phase 3c: mako's and tpcc's wave window path on
+# cuda and the CPU, and the two-phase protocol on two shards, over this
+# many batches (the smoke's time limit sets it: the CPU halves of (d)
+# take most of phase 3c).
+WAVE_CROSS_BATCHES = 8
 # Phase 3f: the admission filter's geometry (2^20 bits: the repository's
 # default of 2^16 saturates at 8192-txn batches), the object-path batches
 # it is fed, the one whose K11 launches are captured (the 17th record: its
@@ -1759,8 +1800,18 @@ def wave_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
 
     b = mode.batch
     n_windows = n_batches // WINDOW_K
+    t0 = time.perf_counter()
+    seconds = {}
+
+    def lap(label: str) -> None:
+        nonlocal t0
+        now = time.perf_counter()
+        seconds[label] = now - t0
+        t0 = now
+
     rec, verdicts, levels, cs, launches, per_window = counted_run(
         blob, ends, mode, n_batches, wave=True)
+    lap("window_path")
     # (f) K5 and K6 on every batch, K3 never.
     for i, pw in enumerate(per_window):
         if (pw.get("wv_pred", 0) != WINDOW_K
@@ -1816,6 +1867,7 @@ def wave_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
         "per_batch_wire_txns_per_s": n_batches * b / per_batch_s,
         "sequential_committed": seq_rec["committed"],
         "card": card}))
+    lap("a_per_batch")
 
     # (b) Window 0 on the CPU plain path: verdicts, levels, every leaf.
     got = {}
@@ -1834,11 +1886,12 @@ def wave_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
             fail(f"wave window 0: state leaf {k} differs on cuda and cpu")
     print(f"cross-check wave window 0: {verdicts[0].size} txns, levels and "
           "every state leaf equal on cuda and cpu")
+    lap("b_window0_cpu")
 
     # (d) mako and tpcc through the wave window path on cuda and the CPU.
     for mname in ("mako", "tpcc"):
         m = MODES[mname]
-        n_cross = 16
+        n_cross = WAVE_CROSS_BATCHES
         mb, me = build_wire_stream(
             *gen_workload(n_cross * m.batch, N_KEYS, seed, m), n_cross, m)
         out = {dev: bench.run_wire(mb, me, m, n_cross, CAP, dev, window=4,
@@ -1855,10 +1908,12 @@ def wave_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
               f"reordered {r['reordered']}, cycle-aborted "
               f"{r['cycle_aborted']}, K6 rounds per batch "
               f"{r['k6_rounds_per_batch']})")
+    lap("d_mako_tpcc")
 
     # (e) Two shards on the card through the two-phase protocol against
-    # the single wave engine, on the clipped halves of 16 batches.
-    n_two = min(16, n_batches)
+    # the single wave engine, on the clipped halves of WAVE_CROSS_BATCHES
+    # batches.
+    n_two = min(WAVE_CROSS_BATCHES, n_batches)
     single = make_engine(mode, "cuda", wave=True)
     shards = [make_engine(mode, "cuda", wave=True) for _ in range(2)]
     mid = (N_KEYS // 2).to_bytes(8, "big")
@@ -1878,6 +1933,7 @@ def wave_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
     torch.cuda.synchronize()
     print(f"cross-check two-phase: {n_two} batches through 2 shards equal "
           "the single wave engine (verdicts and last_wave)")
+    lap("e_two_phase")
 
     # K6's phase counters: its stats build on phase 2's captured batch.
     from foundationdb_tpu_torch import kernels as K
@@ -1890,8 +1946,12 @@ def wave_phase(blob, ends, mode, n_batches: int, seed: int, card: str,
     print(json.dumps({"k6_phase_clocks": k6_phase_clocks(clk),
                       "wave_batch": wk["index"], "card": card}))
 
+    lap("k6_clocks")
+
     # (g) 16 batches of 32,768 txns through a cuda wave engine.
     big = big_wave_check(stream, pool, card)
+    lap("g_big_batches")
+    print(json.dumps({"phase 3c seconds": seconds}))
     return {"launches": entries, "verdicts": verdicts, "levels": levels,
             "big": big}
 
@@ -5040,23 +5100,97 @@ def check_commit_path(cm: dict, jobs: dict) -> None:
 # (new_conflict_set("torch"): capacity 2^14, batch 256), recruited afresh
 # on the card at every recovery. Runs: (resolvers, wave commit,
 # transactions, {fraction of the run: role to kill}).
-CLUSTER_RUNS = {"a": (1, False, 16_384, {1 / 3: "resolver0",
+CLUSTER_RUNS = {"a": (1, False, 8_192, {1 / 3: "resolver0",
                                          2 / 3: "tlog0"}),
                 "b": (2, True, 4_096, {1 / 2: "resolver1"})}
 CLUSTER_CLIENTS = 256
 CLUSTER_KEY_BITS = 20
 
 
+class Generations:
+    """Watches the generations of one ``SimCluster`` for phases 3n and 3o
+    and changes none of its events. Each generation's record: its epoch
+    and recovery version, the virtual and wall time it opened, and, at its
+    close (the next recruitment, or ``close``), the kernel launches since
+    the last close (``kernels.LAUNCHES`` and ``ENTRY_LAUNCHES``, reset
+    then) and its resolvers' resolved, fail-safe and overflow counts.
+    ``on_open`` is called with each generation's resolvers. Off the card
+    each storage server reads through the read plane's host arm (numpy's
+    search of the mirror's memcmp view, the device arm's answers byte for
+    byte; K12's plain twin, a torch search step by step, would take most
+    of a CPU run's time)."""
+
+    def __init__(self, c, on_card: bool, on_open=None):
+        self.c, self.gens, self._on_open = c, [], on_open
+        if not on_card:
+            from foundationdb_tpu_torch.reads.read_set import TorchReadSet
+
+            for s in c.storages:
+                s.read_set = s._reads.read_set = TorchReadSet(s.map,
+                                                              arm="host")
+        recruit = c.recruit_generation
+
+        def recruit_and_watch(epoch, recovery_version, seed_entries):
+            self.close()
+            gen = recruit(epoch=epoch, recovery_version=recovery_version,
+                          seed_entries=seed_entries)
+            self._open(epoch, recovery_version)
+            return gen
+
+        c.recruit_generation = recruit_and_watch
+        g = c.controller.generation
+        self._open(g.epoch, g.recovery_version)
+
+    def _open(self, epoch: int, recovery_version: int) -> None:
+        c = self.c
+        if self._on_open is not None:
+            self._on_open(c.resolvers)
+        self.gens.append({
+            "epoch": epoch, "recovery_version": recovery_version,
+            "virtual": c.loop.now, "wall": time.perf_counter(),
+            "resolvers": list(c.resolvers)})
+
+    def close(self) -> None:
+        """Close the open generation, if one is open."""
+        from foundationdb_tpu_torch import kernels as K
+
+        if not self.gens or "launches" in self.gens[-1]:
+            return
+        g = self.gens[-1]
+        resolvers = g.pop("resolvers")
+        m = [settled(r.get_metrics()) for r in resolvers]
+        g.update(launches=dict(K.LAUNCHES), entries=dict(K.ENTRY_LAUNCHES),
+                 txns_resolved=[x["txns_resolved"] for x in m],
+                 fail_safe=[x["txns_rejected_fail_safe"] for x in m],
+                 overflow_events=[x["overflow_events"] for x in m],
+                 overflowed=[bool(getattr(r.cs, "overflowed", False))
+                             for r in resolvers])
+        K.reset_launches()
+
+
+def check_generation(label: str, g: dict, kernels=(), entries=()) -> None:
+    """Fatal unless the closed generation ``g`` (a ``Generations`` record)
+    shows no resolver fail-safe or overflow, and launched each of
+    ``kernels`` (by source) and ``entries`` (by entry point)."""
+    if any(g["fail_safe"]) or any(g["overflow_events"]) or \
+            any(g["overflowed"]):
+        fail(f"{label} epoch {g['epoch']}: a resolver took its fail-safe or "
+             f"overflowed: {g}")
+    missing = [k for k in kernels if g["launches"].get(k, 0) <= 0] + \
+        [e for e in entries if g["entries"].get(e, 0) <= 0]
+    if missing:
+        fail(f"{label} epoch {g['epoch']}: {missing} not launched "
+             f"({sum(g['txns_resolved'])} txns resolved): launches "
+             f"{g['launches']}, entries {g['entries']}")
+
+
 def cluster_run(run: str, engine: str, seed: int) -> dict:
     """Run ``run`` of phase 3n over ``engine``: ``"cuda"`` (the card
     engines and read plane, ``SimCluster``'s default), ``"cpu"`` (the
     engines' plain versions on the CPU) or ``"oracle"`` (the oracle); the
-    last two, in worker processes beside phase 4, read through the read
-    plane's host arm (numpy's search of the mirror's memcmp view, the
-    device arm's answers byte for byte; K12's plain twin, a torch search
-    step by step, would take most of their time). Returns the run's summary, the recoveries, each generation's
-    launches (the counts between its recruitment and the next; cuda) and
-    its resolvers' fail-safe and overflow counts, whether every
+    last two, in worker processes beside phases 3m-4, read through the
+    read plane's host arm. Returns the run's summary, the recoveries, each
+    generation's ``Generations`` record (launches: cuda), whether every
     acknowledged write read back equal to the host replay, and the K12
     searches of the read-back."""
     import gc
@@ -5065,7 +5199,6 @@ def cluster_run(run: str, engine: str, seed: int) -> dict:
 
     from foundationdb_tpu_torch import kernels as K
     from foundationdb_tpu_torch.client.ryw import open_database
-    from foundationdb_tpu_torch.reads.read_set import TorchReadSet
     from foundationdb_tpu_torch.runtime.sequencer import EPOCH_VERSION_JUMP
     from foundationdb_tpu_torch.sim.cluster import SimCluster
     from foundationdb_tpu_torch.sim.cluster_load import ClusterLoad
@@ -5078,9 +5211,6 @@ def cluster_run(run: str, engine: str, seed: int) -> dict:
                    n_storages=2, n_replicas=2, n_tlogs=2, n_coordinators=3,
                    n_resolvers=n_res, wave_commit=wave)
     on_card = engine == "cuda"
-    if not on_card:
-        for s in c.storages:
-            s.read_set = s._reads.read_set = TorchReadSet(s.map, arm="host")
 
     def probe() -> dict:
         if not on_card:
@@ -5092,40 +5222,18 @@ def cluster_run(run: str, engine: str, seed: int) -> dict:
 
     load = ClusterLoad(c, open_database(c), probe=probe,
                        kills={round(f * n): role for f, role in kills.items()})
-    gens: list[dict] = []
-
-    def close_generation() -> None:
-        """The launches since the last recruitment, and the fail-safe and
-        overflow counts of the resolvers being replaced."""
-        m = [settled(r.get_metrics()) for r in c.resolvers]
-        gens.append({
-            "epoch": c.controller.generation.epoch,
-            "launches": dict(K.LAUNCHES), "entries": dict(K.ENTRY_LAUNCHES),
-            "fail_safe": [x["txns_rejected_fail_safe"] for x in m],
-            "overflow_events": [x["overflow_events"] for x in m],
-            "overflowed": [bool(getattr(r.cs, "overflowed", False))
-                           for r in c.resolvers]})
-        K.reset_launches()
-
-    recruit = c.recruit_generation
-
-    def recruit_and_close(epoch, recovery_version, seed_entries):
-        close_generation()
-        return recruit(epoch=epoch, recovery_version=recovery_version,
-                       seed_entries=seed_entries)
-
-    c.recruit_generation = recruit_and_close
+    gens = Generations(c, on_card)
     memory0 = torch.cuda.memory_allocated() if on_card else None
     K.reset_launches()
     summary = load.run_ycsb(n, CLUSTER_CLIENTS, CLUSTER_KEY_BITS, seed=seed)
-    close_generation()
+    gens.close()
     final = load.replay()
     got = load.read_back(sorted(final))
     firsts = load.epoch_firsts()
     d = np.asarray(load.dispatch_s) * 1e3
     return {
         "summary": summary, "recoveries": load.recoveries,
-        "generations": gens, "written_keys": len(final),
+        "generations": gens.gens, "written_keys": len(final),
         "read_back_equal": got == final,
         "read_back_k12": K.ENTRY_LAUNCHES.get("wp_search", 0),
         "epochs_ok": all(
@@ -5184,22 +5292,14 @@ def cluster_phase(seed: int, card: str) -> dict:
         if len(r["generations"]) != len(want_epochs):
             fail(f"{label}: {len(r['generations'])} generations recruited")
         for g in r["generations"]:
-            L, E = g["launches"], g["entries"]
-            if wave and (any(E.get(e, 0) <= 0 for e in ("wv_pred",
-                                                         "wv_level"))
-                         or L["accept"]):
-                fail(f"{label} epoch {g['epoch']}: K5/K6 not launched or "
-                     f"K3 launched: {E}")
-            if not wave and any(L[k] <= 0 for k in SEQ_SOURCES):
-                fail(f"{label} epoch {g['epoch']}: a kernel of K1-K4 was "
-                     f"not launched: {L}")
-            if E.get("wp_search", 0) <= 0:
-                fail(f"{label} epoch {g['epoch']}: the read plane launched "
-                     "no K12 search")
-            if any(g["fail_safe"]) or any(g["overflow_events"]) or \
-                    any(g["overflowed"]):
-                fail(f"{label} epoch {g['epoch']}: a resolver took its "
-                     f"fail-safe or overflowed: {g}")
+            if wave:
+                check_generation(label, g, entries=("wv_pred", "wv_level",
+                                                    "wp_search"))
+                if g["launches"].get("accept", 0):
+                    fail(f"{label} epoch {g['epoch']}: K3 launched on the "
+                         f"wave path: {g['launches']}")
+            else:
+                check_generation(label, g, SEQ_SOURCES, ("wp_search",))
         print(json.dumps({
             "phase": "cluster", "run": run, "resolvers": n_res,
             "wave_commit": wave, "txns": n, "clients": CLUSTER_CLIENTS,
@@ -5259,6 +5359,537 @@ def check_cluster(cl: dict, jobs: dict) -> None:
             "oracle_wall_s": orc["summary"]["wall_s"]}))
 
 
+# Phase 3o: the repository's TOML simulation specs through the port's
+# runner (``sim/specs.py``, ``sim/workloads.py``, ``sim/run.py``).
+#: The [[test]]s of tests/specs the port cannot run yet, each with the
+#: module its NotImplementedError names.
+SPEC_REFUSED = {
+    "AuthzClean": "runtime/authz.py", "AuthzUnderFaults": "runtime/authz.py",
+    "BackupRestoreClean": "runtime/backup.py",
+    "BackupRestoreBuggify": "runtime/backup.py",
+    "ChaosDDMoves": "runtime/data_distribution.py",
+    "ConsistencyAuditReplicated": "consistency/checker.py",
+    "DDBalance": "runtime/data_distribution.py",
+    "AuthzAcrossRegionFailover": "runtime/authz.py",
+    "TenantsClean": "client/tenant.py", "TenantsUnderFaults": "client/tenant.py",
+    "ZipfRepairContention": "repair/engine.py",
+    "ZipfNaiveBaseline": "repair/engine.py",
+    "ZipfRepairMultiResolver": "repair/engine.py"}
+#: Run (b): the fault knobs and cluster table of Chaos.toml's
+#: ChaosMultiResolver, four workloads at once: mako's 90/10 mix, YCSB core
+#: workload B (its reads through get_multi, K12), TPC-C new-order (ten
+#: districts a warehouse) and Cycle.
+SPEC_B = """
+[[test]]
+testTitle = 'ChaosAtScale'
+killInterval = 0.7
+partitionInterval = 0.9
+maxKills = 3
+killController = true
+buggify = true
+clogInterval = 0.06
+
+[test.cluster]
+tlogs = 3
+storages = 3
+replicas = 2
+coordinators = 3
+resolvers = 2
+proxies = 2
+
+[[test.workload]]
+testName = 'Mako'
+rows = %(mako_rows)d
+transactionCount = %(mako_txns)d
+clientCount = %(mako_clients)d
+readsPerTransaction = 9
+writesPerTransaction = 1
+
+[[test.workload]]
+testName = 'YCSB'
+variant = 'B'
+keyCount = %(ycsb_keys)d
+transactionCount = %(ycsb_txns)d
+clientCount = 64
+batchSize = 8
+
+[[test.workload]]
+testName = 'TpccNewOrder'
+warehouses = 4
+districts = 10
+items = %(tpcc_items)d
+transactionCount = %(tpcc_txns)d
+clientCount = 32
+
+[[test.workload]]
+testName = 'Cycle'
+nodeCount = %(cycle_nodes)d
+transactionCount = %(cycle_txns)d
+clientCount = 32
+"""
+SPEC_B_SIZES = {"mako_rows": 16_384, "mako_txns": 1_024, "mako_clients": 64,
+                "ycsb_keys": 2_048, "ycsb_txns": 1_024,
+                "tpcc_items": 2_048, "tpcc_txns": 512,
+                "cycle_nodes": 1_024, "cycle_txns": 512}
+#: Run (b)'s cuts, each from the size here, found by rehearsing the run on
+#: the CPU over the oracle given the engine's ranges (``engine_range_oracle``,
+#: whose verdicts are the engine's). YCSB's keys and TPC-C's items: their
+#: checks read every key (every stock item) with its own get in one
+#: transaction, which at 4,096 outlasts the 5 virtual s MVCC window and
+#: retries to the client's limit, so each was halved until it fits. The
+#: transaction counts, a quarter each, for time: the resolvers dispatch
+#: about 60 small batches a virtual second whatever the load (after a
+#: recovery the new ratekeeper holds the clients to 100 txns/s and raises
+#: the ceiling 5% a poll), about 10,000 dispatches at these counts and
+#: 37,000 at the full ones, and the run over the plain versions on the CPU
+#: takes about 40 ms of host time a dispatch, past the smoke's time limit
+#: at the full counts. At larger counts the run meets a known fault of the
+#: engine (ROADMAP Queue 3): its pack widens each of mako's 9 point reads
+#: into 5 ranges, and a mako transaction can hit the client's 100-retry
+#: limit; ``tests/test_torch_specs_scale.py`` runs the full counts and
+#: holds that give-up.
+SPEC_B_CUT_FROM = {"ycsb_keys": 16_384, "tpcc_items": 16_384,
+                   "mako_txns": 4_096, "ycsb_txns": 4_096,
+                   "tpcc_txns": 2_048, "cycle_txns": 2_048}
+
+
+def engine_range_oracle(probe, widen: bool):
+    """The oracle for phase 3o's oracle halves, counting into the probe's
+    current test the transactions with more read or write ranges than the
+    sim engine takes (its pack widens them to that many, conservatively:
+    ``models/conflict_set._coalesce``). ``widen``: the oracle over the
+    ranges the engine resolves, each such transaction's reads and writes
+    coalesced as the engine's pack does; else the oracle on the exact
+    ranges, as ``engine="oracle"`` builds it."""
+    import dataclasses
+    import inspect
+
+    from foundationdb_tpu_torch.models.conflict_set import (
+        TorchConflictSet,
+        _coalesce,
+    )
+    from foundationdb_tpu_torch.sim.oracle import OracleConflictSet
+
+    args = inspect.signature(TorchConflictSet.__init__).parameters
+    r, q = (args["max_read_ranges"].default, args["max_write_ranges"].default)
+
+    class EngineRanges(OracleConflictSet):
+        def resolve(self, txns, commit_version, oldest_version=None):
+            over = [t for t in txns if len(t.read_ranges) > r
+                    or len(t.write_ranges) > q]
+            if over and probe.cur:
+                probe.cur["widened"] = probe.cur.get("widened", 0) + len(over)
+            if widen:
+                txns = [dataclasses.replace(
+                    t, read_ranges=_coalesce(t.read_ranges, r),
+                    write_ranges=_coalesce(t.write_ranges, q))
+                    for t in txns]
+            return super().resolve(txns, commit_version, oldest_version)
+
+    return EngineRanges
+
+
+def spec_b_text(div: int = 1, sizes: dict | None = None) -> str:
+    """Run (b)'s TOML: ``SPEC_B_SIZES`` with ``sizes`` over them, each
+    divided by ``div``."""
+    return SPEC_B % {k: max(1, v // div)
+                     for k, v in {**SPEC_B_SIZES, **(sizes or {})}.items()}
+
+
+class SpecProbe:
+    """Watches the port's simulation in this process for phase 3o and
+    changes none of its events: every ``SimCluster`` built (each
+    generation's epoch and recovery version, its launches and its
+    resolvers' metrics; the kills with their virtual and wall times; the
+    acknowledged commits; each resolver dispatch's wall time), each test's
+    ``FaultInjector`` and result, and the retries by error code; each
+    cluster's generations through ``Generations``."""
+
+    def __init__(self, on_card: bool, oracle: str | None = None):
+        self.on_card = on_card
+        self.oracle = oracle
+        self.tests: list[dict] = []
+        self.retries: dict[int, int] = {}
+        self.dispatch_s: list[float] = []
+        self._undo: list = []
+        self.cur: dict = {}
+
+    def _patch(self, obj, name: str, value) -> None:
+        self._undo.append((obj, name, getattr(obj, name)))
+        setattr(obj, name, value)
+
+    def __enter__(self):
+        from foundationdb_tpu_torch.client import transaction
+        from foundationdb_tpu_torch.sim import cluster, specs
+
+        probe = self
+
+        class Probed(cluster.SimCluster):
+            def __init__(self, *a, **kw):
+                probe._begin()
+                super().__init__(*a, **kw)
+                probe._built(self)
+
+        class Faults(specs.FaultInjector):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                probe.cur["faults"] = self
+
+        run_test = specs.run_spec_test
+
+        async def run_spec_test(spec, c, db):
+            probe.cur["workload_wall"] = {}
+            for w in spec.workloads:
+                probe._time_workload(w)
+            try:
+                r = await run_test(spec, c, db)
+                probe.cur["result"] = r
+                return r
+            finally:
+                probe._end()
+
+        commit, on_error = (transaction.Transaction.commit,
+                            transaction.Transaction.on_error)
+
+        async def acked_commit(tr):
+            read_only = tr.is_read_only
+            v = await commit(tr)
+            if not read_only and probe.cur:
+                probe.cur["commits"].append(
+                    (v, probe.cur["cluster"].loop.now, time.perf_counter()))
+            return v
+
+        async def counted_on_error(tr, e):
+            code = getattr(e, "code", None)
+            probe.retries[code] = probe.retries.get(code, 0) + 1
+            return await on_error(tr, e)
+
+        if self.oracle is not None:
+            seam = cluster.new_conflict_set
+            Oracle = engine_range_oracle(self, self.oracle == "oracle")
+
+            def new_conflict_set(engine, wave_commit=None, device=None):
+                if engine != "oracle":
+                    return seam(engine, wave_commit, device)
+                return Oracle(wave_commit=bool(wave_commit))
+
+            self._patch(cluster, "new_conflict_set", new_conflict_set)
+        self._patch(cluster, "SimCluster", Probed)
+        self._patch(specs, "FaultInjector", Faults)
+        self._patch(specs, "run_spec_test", run_spec_test)
+        self._patch(transaction.Transaction, "commit", acked_commit)
+        self._patch(transaction.Transaction, "on_error", counted_on_error)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, value in reversed(self._undo):
+            setattr(obj, name, value)
+        self._undo.clear()
+        return False
+
+    # -- one test ------------------------------------------------------------
+
+    def _begin(self) -> None:
+        from foundationdb_tpu_torch import kernels as K
+
+        self.cur = {"kills": [], "commits": [], "faults": None,
+                    "result": None, "t0": time.perf_counter()}
+        K.reset_launches()
+
+    def _built(self, c) -> None:
+        from foundationdb_tpu_torch.sim.commit_path import time_dispatches
+
+        def time_all(resolvers) -> None:
+            for r in resolvers:
+                time_dispatches(r, self.dispatch_s)
+
+        self.cur["cluster"] = c
+        self.cur["watch"] = Generations(c, self.on_card, time_all)
+        self.cur["gens"] = self.cur["watch"].gens
+        kill = c.net.kill
+
+        def timed_kill(victim):
+            self.cur["kills"].append({
+                "victim": victim, "epoch": c.controller.generation.epoch,
+                "virtual": c.loop.now, "wall": time.perf_counter()})
+            return kill(victim)
+
+        c.net.kill = timed_kill
+
+    def _time_workload(self, w) -> None:
+        run = w.run
+
+        async def timed(db, cluster):
+            await run(db, cluster)
+            self.cur["workload_wall"][w.name] = (
+                time.perf_counter() - self.cur["t0"],
+                w.metrics.txns_committed)
+
+        w.run = timed
+
+    def _end(self) -> None:
+        if "watch" in self.cur:
+            self.cur["watch"].close()
+        self.cur["wall"] = time.perf_counter() - self.cur["t0"]
+        self.tests.append(self.cur)
+        self.cur = {}
+
+
+def spec_record(title: str, ok: bool, detail: str, t: dict | None) -> dict:
+    """What ``spec_outcomes_sha256`` covers of one test: its title and
+    verdict, each workload's metrics, the kills, partitions and clogs, the
+    epochs and their recovery versions, every storage server's key-value
+    pairs at its last version, and the loop's clock."""
+    if t is None:
+        return {"title": title, "ok": ok, "refused": detail}
+    c, f, r = t["cluster"], t["faults"], t["result"]
+    stores = []
+    for s in c.storages:
+        h = hashlib.sha256()
+        for k in s.map._keys:
+            v = s.map.at(k, s._version)
+            if v is not None:
+                h.update(len(k).to_bytes(4, "little") + k
+                         + len(v).to_bytes(4, "little") + v)
+        stores.append([s._version, h.hexdigest()])
+    return {
+        "title": title, "ok": ok, "detail": detail if ok else "failed",
+        "metrics": None if r is None else {
+            n: [m.txns_committed, m.txns_retried, m.txns_failed, m.ops,
+                m.extra] for n, m in r.metrics.items()},
+        "kills": list(f.kills) if f else [],
+        "partitions": f.partitions if f else 0,
+        "clogs": f.clogs if f else 0,
+        "generations": [[g["epoch"], g["recovery_version"]]
+                        for g in t["gens"]],
+        "storages": stores, "now": c.loop.now}
+
+
+def spec_recoveries(t: dict) -> list[dict]:
+    """Each kill with the virtual and wall s to the first acknowledged
+    commit of the first epoch recruited after it."""
+    out = []
+    for k in t["kills"]:
+        later = [g for g in t["gens"] if g["virtual"] >= k["virtual"]
+                 and g["epoch"] > k["epoch"]]
+        row = {"victim": k["victim"], "epoch": k["epoch"],
+               "kill_virtual": k["virtual"], "new_epoch": None}
+        if later:
+            g = later[0]
+            first = next((x for x in t["commits"]
+                          if x[0] > g["recovery_version"]), None)
+            row["new_epoch"] = g["epoch"]
+            if first is not None:
+                row.update(to_first_commit_virtual_s=first[1] - k["virtual"],
+                           to_first_commit_wall_s=first[2] - k["wall"])
+        out.append(row)
+    return out
+
+
+def specs_run(run: str, engine: str, seed: int, files=None,
+              div: int = 1, sizes: dict | None = None) -> dict:
+    """Run ``run`` of phase 3o over ``engine``: ``"cuda"`` (``SimCluster``'s
+    defaults: the card engines and read plane), ``"cpu"`` (the plain
+    versions), ``"oracle"`` (the oracle over the ranges the engine
+    resolves, ``engine_range_oracle``) or ``"oracle-exact"`` (the oracle
+    on each transaction's own ranges); all but the first read through the
+    read plane's host arm. (a) every [[test]] of ``files`` (default every
+    file of tests/specs) through the port's ``sim.run.run_one``; (b) run
+    (b)'s spec (``spec_b_text(div, sizes)``) on a fresh cluster as
+    ``run_one`` builds it. Returns each test's record and
+    ``spec_outcomes_sha256`` over them, and what the card half checks and
+    prints."""
+    import os
+
+    import torch
+
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.client.ryw import open_database
+    from foundationdb_tpu_torch.sim import cluster, specs
+    from foundationdb_tpu_torch.sim.run import run_one
+
+    on_card = engine == "cuda"
+    if not on_card:
+        torch.set_num_threads(1)  # beside the measured phases
+    kw = {} if on_card else {"engine": "torch" if engine == "cpu"
+                             else "oracle", "device": "cpu"}
+    memory0 = torch.cuda.memory_allocated() if on_card else None
+    K.reset_launches()
+    outcomes = []
+    t0 = time.perf_counter()
+    with SpecProbe(on_card, engine if "oracle" in engine else None) as probe:
+        if run == "a":
+            spec_dir = os.path.join(os.path.dirname(os.path.abspath(
+                __file__)), "tests", "specs")
+            for f in files or sorted(x for x in os.listdir(spec_dir)
+                                     if x.endswith(".toml")):
+                _, _, out = run_one(os.path.join(spec_dir, f), seed,
+                                    False, None, **kw)
+                outcomes += out
+        else:
+            (spec,) = specs.load_spec(spec_b_text(div, sizes))
+            c = cluster.SimCluster(seed=seed,
+                                   **{**kw, **specs.cluster_kwargs(spec)})
+            try:
+                r = c.loop.run(specs.run_spec_test(spec, c, open_database(c)),
+                               timeout=3000)
+                outcomes.append((spec.title, True, ", ".join(
+                    f"{n}={m.txns_committed}tx"
+                    for n, m in r.metrics.items())))
+            except Exception as e:
+                outcomes.append((spec.title, False,
+                                 f"{type(e).__name__}: {e}"))
+                print(f"specs (b) {engine}: {type(e).__name__}: {e}",
+                      file=sys.stderr)
+    wall = time.perf_counter() - t0
+    ran = iter(probe.tests)
+    records, tests = [], []
+    for title, ok, detail in outcomes:
+        t = None if detail.startswith("NotImplementedError") else next(ran)
+        records.append(spec_record(title, ok, detail, t))
+        tests.append(t)
+    d = np.asarray(probe.dispatch_s) * 1e3
+    launches: dict[str, int] = {}
+    for t in tests:
+        for g in (t or {}).get("gens", []):
+            for k, v in {**g["launches"], **g["entries"]}.items():
+                launches[k] = launches.get(k, 0) + v
+    return {
+        "run": run, "engine": engine, "wall_s": wall,
+        "records": records,
+        "spec_outcomes_sha256": hashlib.sha256(json.dumps(
+            records, sort_keys=True, default=repr).encode()).hexdigest(),
+        "tests": [None if t is None else {
+            "wall_s": t["wall"], "workload_wall": t["workload_wall"],
+            "generations": [{k: v for k, v in g.items()
+                             if k not in ("virtual", "wall")}
+                            for g in t["gens"]],
+            "recoveries": spec_recoveries(t),
+            "widened_txns": t.get("widened", 0)} for t in tests],
+        "retries": {str(k): v for k, v in sorted(probe.retries.items(),
+                                                 key=lambda x: str(x[0]))},
+        "dispatches": len(d),
+        "dispatch_ms_p50": float(np.percentile(d, 50)) if len(d) else None,
+        "dispatch_ms_p99": float(np.percentile(d, 99)) if len(d) else None,
+        "launches": launches, "memory_start": memory0,
+        "memory_end": torch.cuda.memory_allocated() if on_card else None}
+
+
+def check_spec_run(label: str, r: dict) -> None:
+    """Phase 3o's checks of one run on the card, each fatal: every ported
+    test passed its workloads' checks; every other test raised
+    NotImplementedError naming its module; no transaction given up; no
+    fail-safe or overflow; K1-K4 in every generation whose resolvers
+    resolved a transaction."""
+    for rec, t in zip(r["records"], r["tests"]):
+        title = rec["title"]
+        if t is None:
+            want = SPEC_REFUSED.get(title)
+            if want is None or want not in rec["refused"]:
+                fail(f"specs ({label}) {title}: refused ({rec['refused']}), "
+                     f"want it to run or to name {want}")
+            continue
+        if title in SPEC_REFUSED:
+            fail(f"specs ({label}) {title}: ran, but the port lacks "
+                 f"{SPEC_REFUSED[title]}")
+        if not rec["ok"] or not rec["metrics"]:
+            fail(f"specs ({label}) {title}: a workload's check failed: "
+                 f"{rec['detail']}")
+        for name, m in rec["metrics"].items():
+            if m[2] or not m[0]:
+                fail(f"specs ({label}) {title}/{name}: {m[2]} transactions "
+                     f"given up, {m[0]} committed")
+        for g in t["generations"]:
+            check_generation(f"specs ({label}) {title}", g,
+                             SEQ_SOURCES if sum(g["txns_resolved"]) else ())
+
+
+def specs_phase(seed: int, card: str) -> dict:
+    """Phase 3o's card half: run (a), every [[test]] of tests/specs through
+    the port's ``run_one``, and run (b), each fatal on failure (the checks
+    of ``check_spec_run``; in (b) at least one kill and a recovery to a
+    higher epoch after it, and K12 by the read plane); the CPU and oracle
+    halves are checked after phase 4."""
+    out = {}
+    for run in ("a", "b"):
+        r = specs_run(run, "cuda", seed)
+        check_spec_run(run, r)
+        label = f"specs ({run})"
+        if run == "b":
+            (t,) = r["tests"]
+            kills = t["recoveries"]
+            if not kills or not any(k["new_epoch"] for k in kills):
+                fail(f"{label}: no kill, or no recovery after one: {kills}")
+            if r["launches"].get("wp_search", 0) <= 0:
+                fail(f"{label}: the read plane launched no K12 search")
+        ran = [(rec, t) for rec, t in zip(r["records"], r["tests"])
+               if t is not None]
+        print(json.dumps({
+            "phase": "specs", "run": run, "seed": seed,
+            "tests": len(ran), "refused": {
+                rec["title"]: rec["refused"] for rec, t in
+                zip(r["records"], r["tests"]) if t is None},
+            "wall_s": r["wall_s"],
+            "committed": sum(m[0] for rec, _ in ran
+                             for m in rec["metrics"].values()),
+            "committed_per_s": sum(m[0] for rec, _ in ran for m in
+                                   rec["metrics"].values()) / r["wall_s"],
+            "per_test": [{
+                "title": rec["title"], "wall_s": t["wall_s"],
+                "workloads": {n: {"committed": rec["metrics"][n][0],
+                                  "retried": rec["metrics"][n][1],
+                                  "ops": rec["metrics"][n][3],
+                                  "wall_s": w,
+                                  "committed_per_s": n_c / w}
+                              for n, (w, n_c) in t["workload_wall"].items()},
+                "kills": rec["kills"], "partitions": rec["partitions"],
+                "clogs": rec["clogs"], "epochs": rec["generations"],
+                "recoveries": t["recoveries"], "virtual_s": rec["now"]}
+                for rec, t in ran],
+            "retries_by_code": r["retries"],
+            "dispatches": r["dispatches"],
+            "dispatch_ms_p50": r["dispatch_ms_p50"],
+            "dispatch_ms_p99": r["dispatch_ms_p99"],
+            "launches": {k: v for k, v in r["launches"].items() if v},
+            "memory_start": r["memory_start"], "memory_end": r["memory_end"],
+            "spec_outcomes_sha256": r["spec_outcomes_sha256"],
+            "card": card}))
+        out[run] = r
+    return out
+
+
+def check_specs(sp: dict, jobs: dict) -> None:
+    """Phase 3o's CPU halves (workers beside phases 3m-4, (b)'s on the CPU
+    beside phases 3-4): each run over the plain versions on the CPU and
+    over the oracle given the engine's ranges gives the card's
+    ``spec_outcomes_sha256``; over the oracle on the exact ranges, every
+    test none of whose transactions the engine widened gives the card's
+    record (the others are printed with their widened count)."""
+    for run, r in sp.items():
+        got, walls = {"cuda": r["spec_outcomes_sha256"]}, {}
+        for e in ("cpu", "oracle", "oracle-exact"):
+            o = jobs[run][e].get()
+            got[e], walls[f"{e}_wall_s"] = (o["spec_outcomes_sha256"],
+                                            o["wall_s"])
+            diff = [x["title"] for x, y in zip(r["records"], o["records"])
+                    if x != y]
+            if e == "oracle-exact":
+                widened = {x["title"]: t["widened_txns"] for x, t in
+                           zip(o["records"], o["tests"])
+                           if t is not None and t["widened_txns"]}
+                if set(diff) - set(widened):
+                    fail(f"specs ({run}): over the exact oracle tests "
+                         f"{sorted(set(diff) - set(widened))} differ from "
+                         "the card's, none of their transactions widened")
+                walls["exact_oracle_differs"] = diff
+                walls["widened_txns"] = widened
+            elif got[e] != got["cuda"]:
+                fail(f"specs ({run}): spec_outcomes_sha256 {got['cuda']} on "
+                     f"cuda, {got[e]} over the {e}; tests differing: {diff}")
+        print(json.dumps({"cross-check": f"specs ({run})",
+                          "spec_outcomes_sha256": got, **walls}))
+
+
 def bench_engine(mode, wave: bool, engine: dict):
     from foundationdb_tpu_torch.bench import make_engine as make
 
@@ -5285,12 +5916,12 @@ def main() -> int:
         print(f"chip_smoke: the repository is missing ({e})", file=sys.stderr)
         return 2
 
-    # The host replay of check (c) of phase 3c and the CPU and oracle runs
-    # of 3n (beside phases 3-4), the CPU runs of checks (c) and (c′) of
-    # phase 3d, the CPU half of check (e) of phases 3e and 3h, of the
-    # tiered run of 3f, of the adversary of 3g and the CPU and oracle runs
-    # of 3m (beside phase 4) run in six worker processes; the workers are
-    # stopped however the run ends.
+    # The host replay of check (c) of phase 3c and 3o(b)'s run over the
+    # plain versions (beside phases 3-4), the CPU runs of checks (c) and
+    # (c′) of phase 3d, the CPU half of check (e) of phases 3e and 3h, of
+    # the tiered run of 3f, of the adversary of 3g and the CPU and oracle
+    # runs of 3m, 3n and 3o (beside phases 3m-4) run in six worker
+    # processes; the workers are stopped however the run ends.
     pool = multiprocessing.get_context("spawn").Pool(6)
     try:
         return smoke(args, pool)
@@ -5334,13 +5965,13 @@ def smoke(args, pool) -> int:
     k12_k5_adversarial()
     lap("2 kernels")
 
-    # Phase 3n's CPU and oracle halves start here, in the workers beside
-    # phases 3-4 (one torch thread each): their plain versions run for
-    # minutes, which beside phase 4 alone would set its length.
-    cpu_cluster = {run: {e: pool.apply_async(cluster_run,
-                                             (run, e, args.seed))
-                         for e in ("cpu", "oracle")}
-                   for run in CLUSTER_RUNS}
+    # Phase 3o(b)'s run over the plain versions on the CPU, the longest of
+    # the CPU halves (minutes), starts here in a worker (one torch thread)
+    # beside phases 3-4; until the end of 3l only it and 3c's host replays
+    # run beside the card, so that phases 3-3l are not timed beside six
+    # busy workers.
+    cpu_specs = {"b": {"cpu": pool.apply_async(specs_run,
+                                               ("b", "cpu", args.seed))}}
 
     # 3. End to end, counting launches of this run only.
     K.reset_launches()
@@ -5431,19 +6062,10 @@ def smoke(args, pool) -> int:
     baseline_phase(stream, ycsb, n_wire, wp["record"], card)
     lap("3l baseline")
 
-
-    # 3m. The commit path's roles on one loop over the card engine.
-    cm = commit_path_phase(args.seed, card)
-    lap("3m commit path")
-
-    # 3n. One simulated cluster with its control plane and client, the
-    # engines recruited on the card at every recovery.
-    cl = cluster_phase(args.seed, card)
-    lap("3n cluster")
-
     # Phase 3m over the CPU and the oracle, checks (c) and (c′) of phase
-    # 3d, check (e) of phase 3e, the tiered run of 3f and the adversary of
-    # 3g on the CPU, in the workers beside phase 4.
+    # 3d, check (e) of phase 3e, the tiered run of 3f, the adversary of 3g
+    # on the CPU, and 3n's and 3o's other CPU and oracle runs, in the
+    # workers beside phases 3m-4.
     cpu_commit = {run: {e: pool.apply_async(commit_path_run,
                                             (run, e, args.seed))
                         for e in ("cpu", "oracle")}
@@ -5461,6 +6083,29 @@ def smoke(args, pool) -> int:
         spec_run, (args.seed, "cpu", 3, False, False))}
     cpu_nr_sharded = pool.apply_async(sharded_window0,
                                       (args.seed, args.batches, "cpu", False))
+    cpu_cluster = {run: {e: pool.apply_async(cluster_run,
+                                             (run, e, args.seed))
+                         for e in ("cpu", "oracle")}
+                   for run in CLUSTER_RUNS}
+    for run in ("a", "b"):
+        for e in ("cpu", "oracle", "oracle-exact"):
+            if e not in cpu_specs.setdefault(run, {}):
+                cpu_specs[run][e] = pool.apply_async(specs_run,
+                                                     (run, e, args.seed))
+
+    # 3m. The commit path's roles on one loop over the card engine.
+    cm = commit_path_phase(args.seed, card)
+    lap("3m commit path")
+
+    # 3n. One simulated cluster with its control plane and client, the
+    # engines recruited on the card at every recovery.
+    cl = cluster_phase(args.seed, card)
+    lap("3n cluster")
+
+    # 3o. The repository's simulation specs and one at scale through the
+    # port's runner, under kills, partitions, clogs and BUGGIFY.
+    sp = specs_phase(args.seed, card)
+    lap("3o specs")
 
     # 4. Cross-checks against the plain versions on the CPU.
     n_cross = min(16, args.batches)
@@ -5489,6 +6134,7 @@ def smoke(args, pool) -> int:
     check_sharded_cpu(nrs, cpu_nr_sharded, "non-resident sharded")
     check_commit_path(cm, cpu_commit)
     check_cluster(cl, cpu_cluster)
+    check_specs(sp, cpu_specs)
     lap("4 cross-checks")
     print(json.dumps({"phase_seconds": phase_s}))
 

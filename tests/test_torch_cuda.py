@@ -3158,3 +3158,26 @@ def test_cluster_on_the_card_equals_cpu_and_oracle(card):
     s_orc, _ = run("oracle", "cpu")
     assert s["cluster_outcomes_sha256"] == s_cpu["cluster_outcomes_sha256"] \
         == s_orc["cluster_outcomes_sha256"]
+
+
+def test_spec_runs_on_the_card_equal_cpu_and_oracle(card):
+    """A small phase 3o of chip_smoke.py: Cycle.toml through the port's
+    ``sim.run.run_one`` and run (b)'s spec at a tenth of its sizes (four
+    workloads under kills, partitions, clogs and BUGGIFY on 2 resolvers),
+    each with every engine and read plane on the card, give the
+    ``spec_outcomes_sha256`` of the same runs over the plain versions on
+    the CPU and over the oracle given the engine's ranges; each passes the
+    smoke's checks (every workload's own check, no transaction given up,
+    no fail-safe, K1-K4 in every generation that resolved a transaction),
+    and (b) launches K12 and kills at least once."""
+    import chip_smoke as smoke
+
+    for run, kw in (("a", {"files": ["Cycle.toml"]}), ("b", {"div": 10})):
+        got = {e: smoke.specs_run(run, e, 5, **kw)
+               for e in ("cuda", "cpu", "oracle")}
+        smoke.check_spec_run(run, got["cuda"])
+        shas = {e: r["spec_outcomes_sha256"] for e, r in got.items()}
+        assert len(set(shas.values())) == 1, shas
+        if run == "b":
+            assert got["cuda"]["launches"].get("wp_search", 0) > 0
+            assert got["cuda"]["tests"][0]["recoveries"]
