@@ -320,13 +320,43 @@ Phases, each fatal on failure:
    phase 2, the others from the end of 3l; checked after phase 4): the
    same ``spec_outcomes_sha256`` on the first two;
    on the exact oracle the same record for every test none of whose
-   transactions was widened.
+   transactions was widened. The ``authz = true`` tests draw the
+   operator's keypair of the run's seed on every half.
+3p. Durable phase (``runtime/kvstore.py``, ``native/btree.cpp``,
+   ``sim/cluster.py``'s ``data_dir``; ``SimCluster``'s engines and the
+   storages' read plane on the card): FoundationDB's documented
+   ``configure double ssd-redwood-1`` and ``configure single ssd`` under
+   YCSB core workload A (50/50 read/update, Zipf 0.99, fieldcount=1 and
+   fieldlength=100: one 100-byte value a row, cut from 10 fields for the
+   simulator's Python; ``DURABLE_CUT_FROM``). (a) A fresh ``data_dir``,
+   ``storage_engine="ssd-redwood-1"``, 2 tlogs, 2 storages, 2 replicas,
+   data distribution on: 131,072 rows (``sim/cluster_load.py``'s 12-byte
+   keys) preloaded in 512 transactions of 256 rows, then 4,096 YCSB-A
+   transactions from 128 clients with ``tlog0`` killed at 1/2; the whole
+   cluster is dropped and a new ``SimCluster`` opened on the same
+   ``data_dir`` with the next seed. (b) ``storage_engine="ssd-2"``
+   (sqlite), 1 replica, no data distribution, 65,536 rows, 2,048
+   transactions. Each fatal: the restarted epoch is the persisted one
+   plus 1; every preloaded row and acknowledged write reads back through
+   ``tr.get_multi`` (K12, on the restarted mirror) equal to the host
+   replay; each storage's store loads to the host replay at its durable
+   version, and in (a) both replicas hold the same rows; no transaction
+   given up; no fail-safe and no overflow; K1-K4 and K12 launched before
+   and after the restart. Printed: wall s and transactions/s of wall,
+   preload rows/s, the engines' flushes (count, rows, bytes, ms a flush),
+   the durable versions' lag behind the committed version at the stop,
+   the restart's wall s to the stores loaded and to its first
+   acknowledged commit, the rows loaded, data distribution's splits and
+   moves, ``memory_allocated``, ``durable_outcomes_sha256``. Each run
+   again over the plain versions on the CPU and over the oracle (workers,
+   from the end of 3p's card half, beside phase 4; checked after it): the
+   same ``durable_outcomes_sha256``.
 4. Cross-check: the first 16 batches again on the CPU (plain versions),
    and 16 batches each of the mako and tpcc shapes on cuda against the
    CPU: the verdicts must be equal; then the CPU halves of 3d, 3e, 3f,
-   3g, 3h, 3m, 3n and 3o (in workers from the end of phase 3l, beside
+   3g, 3h, 3m, 3n, 3o and 3p (in workers from the end of phase 3l, beside
    phases 3m-4, but 3o(b)'s on the CPU, which starts at the end of phase
-   2).
+   2, and 3p's, which start at the end of 3p).
 5. The seconds of each phase, a ``kernels`` JSON line (K1-K4, the
    window program, K5, K6, K7, the paint-only window, K8, K9, K10 (K5's
    OR mode), the sharded window program, K11, K12, K13, the non-resident window
@@ -5364,14 +5394,9 @@ def check_cluster(cl: dict, jobs: dict) -> None:
 #: The [[test]]s of tests/specs the port cannot run yet, each with the
 #: module its NotImplementedError names.
 SPEC_REFUSED = {
-    "AuthzClean": "runtime/authz.py", "AuthzUnderFaults": "runtime/authz.py",
     "BackupRestoreClean": "runtime/backup.py",
     "BackupRestoreBuggify": "runtime/backup.py",
-    "ChaosDDMoves": "runtime/data_distribution.py",
     "ConsistencyAuditReplicated": "consistency/checker.py",
-    "DDBalance": "runtime/data_distribution.py",
-    "AuthzAcrossRegionFailover": "runtime/authz.py",
-    "TenantsClean": "client/tenant.py", "TenantsUnderFaults": "client/tenant.py",
     "ZipfRepairContention": "repair/engine.py",
     "ZipfNaiveBaseline": "repair/engine.py",
     "ZipfRepairMultiResolver": "repair/engine.py"}
@@ -5705,6 +5730,7 @@ def specs_run(run: str, engine: str, seed: int, files=None,
 
     from foundationdb_tpu_torch import kernels as K
     from foundationdb_tpu_torch.client.ryw import open_database
+    from foundationdb_tpu_torch.runtime import _ed25519, authz
     from foundationdb_tpu_torch.sim import cluster, specs
     from foundationdb_tpu_torch.sim.run import run_one
 
@@ -5716,6 +5742,12 @@ def specs_run(run: str, engine: str, seed: int, files=None,
     memory0 = torch.cuda.memory_allocated() if on_card else None
     K.reset_launches()
     outcomes = []
+    # An ``authz = true`` cluster table draws the operator's keypair; every
+    # half of the run draws the one of this seed (the runner's default
+    # draws a random one).
+    pem = _ed25519.generate_keypair_pem(hashlib.sha256(
+        b"chip_smoke authz %d" % seed).digest())
+    draw, authz.generate_keypair = authz.generate_keypair, lambda: pem
     t0 = time.perf_counter()
     with SpecProbe(on_card, engine if "oracle" in engine else None) as probe:
         if run == "a":
@@ -5742,6 +5774,7 @@ def specs_run(run: str, engine: str, seed: int, files=None,
                 print(f"specs (b) {engine}: {type(e).__name__}: {e}",
                       file=sys.stderr)
     wall = time.perf_counter() - t0
+    authz.generate_keypair = draw
     ran = iter(probe.tests)
     records, tests = [], []
     for title, ok, detail in outcomes:
@@ -5890,6 +5923,305 @@ def check_specs(sp: dict, jobs: dict) -> None:
                           "spec_outcomes_sha256": got, **walls}))
 
 
+# Phase 3p: durable clusters (``runtime/kvstore.py``, ``native/btree.cpp``,
+# ``sim/cluster.py`` ``data_dir``): FoundationDB's ``configure double
+# ssd-redwood-1`` and ``configure single ssd`` under YCSB core workload A
+# (50/50 read/update, Zipf 0.99), preloaded, then a whole-cluster restart
+# from disk. Runs: the cluster's arms, the rows preloaded (256 a
+# transaction), the YCSB-A transactions and their clients, {fraction of
+# the run: role to kill}.
+DURABLE_RUNS = {
+    "a": ({"storage_engine": "ssd-redwood-1", "n_tlogs": 2, "n_storages": 2,
+           "n_replicas": 2, "data_distribution": True},
+          131_072, 4_096, 128, {1 / 2: "tlog0"}),
+    "b": ({"storage_engine": "ssd-2", "n_tlogs": 1, "n_storages": 2,
+           "n_replicas": 1, "data_distribution": False},
+          65_536, 2_048, 128, {}),
+}
+DURABLE_ROWS_PER_TXN = 256
+#: YCSB's fieldcount=1, fieldlength=100 (cut from its 10 fields of 100
+#: bytes for the simulator's Python: one 100-byte value a row).
+DURABLE_FIELD_BYTES = 100
+DURABLE_CUT_FROM = {"fieldcount": 10}
+
+
+class FlushProbe:
+    """Counts each storage server's engine flushes: calls, rows (keys
+    written or deleted), bytes of keys and values, purged ranges, wall
+    seconds. Measures only: the flush itself is the engine's."""
+
+    def __init__(self, storages):
+        self.calls = self.rows = self.bytes = self.purges = 0
+        self.seconds = 0.0
+        for s in storages:
+            flush = s.kvstore.flush
+
+            def timed(writes, version, purges=None, _flush=flush):
+                t0 = time.perf_counter()
+                _flush(writes, version, purges=purges)
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+                self.rows += len(writes)
+                self.bytes += sum(len(k) + len(v or b"")
+                                  for k, v in writes.items())
+                self.purges += len(purges or ())
+
+            s.kvstore.flush = timed
+
+    def summary(self) -> dict:
+        return {"flushes": self.calls, "flush_rows": self.rows,
+                "flush_bytes": self.bytes, "flush_purges": self.purges,
+                "flush_ms_each": (self.seconds * 1e3 / self.calls
+                                  if self.calls else None)}
+
+
+def durable_run(run: str, engine: str, seed: int, sizes=None) -> dict:
+    """Run ``run`` of phase 3p over ``engine`` (``"cuda"``, ``"cpu"`` or
+    ``"oracle"``, as ``cluster_run``; the oracle is
+    ``IndexedOracleConflictSet``, whose point-write index keeps the
+    preload's rows out of its scans) in a fresh temporary ``data_dir``:
+    preload the rows, run the YCSB-A transactions with the kills, drop the
+    whole cluster at the end of the run and open a new ``SimCluster`` on
+    the same ``data_dir`` with the next seed; commit one transaction, then
+    read every preloaded row and acknowledged write back through
+    ``tr.get_multi``. ``sizes`` (rows, transactions, clients) overrides
+    the run's. Returns what the card half checks and prints, and
+    ``durable_outcomes_sha256`` over the events: the first cluster's
+    ``cluster_outcomes_sha256``, the preload's commit versions, the
+    epochs, durable versions and flushes, the restart's first commit and
+    the values read back."""
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.client.ryw import open_database
+    from foundationdb_tpu_torch.sim import cluster as sim_cluster
+    from foundationdb_tpu_torch.sim.cluster import SimCluster
+    from foundationdb_tpu_torch.sim.cluster_load import (
+        ClusterLoad,
+        cluster_key,
+        field_value,
+    )
+    from foundationdb_tpu_torch.sim.oracle import IndexedOracleConflictSet
+
+    arms, rows, n, clients, kills = DURABLE_RUNS[run]
+    if sizes is not None:
+        rows, n, clients = sizes
+    key_bits = int(rows).bit_length() - 1
+    assert 1 << key_bits == rows, "the rows are a power of two"
+    on_card = engine == "cuda"
+    if not on_card:
+        torch.set_num_threads(1)  # beside the measured phases
+    kw = {"engine": "oracle" if engine == "oracle" else "torch",
+          "device": None if on_card else "cpu", **arms}
+    data_dir = tempfile.mkdtemp(prefix=f"durable_{run}_{engine}_")
+    seam = sim_cluster.new_conflict_set
+    if engine == "oracle":
+        sim_cluster.new_conflict_set = lambda e, wave_commit=None, device=None: (
+            IndexedOracleConflictSet(bool(wave_commit)) if e == "oracle"
+            else seam(e, wave_commit, device))
+    try:
+        memory0 = torch.cuda.memory_allocated() if on_card else None
+        # -- the first cluster: preload, YCSB-A with the kills -------------
+        c = SimCluster(seed=seed, data_dir=data_dir, **kw)
+        db = open_database(c)
+        gens = Generations(c, on_card)
+        flushes = FlushProbe(c.storages)
+        load = ClusterLoad(c, db, kills={round(f * n): role
+                                         for f, role in kills.items()})
+        K.reset_launches()
+        pre = load.preload(rows, DURABLE_ROWS_PER_TXN, clients, key_bits,
+                           DURABLE_FIELD_BYTES)
+        s = load.run_ycsb(n, clients, key_bits, seed=seed,
+                          field_bytes=DURABLE_FIELD_BYTES)
+        gens.close()
+        acked = load.outcomes[:, 2][load.outcomes[:, 1] == 0]
+        committed = int(max(acked.max(initial=0),
+                            load.preload_versions.max()))
+        durable = [st._durable_version for st in c.storages]
+        dd = (settled(c.data_distributor.get_metrics())
+              if c.data_distributor is not None else None)
+        with open(os.path.join(data_dir, "cluster.json")) as f:
+            persisted = json.load(f)
+        final = load.replay()
+        memory_run = torch.cuda.memory_allocated() if on_card else None
+        gens_first = gens.gens
+        # -- the crash: the whole cluster is dropped (the load keeps only
+        # its records, for the replay) ---------------------------------------
+        del c, db, gens, load.c, load.db
+        gc.collect()
+        t0 = time.perf_counter()
+        # The stores loaded and the first generation recruited from the
+        # disk queues' longest chain.
+        c2 = SimCluster(seed=seed + 1, data_dir=data_dir, **kw)
+        t_loaded = time.perf_counter() - t0
+        loaded = [len(st.map._chains) for st in c2.storages]
+        team_of = c2.storage_map.team_for_key
+        loaded_ok = [  # the user keys; the TimeKeeper's are system keys
+            {k: st.map.at(k, st._durable_version) for k in st.map._chains
+             if k < b"\xff"}
+            == {k: v for k, v in load.replay(upto=st._durable_version).items()
+                if i in team_of(k)} for i, st in enumerate(c2.storages)]
+        db2 = open_database(c2)
+        gens2 = Generations(c2, on_card)
+        g2 = c2.controller.generation
+        # The first commit after the restart: a YCSB-A update of row 0.
+        first_key = cluster_key(0, key_bits)
+        first_value = field_value(b"restarted", DURABLE_FIELD_BYTES)
+        seen: list = []
+
+        async def first(tr):
+            seen[:] = [tr]
+            await tr.get_multi([first_key, cluster_key(1, key_bits)])
+            tr.set(first_key, first_value)
+
+        c2.loop.run(db2.run(first), timeout=600)
+        t_first = time.perf_counter() - t0
+        final[first_key] = first_value
+        keys = sorted(final)
+        got: dict = {}
+
+        async def read(tr, part):
+            got.update(zip(part, await tr.get_multi(part)))
+
+        for i in range(0, len(keys), 8192):
+            part = keys[i:i + 8192]
+            c2.loop.run(db2.run(lambda tr, part=part: read(tr, part)),
+                        timeout=600)
+        gens2.close()
+        replicas = None
+        if arms["n_replicas"] > 1:
+            v = min(st._version for st in c2.storages)
+            replicas = len({hashlib.sha256(repr(sorted(
+                (k, st.map.at(k, v)) for k in st.map._chains)).encode())
+                .hexdigest() for st in c2.storages}) == 1
+        events = {
+            "cluster_outcomes_sha256": s["cluster_outcomes_sha256"],
+            "preload_versions": load.preload_versions.tolist(),
+            "persisted": [persisted["epoch"],
+                          persisted["recovery_version"]],
+            "durable": durable, "flushes": flushes.calls,
+            "flush_rows": flushes.rows, "flush_bytes": flushes.bytes,
+            "restart": [g2.epoch, g2.recovery_version],
+            "loaded": loaded, "first_commit": list(seen[0]._committed),
+            "read_back": hashlib.sha256(repr(
+                [got.get(k) for k in keys]).encode()).hexdigest()}
+        return {
+            "run": run, "engine": engine, "summary": s, "preload": pre,
+            "recoveries": load.recoveries, "generations": gens_first,
+            "generations_restarted": gens2.gens,
+            "flush": flushes.summary(), "committed_version": committed,
+            "durable": durable, "durable_lag": committed - min(durable),
+            "dd": dd, "persisted": persisted, "restart_epoch": g2.epoch,
+            "restart_recovery_version": g2.recovery_version,
+            "restart_loaded_s": t_loaded, "restart_first_commit_s": t_first,
+            "rows_loaded": loaded, "loaded_equal_replay": loaded_ok,
+            "replicas_equal": replicas, "read_back_keys": len(keys),
+            "read_back_equal": got == final,
+            "memory_start": memory0, "memory_run": memory_run,
+            "memory_end": torch.cuda.memory_allocated() if on_card else None,
+            "durable_outcomes_sha256": hashlib.sha256(json.dumps(
+                events, sort_keys=True).encode()).hexdigest()}
+    finally:
+        sim_cluster.new_conflict_set = seam
+        shutil.rmtree(data_dir, ignore_errors=True)
+
+
+def durable_phase(seed: int, card: str) -> dict:
+    """Phase 3p's card half: runs (a) and (b) on the card, each fatal on
+    failure: the restarted epoch is the persisted one plus 1; every
+    preloaded row and acknowledged write reads back through
+    ``tr.get_multi`` (K12 on the restarted mirror) equal to the host
+    replay; every storage's store loads to the host replay at its durable
+    version, and in (a) both replicas hold the same rows; no transaction
+    given up; no fail-safe and no overflow; K1-K4 and K12 launched before
+    and after the restart. The CPU and oracle halves are checked after
+    phase 4."""
+    out = {}
+    for run in DURABLE_RUNS:
+        t0 = time.perf_counter()
+        r = durable_run(run, "cuda", seed)
+        wall = time.perf_counter() - t0
+        s, label = r["summary"], f"durable ({run})"
+        if r["restart_epoch"] != r["persisted"]["epoch"] + 1:
+            fail(f"{label}: restarted at epoch {r['restart_epoch']}, "
+                 f"persisted {r['persisted']['epoch']}")
+        if s["failed"] or s["committed"] != s["txns"]:
+            fail(f"{label}: {s['failed']} transactions given up "
+                 f"({s['error_codes']})")
+        if not r["read_back_equal"]:
+            fail(f"{label}: a preloaded row or an acknowledged write did not "
+                 "read back after the restart")
+        if not all(r["loaded_equal_replay"]) or r["replicas_equal"] is False:
+            fail(f"{label}: a store loaded other rows than the host replay at "
+                 f"its durable version ({r['loaded_equal_replay']}), or the "
+                 f"replicas differ ({r['replicas_equal']})")
+        for gens in (r["generations"], r["generations_restarted"]):
+            for g in gens:
+                check_generation(label, g, SEQ_SOURCES)
+        for when, gens in (("before", r["generations"]),
+                           ("after", r["generations_restarted"])):
+            if sum(g["entries"].get("wp_search", 0) for g in gens) <= 0:
+                fail(f"{label}: no K12 search {when} the restart")
+        print(json.dumps({
+            "phase": "durable", "run": run, **DURABLE_RUNS[run][0],
+            "rows": r["preload"]["rows"],
+            "field_bytes": DURABLE_FIELD_BYTES, "cut_from": DURABLE_CUT_FROM,
+            "txns": s["txns"], "clients": s["clients"],
+            "wall_s": s["wall_s"], "run_and_checks_wall_s": wall,
+            "txns_per_s": s["txns"] / s["wall_s"],
+            "preload_wall_s": r["preload"]["wall_s"],
+            "preload_rows_per_s": r["preload"]["rows"]
+            / r["preload"]["wall_s"],
+            **r["flush"], "committed_version": r["committed_version"],
+            "durable_versions": r["durable"],
+            "durable_lag_versions": r["durable_lag"],
+            "restart_loaded_wall_s": r["restart_loaded_s"],
+            "restart_first_commit_wall_s": r["restart_first_commit_s"],
+            "rows_loaded": r["rows_loaded"], "dd": r["dd"],
+            "epochs": s["epochs"], "persisted_epoch": r["persisted"]["epoch"],
+            "restart_epoch": r["restart_epoch"],
+            "recoveries": r["recoveries"],
+            "retries": s["retries"], "error_codes": s["error_codes"],
+            "read_back_keys": r["read_back_keys"],
+            "launches_by_generation": [
+                {"epoch": g["epoch"],
+                 "launches": {k: v for k, v in g["launches"].items() if v},
+                 "entries": g["entries"]}
+                for g in r["generations"] + r["generations_restarted"]],
+            "memory_start": r["memory_start"], "memory_run": r["memory_run"],
+            "memory_end": r["memory_end"],
+            "durable_outcomes_sha256": r["durable_outcomes_sha256"],
+            "card": card}))
+        out[run] = r
+    return out
+
+
+def check_durable(du: dict, jobs: dict) -> None:
+    """Phase 3p's CPU halves (workers beside phase 4): each run over the
+    plain versions on the CPU and over the oracle gives the card's
+    ``durable_outcomes_sha256`` and reads every row back."""
+    for run, r in du.items():
+        got = {"cuda": r["durable_outcomes_sha256"]}
+        walls = {}
+        for e in ("cpu", "oracle"):
+            o = jobs[run][e].get()
+            got[e] = o["durable_outcomes_sha256"]
+            walls[f"{e}_wall_s"] = o["summary"]["wall_s"]
+            if not o["read_back_equal"] or not all(o["loaded_equal_replay"]):
+                fail(f"durable ({run}): a row did not read back or load over "
+                     f"the {e}")
+            if got[e] != got["cuda"]:
+                fail(f"durable ({run}): durable_outcomes_sha256 "
+                     f"{got['cuda']} on cuda, {got[e]} over the {e}")
+        print(json.dumps({"cross-check": f"durable ({run})",
+                          "durable_outcomes_sha256": got, **walls}))
+
+
 def bench_engine(mode, wave: bool, engine: dict):
     from foundationdb_tpu_torch.bench import make_engine as make
 
@@ -5920,8 +6252,9 @@ def main() -> int:
     # plain versions (beside phases 3-4), the CPU runs of checks (c) and
     # (c′) of phase 3d, the CPU half of check (e) of phases 3e and 3h, of
     # the tiered run of 3f, of the adversary of 3g and the CPU and oracle
-    # runs of 3m, 3n and 3o (beside phases 3m-4) run in six worker
-    # processes; the workers are stopped however the run ends.
+    # runs of 3m, 3n and 3o (beside phases 3m-4) and of 3p (beside phase 4)
+    # run in six worker processes; the workers are stopped however the run
+    # ends.
     pool = multiprocessing.get_context("spawn").Pool(6)
     try:
         return smoke(args, pool)
@@ -6107,6 +6440,17 @@ def smoke(args, pool) -> int:
     sp = specs_phase(args.seed, card)
     lap("3o specs")
 
+    # 3p. Durable clusters: a preload, YCSB-A with a kill, and a whole-
+    # cluster restart from the storage engines and the tlog disk queues.
+    du = durable_phase(args.seed, card)
+    lap("3p durable")
+    # Its CPU and oracle runs start now, beside phase 4's own work, so that
+    # they add no load to the workers beside phases 3m-3p.
+    cpu_durable = {run: {e: pool.apply_async(durable_run,
+                                             (run, e, args.seed))
+                         for e in ("cpu", "oracle")}
+                   for run in DURABLE_RUNS}
+
     # 4. Cross-checks against the plain versions on the CPU.
     n_cross = min(16, args.batches)
     cpu_v, _, _ = run_stream(stream, ycsb, n_cross, "cpu", "ycsb cpu")
@@ -6135,6 +6479,7 @@ def smoke(args, pool) -> int:
     check_commit_path(cm, cpu_commit)
     check_cluster(cl, cpu_cluster)
     check_specs(sp, cpu_specs)
+    check_durable(du, cpu_durable)
     lap("4 cross-checks")
     print(json.dumps({"phase_seconds": phase_s}))
 

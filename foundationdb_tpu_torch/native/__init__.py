@@ -1,10 +1,12 @@
 """The port's native libraries, built at first use: the wire packer
-(keypack.cpp) and the CPU SkipList conflict engine (skiplist.cpp, the
-baseline of ``models/cpu_conflict_set.py``).
+(keypack.cpp), the CPU SkipList conflict engine (skiplist.cpp, the
+baseline of ``models/cpu_conflict_set.py``) and the Redwood-class
+copy-on-write B+tree (btree.cpp, the ``ssd-redwood-1`` engine of
+``runtime/kvstore.py``).
 
 Each source is compiled with ``g++ -O3 -std=c++17 -shared -fPIC`` (the
-skiplist also with ``-march=native``, as the JAX package builds its
-copy) into ``_build/`` beside this file and loaded with ctypes. The
+skiplist and the B+tree also with ``-march=native``, as the JAX package
+builds its copies) into ``_build/`` beside this file and loaded with ctypes. The
 library name carries a hash of the source and its flags, so an edited
 source is rebuilt and an unchanged one reused. There is no Python
 fallback: a missing compiler or a failed build raises.
@@ -41,7 +43,10 @@ _INT = ctypes.c_int
 _VOIDP = ctypes.c_void_p
 _I64P = ctypes.POINTER(ctypes.c_int64)
 _I8P = ctypes.POINTER(ctypes.c_int8)
-EXTRA_FLAGS = {"skiplist": ("-march=native",)}
+EXTRA_FLAGS = {"skiplist": ("-march=native",), "btree": ("-march=native",)}
+# rw_scan's row callback: (key, key length, value, value length, context).
+BTREE_SCAN_CB = ctypes.CFUNCTYPE(None, _VOIDP, ctypes.c_uint64, _VOIDP,
+                                 ctypes.c_uint64, _VOIDP)
 _KEYPACK = {
     "kp_pack_batch": [_U8P, _I64, _I64, _INT, _INT, _INT, _INT, _INT, _I64,
                       _I32P, _I32P, _U8P, _I32P, _I32P, _U8P, _I32P, _U8P],
@@ -62,6 +67,18 @@ _SIGNATURES = {
         # version, oldest version, verdicts out (int8).
         "cs_resolve": ([_VOIDP, ctypes.c_char_p, _I64P, _I32P, _I32P, _I64P,
                         ctypes.c_int32, _I64, _I64, _I8P], None),
+    },
+    "btree": {
+        "rw_open": ([ctypes.c_char_p], _VOIDP),
+        "rw_durable_version": ([_VOIDP], _I64),
+        # handle, n writes, key blob + offsets [n + 1], value blob +
+        # offsets, tombstones (uint8) [n], n purges, purge begin blob +
+        # offsets, purge end blob + offsets, version.
+        "rw_flush": ([_VOIDP, _I64, _U8P, _I64P, _U8P, _I64P, _U8P, _I64,
+                      _U8P, _I64P, _U8P, _I64P, _I64], _I64),
+        "rw_scan": ([_VOIDP, BTREE_SCAN_CB, _VOIDP], _I64),
+        "rw_page_count": ([_VOIDP], _I64),
+        "rw_close": ([_VOIDP], None),
     },
 }
 
@@ -118,6 +135,11 @@ def keypack() -> ctypes.CDLL:
 def skiplist() -> ctypes.CDLL:
     """The loaded CPU SkipList library (built on the first call)."""
     return load("skiplist")
+
+
+def btree() -> ctypes.CDLL:
+    """The loaded B+tree storage engine library (built on the first call)."""
+    return load("btree")
 
 
 def _ptr(a: np.ndarray, dtype, ctype):

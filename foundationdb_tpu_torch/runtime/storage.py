@@ -6,8 +6,9 @@ Its read plane is the port's: ``TorchReadSet`` (JAX ``TPUReadSet``),
 ``ReadCoalescer`` and ``WatchIndex``, each on the device arm on
 ``device`` (``cuda`` unless the caller asks for the CPU), where K12's
 search answers every dispatch. Every arm answers byte for byte as the
-JAX arms do. Only ``kvstore=None`` is served here: the persistent
-engines (runtime/kvstore.py) are not ported yet.
+JAX arms do. A ``kvstore`` (``runtime/kvstore.py``) loads its durable
+snapshot into the ``VersionedMap`` (and so into the read plane's key
+mirror on ``device``) and takes the flushes and purges, as in JAX.
 
 Reference: fdbserver/storageserver.actor.cpp — each storage server owns a
 tag, pulls that tag's mutations from the tlogs, applies them in version
@@ -204,10 +205,6 @@ class StorageServer:
 
     def __init__(self, loop: Loop, tag: int, tlog_ep, init_version: int = 0,
                  tlog_replicas=None, kvstore=None, authz=None, device=None):
-        if kvstore is not None:
-            raise NotImplementedError(
-                "persistent storage engines (runtime/kvstore.py) are not "
-                "ported yet: the port's StorageServer takes kvstore=None")
         self.loop = loop
         self.tag = tag
         self.tlog = tlog_ep

@@ -11,11 +11,12 @@ with three differences:
   (``"tpu"`` is an alias), not the JAX package's ``"oracle"``, so a cluster
   runs on the card unless the caller asks for the CPU (``device="cpu"``).
 - **Loud refusals.** The optional arms whose modules the port does not
-  have raise ``NotImplementedError`` naming the module: ``data_dir``
-  (runtime/kvstore.py), ``data_distribution`` (runtime/data_distribution.py),
-  any ``authz_*`` key (runtime/authz.py), ``recorder_path``
+  have raise ``NotImplementedError`` naming the module: ``recorder_path``
   (obs/recorder.py) and admission, by argument or by ``FDB_TPU_ADMISSION``
-  (admission/policy.py ``AdmissionPolicy``).
+  (admission/policy.py ``AdmissionPolicy``). ``data_dir`` with
+  ``storage_engine`` (runtime/kvstore.py), ``data_distribution``
+  (runtime/data_distribution.py) and the ``authz_*`` keys
+  (runtime/authz.py) are the JAX module's arms.
 - **Retirement in order.** ``retire_previous`` kills the superseded
   generation's processes in recruitment order; the JAX module kills them
   in the order of a set of names, which varies with the interpreter's
@@ -40,6 +41,9 @@ fresh resolvers, and so fresh engines, on ``device``.
 """
 
 from __future__ import annotations
+
+import json
+import os
 
 from foundationdb_tpu_torch.runtime.cluster import ClusterController, Generation, Heartbeat
 from foundationdb_tpu_torch.runtime.commit_proxy import CommitProxy
@@ -168,10 +172,7 @@ class SimCluster:
         plane and every recruited engine; the arms named in the module
         docstring raise ``NotImplementedError``.
         """
-        _refuse_unported(
-            data_dir=data_dir, data_distribution=data_distribution,
-            authz=(authz_public_key, authz_system_token, authz_private_pem),
-            recorder_path=recorder_path, admission=admission)
+        _refuse_unported(recorder_path=recorder_path, admission=admission)
         assert 1 <= n_replicas <= n_storages
         self.device = device
         self.multi_region = multi_region or None
@@ -185,6 +186,13 @@ class SimCluster:
             self.n_satellite_tlogs = int(self.multi_region.get(
                 "satellite_tlogs", 1))
         self.loop = loop or Loop(seed=seed)
+        # Real durability (reference: tlog DiskQueue + KeyValueStoreSQLite):
+        # tlogs fsync pushes to append-only queues, storages flush a
+        # consistent prefix to sqlite. A SimCluster re-created on the same
+        # data_dir restarts from disk: epoch advances, the last generation's
+        # disk queues seed the new tlogs, storage reloads its snapshot.
+        self.data_dir = data_dir
+        self._restore = self._read_cluster_meta() if data_dir else None
         # Ring-buffer tracer on every sim cluster: role trace events are
         # queryable in tests/status with zero config (reference: TraceEvent
         # always logs; sim asserts on trace lines).
@@ -268,19 +276,38 @@ class SimCluster:
         self.backup_active = False  # BackupAgent sets; survives recoveries
         self.backup_worker = None  # live BackupWorker (its cursor bounds salvage)
         self.db_locked = False  # DR switchover / operator lock; survives recoveries
-        # Tenant authorization (runtime/authz.py, not ported: every authz_*
-        # key is refused above).
+        # Tenant authorization (runtime/authz): proxies of every generation
+        # verify commit tokens against this public key when set.
         self.authz = None
-        self.authz_system_token = None
-        self.authz_private_pem = None
+        if authz_public_key is not None:
+            from foundationdb_tpu_torch.runtime.authz import TokenAuthority
+
+            self.authz = TokenAuthority(authz_public_key)
+        # Operator-minted system-scope token for in-process system actors
+        # (TimeKeeper): with authz on, \xff writes require it.
+        self.authz_system_token = authz_system_token
+        # HARNESS-side operator private key (cluster processes never hold
+        # it — they verify with the public key only): lets spec-driven
+        # workloads mint tokens mid-run, playing the operator (the
+        # reference's simulation signs tokens the same way).
+        self.authz_private_pem = authz_private_pem
         self.retired_tags: set[int] = set()  # stopped-backup tags, per tlog
 
         # Storage servers persist across generations (they ARE the data);
         # their tlog endpoint is re-pointed by each recruitment. Their read
         # plane and watches live on ``device``.
+        def make_kvstore(i: int):
+            if data_dir is None:
+                return None
+            from foundationdb_tpu_torch.runtime.kvstore import make_kvstore as mk
+
+            return mk(os.path.join(data_dir, f"storage{i}.db"),
+                      storage_engine)
+
         n_storage_total = n_storages * (2 if self.multi_region else 1)
         self.storages = [
-            StorageServer(self.loop, tag=i, tlog_ep=None, authz=self.authz,
+            StorageServer(self.loop, tag=i, tlog_ep=None,
+                          kvstore=make_kvstore(i), authz=self.authz,
                           device=device)
             for i in range(n_storage_total)
         ]
@@ -290,10 +317,32 @@ class SimCluster:
                           f"storage{i}", s)
             for i, s in enumerate(self.storages)
         ]
-        self.tenant_mirror = None  # authz.TenantMapMirror: authz is refused
-        # Serve-set guards are active whenever shards can replicate
+        # ONE tenant-map mirror per cluster (authz.TenantMapMirror):
+        # proxies check tenant-bound tokens at commit, storages at read;
+        # all against the same live view refreshed from the owning
+        # storage team at its latest applied version.
+        self.tenant_mirror = None
+        if self.authz is not None:
+            from foundationdb_tpu_torch.runtime.authz import TenantMapMirror
+
+            self.tenant_mirror = TenantMapMirror(
+                self.loop, self.storage_eps, self.storage_map,
+                token=self.authz_system_token,
+            )
+            self.loop.spawn(
+                self.tenant_mirror.run(),
+                process=process_prefix + "tenant_mirror",
+                name="tenant_mirror.run",
+            )
+            for s in self.storages:
+                s.tenant_mirror = self.tenant_mirror
+                # Peer-facing credential for shard-move snapshots (mint
+                # the cluster token as [b""] + system: moves copy user
+                # keyspace).
+                s.system_token = self.authz_system_token
+        # Serve-set guards are active whenever shards can move or replicate
         # (single-replica static clusters skip them entirely).
-        if n_replicas > 1 or self.multi_region:
+        if data_distribution or n_replicas > 1 or self.multi_region:
             for i, s in enumerate(self.storages):
                 s.init_served([
                     (sh.range.begin, sh.range.end)
@@ -312,7 +361,7 @@ class SimCluster:
             self.controller_ep = self.net.host(
                 "cluster_controller", "cluster_controller", self.controller
             )
-            self.controller.bootstrap()
+            self.controller.bootstrap(**self._bootstrap_args())
             self.loop.spawn(
                 self.controller.run(), process=process_prefix + "cluster_controller", name="cc.run"
             )
@@ -324,9 +373,24 @@ class SimCluster:
                     self._storage_region(i), f"storage{i}"),
                 name=f"storage{i}.run")
 
-        # runtime/data_distribution.py is not ported: refused above.
         self.data_distributor = None
         self.data_distributor_ep = None
+        if data_distribution:
+            from foundationdb_tpu_torch.runtime.data_distribution import (
+                DataDistributor,
+            )
+
+            self.data_distributor = DataDistributor(
+                self.loop, self, replication=n_replicas
+            )
+            self.data_distributor_ep = self.net.host(
+                "data_distributor", "data_distributor", self.data_distributor
+            )
+            self.loop.spawn(
+                self.data_distributor.run(),
+                process=process_prefix + "data_distributor",
+                name="dd.run",
+            )
 
         # TimeKeeper (reference: the actor inside ClusterController):
         # version ↔ clock samples through the normal commit path. Spawned
@@ -336,11 +400,59 @@ class SimCluster:
             from foundationdb_tpu_torch.client.ryw import open_database
             from foundationdb_tpu_torch.runtime.timekeeper import TimeKeeper
 
-            self.timekeeper = TimeKeeper(self.loop, open_database(self))
+            self.timekeeper = TimeKeeper(self.loop, open_database(self),
+                                         token=authz_system_token)
             self.loop.spawn(
                 self.timekeeper.run(), process=process_prefix + "timekeeper",
                 name="timekeeper.run",
             )
+
+    # -- durable restart (reference: tlog DiskQueue + sqlite engine) ----------
+
+    def _meta_path(self) -> str:
+        return os.path.join(self.data_dir, "cluster.json")
+
+    def _read_cluster_meta(self) -> dict | None:
+        path = self._meta_path()
+        if not os.path.exists(path):
+            return None
+        with open(path) as f:
+            return json.load(f)
+
+    def _persist_cluster_meta(self, epoch: int, recovery_version: int,
+                              tlog_files: list[str]) -> None:
+        tmp = self._meta_path() + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({
+                "epoch": epoch,
+                "recovery_version": recovery_version,
+                "tlog_files": tlog_files,
+            }, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self._meta_path())  # atomic swap
+
+    def _bootstrap_args(self) -> dict:
+        """Fresh cluster → epoch 1; restart → persisted epoch + 1 with the
+        last generation's disk queues salvaged as seed entries (the whole-
+        cluster-crash analogue of recovery's lock-and-salvage)."""
+        if not self._restore:
+            return {}
+        from foundationdb_tpu_torch.runtime.diskqueue import DiskQueue
+
+        best: list = []
+        for path in self._restore["tlog_files"]:
+            entries = DiskQueue.recover(path)
+            if len(entries) > len(best):
+                best = entries  # replicas are identical chains: longest wins
+        recovery_version = max(
+            [v for v, _t in best] + [self._restore["recovery_version"]]
+        )
+        return {
+            "epoch": self._restore["epoch"] + 1,
+            "recovery_version": recovery_version,
+            "seed_entries": best,
+        }
 
     # -- coordinated-controller mode ------------------------------------------
 
@@ -383,7 +495,7 @@ class SimCluster:
             reign=1,
         )
         self.install_controller(cc0, "cc0")
-        cc0.bootstrap()
+        cc0.bootstrap(**self._bootstrap_args())
         g = cc0.generation
         seed = {
             "reign": 1,
@@ -590,9 +702,15 @@ class SimCluster:
             for i, r in enumerate(self.resolvers)
         ]
 
+        def tlog_disk(i: int) -> str | None:
+            if self.data_dir is None:
+                return None
+            return os.path.join(self.data_dir, f"tlog{i}.e{epoch}.q")
+
         self.tlogs = [
             TLog(self.loop, init_version=start_version, seed=list(seed_entries),
-                 retired_tags=set(self.retired_tags), epoch=epoch)
+                 retired_tags=set(self.retired_tags), disk_path=tlog_disk(i),
+                 epoch=epoch)
             for i in range(self.n_tlogs)
         ]
         self.tlog_eps = [
@@ -618,6 +736,11 @@ class SimCluster:
             ]
             self.tlogs = self.tlogs + self.satellite_tlogs
             self.tlog_eps = chain_tlog_eps + sat_eps
+        if self.data_dir is not None:
+            self._persist_cluster_meta(
+                epoch, recovery_version,
+                [tlog_disk(i) for i in range(self.n_tlogs)],
+            )
 
         self.ratekeeper = (
             # resolver_eps: the sched subsystem's backpressure loop —
@@ -735,25 +858,18 @@ class SimCluster:
 
 #: The arms whose modules the port does not have, by argument name.
 _UNPORTED = {
-    "data_dir": "runtime/kvstore.py (the persistent storage engines)",
-    "data_distribution": "runtime/data_distribution.py (DataDistributor)",
-    "authz": "runtime/authz.py (TokenAuthority, TenantMapMirror)",
     "recorder_path": "obs/recorder.py (FlightRecorder)",
     "admission": "admission/policy.py (AdmissionPolicy)",
 }
 
 
-def _refuse_unported(*, data_dir, data_distribution, authz, recorder_path,
-                     admission) -> None:
+def _refuse_unported(*, recorder_path, admission) -> None:
     """Raise ``NotImplementedError`` naming the module of the first arm
     asked for that the port does not have. Admission ``None`` reads the
     FDB_TPU_ADMISSION env default, as the JAX package does."""
     if admission is None:
         admission = env_choice("FDB_TPU_ADMISSION", "0", ("0", "1")) == "1"
-    asked = {"data_dir": data_dir is not None,
-             "data_distribution": bool(data_distribution),
-             "authz": any(a is not None for a in authz),
-             "recorder_path": recorder_path is not None,
+    asked = {"recorder_path": recorder_path is not None,
              "admission": bool(admission)}
     for arm, on in asked.items():
         if on:

@@ -18,6 +18,11 @@ that moment is killed. The cluster controller's heartbeat sweep then
 recovers to a new epoch, recruiting fresh resolvers (and so fresh
 engines) and handing the storage servers over.
 
+``preload`` writes rows ``0 .. n - 1`` of the key space first, in blind
+transactions of a fixed number of rows through ``Database.run`` (a
+durable cluster's data to restart from); ``run_ycsb(field_bytes=...)``
+pads each written value to a YCSB field length.
+
 What the run records: each transaction's attempts, the error code of
 every failed attempt, and its final outcome (committed with its commit
 version and batch index, or the error code ``Database.run`` gave up
@@ -53,6 +58,16 @@ from foundationdb_tpu_torch.sim.commit_path import (
 
 #: Final outcome status; any other is the fdb code of the final error.
 COMMITTED = 0
+
+
+def field_value(v: bytes, field_bytes: int | None) -> bytes:
+    """``v`` padded with ``-`` to ``field_bytes`` (None: as it is)."""
+    return v if field_bytes is None else v.ljust(field_bytes, b"-")
+
+
+def preload_value(i: int) -> bytes:
+    """The value row ``i`` is preloaded with."""
+    return b"r%011d" % i
 
 
 def cluster_key(i: int, key_bits: int) -> bytes:
@@ -116,10 +131,48 @@ class ClusterLoad:
 
     # -- clients --------------------------------------------------------------
 
+    def preload(self, n_rows: int, rows_per_txn: int, n_clients: int,
+                key_bits: int, field_bytes: int | None = None) -> dict:
+        """Write rows ``0 .. n_rows - 1`` (``cluster_key``, each
+        ``preload_value`` padded to ``field_bytes``) in transactions of
+        ``rows_per_txn`` rows taken in order by ``n_clients`` closed-loop
+        clients. Returns the wall seconds, the transactions and each
+        one's commit version (``preload_versions``)."""
+        loop = self.c.loop
+        n_txns = -(-n_rows // rows_per_txn)
+        self.key_bits = key_bits
+        self._preload = (n_rows, rows_per_txn, field_bytes)
+        self.preload_versions = np.full(n_txns, -1, np.int64)
+        nxt = [0]
+
+        async def client() -> None:
+            while nxt[0] < n_txns:
+                t = nxt[0]
+                nxt[0] += 1
+                lo, hi = t * rows_per_txn, min(n_rows, (t + 1) * rows_per_txn)
+                seen: list = []
+
+                async def body(tr, lo=lo, hi=hi, seen=seen):
+                    seen[:] = [tr]
+                    for i in range(lo, hi):
+                        tr.set(cluster_key(i, key_bits),
+                               field_value(preload_value(i), field_bytes))
+
+                await self.db.run(body)
+                self.preload_versions[t] = seen[0]._committed[0]
+
+        t0 = perf_counter()
+        for task in [loop.spawn(client(), name=f"preload.client{c}")
+                     for c in range(n_clients)]:
+            loop.run_until(task)
+        return {"rows": n_rows, "txns": n_txns, "clients": n_clients,
+                "wall_s": perf_counter() - t0}
+
     def run_ycsb(self, n_txns: int, n_clients: int, key_bits: int,
-                 seed: int = 0) -> dict:
+                 seed: int = 0, field_bytes: int | None = None) -> dict:
         """Drive ``n_txns`` YCSB-A transactions through ``n_clients``
-        closed-loop clients; returns the run's summary. ``outcomes``
+        closed-loop clients, each write's value padded to ``field_bytes``;
+        returns the run's summary. ``outcomes``
         [N, 4] int64 holds each transaction's attempts, final status
         (COMMITTED or an error code), commit version and batch index
         (-1, -1 unless committed through a proxy; a read-only
@@ -127,7 +180,7 @@ class ClusterLoad:
         loop = self.c.loop
         read_ids, write_ids, write_mask, _lag = gen_workload(
             n_txns, 1 << key_bits, seed, MODES["ycsb"])
-        self.key_bits = key_bits
+        self.key_bits, self.field_bytes = key_bits, field_bytes
         self.read_ids, self.write_ids = read_ids, write_ids[:, 0]
         self.write_mask = write_mask
         self.outcomes = np.full((n_txns, 4), -1, np.int64)
@@ -204,7 +257,7 @@ class ClusterLoad:
                 tr.on_error = noted
             await tr.get_multi(rkeys)
             if wkey is not None:
-                tr.set(wkey, ycsb_value(t))
+                tr.set(wkey, field_value(ycsb_value(t), self.field_bytes))
 
         try:
             await self.db.run(body)
@@ -267,14 +320,18 @@ class ClusterLoad:
             out[epoch] = int(above.min()) if len(above) else None
         return out
 
-    def replay(self) -> dict[bytes, bytes]:
-        """Every written key's value after the run, replayed on the host
-        from the acknowledged commits: in version order, and within a
-        version in batch-index order, or in (wave, index) order where the
-        batch's verdicts came with a wave schedule."""
+    def replay(self, upto: int | None = None) -> dict[bytes, bytes]:
+        """Every written key's value after the run (or as of version
+        ``upto``), replayed on the host from the acknowledged commits: the
+        preloaded rows first, then in version order, and within a version
+        in batch-index order, or in (wave, index) order where the batch's
+        verdicts came with a wave schedule."""
         st, ver, idx = self.outcomes[:, 1], self.outcomes[:, 2], \
             self.outcomes[:, 3]
-        rows = np.flatnonzero((st == COMMITTED) & self.write_mask)
+        done = (st == COMMITTED) & self.write_mask
+        if upto is not None:
+            done &= ver <= upto
+        rows = np.flatnonzero(done)
 
         def order(t):
             wave = self.waves.get(int(ver[t]))
@@ -282,8 +339,16 @@ class ClusterLoad:
             return (int(ver[t]), max(wave[i], 0) if wave else 0, i)
 
         final: dict[bytes, bytes] = {}
+        if hasattr(self, "_preload"):
+            n_rows, per_txn, field_bytes = self._preload
+            for p, v in enumerate(self.preload_versions.tolist()):
+                if upto is None or v <= upto:
+                    for i in range(p * per_txn, min(n_rows, (p + 1) * per_txn)):
+                        final[cluster_key(i, self.key_bits)] = field_value(
+                            preload_value(i), field_bytes)
         for t in sorted(rows.tolist(), key=order):
-            final[cluster_key(self.write_ids[t], self.key_bits)] = ycsb_value(t)
+            final[cluster_key(self.write_ids[t], self.key_bits)] = \
+                field_value(ycsb_value(t), self.field_bytes)
         return final
 
     def read_back(self, keys: list[bytes]) -> dict[bytes, bytes | None]:

@@ -2,11 +2,8 @@
 
 A copy of ``foundationdb_tpu/sim/specs.py`` for the port, its imports
 rewritten to the port's modules; names and behaviour are the JAX module's,
-with three differences:
+with two differences:
 
-- **authz.** ``authz = true`` in a cluster table raises
-  ``NotImplementedError`` naming runtime/authz.py, before any key is made
-  (the JAX module generates a keypair there).
 - **The fresh cluster of a ``[test.cluster]`` test.** ``run_spec`` builds
   it on the caller's cluster's ``engine`` and ``device`` (a table's own
   ``engine`` still wins); the JAX module builds it on its defaults, the
@@ -290,9 +287,13 @@ def cluster_kwargs_from_table(tbl: dict) -> dict:
     # harness-side (cluster.authz_private_pem) so workloads can mint
     # tokens, playing the operator.
     if tbl.get("authz"):
-        raise NotImplementedError(
-            "a cluster table with authz = true needs runtime/authz.py "
-            "(generate_keypair, mint_token), which is not ported yet")
+        from foundationdb_tpu_torch.runtime.authz import generate_keypair, mint_token
+
+        priv, pub = generate_keypair()
+        opts["authz_public_key"] = pub
+        opts["authz_private_pem"] = priv
+        opts["authz_system_token"] = mint_token(
+            priv, [b""], expires_at=1e12, system=True)
     return opts
 
 

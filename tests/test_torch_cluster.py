@@ -1262,16 +1262,13 @@ def test_cluster_load_over_real_engines_equals_jax_and_oracle(small_engines,
 
 
 @pytest.mark.parametrize("kw", [
-    {"data_dir": "unused"}, {"data_distribution": True},
-    {"authz_public_key": b"k"}, {"authz_system_token": "t"},
-    {"authz_private_pem": b"p"}, {"recorder_path": "unused"},
-    {"admission": True}], ids=lambda kw: next(iter(kw)))
+    {"recorder_path": "unused"}, {"admission": True}],
+    ids=lambda kw: next(iter(kw)))
 def test_unported_arms_refuse(kw):
     from foundationdb_tpu_torch.sim.cluster import SimCluster
 
-    module = {"data_dir": "kvstore", "data_distribution":
-              "data_distribution", "recorder_path": "recorder",
-              "admission": "policy"}.get(next(iter(kw)), "authz")
+    module = {"recorder_path": "recorder",
+              "admission": "policy"}[next(iter(kw))]
     with pytest.raises(NotImplementedError, match=module):
         SimCluster(seed=0, engine="oracle", device="cpu", **kw)
 

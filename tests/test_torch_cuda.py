@@ -3181,3 +3181,87 @@ def test_spec_runs_on_the_card_equal_cpu_and_oracle(card):
         if run == "b":
             assert got["cuda"]["launches"].get("wp_search", 0) > 0
             assert got["cuda"]["tests"][0]["recoveries"]
+
+
+def test_durable_restart_on_the_card_equals_cpu_and_oracle(card):
+    """Run (b) of chip_smoke.py's phase 3p at 4,096 rows and 512
+    transactions: a sqlite-backed cluster with its engines and read plane
+    on the card, preloaded, run and restarted from disk, gives the
+    ``durable_outcomes_sha256`` of the same run on the CPU and over the
+    oracle; the restart is the persisted epoch plus 1, every row reads
+    back, each store loads to the host replay at its durable version, and
+    K1-K4 and K12 launch before and after the restart."""
+    import chip_smoke as smoke
+
+    got = {e: smoke.durable_run("b", e, 5, (4096, 512, 64))
+           for e in ("cuda", "cpu", "oracle")}
+    r = got["cuda"]
+    assert r["restart_epoch"] == r["persisted"]["epoch"] + 1
+    assert r["read_back_equal"] and all(r["loaded_equal_replay"])
+    assert r["summary"]["failed"] == 0 and r["flush"]["flushes"] > 0
+    for gens in (r["generations"], r["generations_restarted"]):
+        for g in gens:
+            smoke.check_generation("durable (b)", g, smoke.SEQ_SOURCES,
+                                   ("wp_search",))
+    shas = {e: x["durable_outcomes_sha256"] for e, x in got.items()}
+    assert len(set(shas.values())) == 1, shas
+
+
+def test_shard_moves_on_a_durable_cluster_on_the_card(card, tmp_path):
+    """Data distribution moves a range between redwood-backed storages
+    with the read plane's key mirror on the card: fetch_keys fills the
+    new member's mirror and purge_range empties the departed one's, the
+    reads through tr.get_multi (K12) stay equal to the model through
+    every move and after a whole-cluster restart, and the stores and
+    reads equal the same run's on the CPU."""
+    from foundationdb_tpu_torch import kernels as K
+    from foundationdb_tpu_torch.client.ryw import open_database
+    from foundationdb_tpu_torch.sim.cluster import SimCluster
+
+    def run(device):
+        d = str(tmp_path / str(device))
+
+        def cluster(seed):
+            return SimCluster(seed=seed, n_storages=3, n_replicas=2,
+                              data_distribution=True, data_dir=d,
+                              storage_engine="ssd-redwood-1",
+                              engine="torch", device=device)
+
+        c = cluster(61)
+        db = open_database(c)
+        model, seen = {}, []
+        keys = [b"m/%03d" % i for i in range(48)]
+
+        async def main():
+            for r in range(6):
+                async def body(tr, r=r):
+                    for i in range(r, 48, 3):
+                        tr.set(keys[i], b"r%d-%03d" % (r, i))
+
+                await db.run(body)
+                for i in range(r, 48, 3):
+                    model[keys[i]] = b"r%d-%03d" % (r, i)
+                await c.data_distributor.move_shard(b"m/", b"m0",
+                                                    (r % 3, (r + 1) % 3))
+                await c.loop.sleep(0.6)
+
+                async def read(tr):
+                    return await tr.get_multi(keys)
+
+                seen.append(await db.run(read))
+            return "ok"
+
+        K.reset_launches()
+        assert c.loop.run(main(), timeout=600) == "ok"
+        assert K.ENTRY_LAUNCHES.get("wp_search", 0) > 0 or device == "cpu"
+        c2 = cluster(62)
+
+        async def read_all(tr):
+            return await tr.get_multi(keys)
+
+        after = c2.loop.run(open_database(c2).run(read_all), timeout=600)
+        assert after == [model.get(k) for k in keys]
+        return seen, after, c.data_distributor.moves
+
+    got, cpu = run(None), run("cpu")
+    assert got == cpu and got[2] >= 5

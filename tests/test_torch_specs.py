@@ -52,6 +52,7 @@ from tests.test_torch_cluster import (
     small_engines,  # noqa: F401  (a fixture)
     snapshot,
 )
+from tests.test_torch_durability import seeded_keypair
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SPEC_DIR = os.path.join(ROOT, "tests", "specs")
@@ -61,9 +62,6 @@ SEED = 7
 #: The workloads whose modules the port does not have, by ``testName``.
 UNPORTED = {
     "BackupRestore": "runtime/backup.py",
-    "DDBalance": "runtime/data_distribution.py",
-    "Tenants": "client/tenant.py",
-    "Authz": "runtime/authz.py",
     "ZipfRepair": "repair/engine.py",
     "FailoverZipfRepair": "repair/engine.py",
     "ConsistencyCheck": "consistency/checker.py",
@@ -73,7 +71,13 @@ UNPORTED = {
 
 @pytest.fixture(autouse=True)
 def jax_made_deterministic(monkeypatch):
+    """The JAX package's kill order (``order_jax_kills``); and the operator
+    keypair an ``authz = true`` cluster table draws, from a seed in both
+    packages (the JAX function draws a random key)."""
     order_jax_kills(monkeypatch)
+    for pkg in PKGS:
+        monkeypatch.setattr(mod(pkg, "runtime.authz"), "generate_keypair",
+                            seeded_keypair(pkg))
 
 
 def port_specs():
@@ -85,10 +89,6 @@ def needs(test: dict) -> str | None:
     for w in test.get("workload", []):
         if w["testName"] in UNPORTED:
             return UNPORTED[w["testName"]]
-    if test.get("cluster", {}).get("authz"):
-        return "runtime/authz.py"
-    if test.get("cluster", {}).get("dataDistribution"):
-        return "runtime/data_distribution.py"
     return None
 
 
@@ -272,7 +272,7 @@ def test_layers_tuple_cases_equal_jax():
 
 
 @pytest.mark.parametrize("spec_file", SPEC_FILES)
-def test_load_spec_equals_jax(spec_file):
+def test_load_spec_equals_jax(monkeypatch, spec_file):
     path = os.path.join(SPEC_DIR, spec_file)
     want = mod(PKGS[0], "sim.specs").load_spec(path)
     S = port_specs()
@@ -298,22 +298,15 @@ def test_load_spec_equals_jax(spec_file):
                     seed=0, engine="oracle", device="cpu",
                     **S.cluster_kwargs(s))
     else:
+        # The whole file again, on the keys drawn for ``want``.
+        monkeypatch.setattr(mod(PKGS[1], "runtime.authz"), "generate_keypair",
+                            seeded_keypair(PKGS[1]))
         assert [describe(s) for s in S.load_spec(path)] == \
             [describe(s) for s in want]
 
 
 def test_refused_arms_name_their_module():
     S = port_specs()
-    with pytest.raises(NotImplementedError, match="runtime/authz.py"):
-        S.cluster_kwargs_from_table({"storages": 2, "authz": True})
-    with pytest.raises(NotImplementedError, match="runtime/authz.py"):
-        S.load_spec("""
-[[test]]
-[test.cluster]
-authz = true
-[[test.workload]]
-testName = 'Cycle'
-""")
     W = mod(PKGS[1], "sim.workloads")
     for name, module in UNPORTED.items():
         cls = S.WORKLOAD_REGISTRY[name][0]
@@ -423,19 +416,15 @@ def test_spec_test_equals_jax(monkeypatch, spec_file, index, title):
 
 def test_every_spec_test_is_ported_or_refused():
     """What the port cannot run yet, each with the module it waits for."""
-    assert len(PORTED) == 27
+    assert len(PORTED) == 34
+    assert {"AuthzClean", "AuthzUnderFaults", "ChaosDDMoves", "DDBalance",
+            "AuthzAcrossRegionFailover", "TenantsClean",
+            "TenantsUnderFaults"} <= {t for _, _, t in PORTED}
     assert {(f, t): n for f, _, t, n in REFUSED} == {
-        ("Authz.toml", "AuthzClean"): "runtime/authz.py",
-        ("Authz.toml", "AuthzUnderFaults"): "runtime/authz.py",
         ("BackupRestore.toml", "BackupRestoreClean"): "runtime/backup.py",
         ("BackupRestore.toml", "BackupRestoreBuggify"): "runtime/backup.py",
-        ("Chaos.toml", "ChaosDDMoves"): "runtime/data_distribution.py",
         ("ConsistencyCheck.toml", "ConsistencyAuditReplicated"):
             "consistency/checker.py",
-        ("DDBalance.toml", "DDBalance"): "runtime/data_distribution.py",
-        ("MultiRegion.toml", "AuthzAcrossRegionFailover"): "runtime/authz.py",
-        ("Tenants.toml", "TenantsClean"): "client/tenant.py",
-        ("Tenants.toml", "TenantsUnderFaults"): "client/tenant.py",
         ("ZipfRepair.toml", "ZipfRepairContention"): "repair/engine.py",
         ("ZipfRepair.toml", "ZipfNaiveBaseline"): "repair/engine.py",
         ("ZipfRepair.toml", "ZipfRepairMultiResolver"): "repair/engine.py"}
@@ -770,7 +759,7 @@ def test_command_line_on_the_cpu(tmp_path):
     out = subprocess.run(
         [sys.executable, "-m", "foundationdb_tpu_torch.sim.run",
          os.path.join(SPEC_DIR, "Cycle.toml"),
-         os.path.join(SPEC_DIR, "Tenants.toml"), "--seeds", "1",
+         os.path.join(SPEC_DIR, "BackupRestore.toml"), "--seeds", "1",
          "--seed-base", "3", "--jobs", "1", "--device", "cpu",
          "--engine", "oracle"],
         cwd=ROOT, capture_output=True, text=True, timeout=300,
@@ -781,9 +770,9 @@ def test_command_line_on_the_cpu(tmp_path):
     assert summary["metric"] == "sim_specs" and not summary["ok"]
     assert summary["runs"] == 2 and summary["completed"] == 2
     assert {f["title"] for f in summary["failures"]} == {
-        "TenantsClean", "TenantsUnderFaults"}
+        "BackupRestoreClean", "BackupRestoreBuggify"}
     assert any("ok   " in x and "CycleWithFaults" in x for x in lines)
-    assert "client/tenant.py" in out.stdout
+    assert "runtime/backup.py" in out.stdout
     assert "--engine oracle --device cpu" in summary["failures"][0]["replay"]
 
 
